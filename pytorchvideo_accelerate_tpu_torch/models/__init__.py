@@ -1,0 +1,84 @@
+"""Model registry for the families this slice of the port carries.
+
+`create_model(cfg, mixed_precision)` returns an `nn.Module` (eval-ready,
+weights from `models/convert.py` or an inference artifact). Ported here:
+slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50 and tiny3d; any
+other name of the JAX package raises NotImplementedError (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+from torch import nn
+
+from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
+from pytorchvideo_accelerate_tpu_torch.models.common import FUSED_MODES
+from pytorchvideo_accelerate_tpu_torch.models.resnet3d import SlowR50
+from pytorchvideo_accelerate_tpu_torch.models.slowfast import SlowFast
+from pytorchvideo_accelerate_tpu_torch.precision import policy_compute_dtype
+
+_REGISTRY: Dict[str, Callable] = {
+    "slow_r50": lambda cfg, dtype: SlowR50(
+        cfg.num_classes, dropout_rate=cfg.dropout_rate,
+        fused=cfg.fused_kernels, dtype=dtype),
+    # deliberately tiny Slow-style net for tests and CLI smokes
+    "tiny3d": lambda cfg, dtype: SlowR50(
+        cfg.num_classes, depths=(1, 1, 1, 1), stem_features=8,
+        dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
+    # c2d_r50: no temporal convs, plus the (2,1,1) pool after res2
+    "c2d_r50": lambda cfg, dtype: SlowR50(
+        cfg.num_classes, temporal_kernels=(1, 1, 1, 1),
+        stage1_temporal_pool=True, dropout_rate=cfg.dropout_rate,
+        fused=cfg.fused_kernels, dtype=dtype),
+    "slowfast_r50": lambda cfg, dtype: SlowFast(
+        cfg.num_classes, alpha=cfg.slowfast_alpha,
+        dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
+    # deliberately tiny SlowFast: one block per stage, 16-channel stem
+    "slowfast_t": lambda cfg, dtype: SlowFast(
+        cfg.num_classes, depths=(1, 1, 1, 1), stem_features=16,
+        alpha=cfg.slowfast_alpha, dropout_rate=cfg.dropout_rate,
+        fused=cfg.fused_kernels, dtype=dtype),
+    "slowfast_r101": lambda cfg, dtype: SlowFast(
+        cfg.num_classes, depths=(3, 4, 23, 3), alpha=cfg.slowfast_alpha,
+        dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
+}
+
+# families of the JAX package that later slices of the port bring over
+_NOT_PORTED = ("x3d_xs", "x3d_s", "x3d_m", "x3d_l", "csn_r101",
+               "r2plus1d_r50", "mvit_b", "mvit_b_32x3", "mvit_t",
+               "videomae_b", "videomae_b_pretrain", "videomae_t",
+               "videomae_t_pretrain")
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(cfg: ModelConfig, mixed_precision: str = "bf16") -> nn.Module:
+    """Build the module for `cfg.name` in eval mode. `mixed_precision`
+    "bf16"/"fp16" computes in bf16 with f32 parameters, else f32."""
+    if cfg.name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {cfg.name!r} is not ported to PyTorch yet (see the port "
+            "queue in ROADMAP.md); ported: " + ", ".join(available_models()))
+    if cfg.name not in _REGISTRY:
+        raise ValueError(
+            f"unknown model {cfg.name!r}; available: {available_models()}")
+    if cfg.fused_kernels not in FUSED_MODES:
+        raise ValueError(
+            f"model.fused_kernels must be one of {FUSED_MODES}, got "
+            f"{cfg.fused_kernels!r}")
+    model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision))
+    return model.eval()
+
+
+def model_input_spec(cfg: ModelConfig, data_cfg) -> dict:
+    """Shapes the model expects for one clip batch (B=1), NDHWC."""
+    t, s = data_cfg.num_frames, data_cfg.crop_size
+    if cfg.name.startswith("slowfast"):
+        return {
+            "slow": (1, max(t // cfg.slowfast_alpha, 1), s, s, 3),
+            "fast": (1, t, s, s, 3),
+        }
+    return {"video": (1, t, s, s, 3)}

@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc and is marked `cuda`; on a
+host without a card each one skips. This file imports torch and the port
+only (no JAX), so it also runs on the card's machine, without the repo's
+JAX conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerance: both versions multiply bf16 operands exactly, accumulate in f32
+and round once to bf16, so they differ by about one bf16 ulp plus the f32
+summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (kernels compile with nvcc on the card)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(shape, cin, cout, taps, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape + (cin,), np.float32))
+    fan_in = cin * int(np.prod(taps))
+    w = torch.from_numpy(rng.standard_normal(taps + (cin, cout), np.float32)
+                         / np.sqrt(fan_in))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(cout).astype(np.float32) * 0.1)
+    return (x.to(device, torch.bfloat16), w.to(device, torch.bfloat16),
+            scale.to(device), bias.to(device))
+
+
+def _check(got, want):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    excess = (got - want).abs() - 1e-2 * (1 + want.abs())
+    assert excess.max().item() <= 0, f"max excess {excess.max().item()}"
+
+
+@pytest.mark.parametrize("act", ["identity", "relu", "silu"])
+@pytest.mark.parametrize("shape,cin,cout,taps", [
+    ((2, 3, 5, 7), 8, 24, (1, 1, 1)),      # Cin 8, ragged M
+    ((1, 4, 9, 11), 80, 64, (1, 1, 1)),    # slow res2 entry width
+    ((1, 2, 3, 5), 12, 10, (1, 1, 1)),     # Cin, Cout not multiples of 8
+    ((2, 5, 6, 7), 8, 8, (3, 1, 1)),       # fast conv_a
+    ((1, 3, 9, 10), 64, 64, (1, 3, 3)),    # conv_b
+    ((1, 5, 7, 6), 12, 20, (3, 3, 3)),     # odd taps, scalar gather path
+    ((1, 6, 4, 4), 32, 16, (5, 1, 1)),
+])
+def test_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
+    x, w, s, b = _inputs(shape, cin, cout, taps, 0, cuda)
+    before = dict(fused.LAUNCHES)
+    got = fused.fused_conv3d_bn_act(x, w, s, b, act=act, mode="pallas")
+    want = fused.fused_conv3d_bn_act(x, w, s, b, act=act, mode="xla")
+    torch.cuda.synchronize()
+    _check(got, want)
+    name = "fused_pw_bn_act" if taps == (1, 1, 1) else "fused_conv_bn_act"
+    assert fused.LAUNCHES[name] == before[name] + 1
+
+
+def test_float32_raises_on_the_card(cuda):
+    x, w, s, b = _inputs((1, 2, 3, 4), 8, 8, (1, 1, 1), 0, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused.fused_pointwise_bn_act(x.float(), w.float(), s, b, mode="auto")
