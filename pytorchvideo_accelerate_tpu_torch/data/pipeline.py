@@ -1,0 +1,266 @@
+"""Host-side clip pipeline: sources, batching, prefetch, state (the port's
+copy of the JAX package's `data/pipeline.py`, synthetic source and thread
+transport only; the real-video source, the decode cache and the process
+transport are queued in ROADMAP.md).
+
+- a `ClipSource` maps (epoch, index) to one sample dict, deterministically;
+- per-epoch shuffling from the shared seed, `(seed, 0xDA7A, epoch)`;
+- a thread pool decodes and transforms samples, one batch-assembly lane
+  keeps `prefetch_batches` batches in flight;
+- the iterator position {epoch, position} is checkpointable (`LoaderState`),
+  and resume fast-forwards it in O(1).
+
+Batches are the JAX package's byte for byte for the same seed wherever no
+resize runs (tests/test_torch_data.py).
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from queue import Empty, Queue
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from pytorchvideo_accelerate_tpu_torch.data.samplers import (
+    random_clip,
+    uniform_clips,
+)
+
+
+class ClipSource:
+    """A deterministic map (epoch, index) -> sample dict of arrays."""
+
+    num_classes: int
+
+    def __len__(self) -> int:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def get(self, index: int, epoch: int) -> Dict[str, np.ndarray]:  # pragma: no cover
+        raise NotImplementedError
+
+
+def sample_views(read_span: Callable, transform: Callable, duration: float,
+                 clip_duration: float, training: bool,
+                 rng: np.random.Generator, num_clips: int) -> Dict[str, np.ndarray]:
+    """Span selection + multi-view stacking for every clip source.
+
+    Train: ONE random span. Eval: `num_clips` evenly spaced spans, times the
+    transform's `num_spatial_crops` when it declares one, each transformed
+    and stacked on one leading view axis, temporal-major.
+    `read_span(start_sec, end_sec) -> (T, H, W, 3) uint8`."""
+    n_spatial = max(getattr(transform, "num_spatial_crops", 1), 1)
+    if training:
+        spans = [random_clip(duration, clip_duration, rng)]
+    else:
+        spans = uniform_clips(duration, clip_duration, num_clips)
+    if n_spatial > 1:
+        views = []
+        for s in spans:
+            views.extend(transform.spatial_views(read_span(s.start, s.end)))
+    else:
+        views = [transform(read_span(s.start, s.end), rng) for s in spans]
+    if len(views) == 1:  # no view axis for the single-view case
+        return views[0]
+    return {k: stack_samples([v[k] for v in views]) for k in views[0]}
+
+
+class SyntheticClipSource(ClipSource):
+    """Label-coded synthetic clips (no video files; the full transform stack
+    still runs): the same `default_rng((seed, epoch, index))` stream as the
+    JAX package's."""
+
+    def __init__(self, transform: Callable, num_videos: int = 64,
+                 num_classes: int = 4, raw_frames: int = 24,
+                 raw_size: tuple = (72, 96), seed: int = 42,
+                 num_clips: int = 1):
+        self.transform = transform
+        self.num_videos = num_videos
+        self.num_classes = num_classes
+        self.raw_frames = raw_frames
+        self.raw_size = raw_size
+        self.seed = seed
+        self.num_clips = max(num_clips, 1)
+
+    def __len__(self) -> int:
+        return self.num_videos
+
+    def get(self, index: int, epoch: int) -> Dict[str, np.ndarray]:
+        label = index % self.num_classes
+        rng = np.random.default_rng((self.seed, epoch, index))
+        h, w = self.raw_size
+
+        def synth_span(a, b):  # label-coded random frames, span-independent
+            frames = (rng.random((self.raw_frames, h, w, 3)) * 60).astype(np.uint8)
+            frames += np.uint8(label * (160 // max(self.num_classes - 1, 1)))
+            return frames
+
+        out = sample_views(synth_span, self.transform, 1.0, 1.0,
+                           training=self.num_clips == 1, rng=rng,
+                           num_clips=self.num_clips)
+        out["label"] = np.int32(label)
+        return out
+
+
+def stack_samples(arrs: List):
+    """Stack numpy arrays (or torch tensors: bf16 clips) on a new axis 0."""
+    if torch.is_tensor(arrs[0]):
+        return torch.stack(arrs)
+    return np.stack(arrs)
+
+
+def _pad_rows(x, n: int):
+    """Append `n` zero rows along axis 0."""
+    if torch.is_tensor(x):
+        return torch.cat([x, x.new_zeros((n, *x.shape[1:]))])
+    return np.concatenate([x, np.zeros((n, *x.shape[1:]), x.dtype)])
+
+
+def assemble_batch(samples: List[Dict[str, np.ndarray]], pad_to: int,
+                   accum_steps: int = 1) -> dict:
+    """Stack per-sample dicts into one batch dict: padded + masked tail
+    (val only) below `pad_to`, reshaped to (accum, pad_to // accum, ...)
+    when `accum_steps > 1`."""
+    n = len(samples)
+    batch = {k: stack_samples([s[k] for s in samples]) for k in samples[0]}
+    if n < pad_to:  # padded tail (val only): mask marks real samples
+        mask = np.zeros(pad_to, np.float32)
+        mask[:n] = 1.0
+        batch = {k: _pad_rows(v, pad_to - n) for k, v in batch.items()}
+        batch["mask"] = mask
+    if accum_steps > 1:
+        batch = {k: v.reshape(accum_steps, pad_to // accum_steps, *v.shape[1:])
+                 for k, v in batch.items()}
+    return batch
+
+
+@dataclass
+class LoaderState:
+    """Checkpointable iterator position."""
+
+    epoch: int = 0
+    position: int = 0  # batches already yielded this epoch
+
+    def to_dict(self) -> dict:
+        return {"epoch": self.epoch, "position": self.position}
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "LoaderState":
+        d = d or {}
+        return cls(epoch=int(d.get("epoch", 0)), position=int(d.get("position", 0)))
+
+
+class ClipLoader:
+    """Batches a ClipSource on one host (one card). Yields batch dicts
+    shaped (B, ...), or (accum, B, ...) when `accum_steps > 1`."""
+
+    def __init__(self, source: ClipSource, global_batch_size: int,
+                 accum_steps: int = 1, shuffle: bool = False,
+                 drop_last: bool = True, seed: int = 42, num_workers: int = 8,
+                 prefetch_batches: int = 2, transport: str = "thread"):
+        if transport == "process":
+            raise NotImplementedError(
+                "data.transport process (forked workers + native shm ring) "
+                "is not ported yet (ROADMAP.md); use thread")
+        if transport not in ("auto", "thread"):
+            raise ValueError(
+                f"transport must be auto|thread|process, got {transport!r}")
+        self.source = source
+        self.global_batch_size = global_batch_size
+        self.accum_steps = max(accum_steps, 1)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.num_workers = max(num_workers, 1)
+        self.prefetch_batches = prefetch_batches
+        self.state = LoaderState()
+        self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
+
+    # --- epoch geometry ---------------------------------------------------
+
+    def _epoch_indices(self, epoch: int) -> np.ndarray:
+        idx = np.arange(len(self.source))
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, 0xDA7A, epoch))
+            rng.shuffle(idx)
+        return idx
+
+    @property
+    def samples_per_yield(self) -> int:
+        return self.global_batch_size * self.accum_steps
+
+    def steps_per_epoch(self) -> int:
+        """Optimizer steps per epoch (one per yielded super-batch)."""
+        n = len(self.source)
+        if self.drop_last:
+            return n // self.samples_per_yield
+        return -(-n // self.samples_per_yield)
+
+    # --- iteration --------------------------------------------------------
+
+    def epoch(self, epoch: Optional[int] = None,
+              from_start: bool = False) -> Iterator[dict]:
+        """Iterate one epoch, honouring and updating `self.state`.
+        `from_start=True` ignores a stored mid-epoch position (eval)."""
+        for batch, state in self.epoch_items(epoch, from_start):
+            self.state = state
+            if batch is not None:
+                yield batch
+
+    def epoch_items(self, epoch: Optional[int] = None,
+                    from_start: bool = False) -> Iterator[tuple]:
+        """Like `epoch()`, but yields `(batch, LoaderState)` pairs and never
+        mutates `self.state`; a final `(None, rollover_state)` pair marks
+        exhaustion. The device prefetcher advances this from its own thread
+        and assigns the state when the trainer takes the batch, so a
+        checkpoint records the consumed position."""
+        start_state = self._start_state(epoch, from_start)
+        epoch = start_state.epoch
+        indices = self._epoch_indices(epoch)
+        spy = self.samples_per_yield
+        n_batches = self.steps_per_epoch()
+
+        def fetch_batch(b: int) -> dict:
+            chunk = indices[b * spy:(b + 1) * spy]
+            samples = list(self._pool.map(
+                lambda i: self.source.get(int(i), epoch), chunk))
+            return assemble_batch(samples, spy, accum_steps=self.accum_steps)
+
+        pending: "Queue[tuple]" = Queue()
+        next_submit = start_state.position
+        executor = ThreadPoolExecutor(max_workers=1)  # batch-assembly lane
+        try:
+            for _ in range(max(self.prefetch_batches, 1)):
+                if next_submit < n_batches:
+                    pending.put((next_submit, executor.submit(fetch_batch, next_submit)))
+                    next_submit += 1
+            while not pending.empty():
+                b, fut = pending.get()
+                batch = fut.result()
+                if next_submit < n_batches:
+                    pending.put((next_submit, executor.submit(fetch_batch, next_submit)))
+                    next_submit += 1
+                yield batch, LoaderState(epoch=epoch, position=b + 1)
+            yield None, LoaderState(epoch=epoch + 1, position=0)
+        finally:
+            # an early exit must not leave queued batches decoding
+            while not pending.empty():
+                try:
+                    pending.get_nowait()[1].cancel()
+                except Empty:  # pragma: no cover - single-consumer queue
+                    break
+            executor.shutdown(wait=False, cancel_futures=True)
+
+    def _start_state(self, epoch: Optional[int],
+                     from_start: bool) -> LoaderState:
+        if from_start:
+            return LoaderState(
+                epoch=self.state.epoch if epoch is None else epoch, position=0)
+        if epoch is not None and epoch != self.state.epoch:
+            return LoaderState(epoch=epoch, position=0)
+        return self.state
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False)

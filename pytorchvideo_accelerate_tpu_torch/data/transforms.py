@@ -1,0 +1,272 @@
+"""Clip transform stack — numpy, host-side (the port's copy of the JAX
+package's `data/transforms.py`, which resizes with cv2; the card's machine
+has no cv2, so the bilinear resize here is torch's `F.interpolate`).
+
+Reproduces the reference's transform factory `make_transform`
+(run.py:68-102) as pure functions over (T, H, W, C) numpy frames with
+explicit RNG, drawing from the `np.random.Generator` in the same calls and
+order as the JAX package, so batches match it byte for byte wherever no
+resize runs:
+
+  train: UniformTemporalSubsample(num_frames) -> Div255 ->
+         Normalize(mean=0.45, std=0.225) ->
+         RandomShortSideScale(256, 320) -> RandomCrop(256) ->
+         RandomHorizontalFlip(0.5) [-> PackPathway(alpha)]
+  val:   ... -> ShortSideScale(256) -> CenterCrop(256) [-> PackPathway]
+
+Semantics notes (held against the JAX package in tests/test_torch_data.py):
+- UniformTemporalSubsample uses `linspace(0, T-1, n).long()` index truncation
+  (pytorchvideo semantics via run.py:82 [external]).
+- Short-side scale is bilinear, `F.interpolate(mode="bilinear",
+  align_corners=False, antialias=False)` per frame batch on the host (the
+  JAX package's cv2.INTER_LINEAR computes the same half-pixel bilinear;
+  uint8 frames are resized in f32 and rounded, within 1 of cv2's).
+- RandomShortSideScale samples an integer size uniformly in [min, max]
+  inclusive.
+- PackPathway (run.py:38-65): fast = all T frames, slow = index_select of
+  T//alpha frames via the same truncated linspace.
+
+Scaling/cropping runs before normalization would be cheaper (uint8 resize),
+but the reference normalizes first — order preserved for exact behavioral
+parity, and the fused fast path (`normalize_u8`) keeps it one allocation.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def uniform_temporal_subsample(frames: np.ndarray, num_samples: int) -> np.ndarray:
+    """Evenly-spaced temporal subsample, truncated-linspace indices."""
+    t = frames.shape[0]
+    idx = np.linspace(0, t - 1, num_samples).astype(np.int64)
+    return frames[idx]
+
+
+def div255(frames: np.ndarray) -> np.ndarray:
+    return frames.astype(np.float32) / 255.0
+
+
+def normalize(frames: np.ndarray, mean: Sequence[float], std: Sequence[float]) -> np.ndarray:
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    return (frames - mean) / std
+
+
+def normalize_u8(frames: np.ndarray, mean: Sequence[float],
+                 std: Sequence[float]) -> np.ndarray:
+    """Fused uint8 -> normalized float32: one allocation, two passes,
+    algebraically `normalize(div255(x))` refactored as x*scale + bias
+    (equal within float rounding, <=1e-6 abs; asserted in tests). The
+    unfused pair costs 3 allocations/passes over every decoded clip —
+    the eval/train host hot path (SURVEY §7 hard-part 1). Measured 1.5x
+    faster at 32f x 256x320."""
+    std32 = np.asarray(std, np.float32)
+    scale = (1.0 / (255.0 * std32)).astype(np.float32)
+    bias = (-np.asarray(mean, np.float32) / std32).astype(np.float32)
+    out = np.multiply(frames, scale, dtype=np.float32)
+    out += bias
+    return out
+
+
+def short_side_scale(frames: np.ndarray, size: int) -> np.ndarray:
+    """Resize so the short spatial side == `size`, bilinear, AR preserved."""
+    t, h, w = frames.shape[:3]
+    # floor, matching pytorchvideo's ShortSideScale long-side math [external]
+    if h <= w:
+        new_h, new_w = size, int(np.floor(w * size / h))
+    else:
+        new_h, new_w = int(np.floor(h * size / w)), size
+    if (new_h, new_w) == (h, w):
+        return frames
+    x = torch.from_numpy(np.ascontiguousarray(frames)).permute(0, 3, 1, 2)
+    u8 = frames.dtype == np.uint8
+    y = F.interpolate(x.float() if u8 else x, size=(new_h, new_w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    if u8:
+        y = y.round().clamp(0, 255).to(torch.uint8)
+    return y.permute(0, 2, 3, 1).contiguous().numpy()
+
+
+def random_short_side_scale(
+    frames: np.ndarray, min_size: int, max_size: int, rng: np.random.Generator
+) -> np.ndarray:
+    size = int(rng.integers(min_size, max_size + 1))
+    return short_side_scale(frames, size)
+
+
+def center_crop(frames: np.ndarray, size: int) -> np.ndarray:
+    h, w = frames.shape[1:3]
+    top = (h - size) // 2
+    left = (w - size) // 2
+    return frames[:, top : top + size, left : left + size]
+
+
+def uniform_crop(frames: np.ndarray, size: int, spatial_idx: int,
+                 num_crops: int = 3) -> np.ndarray:
+    """Crop `size`^2 at position `spatial_idx` of `num_crops` evenly-spaced
+    positions along the LONGER spatial side (short side centered) —
+    pytorchvideo `uniform_crop` semantics, the spatial half of the
+    SlowFast/X3D papers' 30-view eval protocol (10 temporal x 3 spatial)."""
+    h, w = frames.shape[1:3]
+    if num_crops == 1:
+        return center_crop(frames, size)
+
+    def pos(delta):  # ceil spacing: 0, ceil(d/2), d at num_crops=3 — the
+        # exact pytorchvideo uniform_crop offsets (their center is ceil,
+        # 1px from center_crop's floor on odd deltas; parity wins)
+        return int(np.ceil(delta * spatial_idx / (num_crops - 1)))
+
+    # fixed (short) axis: pytorchvideo ceil-centers it — 1px from
+    # center_crop's floor on odd deltas; parity wins
+    if h <= w:  # landscape: slide along width
+        top = int(np.ceil((h - size) / 2))
+        left = pos(w - size)
+    else:  # portrait: slide along height
+        top = pos(h - size)
+        left = int(np.ceil((w - size) / 2))
+    return frames[:, top : top + size, left : left + size]
+
+
+def random_crop(frames: np.ndarray, size: int, rng: np.random.Generator) -> np.ndarray:
+    h, w = frames.shape[1:3]
+    top = int(rng.integers(0, h - size + 1))
+    left = int(rng.integers(0, w - size + 1))
+    return frames[:, top : top + size, left : left + size]
+
+
+def horizontal_flip(frames: np.ndarray, p: float, rng: np.random.Generator) -> np.ndarray:
+    if rng.random() < p:
+        return frames[:, :, ::-1]
+    return frames
+
+
+def pack_pathway(frames: np.ndarray, alpha: int) -> Dict[str, np.ndarray]:
+    """SlowFast dual-rate packing (reference PackPathway, run.py:56-65):
+    fast keeps all T frames; slow takes T//alpha truncated-linspace picks."""
+    t = frames.shape[0]
+    slow_idx = np.linspace(0, t - 1, t // alpha).astype(np.int64)
+    return {"slow": frames[slow_idx], "fast": frames}
+
+
+def make_transform(
+    num_frames: int = 8,
+    training: bool = False,
+    is_slowfast: bool = False,
+    slowfast_alpha: int = 4,
+    min_short_side_scale: int = 256,
+    max_short_side_scale: int = 320,
+    crop_size: int = 256,
+    mean: Sequence[float] = (0.45, 0.45, 0.45),
+    std: Sequence[float] = (0.225, 0.225, 0.225),
+    horizontal_flip_p: float = 0.5,
+    output_dtype: str = "float32",
+    num_spatial_crops: int = 1,
+) -> Callable[[np.ndarray, Optional[np.random.Generator]], Dict[str, np.ndarray]]:
+    """Build the full clip transform (reference make_transform, run.py:68-102).
+
+    Returns `fn(frames_uint8_THWC, rng) -> {"video": ...}` or
+    `{"slow": ..., "fast": ...}` (contiguous).
+
+    `num_spatial_crops > 1` (eval only): the transform takes an extra
+    `spatial_idx` argument selecting one of the evenly-spaced crops along
+    the longer side (`uniform_crop`); `sample_views` multiplies temporal
+    views by these spatial views — the papers' 30-view protocol is
+    `eval_num_clips=10` x `eval_num_spatial_crops=3`. The callable's view
+    count is exposed as `fn.num_spatial_crops`.
+
+    `output_dtype="bfloat16"` casts the final clip on the host into a torch
+    bf16 tensor (numpy has no bf16; round to nearest even, as the JAX
+    package's ml_dtypes cast): the model
+    casts inputs to its compute dtype anyway (models/common.py), so the cast
+    loses nothing numerically while halving host-RAM, shm-ring, and
+    host->HBM transfer bytes — the transfer is the input-bound regime's
+    bottleneck at 32f/256^2 batches (~250 MB/step fp32).
+
+    `output_dtype="uint8"` goes further (4x less than fp32): normalization
+    is SKIPPED on the host and the geometric ops run on raw uint8 — the
+    jitted step applies `x*scale + bias` on device, where XLA fuses it
+    into the first conv's input read (trainer/steps.py device_normalize).
+    Bilinear resize commutes with the affine normalize, so the only
+    numeric delta vs the fp32 path is the resize's round-to-integer
+    (±0.5/255 ≈ 0.009σ at the reference std) — the returned callable
+    exposes `device_normalize = (mean, std)` so the trainer can finish
+    the job in-graph.
+    """
+    u8_through = output_dtype == "uint8"
+    if output_dtype not in ("uint8", "float32", "bfloat16"):
+        raise ValueError(f"output_dtype must be uint8|float32|bfloat16, "
+                         f"got {output_dtype!r}")
+
+    if num_spatial_crops < 1:
+        raise ValueError(f"num_spatial_crops must be >= 1, got {num_spatial_crops}")
+    if training and num_spatial_crops != 1:
+        raise ValueError("num_spatial_crops is an eval-only option")
+
+    def _precrop_eval(frames: np.ndarray) -> np.ndarray:
+        x = uniform_temporal_subsample(frames, num_frames)
+        if not u8_through:
+            x = normalize_u8(x, mean, std)
+        return short_side_scale(x, min_short_side_scale)
+
+    def _cast(v: np.ndarray):
+        if output_dtype == "bfloat16":
+            return torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+        # astype on a sliced view already allocates contiguous output, so
+        # cast first: one copy total
+        return np.ascontiguousarray(v.astype(output_dtype, copy=False))
+
+    def _finalize(x: np.ndarray) -> Dict[str, np.ndarray]:
+        if is_slowfast:
+            return {k: _cast(v)
+                    for k, v in pack_pathway(x, slowfast_alpha).items()}
+        return {"video": _cast(x)}
+
+    def transform(frames: np.ndarray,
+                  rng: Optional[np.random.Generator] = None,
+                  spatial_idx: Optional[int] = None):
+        if training and rng is None:
+            raise ValueError("training transform requires an rng")
+        if training:
+            x = uniform_temporal_subsample(frames, num_frames)
+            if not u8_through:
+                x = normalize_u8(x, mean, std)
+            x = random_short_side_scale(
+                x, min_short_side_scale, max_short_side_scale, rng
+            )
+            x = random_crop(x, crop_size, rng)
+            x = horizontal_flip(x, horizontal_flip_p, rng)
+        else:
+            x = _precrop_eval(frames)
+            if num_spatial_crops > 1:
+                # no index given -> CENTER crop, matching what the same
+                # call returns on a single-crop transform (not a silent
+                # left-edge crop)
+                x = uniform_crop(
+                    x, crop_size,
+                    num_spatial_crops // 2 if spatial_idx is None
+                    else spatial_idx,
+                    num_spatial_crops)
+            else:
+                x = center_crop(x, crop_size)
+        return _finalize(x)
+
+    if num_spatial_crops > 1:
+        def spatial_views(frames: np.ndarray):
+            """All spatial crops of one span, sharing ONE pre-crop pass
+            (subsample/normalize/scale dominate eval host cost — running
+            them per crop would triple the hot path)."""
+            x = _precrop_eval(frames)
+            return [_finalize(uniform_crop(x, crop_size, j, num_spatial_crops))
+                    for j in range(num_spatial_crops)]
+
+        transform.spatial_views = spatial_views
+    transform.num_spatial_crops = num_spatial_crops
+    # u8-through clips still need `x*scale + bias` — on device, in-graph
+    # (trainer/steps.py); None means the host already normalized
+    transform.device_normalize = (tuple(mean), tuple(std)) if u8_through else None
+    return transform

@@ -1,19 +1,30 @@
 """Model registry for the families this slice of the port carries.
 
-`create_model(cfg, mixed_precision)` returns an `nn.Module` (eval-ready,
-weights from `models/convert.py` or an inference artifact). Ported here:
-slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50 and tiny3d; any
-other name of the JAX package raises NotImplementedError (ROADMAP.md).
+`create_model(cfg, mixed_precision, seed)` returns an `nn.Module` whose
+weights are drawn as the JAX package initialises them (`init_like_jax`),
+from a `torch.Generator` seeded with `seed`; the caller sets the mode
+(`.train()` is torch's default, the serving engine calls `.eval()`). Ported
+here: slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50 and
+tiny3d; any other name of the JAX package raises NotImplementedError
+(ROADMAP.md). Each model class carries `backbone_param_filter(path)` (True
+for the backbone, `path` the state_dict key split on ".") for
+`--model.freeze_backbone`.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import torch
 from torch import nn
 
 from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
-from pytorchvideo_accelerate_tpu_torch.models.common import FUSED_MODES
+from pytorchvideo_accelerate_tpu_torch.models.common import (
+    FUSED_MODES,
+    BNAffine,
+    lecun_normal_,
+)
+from pytorchvideo_accelerate_tpu_torch.models.heads import ResBasicHead
 from pytorchvideo_accelerate_tpu_torch.models.resnet3d import SlowR50
 from pytorchvideo_accelerate_tpu_torch.models.slowfast import SlowFast
 from pytorchvideo_accelerate_tpu_torch.precision import policy_compute_dtype
@@ -55,9 +66,33 @@ def available_models():
     return sorted(_REGISTRY)
 
 
-def create_model(cfg: ModelConfig, mixed_precision: str = "bf16") -> nn.Module:
-    """Build the module for `cfg.name` in eval mode. `mixed_precision`
-    "bf16"/"fp16" computes in bf16 with f32 parameters, else f32."""
+def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every weight as the JAX package's init does: lecun-normal conv
+    kernels (models/common.py `ConvKernelParam`, flax `nn.Conv`), BN scale 1,
+    bias 0, running mean 0, var 1, and the head's normal(0.01) kernel with
+    a zero bias. Modules are visited in registration order, so one seed
+    gives one set of weights."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv3d):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, BNAffine):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+        elif isinstance(m, ResBasicHead):
+            m.reset_parameters_like_jax(generator)
+
+
+def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
+                 seed: int = 0) -> nn.Module:
+    """Build the module for `cfg.name`, initialised by `init_like_jax` from
+    a generator seeded with `seed`. `mixed_precision` "bf16"/"fp16" computes
+    in bf16 with f32 parameters, else f32."""
     if cfg.name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported to PyTorch yet (see the port "
@@ -70,7 +105,8 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16") -> nn.Module:
             f"model.fused_kernels must be one of {FUSED_MODES}, got "
             f"{cfg.fused_kernels!r}")
     model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision))
-    return model.eval()
+    init_like_jax(model, torch.Generator().manual_seed(seed))
+    return model
 
 
 def model_input_spec(cfg: ModelConfig, data_cfg) -> dict:

@@ -7,12 +7,15 @@ cuDNN, pooling and BN take the same tensor. Submodules are named after the
 flax tree (`slow_res2.block0.conv_a.conv.weight`, `...norm.running_mean`), so
 every state_dict key is the flax path with a leaf rename (models/convert.py).
 
-This slice serves: the modules run in eval mode only. Training (batch
-statistics, running-average updates, the backward kernels) is the next slice.
+Train mode (`module.train()`) normalises with batch statistics and updates
+the BN running averages with flax semantics; eval mode uses the running
+averages. `init_like_jax` draws the weights the way the JAX package
+initialises them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -32,38 +35,97 @@ from pytorchvideo_accelerate_tpu_torch.precision import end_island, f32_island
 FUSED_MODES = ("off", "auto", "pallas", "xla")
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            "the PyTorch port serves only (eval mode); training is the next "
-            "slice of the port (ROADMAP.md)")
-
-
 class BNAffine(nn.Module):
     """Owns exactly the BatchNorm state (`weight`/`bias` parameters,
     `running_mean`/`running_var` buffers, the flax scale/bias/mean/var) and
     resolves it into the per-channel (mul, add) affine in f32, the form the
-    fused kernels fold into their weights and epilogue."""
+    fused kernels fold into their weights and epilogue.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    Running averages follow flax's nn.BatchNorm, not torch's: momentum 0.9
+    (ra <- 0.9 ra + 0.1 batch) over the BIASED batch variance, which is why
+    `F.batch_norm(training=True)` (unbiased running var) cannot update them.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return mul, self.bias - self.running_mean * mul
+    def update_running_averages(self, batch_mean: torch.Tensor,
+                                batch_var: torch.Tensor) -> None:
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(batch_mean.detach(), alpha=1 - m)
+            self.running_var.mul_(m).add_(batch_var.detach(), alpha=1 - m)
+
+    def affine(self, batch_mean: Optional[torch.Tensor] = None,
+               batch_var: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mul, add) from the running averages, or, given the batch
+        statistics (train mode), from those, after folding them into the
+        running averages."""
+        if batch_mean is None:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, var = batch_mean, batch_var
+            self.update_running_averages(mean, var)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        return mul, self.bias - mean * mul
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval-mode BatchNorm over NCDHW x, computed in f32 and cast back."""
-        _eval_only(self)
+        """BatchNorm over NCDHW x in f32, cast back to x's dtype, in flax's
+        form (x - mean) * (scale * rsqrt(var + eps)) + bias: batch statistics
+        in train mode, running averages in eval mode."""
+        x32 = f32_island(x)
+        if self.training:
+            mean, var = batch_norm_stats(x32, dims=(0, 2, 3, 4))
+            self.update_running_averages(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
         shape = (1, -1, 1, 1, 1)
-        mul = self.weight * torch.rsqrt(self.running_var + self.eps)
-        y = (f32_island(x) - self.running_mean.view(shape)) * mul.view(shape)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        y = (x32 - mean.view(shape)) * mul.view(shape)
         return end_island(y + self.bias.view(shape), x.dtype)
+
+
+def batch_norm_stats(raw32: torch.Tensor, dims=None):
+    """Per-channel batch (mean, var) of f32 `raw32`, the fast-variance form
+    flax's nn.BatchNorm uses: E[x^2] - E[x]^2 clamped at 0 (biased). `dims`
+    defaults to every axis but the last (NDHWC)."""
+    if dims is None:
+        dims = tuple(range(raw32.dim() - 1))
+    mean = raw32.mean(dim=dims)
+    var = torch.clamp_min((raw32 * raw32).mean(dim=dims) - mean * mean, 0.0)
+    return mean, var
+
+
+def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
+                         dtype) -> torch.Tensor:
+    """Training-mode tail of a fused conv site: batch statistics of the raw
+    NDHWC conv output (in its compute dtype, cast to f32), the running-average
+    update through `bn`, then affine + activation as one f32 island. The
+    gradient flows through the statistics."""
+    raw32 = f32_island(raw)
+    mul, add = bn.affine(*batch_norm_stats(raw32))
+    return end_island(apply_act(raw32 * mul + add, act), dtype)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's `lecun_normal()`: a normal truncated at two standard deviations,
+    scaled to variance 1/fan_in (fan_in = Cin * taps for an OIDHW conv
+    weight, in_features for a Linear one)."""
+    fan_in = weight[0].numel()
+    # std of the untruncated normal whose +-2 sigma truncation has unit
+    # variance (flax's variance_scaling constant)
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
 
 
 class ConvBNAct(nn.Module):
@@ -92,15 +154,24 @@ class ConvBNAct(nn.Module):
                      and self.act in FUSED_ACTS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
         x = x.to(self.dtype)
         w = self.conv.weight.to(self.dtype)
         if self.fuse:
-            mul, add = self.norm.affine()
             # NCDHW channels_last_3d -> its NDHWC view (no copy), DHWIO weight
-            y = fused_conv3d_bn_act(
-                x.permute(0, 2, 3, 4, 1).contiguous(), w.permute(2, 3, 4, 1, 0),
-                mul, add, act=self.act, mode=self.fused)
+            xl, wl = x.permute(0, 2, 3, 4, 1).contiguous(), w.permute(2, 3, 4, 1, 0)
+            if self.training:
+                # the fused conv pass alone; batch stats, affine and act ride
+                # its raw output as one f32 tail (autodiff through the stats)
+                n = wl.shape[-1]
+                raw = fused_conv3d_bn_act(
+                    xl, wl, torch.ones(n, device=x.device),
+                    torch.zeros(n, device=x.device), act="identity",
+                    mode=self.fused)
+                y = fused_train_norm_act(raw, self.norm, self.act, self.dtype)
+            else:
+                mul, add = self.norm.affine()
+                y = fused_conv3d_bn_act(xl, wl, mul, add, act=self.act,
+                                        mode=self.fused)
             return y.permute(0, 4, 1, 2, 3)
         bias = None if self.conv.bias is None else self.conv.bias.to(self.dtype)
         x = F.conv3d(x, w, bias, self.stride, self.conv.padding, 1, self.groups)

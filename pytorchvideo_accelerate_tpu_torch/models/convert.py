@@ -10,6 +10,11 @@ the flax path joined with "." and a leaf renamed:
     batch_stats/<path>/mean            -> <path>.running_mean
     batch_stats/<path>/var             -> <path>.running_var
 
+A JAX training state crosses too (`train_state_from_jax` and its inverse
+`jax_train_state_from_port`): params and batch_stats as above, the optax
+SGD momentum trace as each parameter's `momentum_buffer` (laid out like its
+parameter), and the step counter.
+
 Loading pytorchvideo hub checkpoints waits for the converter slice.
 """
 
@@ -60,17 +65,8 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
                 raise KeyError(f"unmapped batch_stats leaf {key!r}")
             out[f"{stem}.{_STATS[leaf]}"] = arr
         elif coll == "params":
-            if leaf == "kernel" and arr.ndim == 5:      # DHWIO -> OIDHW
-                out[f"{stem}.weight"] = np.ascontiguousarray(
-                    arr.transpose(4, 3, 0, 1, 2))
-            elif leaf == "kernel" and arr.ndim == 2:    # (in, out) -> (out, in)
-                out[f"{stem}.weight"] = np.ascontiguousarray(arr.T)
-            elif leaf == "scale":
-                out[f"{stem}.weight"] = arr
-            elif leaf == "bias":
-                out[f"{stem}.bias"] = arr
-            else:
-                raise KeyError(f"unmapped params leaf {key!r}")
+            name, v = _param_leaf_to_port(stem, leaf, arr)
+            out[name] = v
         else:
             raise KeyError(f"unknown collection in {key!r}")
     return out
@@ -99,3 +95,64 @@ def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
         else:
             raise KeyError(f"unmapped state_dict key {key!r}")
     return unflatten_tree(flat)
+
+
+def _param_leaf_to_port(path: str, leaf: str, arr: np.ndarray):
+    """(state_dict key, array) of one flax `params` leaf."""
+    if leaf == "kernel" and arr.ndim == 5:      # DHWIO -> OIDHW
+        return f"{path}.weight", np.ascontiguousarray(arr.transpose(4, 3, 0, 1, 2))
+    if leaf == "kernel" and arr.ndim == 2:      # (in, out) -> (out, in)
+        return f"{path}.weight", np.ascontiguousarray(arr.T)
+    if leaf == "scale":
+        return f"{path}.weight", arr
+    if leaf == "bias":
+        return f"{path}.bias", arr
+    raise KeyError(f"unmapped params leaf {path}/{leaf}")
+
+
+def train_state_from_jax(params: Mapping, batch_stats: Mapping, step: int,
+                         momentum: Mapping = None) -> dict:
+    """A JAX TrainState's pieces (numpy trees: params, batch_stats, and the
+    optax SGD `trace` tree mirroring params) -> {"model": state_dict,
+    "momentum": {param name: buffer}, "step": int}; `load_train_state`
+    puts it into a port TrainState."""
+    model = state_dict_from_jax({"params": params, "batch_stats": batch_stats})
+    buffers = {}
+    for key, arr in flatten_tree(momentum or {}).items():
+        *path, leaf = key.split("/")
+        name, v = _param_leaf_to_port(".".join(path), leaf, np.asarray(arr))
+        buffers[name] = v
+    return {"model": model, "momentum": buffers, "step": int(step)}
+
+
+def load_train_state(state, converted: dict) -> None:
+    """Load `train_state_from_jax`'s output into a port TrainState (SGD):
+    weights, BN running averages, momentum buffers and the step."""
+    import torch
+
+    model = state.model
+    device = next(model.parameters()).device
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v))
+                           for k, v in converted["model"].items()})
+    named = dict(model.named_parameters())
+    opt = state.optimizer.opt
+    for name, buf in converted["momentum"].items():
+        opt.state[named[name]]["momentum_buffer"] = torch.as_tensor(
+            np.ascontiguousarray(buf)).to(device)
+    state.step = int(converted["step"])
+
+
+def jax_train_state_from_port(state) -> dict:
+    """Inverse of `train_state_from_jax` + `load_train_state`: a port
+    TrainState (SGD) -> {"params", "batch_stats", "momentum", "step"} numpy
+    trees in the flax layout (momentum zeros where no buffer exists yet, as
+    optax's trace starts)."""
+    tree = jax_tree_from_state_dict(state.model.state_dict())
+    opt = state.optimizer.opt
+    buffers = {}
+    for name, p in state.model.named_parameters():
+        buf = opt.state.get(p, {}).get("momentum_buffer")
+        buffers[name] = (buf if buf is not None else p.detach() * 0)
+    momentum = jax_tree_from_state_dict(buffers)["params"]
+    return {"params": tree["params"], "batch_stats": tree["batch_stats"],
+            "momentum": momentum, "step": int(state.step)}

@@ -48,6 +48,12 @@ class SlowR50(nn.Module):
             cin, inner, out = out, inner * 2, out * 2
         self.head = ResBasicHead(cin, num_classes, dropout_rate)
 
+    @staticmethod
+    def backbone_param_filter(path: Tuple[str, ...]) -> bool:
+        """True for backbone (non-head) params, the ones
+        `--model.freeze_backbone` freezes."""
+        return path[0] != "head"
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(to_channels_last(x.to(self.dtype)))
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))

@@ -80,6 +80,12 @@ class SlowFast(nn.Module):
         self.head = ResBasicHead(slow_in + fast_in, num_classes, dropout_rate,
                                  pool=False)
 
+    @staticmethod
+    def backbone_param_filter(path: Tuple[str, ...]) -> bool:
+        """True for backbone (non-head) params, the ones
+        `--model.freeze_backbone` freezes."""
+        return path[0] != "head"
+
     def forward(self, pathways) -> torch.Tensor:
         slow, fast = pathways
         slow = self.slow_stem(to_channels_last(slow.to(self.dtype)))

@@ -19,12 +19,24 @@ hand kernel (the name is kept so configs round-trip with the JAX package) and
 raises on a CPU tensor; "xla" runs the plain version. Nothing falls back: a
 kernel that fails to build or launch raises.
 
+Gradients: "auto" and "pallas" go through `PwBnAct` / `ConvBnAct`, the
+`torch.autograd.Function` counterparts of the JAX package's custom VJPs
+(`_pw_pallas`, `_conv_pallas`). Their forward is the kernel (its plain
+version for a CPU tensor) and their backward computes dx with the same
+kernel against the transposed (conv: tap-flipped, channel-transposed)
+weights, dwf and db as f32 contractions in PyTorch, as the JAX package
+leaves them to XLA. On the card those contractions are float32 matmuls
+(`torch.backends.cuda.matmul.allow_tf32` stays False). "xla" is plain
+autograd through the plain versions. The scale fold stays outside the
+Functions, so autograd carries dw and dscale through it.
+
 The kernels take bf16 only; a float32 tensor on the card raises (use
 `--model.fused_kernels off` or `xla` for `--mixed_precision fp32`).
 
 Each kernel wrapper counts its launches in `LAUNCHES` (a plain int per
-kernel, bumped only where the kernel is launched) so a run can show that the
-main path went through the kernels.
+key, bumped only where a kernel is launched) so a run can show that the
+main path went through the kernels: the forward launches under the
+kernel's name, the backward's dx launches under "<name>.bwd_dx".
 """
 
 from __future__ import annotations
@@ -33,14 +45,17 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from pytorchvideo_accelerate_tpu_torch.precision import end_island, f32_island
 
 FUSED_ACTS = ("identity", "relu", "silu")
 _ACT_CODE = {"identity": 0, "relu": 1, "silu": 2}
 
-# launches per kernel since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {"fused_pw_bn_act": 0, "fused_conv_bn_act": 0}
+# launches per key since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {
+    "fused_pw_bn_act": 0, "fused_conv_bn_act": 0,
+    "fused_pw_bn_act.bwd_dx": 0, "fused_conv_bn_act.bwd_dx": 0}
 
 
 def reset_launch_counts() -> None:
@@ -57,6 +72,16 @@ def apply_act(x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "identity":
         return x
     raise ValueError(f"fused act must be one of {FUSED_ACTS}, got {act!r}")
+
+
+def act_grad(z32: torch.Tensor, act: str) -> torch.Tensor:
+    """d act/dz at the f32 pre-activation z."""
+    if act == "relu":
+        return (z32 > 0).to(z32.dtype)
+    if act == "silu":
+        s = torch.sigmoid(z32)
+        return s * (1.0 + z32 * (1.0 - s))
+    return torch.ones_like(z32)
 
 
 def _use_kernel(mode: str, x: torch.Tensor) -> bool:
@@ -112,9 +137,11 @@ def _check_operands(x, wf, bias32):
         raise ValueError("fused kernel operands must hold < 2**31 elements")
 
 
-def _launch(name: str, x, wf, bias32, out_shape, dims, act: str):
+def _launch(name: str, x, wf, bias32, out_shape, dims, act: str,
+            count: str):
     """Launch kernel `name` on the current stream: (x, wf, bias32, out,
-    *dims, act code, stream) -> CUDA error code. Counts the launch."""
+    *dims, act code, stream) -> CUDA error code. Counts the launch under
+    `LAUNCHES[count]`."""
     from pytorchvideo_accelerate_tpu_torch.ops import _build
 
     _check_operands(x, wf, bias32)
@@ -129,22 +156,122 @@ def _launch(name: str, x, wf, bias32, out_shape, dims, act: str):
                 out.data_ptr(), *dims, _ACT_CODE[act], stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[count] += 1
     return out
 
 
-def _pw_cuda(x2d, wf, bias32, act: str):
+def _pw_cuda(x2d, wf, bias32, act: str, count: str = "fused_pw_bn_act"):
     m, cin = x2d.shape
     cout = wf.shape[1]
     return _launch("fused_pw_bn_act", x2d, wf, bias32, (m, cout),
-                   (m, cin, cout), act)
+                   (m, cin, cout), act, count)
 
 
-def _conv_cuda(x, wf, bias32, act: str):
+def _conv_cuda(x, wf, bias32, act: str, count: str = "fused_conv_bn_act"):
     b, t, h, w, cin = x.shape
     kt, kh, kw, _, cout = wf.shape
     return _launch("fused_conv_bn_act", x, wf, bias32, (b, t, h, w, cout),
-                   (b, t, h, w, cin, cout, kt, kh, kw), act)
+                   (b, t, h, w, cin, cout, kt, kh, kw), act, count)
+
+
+# --- custom autograd (the JAX package's _pw_pallas / _conv_pallas VJPs) -----
+
+
+def _pw_apply(x2d, wf, bias32, act, kernel: bool, count="fused_pw_bn_act"):
+    if kernel:
+        return _pw_cuda(x2d, wf, bias32, act, count)
+    return pw_bn_act_plain(x2d, wf, bias32, act)
+
+
+def _conv_apply(x, wf, bias32, act, kernel: bool, count="fused_conv_bn_act"):
+    if kernel:
+        return _conv_cuda(x, wf, bias32, act, count)
+    return conv_bn_act_plain(x, wf, bias32, act)
+
+
+def _dz(g, z_fn, act: str):
+    """dz32 = g * act'(z) in f32. The pre-activation z is recomputed by
+    `z_fn` (remat, as the JAX VJP does), except for "identity", whose act'
+    is 1 (every training call)."""
+    dz32 = f32_island(g)
+    if act != "identity":
+        dz32 = dz32 * act_grad(f32_island(z_fn()), act)
+    return dz32
+
+
+class PwBnAct(torch.autograd.Function):
+    """act(x2d @ wf + bias32) over (M, Cin) rows, wf scale-folded, with the
+    backward of `_pw_bwd` (pallas_fused.py): dx = dz @ wf^T through the same
+    kernel, dwf = x2d^T @ dz32 and db = sum(dz32) in f32."""
+
+    @staticmethod
+    def forward(ctx, x2d, wf, bias32, act: str, kernel: bool):
+        ctx.act, ctx.kernel = act, kernel
+        ctx.save_for_backward(x2d, wf, bias32)
+        return _pw_apply(x2d, wf, bias32, act, kernel)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x2d, wf, bias32 = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dz32 = _dz(g, lambda: _pw_apply(x2d, wf, bias32, "identity",
+                                        ctx.kernel), ctx.act)
+        dx = dwf = db = None
+        if need_x:
+            dz = end_island(dz32, x2d.dtype)
+            zeros = torch.zeros(wf.shape[0], dtype=torch.float32,
+                                device=wf.device)
+            dx = _pw_apply(dz, wf.t().contiguous(), zeros, "identity",
+                           ctx.kernel, "fused_pw_bn_act.bwd_dx")
+        if need_w:
+            dwf = end_island(f32_island(x2d).t() @ dz32, wf.dtype)
+        if need_b:
+            db = dz32.sum(dim=0)
+        return dx, dwf, db, None, None
+
+
+class ConvBnAct(torch.autograd.Function):
+    """act(conv3d_s1(x, wf) + bias32), SAME k//2 padding, wf scale-folded,
+    with the backward of `_conv_bwd` (pallas_fused.py): dx by the same kernel
+    against the tap-flipped, channel-transposed weights (the stride-1
+    transpose conv is the same stencil), dwf by per-tap f32 contractions
+    over the padded input, db = sum(dz32)."""
+
+    @staticmethod
+    def forward(ctx, x, wf, bias32, act: str, kernel: bool):
+        ctx.act, ctx.kernel = act, kernel
+        ctx.save_for_backward(x, wf, bias32)
+        return _conv_apply(x, wf, bias32, act, kernel)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, wf, bias32 = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        kt, kh, kw, cin, cout = wf.shape
+        dz32 = _dz(g, lambda: _conv_apply(x, wf, bias32, "identity",
+                                          ctx.kernel), ctx.act)
+        dx = dwf = db = None
+        if need_x:
+            dz = end_island(dz32, x.dtype).contiguous()
+            wt = wf.flip(0, 1, 2).transpose(3, 4).contiguous()
+            zeros = torch.zeros(cin, dtype=torch.float32, device=wf.device)
+            dx = _conv_apply(dz, wt, zeros, "identity", ctx.kernel,
+                             "fused_conv_bn_act.bwd_dx")
+        if need_w:
+            xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2,
+                           kt // 2, kt // 2))
+            t, h, w = x.shape[1:4]
+            dz2d = dz32.reshape(-1, cout)
+            taps = [f32_island(xp[:, dt:dt + t, dh:dh + h, dw:dw + w, :])
+                    .reshape(-1, cin).t() @ dz2d
+                    for dt in range(kt) for dh in range(kh) for dw in range(kw)]
+            dwf = end_island(torch.stack(taps).reshape(kt, kh, kw, cin, cout),
+                             wf.dtype)
+        if need_b:
+            db = dz32.sum(dim=(0, 1, 2, 3))
+        return dx, dwf, db, None, None
 
 
 # --- public dispatchers ------------------------------------------------------
@@ -162,10 +289,10 @@ def fused_pointwise_bn_act(x, w, scale, bias, *, act: str = "identity",
     scale32, bias32 = f32_island(scale), f32_island(bias)
     wf = end_island(f32_island(w) * scale32, x.dtype)
     x2d = x.reshape(-1, cin)
-    if _use_kernel(mode, x):
-        y = _pw_cuda(x2d, wf, bias32, act)
-    else:
+    if mode == "xla":
         y = pw_bn_act_plain(x2d, wf, bias32, act)
+    else:
+        y = PwBnAct.apply(x2d, wf, bias32, act, _use_kernel(mode, x))
     return y.reshape(*x.shape[:-1], cout)
 
 
@@ -182,6 +309,7 @@ def fused_conv3d_bn_act(x, w, scale, bias, *, act: str = "identity",
         return fused_pointwise_bn_act(x, w, scale, bias, act=act, mode=mode)
     scale32, bias32 = f32_island(scale), f32_island(bias)
     wf = end_island(f32_island(w) * scale32, x.dtype)
-    if not _use_kernel(mode, x) or not all(k % 2 for k in (kt, kh, kw)):
+    kernel = _use_kernel(mode, x)
+    if mode == "xla" or not all(k % 2 for k in (kt, kh, kw)):
         return conv_bn_act_plain(x, wf, bias32, act)
-    return _conv_cuda(x, wf, bias32, act)
+    return ConvBnAct.apply(x, wf, bias32, act, kernel)

@@ -1,24 +1,39 @@
-"""Inference artifacts: `export_inference` / `load_inference` (a subset of
-the JAX package's `trainer/checkpoint.py`; training checkpoints are the next
-slice).
+"""Training checkpoints and inference artifacts (counterpart of the JAX
+package's `trainer/checkpoint.py`).
 
-The format is the JAX package's `pva-tpu-inference-v1`, so each side reads
-the other's artifacts: a directory of
+Inference artifacts (`export_inference` / `load_inference`) use the JAX
+package's `pva-tpu-inference-v1` format, so each side reads the other's: a
+directory of
   weights.npz  flat {params/..., batch_stats/...} numpy arrays in the flax
                layout (models/convert.py maps them to the port's state_dict)
   meta.json    format tag, step, ema_resolved, quantization, num_classes,
                model name and the resolved TrainConfig dict
 Both files land atomically (tmp file in the same directory, fsync,
-os.replace), so a reader never finds a truncated artifact.
+os.replace), so a reader never finds a truncated artifact. The artifact is
+the crossing point between the two packages.
+
+Training checkpoints (`Checkpointer`) use the port's own format: one
+directory per optimizer step, `<dir>/<step>/` holding
+  state.pt    `torch.save` of `TrainState.state_dict()`: step, the model's
+              state_dict (params + BN running averages), the optimizer's
+              (e.g. SGD momentum buffers), the EMA copy or None
+  extra.json  kind (step|epoch|final), epoch, the loader's LoaderState,
+              num_classes and model name
+written into a temporary directory and renamed into place with
+`os.replace`. A JAX orbax checkpoint is not read by the port (orbax is a
+JAX dependency); carry weights across with an inference artifact, or a
+JAX TrainState with `models/convert.py`.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Tuple
+import shutil
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from pytorchvideo_accelerate_tpu_torch.models.convert import (
     flatten_tree,
@@ -54,14 +69,21 @@ def _write_json(path: str, obj) -> None:
 
 
 def export_inference(path: str, model, config=None,
-                     meta: Optional[dict] = None, step: int = 0) -> str:
+                     meta: Optional[dict] = None, step: int = 0,
+                     params: Optional[Dict[str, torch.Tensor]] = None) -> str:
     """Write `model`'s weights (parameters and BN running stats) as a
-    serving artifact the JAX package's engine and the port's both load."""
-    tree = jax_tree_from_state_dict(model.state_dict())
+    serving artifact the JAX package's engine and the port's both load.
+    `params` (the EMA copy, when training keeps one) replaces the model's
+    parameters: the artifact is then EMA-resolved, the weights evaluation
+    scores."""
+    state = model.state_dict()
+    if params is not None:
+        state.update(params)
+    tree = jax_tree_from_state_dict(state)
     info = {
         "format": INFERENCE_FORMAT,
         "step": int(step),
-        "ema_resolved": False,
+        "ema_resolved": params is not None,
         "quantization": "off",
         **(meta or {}),
     }
@@ -95,3 +117,84 @@ def load_inference(path: str) -> Tuple[dict, dict]:
     with np.load(os.path.join(path, _WEIGHTS_FILE)) as data:
         flat = {k: data[k] for k in data.files}
     return state_dict_from_jax(flat), meta
+
+
+_STATE_FILE = "state.pt"
+_EXTRA_FILE = "extra.json"
+
+
+class Checkpointer:
+    """Step-indexed training checkpoints under `directory` (format in the
+    module docstring). `max_to_keep > 0` keeps only the newest that many."""
+
+    def __init__(self, directory: str, max_to_keep: int = 0):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max(int(max_to_keep), 0)
+
+    def all_steps(self) -> List[int]:
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(d) for d in os.listdir(self.directory)
+                      if d.isdigit() and os.path.exists(
+                          os.path.join(self.directory, d, _EXTRA_FILE)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state, extra: Optional[dict] = None) -> None:
+        """Write `state` (a TrainState) at `step`; a step already on disk is
+        left as it is."""
+        step = int(step)
+        final = os.path.join(self.directory, str(step))
+        if os.path.exists(final):
+            return
+        os.makedirs(self.directory, exist_ok=True)
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        try:
+            torch.save(state.state_dict(), os.path.join(tmp, _STATE_FILE))
+            _write_json(os.path.join(tmp, _EXTRA_FILE), extra or {})
+            os.replace(tmp, final)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if self.max_to_keep:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def restore(self, state, step: Optional[int] = None) -> Tuple[dict, int]:
+        """Load checkpoint `step` (default: the latest) into `state` in
+        place; returns `(extra, step)`."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint found in {self.directory}")
+        d = os.path.join(self.directory, str(int(step)))
+        device = next(state.model.parameters()).device
+        saved = torch.load(os.path.join(d, _STATE_FILE), map_location=device,
+                           weights_only=True)
+        state.load_state_dict(saved)
+        with open(os.path.join(d, _EXTRA_FILE)) as f:
+            extra = json.load(f)
+        return extra, int(step)
+
+
+def resolve_resume_path(resume: str, output_dir: str) -> Optional[str]:
+    """Map `--resume_from_checkpoint` onto a checkpoint directory: "" ->
+    None; "auto" -> output_dir; an explicit path -> that path, or its parent
+    when it names a step directory (`<dir>/<step>`, or the reference's
+    `step_<i>` / `epoch_<i>`)."""
+    if not resume:
+        return None
+    if resume == "auto":
+        return output_dir
+    resume = resume.rstrip("/")
+    base = os.path.basename(resume)
+    if base.isdigit():
+        return os.path.dirname(resume)
+    for prefix in ("step_", "epoch_"):
+        if base.startswith(prefix) and base[len(prefix):].isdigit():
+            return os.path.dirname(resume)
+    return resume

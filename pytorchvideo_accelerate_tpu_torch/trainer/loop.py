@@ -1,0 +1,325 @@
+"""The training application: epoch loop, eval, checkpoint and resume
+(a lean counterpart of the JAX package's `trainer/loop.py`).
+
+`Trainer(cfg)` builds the data (synthetic clips through the full transform
+stack), the model, the optimizer and the checkpointer; `fit()` runs the
+epochs: train steps (gradient accumulation inside the step), checkpoints
+every `checkpointing_steps` optimizer steps or every epoch plus a final
+one, an eval pass at each epoch end, and returns the JAX trainer's result
+keys with its throughput numbers (`clips_per_sec`, `steps_per_sec`,
+`input_wait_frac`). `evaluate()`, `export_inference()` and `_maybe_resume()`
+serve `run.py`'s `--eval_only`, `--export_inference` and
+`--resume_from_checkpoint`.
+
+It runs on the CUDA card unless the config asks for the CPU (`--cpu`); on a
+host without CUDA it raises. Options whose effect this slice lacks raise
+NotImplementedError naming their ROADMAP item; telemetry-only options print
+one line saying they are not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import torch
+
+from pytorchvideo_accelerate_tpu_torch.config import TrainConfig
+from pytorchvideo_accelerate_tpu_torch.data.device_prefetch import DevicePrefetcher
+from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
+    ClipLoader,
+    LoaderState,
+    SyntheticClipSource,
+)
+from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
+from pytorchvideo_accelerate_tpu_torch.models import create_model
+from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
+    Checkpointer,
+    export_inference,
+    resolve_resume_path,
+)
+from pytorchvideo_accelerate_tpu_torch.trainer.metrics import MeanLoss, SumMetrics
+from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
+    make_eval_step,
+    make_train_step,
+)
+from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+
+def _parse_checkpointing_steps(value: str):
+    """"" -> None, "epoch" -> "epoch", digits -> int ("0" -> None)."""
+    if not value:
+        return None
+    if value == "epoch":
+        return "epoch"
+    if value.isdigit():
+        return int(value) or None
+    raise ValueError(
+        f"checkpointing_steps must be a number or 'epoch', got {value!r}")
+
+
+def refuse_unported(cfg: TrainConfig) -> None:
+    """Raise NotImplementedError for options that would change what is
+    computed and that this slice of the port lacks; print one line for the
+    telemetry-only ones."""
+    d, m, o = cfg.data, cfg.model, cfg.optim
+    refused = [
+        (cfg.guard.enabled, "guard.enabled (reliability/guard.py, guard_skip)"),
+        (d.dataplane_workers > 0, "data.dataplane_workers (the dataplane)"),
+        (bool(d.cache_dir), "data.cache_dir (data/cache.py)"),
+        (not d.synthetic, "real-video data (data/decode.py, manifest.py, "
+                          "VideoClipSource; pass --synthetic)"),
+        (any(v > 1 for v in (cfg.mesh.data, cfg.mesh.model, cfg.mesh.fsdp,
+                             cfg.mesh.tensor, cfg.mesh.context,
+                             cfg.parallel.pipeline_stages)),
+         "a mesh or pipeline of more than one device (multi-GPU)"),
+        (bool(m.pretrained_path), "model.pretrained_path (the hub converter)"),
+        (o.mixup_alpha > 0 or o.cutmix_alpha > 0, "mixup/cutmix"),
+        (m.name.endswith("_pretrain"), "VideoMAE pretraining"),
+    ]
+    for bad, what in refused:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to PyTorch yet (see the port queue in "
+                "ROADMAP.md)")
+    if cfg.obs.enabled or cfg.tracking.with_tracking:
+        print("pytorchvideo_accelerate_tpu_torch: obs.* telemetry and "
+              "tracking.with_tracking are not ported yet (ROADMAP.md); "
+              "training runs without them", flush=True)
+
+
+def resolve_train_device(cfg: TrainConfig) -> torch.device:
+    if cfg.cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the PyTorch port trains on the GPU unless asked "
+            "for the CPU (--cpu)")
+    return torch.device("cuda")
+
+
+class Trainer:
+    """Builds the whole stack from a TrainConfig and runs fit()."""
+
+    def __init__(self, cfg: TrainConfig):
+        refuse_unported(cfg)
+        self.cfg = cfg
+        self.device = resolve_train_device(cfg)
+        self.checkpointing_steps = _parse_checkpointing_steps(
+            cfg.checkpoint.checkpointing_steps)
+        torch.manual_seed(cfg.seed)
+        self._build_data()
+        self._build_model_and_steps()
+        self.checkpointer: Optional[Checkpointer] = None
+        if (self.checkpointing_steps is not None
+                or cfg.checkpoint.resume_from_checkpoint):
+            ckpt_dir = os.path.join(cfg.checkpoint.output_dir, "checkpoints")
+            resume_dir = resolve_resume_path(
+                cfg.checkpoint.resume_from_checkpoint, ckpt_dir)
+            self.checkpointer = Checkpointer(
+                resume_dir or ckpt_dir, max_to_keep=cfg.checkpoint.max_to_keep)
+
+    # --- construction -----------------------------------------------------
+
+    def _build_data(self) -> None:
+        cfg, d = self.cfg, self.cfg.data
+        if d.host_cast not in ("auto", "fp32", "u8"):
+            raise ValueError(f"data.host_cast must be 'auto', 'fp32' or "
+                             f"'u8', got {d.host_cast!r}")
+        u8 = d.host_cast == "u8"
+        bf16 = cfg.mixed_precision in ("bf16", "fp16") and d.host_cast == "auto"
+        common = dict(
+            num_frames=d.num_frames,
+            is_slowfast=cfg.model.name.startswith("slowfast"),
+            slowfast_alpha=cfg.model.slowfast_alpha,
+            min_short_side_scale=d.min_short_side_scale,
+            max_short_side_scale=d.max_short_side_scale,
+            crop_size=d.crop_size, mean=d.mean, std=d.std,
+            horizontal_flip_p=d.horizontal_flip_p,
+            output_dtype="uint8" if u8 else "bfloat16" if bf16 else "float32",
+        )
+        train_tf = make_transform(training=True, **common)
+        self._device_normalize = train_tf.device_normalize
+        val_tf = make_transform(training=False,
+                                num_spatial_crops=d.eval_num_spatial_crops,
+                                **common)
+        self.num_classes = cfg.model.num_classes or 4
+        self.train_source = SyntheticClipSource(
+            train_tf, num_videos=d.synthetic_num_videos,
+            num_classes=self.num_classes, seed=cfg.seed)
+        self.val_source = SyntheticClipSource(
+            val_tf, num_videos=max(d.synthetic_num_videos // 4, 4),
+            num_classes=self.num_classes, seed=cfg.seed + 1,
+            num_clips=d.eval_num_clips)
+        loader_kw = dict(seed=cfg.seed, num_workers=d.num_workers,
+                         prefetch_batches=d.prefetch_batches,
+                         transport=d.transport)
+        self.train_loader = ClipLoader(
+            self.train_source, d.batch_size,
+            accum_steps=cfg.optim.gradient_accumulation_steps,
+            shuffle=True, drop_last=True, **loader_kw)
+        self.val_loader = ClipLoader(self.val_source, d.batch_size,
+                                     shuffle=False, drop_last=False,
+                                     **loader_kw)
+        self.train_prefetch = DevicePrefetcher(
+            self.train_loader, self.device, depth=d.device_prefetch_depth)
+        self.val_prefetch = DevicePrefetcher(
+            self.val_loader, self.device, depth=d.device_prefetch_depth)
+
+    def _build_model_and_steps(self) -> None:
+        cfg = self.cfg
+        if not cfg.model.num_classes:
+            cfg.model.num_classes = self.num_classes
+        self.model = create_model(cfg.model, cfg.mixed_precision,
+                                  seed=cfg.seed).to(self.device)
+        steps_per_epoch = self.train_loader.steps_per_epoch()
+        self.total_steps = max(steps_per_epoch * cfg.optim.num_epochs, 1)
+        optimizer = build_optimizer(
+            cfg.optim, self.total_steps, self.model.named_parameters(),
+            backbone_filter=getattr(type(self.model), "backbone_param_filter",
+                                    None),
+            freeze_backbone=cfg.model.freeze_backbone)
+        self.lr_schedule = optimizer.schedule
+        self.state = TrainState.create(self.model, optimizer,
+                                       ema_decay=cfg.optim.ema_decay)
+        self.train_step = make_train_step(
+            self.model, optimizer,
+            accum_steps=cfg.optim.gradient_accumulation_steps,
+            label_smoothing=cfg.optim.label_smoothing,
+            device_normalize=self._device_normalize,
+            ema_decay=cfg.optim.ema_decay, dropout_seed=cfg.seed)
+        self.eval_step = make_eval_step(
+            self.model, label_smoothing=cfg.optim.label_smoothing,
+            device_normalize=self._device_normalize)
+
+    # --- resume / export --------------------------------------------------
+
+    def _maybe_resume(self) -> int:
+        """Restore the latest checkpoint and the data position; returns the
+        starting epoch."""
+        if not (self.cfg.checkpoint.resume_from_checkpoint and self.checkpointer):
+            return 0
+        latest = self.checkpointer.latest_step()
+        if latest is None:
+            if self.cfg.checkpoint.resume_from_checkpoint == "auto":
+                print("resume=auto: no checkpoint found, starting fresh")
+                return 0
+            raise FileNotFoundError(
+                f"no checkpoint to resume in {self.checkpointer.directory}")
+        extra, step = self.checkpointer.restore(self.state, step=latest)
+        print(f"resumed from checkpoint step {step}")
+        data_state = LoaderState.from_dict(extra.get("data_state"))
+        self.train_loader.state = data_state
+        return data_state.epoch
+
+    def export_inference(self, path: str) -> str:
+        """Write the (EMA-resolved) serving artifact of the current state."""
+        return export_inference(
+            path, self.model, config=self.cfg,
+            meta={"num_classes": self.num_classes,
+                  "model": self.cfg.model.name},
+            step=self.state.step, params=self.state.eval_params())
+
+    def close(self) -> None:
+        self.train_loader.close()
+        self.val_loader.close()
+
+    def _save(self, kind: str, epoch: int) -> None:
+        if self.checkpointer is None:
+            return
+        self.checkpointer.save(self.state.step, self.state, {
+            "kind": kind, "epoch": epoch,
+            "data_state": self.train_loader.state.to_dict(),
+            "num_classes": self.num_classes, "model": self.cfg.model.name})
+
+    # --- eval / fit -------------------------------------------------------
+
+    def _run_eval(self, epoch: int) -> tuple:
+        """One pass over the val loader; (top1, top5, mean loss)."""
+        val = SumMetrics()
+        for i, batch in enumerate(self.val_prefetch.epoch(epoch, from_start=True)):
+            val.update(self.eval_step(self.state, batch))
+            if 0 <= self.cfg.data.limit_val_batches <= i + 1:
+                break
+        return val.accuracy(), val.accuracy_top5(), val.mean_loss()
+
+    def evaluate(self) -> dict:
+        """The validation loop once, without training (scores a resumed
+        checkpoint)."""
+        try:
+            self._maybe_resume()
+            acc, acc5, loss = self._run_eval(epoch=0)
+            print(f"evaluate: val_acc={acc:.4f} val_acc5={acc5:.4f}")
+            return {"val_accuracy": acc, "val_accuracy_top5": acc5,
+                    "val_loss": loss}
+        finally:
+            self.close()
+
+    def _log(self, pending: Optional[tuple]) -> None:
+        """Print a deferred step's metrics; its step has retired behind the
+        one just launched, so the read does not stall the card."""
+        if pending is not None:
+            gstep, m = pending
+            print(f"step {gstep}: loss={m['loss'].item():.4f} "
+                  f"lr={m['lr']:.6g} grad_norm={m['grad_norm'].item():.4f}",
+                  flush=True)
+
+    def fit(self) -> dict:
+        cfg = self.cfg
+        starting_epoch = self._maybe_resume()
+        gstep = self.state.step
+        last_val_acc = last_val_acc5 = 0.0
+        last_train_loss = float("nan")
+        last_perf: Dict[str, float] = {}
+        epoch_train_times = []
+        try:
+            for epoch in range(starting_epoch, cfg.optim.num_epochs):
+                epoch_loss = MeanLoss()
+                t_epoch = time.time()
+                steps_done = 0
+                deferred = None
+                self.train_prefetch.pop_wait()
+                for i, batch in enumerate(self.train_prefetch.epoch(epoch)):
+                    metrics = self.train_step(self.state, batch)
+                    gstep += 1
+                    steps_done += 1
+                    self._log(deferred)
+                    deferred = ((gstep, metrics)
+                                if gstep % cfg.tracking.log_every == 0 else None)
+                    epoch_loss.update(metrics["loss"])
+                    if (isinstance(self.checkpointing_steps, int)
+                            and gstep % self.checkpointing_steps == 0):
+                        self._save("step", epoch)
+                    if 0 <= cfg.data.limit_train_batches <= i + 1:
+                        break
+                last_train_loss = epoch_loss.mean()  # the epoch's one sync
+                self._log(deferred)
+                t_train = time.time() - t_epoch
+                epoch_train_times.append(t_train)
+                wait_s = self.train_prefetch.pop_wait()
+                last_val_acc, last_val_acc5, _ = self._run_eval(epoch)
+                print(f"epoch {epoch}: val_acc={last_val_acc:.4f} "
+                      f"val_acc5={last_val_acc5:.4f} "
+                      f"train_loss={last_train_loss:.4f} "
+                      f"({time.time() - t_epoch:.1f}s)", flush=True)
+                if t_train > 0 and steps_done > 0:
+                    sps = steps_done / t_train
+                    last_perf = {
+                        "steps_per_sec": sps,
+                        "clips_per_sec": sps * self.train_loader.samples_per_yield,
+                        "input_wait_s": wait_s,
+                        "input_wait_frac": min(wait_s / t_train, 1.0),
+                    }
+                if self.checkpointing_steps == "epoch":
+                    self._save("epoch", epoch)
+            self._save("final", cfg.optim.num_epochs - 1)
+        finally:
+            self.close()
+        return {"train_loss": last_train_loss, "steps": self.state.step,
+                "epoch_train_times": epoch_train_times,
+                "flops_per_step": None, "analytic_flops_per_step": None,
+                "preempted": False, **last_perf,
+                "val_accuracy": last_val_acc,
+                "val_accuracy_top5": last_val_acc5}

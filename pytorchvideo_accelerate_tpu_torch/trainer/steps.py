@@ -1,17 +1,29 @@
-"""Batch plumbing shared by evaluation and serving (a subset of the JAX
-package's `trainer/steps.py`; the train step is the next slice).
+"""Train and eval steps, and the batch plumbing they share with serving
+(counterpart of the JAX package's `trainer/steps.py`).
+
+PyTorch runs eagerly, so a "step" is a plain function over the live
+`TrainState`: forward and backward per micro-batch, the summed gradients
+divided by the accumulation count once per effective step, the optimizer
+update, the EMA. Eval metrics are masked sums (`loss_sum`, `correct`,
+`correct5`, `count`) the host adds across batches (trainer/metrics.py).
 
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
-(SlowFast packing), each clip NDHWC.
+(SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
+(1.0 = real sample, 0.0 = padding). With gradient accumulation G > 1 every
+leaf carries a leading (G, B, ...) micro-step axis.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.func import functional_call
 
+from pytorchvideo_accelerate_tpu_torch.models.heads import ResBasicHead
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
+from pytorchvideo_accelerate_tpu_torch.trainer.optim import global_norm
 
 
 def model_inputs(batch: dict):
@@ -67,3 +79,115 @@ def multiview_logits(forward: Callable, inputs):
         logits = f32_island(logits).reshape(
             -1, num_views, logits.shape[-1]).mean(dim=1)
     return logits
+
+
+def _loss_and_metrics(logits, labels, mask, label_smoothing: float):
+    """Masked mean softmax cross-entropy over f32 logits (labels smoothed to
+    onehot * (1 - a) + a / K), and the masked top-1 hit count and count."""
+    logits = f32_island(logits)
+    num_classes = logits.shape[-1]
+    onehot = F.one_hot(labels.long(), num_classes).to(torch.float32)
+    if label_smoothing > 0:
+        onehot = onehot * (1.0 - label_smoothing) + label_smoothing / num_classes
+    losses = -(onehot * F.log_softmax(logits, dim=-1)).sum(dim=-1)
+    count = mask.sum()
+    loss = (losses * mask).sum() / torch.clamp_min(count, 1.0)
+    correct = ((logits.argmax(dim=-1) == labels) * mask).sum()
+    return loss, correct, count
+
+
+def _topk_correct(logits, labels, mask, k: int = 5):
+    """Masked top-k hit count (Kinetics reports top-1 and top-5)."""
+    k = min(k, logits.shape[-1])
+    top = f32_island(logits).topk(k, dim=-1).indices
+    hit = (top == labels[..., None].long()).any(dim=-1)
+    return (hit * mask).sum()
+
+
+def _mask_of(batch: dict) -> torch.Tensor:
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(batch["label"].shape, dtype=torch.float32,
+                          device=batch["label"].device)
+    return mask
+
+
+def make_train_step(model, optimizer, accum_steps: int = 1,
+                    label_smoothing: float = 0.0, device_normalize=None,
+                    ema_decay: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> Callable:
+    """Build `step(state, batch) -> metrics`. One call is one optimizer
+    step: forward + backward per micro-batch in order (the BN running
+    averages thread through them), the summed grads divided by
+    `accum_steps`, then the update and the EMA. `metrics`: "loss" (mean over
+    micro-steps), "grad_norm" (global norm of the averaged grads, before
+    clipping), "accuracy" (device scalars) and "lr" (the schedule at the
+    step before the update, a float). `dropout_seed`: the heads' dropout
+    generators are reseeded from (seed, step) at every step."""
+    named = dict(model.named_parameters())
+    params = [p for p in named.values() if p.requires_grad]
+    heads = [m for m in model.modules() if isinstance(m, ResBasicHead)]
+
+    def forward_loss(batch: dict):
+        batch = device_normalize_batch(batch, device_normalize)
+        logits = model(model_inputs(batch))
+        return _loss_and_metrics(logits, batch["label"], _mask_of(batch),
+                                 label_smoothing)
+
+    def step(state, batch: dict) -> dict:
+        model.train()
+        if dropout_seed is not None:
+            for h in heads:
+                h.reseed((dropout_seed * 1_000_003 + state.step) % 2 ** 63)
+        for p in params:
+            p.grad = None
+        losses, corrects, counts = [], [], []
+        for i in range(accum_steps):
+            mb = batch if accum_steps == 1 else {k: v[i] for k, v in batch.items()}
+            loss, correct, count = forward_loss(mb)
+            loss.backward()
+            losses.append(loss.detach())
+            corrects.append(correct)
+            counts.append(count)
+        grads = [p.grad for p in params if p.grad is not None]
+        if accum_steps > 1:
+            torch._foreach_div_(grads, float(accum_steps))
+        grad_norm = global_norm(grads)
+        lr = optimizer.schedule(state.step)
+        optimizer.step(state.step)
+        if ema_decay > 0 and state.ema is not None:
+            ema = list(state.ema.values())
+            live = [named[k].detach() for k in state.ema]
+            torch._foreach_mul_(ema, ema_decay)
+            torch._foreach_add_(ema, live, alpha=1.0 - ema_decay)
+        state.step += 1
+        correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
+        return {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
+                "accuracy": correct / torch.clamp_min(count, 1.0), "lr": lr}
+
+    return step
+
+
+def make_eval_step(model, label_smoothing: float = 0.0,
+                   device_normalize=None) -> Callable:
+    """Build `eval_step(state, batch) -> {loss_sum, correct, correct5,
+    count}` (device scalars): the model in eval mode, the EMA weights when
+    the state carries them (BN running averages stay the live ones), views
+    folded into the batch and their logits averaged (`multiview_logits`)."""
+
+    def eval_step(state, batch: dict) -> dict:
+        model.eval()
+        with torch.no_grad():
+            batch = device_normalize_batch(batch, device_normalize)
+            mask = _mask_of(batch)
+            ema = state.eval_params()
+            forward = model if ema is None else (
+                lambda x: functional_call(model, ema, (x,)))
+            logits = multiview_logits(forward, model_inputs(batch))
+            loss, correct, count = _loss_and_metrics(
+                logits, batch["label"], mask, label_smoothing)
+            return {"loss_sum": loss * count, "correct": correct,
+                    "correct5": _topk_correct(logits, batch["label"], mask),
+                    "count": count}
+
+    return eval_step

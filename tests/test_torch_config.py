@@ -4,7 +4,8 @@
   the port, and an artifact's `meta.json["config"]` loads the same way on
   both sides.
 - No module of the port and nothing in `chip_smoke.py` imports jax, flax,
-  optax, orbax or the JAX package (an AST walk, so nothing is executed).
+  optax, orbax, chex, ml_dtypes, cv2 or the JAX package (an AST walk, so
+  nothing is executed); the card's machine has none of them.
 """
 
 import ast
@@ -17,8 +18,8 @@ from pytorchvideo_accelerate_tpu_torch import config as tcfg
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "pytorchvideo_accelerate_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "pytorchvideo_accelerate_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "ml_dtypes",
+             "cv2", "pytorchvideo_accelerate_tpu")
 
 ARGVS = [
     [],

@@ -9,7 +9,13 @@ JAX conftest:
 
 Tolerance: both versions multiply bf16 operands exactly, accumulate in f32
 and round once to bf16, so they differ by about one bf16 ulp plus the f32
-summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|).
+summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|). The
+backward's dx launch is held to the same bound against the plain dx on the
+same bf16 dz; dw and db are f32 contractions that the kernel path and the
+plain path compute alike (2e-3 relative). A tiny3d training micro-step
+through the kernels against the plain lowering (`xla`, TF32 off): loss
+within 5e-2 * (1 + |loss|), the whole gradient within 5e-2 relative
+(every layer rounds to bf16 in another summation order).
 """
 
 import numpy as np
@@ -69,6 +75,83 @@ def test_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
     _check(got, want)
     name = "fused_pw_bn_act" if taps == (1, 1, 1) else "fused_conv_bn_act"
     assert fused.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("act", ["identity", "relu"])
+@pytest.mark.parametrize("shape,cin,cout,taps", [
+    ((2, 3, 5, 7), 8, 24, (1, 1, 1)),      # Cin 8, ragged M
+    ((1, 2, 3, 5), 12, 10, (1, 1, 1)),     # Cin, Cout not multiples of 8
+    ((2, 5, 6, 7), 8, 8, (3, 1, 1)),       # fast conv_a: dx Cout' = 8
+    ((1, 3, 9, 10), 64, 32, (1, 3, 3)),    # conv_b
+    ((1, 5, 7, 6), 12, 20, (3, 3, 3)),     # scalar gather path both ways
+])
+def test_backward_dx_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
+    x, w, s, b = _inputs(shape, cin, cout, taps, 1, cuda)
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        shape + (cout,), np.float32)).to(cuda, torch.bfloat16)
+    grads = {}
+    for mode in ("pallas", "xla"):
+        xr = x.clone().requires_grad_()
+        wr = w.float().requires_grad_()
+        sr, br = s.clone().requires_grad_(), b.clone().requires_grad_()
+        y = fused.fused_conv3d_bn_act(xr, wr.bfloat16(), sr, br, act=act,
+                                      mode=mode)
+        key = ("fused_pw_bn_act" if taps == (1, 1, 1)
+               else "fused_conv_bn_act") + ".bwd_dx"
+        before = fused.LAUNCHES[key]
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES[key] == before + (mode == "pallas")
+        grads[mode] = [t.grad for t in (xr, wr, sr, br)]
+    _check(grads["pallas"][0], grads["xla"][0])
+    for got, want in zip(grads["pallas"][1:], grads["xla"][1:]):
+        err = (got - want).abs().max().item()
+        assert err <= 2e-3 * (1 + want.abs().max().item()), err
+
+
+def test_tiny3d_train_micro_step_kernels_match_plain(cuda):
+    from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
+        _loss_and_metrics,
+    )
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 8, 64, 64, 3), np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 5, 4)).to(cuda)
+    out = {}
+    for mode in ("auto", "xla"):
+        model = create_model(ModelConfig(name="tiny3d", num_classes=5,
+                                         fused_kernels=mode, dropout_rate=0.0),
+                             "bf16", seed=1).to(cuda).train()
+        before = dict(fused.LAUNCHES)
+        loss, _, _ = _loss_and_metrics(model(x), labels,
+                                       torch.ones(4, device=cuda), 0.0)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        out[mode] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]),
+                     launched)
+    (lk, gk, nk), (lp, gp, np_) = out["auto"], out["xla"]
+    assert abs(lk - lp) <= 5e-2 * (1 + abs(lp))
+    assert ((gk - gp).norm() / gp.norm()).item() <= 5e-2
+    # every fused site launched its kernel once forward and once for dx
+    assert nk["fused_pw_bn_act"] == nk["fused_pw_bn_act.bwd_dx"] > 0
+    assert nk["fused_conv_bn_act"] == nk["fused_conv_bn_act.bwd_dx"] > 0
+    assert not any(np_.values())
+
+
+def test_float32_training_raises_on_the_card(cuda):
+    """The kernels are bf16-only in the backward too: an f32 training step
+    with the fused lowering raises TypeError before any launch."""
+    from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+
+    model = create_model(ModelConfig(name="tiny3d", num_classes=5,
+                                     fused_kernels="auto"), "fp32").to(cuda)
+    x = torch.zeros((2, 4, 32, 32, 3), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        model(x).sum().backward()
 
 
 def test_float32_raises_on_the_card(cuda):

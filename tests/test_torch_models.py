@@ -109,7 +109,7 @@ def test_state_dict_maps_jax_tree_one_to_one(name):
 @pytest.mark.parametrize("jax_fused", ["xla", "off"])
 @pytest.mark.parametrize("name", ["slowfast_t", "tiny3d"])
 def test_eval_logits_match_jax(name, jax_fused, port_fused):
-    model = _torch_model(name, port_fused)
+    model = _torch_model(name, port_fused).eval()
     model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
                            state_dict_from_jax(_seeded_tree(name)).items()})
     x = _inputs(name)
@@ -162,6 +162,27 @@ def test_bad_fused_mode_raises():
 
 
 def test_train_mode_is_the_next_slice():
-    model = _torch_model("tiny3d", "auto").train()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        model(torch.from_numpy(_inputs("tiny3d")))
+    """Train mode, the slice after serving, runs now: it normalises with
+    batch statistics and moves every BN running average by flax's momentum
+    (0.9 old + 0.1 batch); `create_model` leaves the mode to the caller."""
+    model = _torch_model("tiny3d", "auto")
+    assert model.training
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if "running" in k}
+    x = torch.from_numpy(_inputs("tiny3d"))
+    train_logits = model(x)
+    after = model.state_dict()
+    assert all(not torch.equal(after[k], v) for k, v in before.items())
+    stem = model.stem
+    with torch.no_grad():
+        raw = torch.nn.functional.conv3d(
+            x.permute(0, 4, 1, 2, 3), stem.conv.weight, None, stem.stride,
+            stem.conv.padding).permute(0, 2, 3, 4, 1)
+    mean = raw.mean(dim=(0, 1, 2, 3))
+    np.testing.assert_allclose(
+        after["stem.norm.running_mean"].numpy(),
+        0.9 * before["stem.norm.running_mean"].numpy() + 0.1 * mean.numpy(),
+        atol=1e-5)
+    with torch.no_grad():
+        eval_logits = model.eval()(x)
+    assert not torch.allclose(train_logits, eval_logits)
