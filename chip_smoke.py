@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch port: serve and train full-width SlowFast-R50
-on one GPU.
+"""Chip smoke of the PyTorch port: serve and train full-width SlowFast-R50,
+serve and train full-width X3D-M, and serve CSN-R101, on one GPU.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
 Drives the port only (no JAX), one JSON line per phase:
 
 1. device   the card, and its name and power limit from nvidia-smi
-2. build    both fused kernels compiled from ops/csrc with nvcc
+2. build    the kernels compiled from ops/csrc with nvcc, one process each
 3. weights  seeded SlowFast-R50 weights (K700 head), BN running stats
             calibrated to the real batch statistics, head classes 0-4
             planted on the 5 request clips (`plant_head`), written as an
@@ -34,14 +34,48 @@ Drives the port only (no JAX), one JSON line per phase:
             PyTorch (`train_parity_phase`)
 10. train_timing  ms per micro-step through the kernels, unfused and
             plain; peak memory; a profiled micro-step
+11. x3d_weights, csn_weights  the same seeded, calibrated, planted
+            artifacts for X3D-M (16 frames at 224^2) and CSN-R101 (32 frames
+            at 224^2), and the site shapes of one plain bucket-8 (X3D-M) and
+            bucket-4 (CSN) forward
+12. kernels (dw)  the depthwise kernel (`csrc/depthwise3d.cu`) through both
+            entry points, forward and dx, at every distinct depthwise site
+            shape of those two forwards: `fused_dw_bn_act` against
+            `dw_bn_act_plain`, `depthwise3d_s1` against
+            `depthwise_conv3d_shift`; library: one bf16 `F.conv3d(groups=C)`
+            (+ bias + act) and `conv3d_input(groups=C)`; then the pointwise
+            kernel at X3D-M's sites (widths 24 and 54 take its scalar path)
+13. x3d_serve  `build_server` serves the X3D-M artifact to 5 /predict
+            requests with `{"video": ...}` under `fused_kernels auto`: 53
+            pointwise and 23 depthwise launches per forward
+            (`expected_forward_launches`); logits against the plain path;
+            then forward times and profiles (kernels, plain, unfused cuDNN
+            grouped conv, `depthwise_impl pallas`)
+14. x3d_depthwise_impl  an X3D-M engine with `fused_kernels off,
+            depthwise_impl pallas` runs bucket 8: 23 `depthwise3d_s1`
+            launches; logits against `depthwise_impl shift`
+15. x3d_train  `run.main` trains X3D-M (B=8, 16 frames at 224^2, bf16) for
+            2 steps with a checkpoint each step, counters checked as in 8,
+            the step-1 checkpoint restored bitwise, the export served; then
+            one step of `run.main` with `fused_kernels off, depthwise_impl
+            pallas` (row 4 forward and dx on the training path)
+16. x3d_train_parity, x3d_train_timing  one B=8 micro-step with the
+            forward held fixed, through rows 1+3 (`auto`) and through row 4
+            (`off` + `depthwise_impl pallas`), against plain autograd; ms
+            per micro-step of each lowering, peak memory, a profile
+17. csn_serve  the engine runs one CSN-R101 bucket-4 forward under `auto`:
+            67 pointwise and 30 depthwise launches; logits against the
+            plain path; forward times
 
-Then the kernels' JSON line (its ms, plain_ms, library_ms and bound_ms are
-summed over the kernel's launches in one bucket-8 forward, for a dx row
-over the dx launches of one B=8 micro-step; launches are the serve
-phase's, for a dx row the train phase's), the nvidia-smi line, and as the
-last line
-{"ok": true, "device": {...}}. Any failed check raises: the script exits
-non-zero and prints no result. It exits non-zero at once without CUDA.
+Then the kernels' JSON line (8 entries; its ms, plain_ms, library_ms and
+bound_ms are summed over the kernel's launches in one bucket-8 forward of
+the model that carries it, SlowFast-R50 for the pointwise and conv kernels,
+X3D-M for the depthwise ones; for a dx row over the dx launches of one B=8
+micro-step; launches are those of the main-path phase that runs the
+kernel: serve, train, x3d_serve, x3d_depthwise_impl and x3d_train), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
+failed check raises: the script exits non-zero and prints no result. It
+exits non-zero at once without CUDA.
 
 Tolerances. Kernel vs plain version: both multiply bf16 operands exactly,
 sum in f32 and round once to bf16, so elementwise
@@ -49,8 +83,8 @@ sum in f32 and round once to bf16, so elementwise
 every layer rounds to bf16 (relative 2^-9) in a different summation order,
 compounded over ~50 layers: |served - plain| <= 5e-2 * (1 + |plain|), and
 top-1 must agree wherever the plain top-1 margin exceeds 2 * 5e-2 * (1 +
-|top logit|). The training loss, the head's gradient, and (with the
-forward held fixed) the whole gradient and one SGD update: within 5e-2
+|top logit|). The training loss, the head's gradient (SlowFast), and (with
+the forward held fixed) the whole gradient and one SGD update: within 5e-2
 (the gradients relative in the 2-norm).
 """
 
@@ -75,12 +109,30 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 1e-2
 LOGIT_TOL = 5e-2
 PLANTED_LOGIT = 6.0
+# scale of each residual branch's final BN (`conv_c.norm.weight`) in the
+# seeded serving weights: the X3D and SlowFast training recipes zero-init it
+# (ZERO_INIT_FINAL_BN). At the full scale, bf16 rounding grows with depth
+# in these random nets: X3D-M's conv5 output drifts ~50% from an f32 run of
+# the same weights (a CPU run at 8x112^2), at 0.1 ~3%
+RESIDUAL_BN_SCALE = 0.1
 PW_PER_FORWARD, CONV_PER_FORWARD = 41, 51
 SITES_PER_FORWARD = {"fused_pw_bn_act": PW_PER_FORWARD,
                      "fused_conv_bn_act": CONV_PER_FORWARD}
-# the train phase: run.main on the reference recipe's geometry
-TRAIN_BATCH, ACCUM, EPOCHS, TRAIN_VIDEOS, CKPT_EVERY = 8, 4, 2, 64, 2
+# the depthwise slice: X3D-M and CSN-R101 (models/x3d.py, models/csn.py)
+X3D_DEPTHS, CSN_DEPTHS = (3, 5, 11, 7), (3, 4, 23, 3)
+CSN_BUCKET = 4
+# (frames, crop) each model is served and trained at
+GEOMETRY = {"slowfast_r50": (FRAMES, CROP), "x3d_m": (16, 224),
+            "csn_r101": (32, 224)}
+# the train phases: run.main on the reference recipe's geometry for
+# SlowFast-R50; two steps of B=8 with a checkpoint each step for X3D-M
+SLOWFAST_TRAIN = dict(name="slowfast_r50", batch=8, accum=4, epochs=2,
+                      videos=64, ckpt_every=2)
+X3D_TRAIN = dict(name="x3d_m", batch=8, accum=1, epochs=1, videos=16,
+                 ckpt_every=1)
+TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
+DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
 # main-path sites reported by name: module path -> label
 NAMED_SITES = {
     "slow_res2.block1.conv_c": "slow res2 conv_c 64->256",
@@ -90,6 +142,7 @@ NAMED_SITES = {
     "slow_res5.block1.conv_b": "slow res5 conv_b (1,3,3) 512->512",
     "slow_res4.block1.conv_a": "slow res4 conv_a (3,1,1) 1024->256",
 }
+_DW_SRC = "pytorchvideo_accelerate_tpu_torch/ops/csrc/depthwise3d.cu"
 SOURCES = {
     "fused_pw_bn_act": ("pytorchvideo_accelerate_tpu_torch/ops/csrc/fused_pw_bn_act.cu",
                         "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:123"),
@@ -101,7 +154,20 @@ SOURCES = {
                                "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:162"),
     "fused_conv_bn_act.bwd_dx": ("pytorchvideo_accelerate_tpu_torch/ops/csrc/fused_conv_bn_act.cu",
                                  "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:252"),
+    # the depthwise stencil's two entry points and their dx launches
+    # (ops/fused.py DwBnAct, ops/depthwise.py Depthwise3dS1)
+    "fused_dw_bn_act": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:286"),
+    "fused_dw_bn_act.bwd_dx": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:350"),
+    "depthwise3d_s1": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_depthwise.py:58"),
+    "depthwise3d_s1.bwd_dx": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_depthwise.py:157"),
 }
+# per kernel of the kernels line: the model whose bucket-8 forward (and B=8
+# micro-step, for dx) its times are summed over, and the main-path phases
+# whose launches it reports (forward, dx)
+LINE = {"fused_pw_bn_act": ("slowfast_r50", "serve", "train"),
+        "fused_conv_bn_act": ("slowfast_r50", "serve", "train"),
+        "fused_dw_bn_act": ("x3d_m", "x3d_serve", "x3d_train"),
+        "depthwise3d_s1": ("x3d_m", "x3d_depthwise_impl", "x3d_train_depthwise_impl")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -158,32 +224,58 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def serve_cfg(parse_cli, fused: str):
+def serve_cfg(parse_cli, fused: str, name: str = "slowfast_r50",
+              impl: str = "conv", bucket: int = BUCKET):
+    frames, crop = GEOMETRY[name]
     return parse_cli([
-        "--model.name", "slowfast_r50", "--model.num_classes", str(NUM_CLASSES),
-        "--model.fused_kernels", fused, "--num_frames", str(FRAMES),
-        "--data.crop_size", str(CROP), "--slowfast_alpha", str(ALPHA),
-        "--data.host_cast", "u8", "--mixed_precision", "bf16",
-        "--serve.max_batch_size", str(BUCKET)])
+        "--model.name", name, "--model.num_classes", str(NUM_CLASSES),
+        "--model.fused_kernels", fused, "--model.depthwise_impl", impl,
+        "--num_frames", str(frames), "--data.crop_size", str(crop),
+        "--slowfast_alpha", str(ALPHA), "--data.host_cast", "u8",
+        "--mixed_precision", "bf16", "--serve.max_batch_size", str(bucket)])
+
+
+def u8_clips(rng, name: str, n: int) -> dict:
+    """n seeded u8 noise clips at `name`'s serving geometry, NDHWC."""
+    frames, crop = GEOMETRY[name]
+    if name.startswith("slowfast"):
+        return {"slow": rng.integers(0, 256, (n, frames // ALPHA, crop, crop, 3), np.uint8),
+                "fast": rng.integers(0, 256, (n, frames, crop, crop, 3), np.uint8)}
+    return {"video": rng.integers(0, 256, (n, frames, crop, crop, 3), np.uint8)}
+
+
+def bucket_batch(clips, bucket: int) -> dict:
+    """The request clips stacked and padded with copies of the first to
+    `bucket` rows."""
+    return {k: np.stack([c[k] for c in clips] + [clips[0][k]] * (bucket - len(clips)))
+            for k in clips[0]}
 
 
 def seeded_state_dict(model, rng):
-    """He-scaled conv weights, BN affine near identity, head std 1/sqrt(in)."""
+    """He-scaled conv weights (fan-in = in-channels x taps), BN affine near
+    identity (a residual branch's final BN scale times RESIDUAL_BN_SCALE),
+    Linear weights std 1/sqrt(in), zero Linear and conv biases, running
+    statistics 0 and 1."""
+    sd = model.state_dict()
     out = {}
-    for name, t in model.state_dict().items():
+    for name, t in sd.items():
         shape = tuple(t.shape)
-        if name.endswith("conv.weight"):
+        stem, leaf = name.rsplit(".", 1)
+        bn = f"{stem}.running_var" in sd
+        if leaf == "weight" and len(shape) == 5:
             fan_in = int(np.prod(shape[1:]))
             v = rng.standard_normal(shape, np.float32) * np.sqrt(2.0 / fan_in)
-        elif name == "head.proj.weight":
+        elif leaf == "weight" and len(shape) == 2:
             v = rng.standard_normal(shape, np.float32) / np.sqrt(shape[1])
-        elif name.endswith("norm.weight"):
+        elif leaf == "weight" and bn:
             v = rng.uniform(0.8, 1.2, shape).astype(np.float32)
-        elif name.endswith("norm.bias"):
+            if stem.endswith("conv_c.norm"):
+                v *= RESIDUAL_BN_SCALE
+        elif leaf == "bias" and bn:
             v = rng.standard_normal(shape, np.float32) * 0.05
-        elif name == "head.proj.bias" or name.endswith("running_mean"):
+        elif leaf in ("bias", "running_mean"):
             v = np.zeros(shape, np.float32)
-        elif name.endswith("running_var"):
+        elif leaf == "running_var":
             v = np.ones(shape, np.float32)
         else:
             raise KeyError(f"no seeding rule for {name}")
@@ -191,14 +283,26 @@ def seeded_state_dict(model, rng):
     return out
 
 
+def head_proj(model):
+    """The classifier's final Linear (`head.proj`, or X3D's `proj`)."""
+    return model.head.proj if hasattr(model, "head") else model.proj
+
+
+def device_inputs(torch, clips: dict, norm):
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
+        device_normalize_batch,
+        model_inputs,
+    )
+
+    return model_inputs(device_normalize_batch(
+        {k: torch.from_numpy(v).cuda() for k, v in clips.items()}, norm))
+
+
 def calibrate_bn(torch, model, clips, norm):
     """Set every BN's running stats to the batch statistics of its input on
     `clips` (one unfused bf16 forward), so activations stay O(1) through
     the ~50 layers and the logits are not all ~0."""
     from pytorchvideo_accelerate_tpu_torch.models.common import BNAffine
-    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
-        device_normalize_batch,
-    )
 
     def hook(bn, args):
         x = args[0].float()
@@ -209,9 +313,7 @@ def calibrate_bn(torch, model, clips, norm):
                for m in model.modules() if isinstance(m, BNAffine)]
     try:
         with torch.inference_mode():
-            b = device_normalize_batch(
-                {k: torch.from_numpy(v).cuda() for k, v in clips.items()}, norm)
-            model((b["slow"], b["fast"]))
+            model(device_inputs(torch, clips, norm))
     finally:
         for h in handles:
             h.remove()
@@ -223,19 +325,13 @@ def plant_head(torch, model, clips, norm, logit: float = PLANTED_LOGIT):
     `logit` on class i (a nearest-mean classifier over the clips). The other
     rows stay random, so each request has an input-dependent top-1 with a
     margin the top-1 check can hold the served path to."""
-    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
-        device_normalize_batch,
-    )
-
     feats = []
-    handle = model.head.proj.register_forward_pre_hook(
+    proj = head_proj(model)
+    handle = proj.register_forward_pre_hook(
         lambda mod, args: feats.append(args[0].float().cpu().numpy()))
     try:
         with torch.inference_mode():
-            b = device_normalize_batch(
-                {k: torch.from_numpy(np.stack([c[k] for c in clips])).cuda()
-                 for k in ("slow", "fast")}, norm)
-            model((b["slow"], b["fast"]))
+            model(device_inputs(torch, bucket_batch(clips, len(clips)), norm))
     finally:
         handle.remove()
     f = feats[0].astype(np.float64)
@@ -244,8 +340,88 @@ def plant_head(torch, model, clips, norm, logit: float = PLANTED_LOGIT):
     rows = logit * d / (d * d).sum(axis=1, keepdims=True)
     n = len(clips)
     with torch.no_grad():
-        model.head.proj.weight[:n].copy_(torch.from_numpy(rows))
-        model.head.proj.bias[:n].copy_(torch.from_numpy(-(rows @ mean)))
+        proj.weight[:n].copy_(torch.from_numpy(rows))
+        proj.bias[:n].copy_(torch.from_numpy(-(rows @ mean)))
+
+
+def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
+                  bucket: int = BUCKET):
+    """Seeded `name` weights, BN calibrated on 2 noise clips, head classes
+    planted on `requests` request clips, exported with the port's
+    `export_inference`. Returns (artifact path, its state, the clips, the
+    normalisation, the parameter count)."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
+        export_inference,
+        load_inference,
+    )
+
+    art = os.path.join(work, f"{name}_artifact")
+    cfg = serve_cfg(parse_cli, "auto", name, bucket=bucket)
+    norm = (cfg.data.mean, cfg.data.std)
+    calib = create_model(serve_cfg(parse_cli, "off", name).model, "bf16").eval()
+    state = seeded_state_dict(calib, rng)
+    calib.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    calib.cuda()
+    calibrate_bn(torch, calib, u8_clips(rng, name, 2), norm)
+    # requests: distinct seeded u8 clips at the serving geometry
+    clips = [{k: v[0] for k, v in u8_clips(rng, name, 1).items()}
+             for _ in range(requests)]
+    plant_head(torch, calib, clips, norm)
+    export_inference(art, calib, cfg, meta={"num_classes": NUM_CLASSES,
+                                            "model": name})
+    del calib
+    state, _ = load_inference(art)
+    n_params = int(sum(v.size for k, v in state.items()
+                       if not k.endswith(("running_mean", "running_var"))))
+    return art, state, clips, norm, n_params
+
+
+def make_engine(torch, name: str, state, norm, fused: str, impl: str = "conv",
+                bucket: int = BUCKET):
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
+
+    return InferenceEngine(
+        create_model(serve_cfg(parse_cli, fused, name, impl).model, "bf16"),
+        state, num_classes=NUM_CLASSES, max_batch_size=bucket,
+        device_normalize=norm, input_dtype="uint8", model_name=name)
+
+
+def expected_forward_launches(name: str) -> dict:
+    """Kernel launches of one eval forward under `fused_kernels auto`, from
+    the code. SlowFast-R50: 41 pointwise and 51 odd-tap conv sites. X3D
+    (models/x3d.py): every block's conv_a and conv_c and conv5 are pointwise
+    sites (branch1 is never fused); every block's conv_b but a stage's
+    strided first, and stem_t, are depthwise sites. CSN (models/csn.py):
+    every block's conv_a and conv_c, and res2 block0's stride-1 branch1 (a
+    width change), are pointwise; every conv_b but the strided res3-res5
+    entries is depthwise."""
+    if name == "slowfast_r50":
+        return dict(SITES_PER_FORWARD)
+    if name == "x3d_m":
+        blocks = sum(X3D_DEPTHS)
+        return {"fused_pw_bn_act": 2 * blocks + 1,
+                "fused_dw_bn_act": blocks - len(X3D_DEPTHS) + 1}
+    blocks = sum(CSN_DEPTHS)
+    return {"fused_pw_bn_act": 2 * blocks + 1,
+            "fused_dw_bn_act": blocks - (len(CSN_DEPTHS) - 1)}
+
+
+def expected_depthwise_impl_launches() -> dict:
+    """`depthwise3d_s1` launches of one X3D-M eval forward under
+    `fused_kernels off, depthwise_impl pallas`: the stride-1 odd-tap
+    depthwise sites, the same set as the fused ones."""
+    return {"depthwise3d_s1": expected_forward_launches("x3d_m")["fused_dw_bn_act"]}
+
+
+def check_launches(launches: dict, per_forward: dict, forwards: int,
+                   what: str) -> None:
+    want = {k: per_forward.get(k, 0) * forwards for k in SOURCES}
+    check(all(launches[k] == want[k] for k in SOURCES),
+          f"{what}: launches {launches}, expected {want} over {forwards} forwards")
 
 
 def record_sites(torch, model, run):
@@ -271,6 +447,26 @@ def record_sites(torch, model, run):
     finally:
         for h in handles:
             h.remove()
+    return sites
+
+
+def record_dw_sites(run):
+    """[(NDHWC input shape, taps shape, act)] of every fused depthwise site
+    that `run()` goes through under `fused_kernels xla`, in call order."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    sites = []
+    plain = fused.dw_bn_act_plain
+
+    def recording(x, kf, bias32, act):
+        sites.append((tuple(x.shape), tuple(kf.shape), act))
+        return plain(x, kf, bias32, act)
+
+    fused.dw_bn_act_plain = recording
+    try:
+        run()
+    finally:
+        fused.dw_bn_act_plain = plain
     return sites
 
 
@@ -306,10 +502,21 @@ def site_bound(x_shape, w_shape):
     return flops, nbytes
 
 
-def _kernel_row(torch, kname, names, x_shape, w_shape, act, kern, plain,
-                library, bound_x, bound_w) -> dict:
+def dw_site_bound(x_shape, k_shape, bias: bool):
+    """(flops, bytes) of a stride-1 SAME depthwise site: a multiply-add per
+    tap inside the volume, x read and the output written once (both bf16,
+    the same shape), the bf16 taps and the f32 bias read once."""
+    b, t, h, w, c = x_shape
+    kt, kh, kw = k_shape[:3]
+    taps = inside_taps(kt, t) * inside_taps(kh, h) * inside_taps(kw, w)
+    nbytes = 2.0 * (2 * b * t * h * w * c + kt * kh * kw * c) + (4.0 * c if bias else 0.0)
+    return 2.0 * b * taps * c, nbytes
+
+
+def _kernel_row(torch, kname, model, names, x_shape, w_shape, act, kern,
+                plain, library, bound, reps: int = 20) -> dict:
     """Hold `kern()` against `plain()` and time kernel, plain and library
-    (device time); the bound is `site_bound(bound_x, bound_w)`."""
+    (device time); `bound` is the site's (flops, bytes)."""
     got = kern().float()
     want = plain().float()
     torch.cuda.synchronize()
@@ -319,12 +526,14 @@ def _kernel_row(torch, kname, names, x_shape, w_shape, act, kern, plain,
     max_err = err.max().item()
     check(excess <= 0, f"{names[0]} ({kname} {x_shape} {w_shape} {act}): "
           f"max_abs_err {max_err} over tolerance")
-    kernel_ms = device_ms(torch, kern)
-    plain_ms = device_ms(torch, plain)
-    library_ms = device_ms(torch, library)
-    flops, nbytes = site_bound(bound_x, bound_w)
+    del got, want, err
+    kernel_ms = device_ms(torch, kern, reps)
+    plain_ms = device_ms(torch, plain, reps)
+    library_ms = device_ms(torch, library, reps)
+    flops, nbytes = bound
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    row = {"kernel": kname, "sites": names, "per_forward": len(names),
+    row = {"kernel": kname, "model": model, "sites": names,
+           "per_forward": len(names),
            "x": list(x_shape), "w": list(w_shape), "act": act,
            "max_abs_err": max_err, "tolerance": f"{KERNEL_TOL}*(1+|plain|)",
            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -336,11 +545,11 @@ def _kernel_row(torch, kname, names, x_shape, w_shape, act, kern, plain,
     return row
 
 
-def kernel_phase(torch, sites):
-    """Hold each kernel against its plain version at every site shape and
-    time kernel, plain and library versions there: the forward launch, and
-    the backward's dx launch (the same kernel against the transposed,
-    for a conv tap-flipped, weights on a bf16 dz)."""
+def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
+    """Hold each kernel against its plain version at every site shape of
+    `model` and time kernel, plain and library versions there: the forward
+    launch, and the backward's dx launch (the same kernel against the
+    transposed, for a conv tap-flipped, weights on a bf16 dz)."""
     import torch.nn.functional as F
 
     from pytorchvideo_accelerate_tpu_torch.ops import fused
@@ -388,20 +597,87 @@ def kernel_phase(torch, sites):
                    lambda: fused.conv_bn_act_plain(dz, wt, zeros, "identity"),
                    lambda: torch.nn.grad.conv3d_input(
                        (b, cin, t, h, w), wc, dzc, padding=pads))
-        rows.append(_kernel_row(torch, kname, names, x_shape, w_shape, act,
-                                *fwd, x_shape, w_shape))
+        rows.append(_kernel_row(torch, kname, model, names, x_shape, w_shape,
+                                act, *fwd, site_bound(x_shape, w_shape), reps))
         # dx: the same stencil with Cin and Cout swapped
-        rows.append(_kernel_row(torch, kname + ".bwd_dx", names, x_shape,
-                                w_shape, "identity", *bwd,
-                                (b, t, h, w, cout), (kt, kh, kw, cout, cin)))
-    for label_site in NAMED_SITES:
-        check(label_site in sites, f"named site {label_site} not on the path")
+        rows.append(_kernel_row(torch, kname + ".bwd_dx", model, names,
+                                x_shape, w_shape, "identity", *bwd,
+                                site_bound((b, t, h, w, cout),
+                                           (kt, kh, kw, cout, cin)), reps))
+    if model == "slowfast_r50":
+        for label_site in NAMED_SITES:
+            check(label_site in sites, f"named site {label_site} not on the path")
+    return rows
+
+
+def dw_kernel_phase(torch, model: str, sites, reps: int = DW_REPS):
+    """The depthwise kernel at every distinct depthwise site shape of
+    `model`'s forward (`record_dw_sites`), through both entry points,
+    forward and the backward's dx (the stencil against the tap-flipped taps
+    on a bf16 dz), each held against its plain version and timed beside
+    its library call (one bf16 cuDNN `F.conv3d(groups=C)`, + bias + act for
+    `fused_dw_bn_act`; `conv3d_input(groups=C)` for dx)."""
+    import torch.nn.functional as F
+
+    from pytorchvideo_accelerate_tpu_torch.ops import depthwise, fused
+
+    rng = np.random.default_rng(SEED + 5)
+    fused_keys, s1_keys = {}, {}
+    for i, (x_shape, k_shape, act) in enumerate(sites):
+        name = f"{model} dw site {i}"
+        fused_keys.setdefault((x_shape, k_shape, act), []).append(name)
+        s1_keys.setdefault((x_shape, k_shape), []).append(name)
+    rows = []
+    for (x_shape, k_shape), names in s1_keys.items():
+        b, t, h, w, c = x_shape
+        kt, kh, kw = k_shape[:3]
+        x = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
+        k = torch.from_numpy(rng.standard_normal(k_shape, np.float32)
+                             / np.sqrt(kt * kh * kw)).cuda().bfloat16()
+        bias = torch.from_numpy(rng.standard_normal(c, np.float32) * 0.1).cuda()
+        dz = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
+        kflip, zeros, bias16 = k.flip(0, 1, 2).contiguous(), torch.zeros(c, device="cuda"), bias.bfloat16()
+        xc, dzc = x.permute(0, 4, 1, 2, 3), dz.permute(0, 4, 1, 2, 3)
+        kc = k.permute(4, 3, 0, 1, 2).contiguous()
+        pads = (kt // 2, kh // 2, kw // 2)
+
+        def dx_library():
+            return torch.nn.grad.conv3d_input((b, c, t, h, w), kc, dzc,
+                                              padding=pads, groups=c)
+
+        for key in [kk for kk in fused_keys if kk[:2] == (x_shape, k_shape)]:
+            act = key[2]
+            rows.append(_kernel_row(
+                torch, "fused_dw_bn_act", model, fused_keys[key], x_shape, k_shape, act,
+                lambda: fused._dw_cuda(x, k, bias, act, "fused_dw_bn_act"),
+                lambda: fused.dw_bn_act_plain(x, k, bias, act),
+                lambda: act_(F.conv3d(xc, kc, bias16, padding=pads, groups=c), act),
+                dw_site_bound(x_shape, k_shape, True), reps))
+        rows.append(_kernel_row(
+            torch, "fused_dw_bn_act.bwd_dx", model, names, x_shape, k_shape, "identity",
+            lambda: fused._dw_cuda(dz, kflip, zeros, "identity", "fused_dw_bn_act.bwd_dx"),
+            lambda: fused.dw_bn_act_plain(dz, kflip, zeros, "identity"),
+            dx_library, dw_site_bound(x_shape, k_shape, True), reps))
+        rows.append(_kernel_row(
+            torch, "depthwise3d_s1", model, names, x_shape, k_shape, "identity",
+            lambda: fused._dw_cuda(x, k, None, "identity", "depthwise3d_s1"),
+            lambda: depthwise.depthwise_conv3d_shift(x, k),
+            lambda: F.conv3d(xc, kc, None, padding=pads, groups=c),
+            dw_site_bound(x_shape, k_shape, False), reps))
+        rows.append(_kernel_row(
+            torch, "depthwise3d_s1.bwd_dx", model, names, x_shape, k_shape, "identity",
+            lambda: fused._dw_cuda(dz, kflip, None, "identity", "depthwise3d_s1.bwd_dx"),
+            lambda: depthwise.depthwise_conv3d_shift(dz, kflip),
+            dx_library, dw_site_bound(x_shape, k_shape, False), reps))
+        del x, k, dz, kflip, xc, dzc, kc
+        free_cuda(torch)
     return rows
 
 
 KERNEL_CLASSES = (  # (class, substrings of the device kernel's name)
     ("fused_pw_bn_act", ("fused_pw_bn_act",)),
     ("fused_conv_bn_act", ("fused_conv_bn_act",)),
+    ("depthwise3d", ("depthwise3d",)),
     ("memcpy", ("memcpy", "Memcpy")),
     # cuDNN's convolutions first: their names hold "gemm" too
     ("cudnn_conv", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")),
@@ -413,7 +689,7 @@ KERNEL_CLASSES = (  # (class, substrings of the device kernel's name)
 
 
 def profile_forward(torch, engine, batch, reps: int = 3) -> dict:
-    """Device time by kernel class over `reps` bucket-8 forwards
+    """Device time by kernel class over `reps` forwards of `batch`
     (torch.profiler), and the device's busy share between the first kernel
     start and the last kernel end."""
     return profile_of(torch, lambda: engine.predict(batch), reps, "forward")
@@ -451,37 +727,54 @@ def profile_of(torch, fn, reps: int, unit: str) -> dict:
     }
 
 
-def train_argv(out: str, fused: str = "auto"):
-    """The reference recipe (32 frames at 256^2, batch 8 x accumulation 4,
-    bf16) on synthetic clips, 2 epochs of 64 videos."""
-    return ["--synthetic", "--model.name", "slowfast_r50",
-            "--model.num_classes", str(NUM_CLASSES), "--num_frames", str(FRAMES),
-            "--data.crop_size", str(CROP), "--batch_size", str(TRAIN_BATCH),
-            "--gradient_accumulation_steps", str(ACCUM),
-            "--num_epochs", str(EPOCHS),
-            "--data.synthetic_num_videos", str(TRAIN_VIDEOS),
-            "--checkpointing_steps", str(CKPT_EVERY), "--mixed_precision", "bf16",
-            "--model.fused_kernels", fused, "--output_dir", out,
+def forward_ms(torch, engine, batch, reps: int = 5):
+    """Host-clock ms of synchronised `engine.predict(batch)` calls, after one
+    warm-up call."""
+    engine.predict(batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.predict(batch)
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def train_argv(out: str, fused: str = "auto", spec: dict = SLOWFAST_TRAIN,
+               impl: str = "conv"):
+    """`run.main`'s argv for `spec` on synthetic clips at the model's
+    geometry (SlowFast-R50: the reference recipe, 32 frames at 256^2, batch
+    8 x accumulation 4, 2 epochs of 64 videos), bf16."""
+    frames, crop = GEOMETRY[spec["name"]]
+    return ["--synthetic", "--model.name", spec["name"],
+            "--model.num_classes", str(NUM_CLASSES), "--num_frames", str(frames),
+            "--data.crop_size", str(crop), "--batch_size", str(spec["batch"]),
+            "--gradient_accumulation_steps", str(spec["accum"]),
+            "--num_epochs", str(spec["epochs"]),
+            "--data.synthetic_num_videos", str(spec["videos"]),
+            "--checkpointing_steps", str(spec["ckpt_every"]),
+            "--mixed_precision", "bf16", "--model.fused_kernels", fused,
+            "--model.depthwise_impl", impl, "--output_dir", out,
             "--log_every", "1"]
 
 
-def expected_train_launches() -> dict:
-    """Launch totals of one fit() of `train_argv`, from the code: the loader
-    drops the last partial batch, so an epoch is TRAIN_VIDEOS // (B * accum)
-    optimizer steps of `accum` micro-steps; the val source holds
-    max(TRAIN_VIDEOS // 4, 4) clips in ceil(n / B) eval forwards per epoch.
-    Each micro-step launches every fused site's kernel once forward and once
-    for dx (every site's input needs a gradient: it depends on the stem's
+def expected_train_launches(spec: dict, per_forward: dict) -> dict:
+    """Launch totals of one fit() of `train_argv(spec)`, from the code: the
+    loader drops the last partial batch, so an epoch is videos // (B *
+    accum) optimizer steps of `accum` micro-steps; the val source holds
+    max(videos // 4, 4) clips in ceil(n / B) eval forwards per epoch. Each
+    micro-step launches every fused site's kernel once forward and once for
+    dx (every site's input needs a gradient: it depends on the stem's
     weights); an eval forward launches each once."""
-    steps = TRAIN_VIDEOS // (TRAIN_BATCH * ACCUM) * EPOCHS
-    micro = steps * ACCUM
-    val = max(TRAIN_VIDEOS // 4, 4)
-    evals = -(-val // TRAIN_BATCH) * EPOCHS
-    return {"steps": steps, "micro_steps": micro, "eval_forwards": evals,
-            "fused_pw_bn_act": PW_PER_FORWARD * (micro + evals),
-            "fused_conv_bn_act": CONV_PER_FORWARD * (micro + evals),
-            "fused_pw_bn_act.bwd_dx": PW_PER_FORWARD * micro,
-            "fused_conv_bn_act.bwd_dx": CONV_PER_FORWARD * micro}
+    steps = spec["videos"] // (spec["batch"] * spec["accum"]) * spec["epochs"]
+    micro = steps * spec["accum"]
+    val = max(spec["videos"] // 4, 4)
+    evals = -(-val // spec["batch"]) * spec["epochs"]
+    out = {"steps": steps, "micro_steps": micro, "eval_forwards": evals}
+    for k in SOURCES:
+        n = per_forward.get(k.split(".")[0], 0)
+        out[k] = n * micro if k.endswith("bwd_dx") else n * (micro + evals)
+    return out
 
 
 def host_copy(state) -> dict:
@@ -495,23 +788,34 @@ def host_copy(state) -> dict:
             "step": state.step}
 
 
-def train_phase(torch, work: str) -> dict:
-    """Train full-width SlowFast-R50 through `run.main`: the launch counters
-    zeroed just before fit(), read just after; lr per step against the
-    closed-form cosine; the step-2 checkpoint restored bitwise; the final
-    checkpoint exported and served by slice 1's InferenceEngine, its logits
-    held against the trainer's eval-mode forward."""
+def train_clips(rng, spec: dict, n: int) -> dict:
+    """n seeded float32 normal clips at the model's training geometry."""
+    frames, crop = GEOMETRY[spec["name"]]
+    if spec["name"].startswith("slowfast"):
+        return {"slow": rng.standard_normal((n, frames // ALPHA, crop, crop, 3), np.float32),
+                "fast": rng.standard_normal((n, frames, crop, crop, 3), np.float32)}
+    return {"video": rng.standard_normal((n, frames, crop, crop, 3), np.float32)}
+
+
+def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
+    """Train `spec`'s model at full width through `run.main`: the launch
+    counters zeroed just before fit(), read just after; lr per step against
+    the closed-form cosine; the checkpoint of step `ckpt_every` restored
+    bitwise; the final checkpoint exported and served by the
+    InferenceEngine, its logits held against the trainer's eval-mode
+    forward."""
     import math
-    import os
 
     from pytorchvideo_accelerate_tpu_torch import run as trun
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
     from pytorchvideo_accelerate_tpu_torch.trainer import loop
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import model_inputs
 
-    out = os.path.join(work, "train")
-    argv = train_argv(out)
+    ckpt_every = spec["ckpt_every"]
+    out = os.path.join(work, f"train_{spec['name']}")
+    argv = train_argv(out, spec=spec)
     seen = {"metrics": [], "snap": None}
     make_step = loop.make_train_step
 
@@ -521,12 +825,13 @@ def train_phase(torch, work: str) -> dict:
         def wrapped(state, batch):
             m = step(state, batch)
             seen["metrics"].append(m)
-            if state.step == CKPT_EVERY:
+            if state.step == ckpt_every:
                 seen["snap"] = host_copy(state)
             return m
         return wrapped
 
-    want = expected_train_launches()
+    per_forward = expected_forward_launches(spec["name"])
+    want = expected_train_launches(spec, per_forward)
     loop.make_train_step = recording
     fused.reset_launch_counts()
     t0 = time.perf_counter()
@@ -549,29 +854,28 @@ def train_phase(torch, work: str) -> dict:
     check(all(launches[k] == want[k] for k in SOURCES),
           f"launches {launches}, expected {want}")
 
-    # the step-2 checkpoint restores bitwise
+    # the checkpoint of step `ckpt_every` restores bitwise
     tr = loop.Trainer(parse_cli(argv + ["--resume_from_checkpoint", "auto"]))
-    extra, step = tr.checkpointer.restore(tr.state, step=CKPT_EVERY)
+    extra, step = tr.checkpointer.restore(tr.state, step=ckpt_every)
     got, snap = host_copy(tr.state), seen["snap"]
-    check(step == got["step"] == snap["step"] == CKPT_EVERY, f"restored step {step}")
+    check(step == got["step"] == snap["step"] == ckpt_every, f"restored step {step}")
     bad = [k for k in snap["model"] if not torch.equal(got["model"][k], snap["model"][k])]
     bad += [k for k in snap["momentum"]
             if not torch.equal(got["momentum"][k], snap["momentum"][k])]
     check(not bad, f"restore not bitwise at {bad[:4]}")
-    check(extra["data_state"] == {"epoch": 0, "position": CKPT_EVERY},
+    check(extra["data_state"] == {"epoch": 0, "position": ckpt_every},
           f"restored LoaderState {extra['data_state']}")
 
-    # export the final checkpoint; slice 1's engine serves it
-    art = os.path.join(work, "trained_artifact")
+    # export the final checkpoint; the engine serves it
+    art = os.path.join(work, f"trained_{spec['name']}_artifact")
     trun.main(argv + ["--resume_from_checkpoint", "auto", "--export_inference", art])
     tr._maybe_resume()
-    rng = np.random.default_rng(SEED + 2)
-    clips = {"slow": rng.standard_normal((TRAIN_BATCH, FRAMES // ALPHA, CROP, CROP, 3), np.float32),
-             "fast": rng.standard_normal((TRAIN_BATCH, FRAMES, CROP, CROP, 3), np.float32)}
+    clips = train_clips(np.random.default_rng(SEED + 2), spec, spec["batch"])
     tr.model.eval()
     with torch.no_grad():
-        plain = tr.model((torch.from_numpy(clips["slow"]).cuda(),
-                          torch.from_numpy(clips["fast"]).cuda())).float().cpu().numpy()
+        plain = tr.model(model_inputs({k: torch.from_numpy(v).cuda()
+                                       for k, v in clips.items()})
+                         ).float().cpu().numpy()
     tr.close()
     del tr
     engine = InferenceEngine.from_artifact(art)
@@ -586,11 +890,35 @@ def train_phase(torch, work: str) -> dict:
             "launches": launches, "expected_launches": want,
             "launches_per_micro_step": {
                 k: (launches[k] - (0 if k.endswith("bwd_dx") else
-                                   want["eval_forwards"] * SITES_PER_FORWARD[k]))
+                                   want["eval_forwards"] * per_forward.get(k, 0)))
                 / want["micro_steps"] for k in SOURCES},
             "restored_step": step, "restored_loader_state": extra["data_state"],
             "restore_bitwise": True, "served_logit_max_abs_err": float(err.max()),
             "served_logit_std": float(plain.std())}
+
+
+def depthwise_impl_train_phase(torch, work: str) -> dict:
+    """One optimizer step of X3D-M through `run.main` under `fused_kernels
+    off, depthwise_impl pallas`: the counters, zeroed just before fit(),
+    must show one `depthwise3d_s1` forward and one dx launch per stride-1
+    depthwise site per micro-step plus one forward per eval forward."""
+    from pytorchvideo_accelerate_tpu_torch import run as trun
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    spec = dict(X3D_TRAIN, videos=X3D_TRAIN["batch"], ckpt_every=0)
+    want = expected_train_launches(spec, expected_depthwise_impl_launches())
+    argv = train_argv(os.path.join(work, "train_x3d_m_pallas"), "off", spec, "pallas")
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = trun.main(argv)
+    fit_s = time.perf_counter() - t0
+    launches = dict(fused.LAUNCHES)
+    check(result["steps"] == want["steps"] == 1, f"steps {result['steps']}")
+    check(all(launches[k] == want[k] for k in SOURCES),
+          f"depthwise_impl pallas launches {launches}, expected {want}")
+    free_cuda(torch)
+    return {"fit_s": fit_s, "train_loss": result["train_loss"],
+            "launches": launches, "expected_launches": want}
 
 
 def free_cuda(torch) -> None:
@@ -600,17 +928,23 @@ def free_cuda(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def micro_step_fn(torch, fused_mode: str, batch, seed: int = 0):
-    """(model, forward, fn) for a fresh seeded SlowFast-R50 in bf16 through
-    `fused_mode` on `batch`: forward() returns the training loss, fn() runs
-    one training micro-step (forward + backward)."""
+def micro_step_fn(torch, fused_mode: str, batch, spec: dict = SLOWFAST_TRAIN,
+                  impl: str = "conv", seed: int = 0):
+    """(model, forward, fn) for a fresh seeded `spec` model in bf16 through
+    `fused_mode` (and `depthwise_impl` `impl`) on `batch`: forward() returns
+    the training loss, fn() runs one training micro-step (forward +
+    backward)."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
-    from pytorchvideo_accelerate_tpu_torch.trainer.steps import _loss_and_metrics
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
+        _loss_and_metrics,
+        model_inputs,
+    )
 
-    cfg = parse_cli(train_argv("unused", fused_mode) + ["--model.dropout_rate", "0"])
+    cfg = parse_cli(train_argv("unused", fused_mode, spec, impl)
+                    + ["--model.dropout_rate", "0"])
     model = create_model(cfg.model, "bf16", seed=seed).cuda().train()
-    inputs = (batch["slow"], batch["fast"])
+    inputs = model_inputs(batch)
     ones = torch.ones(batch["label"].shape[0], device="cuda")
 
     def forward():
@@ -624,21 +958,29 @@ def micro_step_fn(torch, fused_mode: str, batch, seed: int = 0):
     return model, forward, fn
 
 
-def train_batch(torch, seed: int) -> dict:
+def train_batch(torch, seed: int, spec: dict = SLOWFAST_TRAIN) -> dict:
     rng = np.random.default_rng(seed)
-    return {"slow": torch.from_numpy(rng.standard_normal(
-                (TRAIN_BATCH, FRAMES // ALPHA, CROP, CROP, 3), np.float32)).cuda(),
-            "fast": torch.from_numpy(rng.standard_normal(
-                (TRAIN_BATCH, FRAMES, CROP, CROP, 3), np.float32)).cuda(),
-            "label": torch.from_numpy(rng.integers(0, NUM_CLASSES, TRAIN_BATCH)).cuda()}
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_clips(rng, spec, spec["batch"]).items()}
+    batch["label"] = torch.from_numpy(rng.integers(0, NUM_CLASSES, spec["batch"])).cuda()
+    return batch
+
+
+def site_functions():
+    """{autograd Function of a kernel site: its plain version}."""
+    from pytorchvideo_accelerate_tpu_torch.ops import depthwise, fused
+
+    return {fused.PwBnAct: fused.pw_bn_act_plain,
+            fused.ConvBnAct: fused.conv_bn_act_plain,
+            fused.DwBnAct: fused.dw_bn_act_plain,
+            depthwise.Depthwise3dS1: depthwise.depthwise_conv3d_shift}
 
 
 def with_site_backward(make, fn):
-    """`fn()` with the custom backward of each fused site's Function
-    (`PwBnAct`, `ConvBnAct`) replaced by `make(Function, its backward)`."""
-    from pytorchvideo_accelerate_tpu_torch.ops import fused
-
-    saved = {cls: cls.__dict__["backward"] for cls in (fused.PwBnAct, fused.ConvBnAct)}
+    """`fn()` with the custom backward of each kernel site's Function
+    (`PwBnAct`, `ConvBnAct`, `DwBnAct`, `Depthwise3dS1`) replaced by
+    `make(Function, its backward)`."""
+    saved = {cls: cls.__dict__["backward"] for cls in site_functions()}
     for cls, backward in saved.items():
         cls.backward = staticmethod(make(cls, backward.__func__))
     try:
@@ -649,21 +991,20 @@ def with_site_backward(make, fn):
 
 
 def plain_site_backward(torch, cls, _):
-    """A backward for `PwBnAct`/`ConvBnAct` that differentiates the site's
-    plain version with torch autograd at the operands its forward saved:
-    the reference that the custom backward (dx through the kernel) is held
-    to."""
-    from pytorchvideo_accelerate_tpu_torch.ops import fused
-
-    plain = fused.pw_bn_act_plain if cls is fused.PwBnAct else fused.conv_bn_act_plain
+    """A backward for a kernel site's Function that differentiates the
+    site's plain version with torch autograd at the operands its forward
+    saved: the reference that the custom backward (dx through the kernel)
+    is held to."""
+    plain = site_functions()[cls]
 
     def backward(ctx, g):
         ops = [t.detach().requires_grad_(need)
                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         with torch.enable_grad():
-            y = plain(*ops, ctx.act)
+            y = plain(*ops, ctx.act) if hasattr(ctx, "act") else plain(*ops)
         got = iter(torch.autograd.grad(y, [t for t in ops if t.requires_grad], g))
-        return (*(next(got) if t.requires_grad else None for t in ops), None, None)
+        return (*(next(got) if t.requires_grad else None for t in ops),
+                *([None] * (len(ctx.needs_input_grad) - len(ops))))
     return backward
 
 
@@ -691,6 +1032,32 @@ def rel_err(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def fixed_forward_parity(torch, fused_mode: str, batch, spec: dict,
+                         impl: str = "conv"):
+    """One micro-step graph through `fused_mode`/`impl` differentiated twice:
+    once through the custom backward (dx launches the kernels), once with
+    each site's backward swapped for torch autograd of its plain version.
+    Returns the relative differences of the whole gradient and of one SGD
+    update."""
+    model, forward, _ = micro_step_fn(torch, fused_mode, batch, spec, impl)
+    loss = forward()
+    loss.backward(retain_graph=True)
+    params = list(model.parameters())
+    g_kernel = [p.grad for p in params]
+    model.zero_grad(set_to_none=True)
+    with_site_backward(lambda cls, inner: plain_site_backward(torch, cls, inner),
+                       loss.backward)
+    g_plain = [p.grad for p in params]
+    del loss
+    uk, up = sgd_updates(torch, model, [g_kernel, g_plain])
+    grad = rel_err(torch.cat([g.float().flatten() for g in g_kernel]),
+                   torch.cat([g.float().flatten() for g in g_plain]))
+    update = rel_err(uk, up)
+    del model, forward, g_kernel, g_plain, params, uk, up
+    free_cuda(torch)
+    return grad, update
+
+
 def train_parity_phase(torch) -> dict:
     """One training micro-step through the kernels (`auto`) against plain
     PyTorch (TF32 off), on one fixed B=8 batch and the same seeded weights.
@@ -702,11 +1069,8 @@ def train_parity_phase(torch) -> dict:
     activation differently, and each flip reroutes a gradient element; two
     plain lowerings (`off` against `xla`) differ as much. That whole-gradient
     difference is printed for both pairs, and held to nothing.
-    (b) With the forward held fixed: the kernels' micro-step graph
-    differentiated twice, once through the custom backward (dx launches the
-    kernels) and once with each site's backward swapped for torch autograd
-    of its plain version. The whole gradient and one SGD step's update must
-    agree within the tolerance."""
+    (b) With the forward held fixed (`fixed_forward_parity`): the whole
+    gradient and one SGD step's update must agree within the tolerance."""
     batch = train_batch(torch, SEED + 3)
     e2e = {}
     for mode in ("auto", "xla", "off"):
@@ -727,31 +1091,55 @@ def train_parity_phase(torch) -> dict:
     del e2e, gk, gp, go, hk, hp, ho
     check(out["loss_abs_err"] <= out["loss_tolerance"], f"train loss {out}")
     check(out["head_grad_rel_err"] <= LOGIT_TOL, f"head gradient {out}")
-
-    model, forward, _ = micro_step_fn(torch, "auto", batch)
-    loss = forward()
-    loss.backward(retain_graph=True)
-    params = list(model.parameters())
-    g_kernel = [p.grad for p in params]
-    model.zero_grad(set_to_none=True)
-    with_site_backward(lambda cls, inner: plain_site_backward(torch, cls, inner),
-                       loss.backward)
-    g_plain = [p.grad for p in params]
-    del loss
-    uk, up = sgd_updates(torch, model, [g_kernel, g_plain])
-    out["grad_rel_err_same_forward"] = rel_err(
-        torch.cat([g.float().flatten() for g in g_kernel]),
-        torch.cat([g.float().flatten() for g in g_plain]))
-    out["update_rel_err_same_forward"] = rel_err(uk, up)
-    del model, forward, g_kernel, g_plain, params
-    free_cuda(torch)
+    (out["grad_rel_err_same_forward"],
+     out["update_rel_err_same_forward"]) = fixed_forward_parity(
+        torch, "auto", batch, SLOWFAST_TRAIN)
     check(out["grad_rel_err_same_forward"] <= LOGIT_TOL, f"gradients {out}")
     check(out["update_rel_err_same_forward"] <= LOGIT_TOL, f"SGD update {out}")
     return out
 
 
+def x3d_train_parity_phase(torch) -> dict:
+    """X3D-M, one B=8 micro-step, the same seeded weights for each lowering.
+    End to end: the loss through the kernels (`auto`) against `xla`, and
+    through `depthwise_impl pallas` against `shift`, within the tolerance;
+    the head's gradient and the whole gradient are printed (chaotic under
+    bf16 rounding at init, as for SlowFast-R50) and held to nothing. With
+    the forward held fixed (`fixed_forward_parity`), through rows 1 and 3
+    (`auto`) and through row 4 (`off` + `depthwise_impl pallas`): the whole
+    gradient and one SGD update within the tolerance."""
+    batch = train_batch(torch, SEED + 6, X3D_TRAIN)
+    e2e = {}
+    for mode, impl in (("auto", "conv"), ("xla", "conv"), ("off", "pallas"),
+                       ("off", "shift")):
+        model, _, fn = micro_step_fn(torch, mode, batch, X3D_TRAIN, impl)
+        loss = fn().item()
+        e2e[mode, impl] = (loss, torch.cat([p.grad.float().flatten()
+                                            for p in model.parameters()]),
+                           head_proj(model).weight.grad.float().clone())
+        del model, fn
+        free_cuda(torch)
+    out = {"rel_tolerance": LOGIT_TOL}
+    for label, a, b in (("auto_vs_xla", ("auto", "conv"), ("xla", "conv")),
+                        ("pallas_vs_shift", ("off", "pallas"), ("off", "shift"))):
+        (la, ga, ha), (lb, gb, hb) = e2e[a], e2e[b]
+        out[f"loss_{label}"] = [la, lb]
+        out[f"loss_abs_err_{label}"] = abs(la - lb)
+        out[f"head_grad_rel_err_{label}"] = rel_err(ha, hb)
+        out[f"grad_rel_err_end_to_end_{label}"] = rel_err(ga, gb)
+        check(abs(la - lb) <= LOGIT_TOL * (1 + abs(lb)), f"X3D train loss {out}")
+    del e2e
+    free_cuda(torch)
+    for label, mode, impl in (("rows_1_3", "auto", "conv"), ("row_4", "off", "pallas")):
+        grad, update = fixed_forward_parity(torch, mode, batch, X3D_TRAIN, impl)
+        out[f"grad_rel_err_same_forward_{label}"] = grad
+        out[f"update_rel_err_same_forward_{label}"] = update
+        check(grad <= LOGIT_TOL and update <= LOGIT_TOL, f"X3D gradients {out}")
+    return out
+
+
 def count_strided_grads(fn):
-    """(not contiguous, all) of the gradients that reach the fused sites'
+    """(not contiguous, all) of the gradients that reach the kernel sites'
     custom backward in one `fn()`: each strided one costs a hidden copy
     before its dx launch."""
     seen = [0, 0]
@@ -767,16 +1155,18 @@ def count_strided_grads(fn):
     return seen
 
 
-def train_timing_phase(torch) -> dict:
+def train_timing_phase(torch, spec: dict = SLOWFAST_TRAIN,
+                       modes=(("auto", "conv"), ("off", "conv"), ("xla", "conv"))) -> dict:
     """ms per micro-step (forward + backward at B=8, host clock around
-    synchronised steps) through the kernels, unfused (cuDNN + BN passes)
-    and the plain lowering; peak device memory of each; the profile of the
-    kernels' micro-step, and how many gradients reach its fused sites
-    strided."""
-    batch = train_batch(torch, SEED + 4)
+    synchronised steps) through each (fused_kernels, depthwise_impl) of
+    `modes`: the kernels first, then unfused (cuDNN + BN passes) and the
+    plain lowering; peak device memory of each; the profile of the kernels'
+    micro-step, and how many gradients reach its kernel sites strided."""
+    batch = train_batch(torch, SEED + 4, spec)
     out = {}
-    for mode in ("auto", "off", "xla"):
-        model, _, fn = micro_step_fn(torch, mode, batch)
+    for mode, impl in modes:
+        key = mode if impl == "conv" else f"{mode}_{impl}"
+        model, _, fn = micro_step_fn(torch, mode, batch, spec, impl)
         fn()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -786,8 +1176,8 @@ def train_timing_phase(torch) -> dict:
             fn()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-        out[f"micro_step_ms_{mode}"] = times
-        out[f"peak_mem_gb_{mode}"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"micro_step_ms_{key}"] = times
+        out[f"peak_mem_gb_{key}"] = torch.cuda.max_memory_allocated() / 1e9
         if mode == "auto":
             out["profile"] = profile_of(torch, fn, 2, "micro_step")
             out["site_grads_not_contiguous"], out["site_grads"] = \
@@ -804,6 +1194,81 @@ def post(url: str, body: bytes, timeout: float = 300.0):
     with urllib.request.urlopen(req, timeout=timeout) as r:
         payload = json.loads(r.read())
         return r.status, payload, (time.perf_counter() - t0) * 1e3
+
+
+def hold_logits(got, want, what: str) -> dict:
+    """`got` within LOGIT_TOL * (1 + |want|) of `want`, and the same top-1 on
+    every row whose `want` margin is decisive (at least one must be)."""
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"{what}: logits shape {got.shape} or non-finite")
+    err = np.abs(got - want)
+    check(bool((err <= LOGIT_TOL * (1 + np.abs(want))).all()),
+          f"{what}: logits differ: max {err.max()}")
+    top2 = np.sort(want, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    decisive = margin > 2 * LOGIT_TOL * (1 + np.abs(top2[:, 1]))
+    agree = got.argmax(1) == want.argmax(1)
+    check(bool(decisive.any()), f"{what}: no row has a decisive top-1 margin")
+    check(bool(agree[decisive].all()), f"{what}: top-1 differs on a decisive row")
+    return {"logit_max_abs_err": float(err.max()), "logit_std": float(want.std()),
+            "logit_tolerance": f"{LOGIT_TOL}*(1+|plain|)",
+            "top1_agree": int(agree.sum()), "top1_decisive": int(decisive.sum()),
+            "top1_planted": int((want.argmax(1) == np.arange(len(want))).sum()),
+            "top1_margin": margin.tolist()}
+
+
+def serve_phase(torch, art: str, clips, plain_logits, name: str):
+    """The port's HTTP server (`build_server`, micro scheduler) answers one
+    /predict per clip (4 concurrent, then the rest); the launch counters,
+    zeroed just before the server is built, must match
+    `expected_forward_launches(name)` per forward (the warm-up forward of
+    each bucket included); the logits must agree with the plain path.
+    Returns (the closed server, its launches, the phase's fields)."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
+
+    bodies = [json.dumps({k: v.tolist() for k, v in c.items()},
+                         separators=(",", ":")).encode() for c in clips]
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = build_server(parse_cli([
+        "--serve.checkpoint", art, "--serve.port", "0",
+        "--serve.scheduler", "micro", "--serve.max_wait_ms", "12000"]))
+    server.start()
+    try:
+        build_s = time.perf_counter() - t0
+        host, port = server.address
+        url = f"http://{host}:{port}/predict"
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            first = list(pool.map(lambda b: post(url, b), bodies[:4]))
+        rest = [post(url, b) for b in bodies[4:]]
+        with urllib.request.urlopen(f"http://{host}:{port}/stats") as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(f"http://{host}:{port}/healthz") as r:
+            health = json.loads(r.read())
+    finally:
+        server.close()
+    launches = dict(fused.LAUNCHES)
+    responses = first + rest
+    check(all(code == 200 for code, _, _ in responses),
+          f"HTTP codes {[code for code, _, _ in responses]}")
+    forwards = len(server.engine.buckets) + int(stats["batches"])
+    check_launches(launches, expected_forward_launches(name), forwards, name)
+    served = np.stack([np.asarray(p["logits"], np.float32)
+                       for _, p, _ in responses])
+    check(served.shape == (len(clips), NUM_CLASSES),
+          f"served logits shape {served.shape}")
+    fields = dict(
+        model=name, requests=len(responses), http=[c for c, _, _ in responses],
+        server_build_s=build_s, buckets=list(server.engine.buckets),
+        forwards=forwards, launches=launches,
+        launches_per_forward={k: v / forwards for k, v in launches.items()},
+        request_ms_client=[ms for _, _, ms in responses],
+        request_ms_server=[p["latency_ms"] for _, p, _ in responses],
+        **hold_logits(served, plain_logits, name),
+        stats=stats, health=health)
+    return server, launches, fields
 
 
 def main() -> int:
@@ -841,51 +1306,18 @@ def main() -> int:
 
 
 def run(torch, work: str, smi: str, kind: str) -> int:
-    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
-    from pytorchvideo_accelerate_tpu_torch.models import create_model
-    from pytorchvideo_accelerate_tpu_torch.ops import fused
-    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
-    from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
-    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
-        export_inference,
-        load_inference,
-    )
+    t_start = time.perf_counter()
+    launches = {}  # main-path phase -> its launch counts
 
     # 3. weights + artifact
-    art = os.path.join(work, "serve_artifact")
     t0 = time.perf_counter()
-    cfg = serve_cfg(parse_cli, "auto")
     rng = np.random.default_rng(SEED)
-    norm = (cfg.data.mean, cfg.data.std)
-    calib = create_model(serve_cfg(parse_cli, "off").model, "bf16").eval()
-    state = seeded_state_dict(calib, rng)
-    calib.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
-    calib.cuda()
-    calib_clips = {
-        "slow": rng.integers(0, 256, (2, FRAMES // ALPHA, CROP, CROP, 3), np.uint8),
-        "fast": rng.integers(0, 256, (2, FRAMES, CROP, CROP, 3), np.uint8)}
-    calibrate_bn(torch, calib, calib_clips, norm)
-    # requests: 5 distinct seeded u8 clips at the serving geometry
-    clips = [{"slow": rng.integers(0, 256, (FRAMES // ALPHA, CROP, CROP, 3), np.uint8),
-              "fast": rng.integers(0, 256, (FRAMES, CROP, CROP, 3), np.uint8)}
-             for _ in range(5)]
-    plant_head(torch, calib, clips, norm)
-    export_inference(art, calib, cfg, meta={"num_classes": NUM_CLASSES,
-                                            "model": "slowfast_r50"})
-    del calib
-    state, meta = load_inference(art)
-    n_params = int(sum(v.size for k, v in state.items()
-                       if not k.endswith(("running_mean", "running_var"))))
+    art, state, clips, norm, n_params = make_artifact(torch, work, "slowfast_r50", rng)
     emit("weights", artifact=art, params=n_params, seconds=time.perf_counter() - t0)
-
-    batch = {k: np.stack([c[k] for c in clips] + [clips[0][k]] * (BUCKET - 5))
-             for k in ("slow", "fast")}
+    batch = bucket_batch(clips, BUCKET)
 
     # the plain path: the same weights through fused_kernels xla
-    plain_engine = InferenceEngine(
-        create_model(serve_cfg(parse_cli, "xla").model, "bf16"), state,
-        num_classes=NUM_CLASSES, max_batch_size=BUCKET, device_normalize=norm,
-        input_dtype="uint8", model_name="slowfast_r50")
+    plain_engine = make_engine(torch, "slowfast_r50", state, norm, "xla")
     sites = record_sites(torch, plain_engine.model,
                          lambda: plain_engine.predict(batch))
     n_pw = sum(1 for s in sites.values() if s[1][:3] == (1, 1, 1))
@@ -898,81 +1330,16 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     rows = kernel_phase(torch, sites)
 
     # 5. serve: the main path, counters zeroed just before it
-    bodies = [json.dumps({k: v.tolist() for k, v in c.items()},
-                         separators=(",", ":")).encode() for c in clips]
-    fused.reset_launch_counts()
-    t0 = time.perf_counter()
-    server = build_server(parse_cli([
-        "--serve.checkpoint", art, "--serve.port", "0",
-        "--serve.scheduler", "micro", "--serve.max_wait_ms", "12000"]))
-    server.start()
-    try:
-        build_s = time.perf_counter() - t0
-        host, port = server.address
-        url = f"http://{host}:{port}/predict"
-        with ThreadPoolExecutor(max_workers=4) as pool:
-            first = list(pool.map(lambda b: post(url, b), bodies[:4]))
-        last = post(url, bodies[4])
-        with urllib.request.urlopen(f"http://{host}:{port}/stats") as r:
-            stats = json.loads(r.read())
-        with urllib.request.urlopen(f"http://{host}:{port}/healthz") as r:
-            health = json.loads(r.read())
-    finally:
-        server.close()
-    launches = dict(fused.LAUNCHES)
-    responses = first + [last]
-    check(all(code == 200 for code, _, _ in responses),
-          f"HTTP codes {[code for code, _, _ in responses]}")
-    forwards = len(server.engine.buckets) + int(stats["batches"])
-    check(launches["fused_pw_bn_act"] == PW_PER_FORWARD * forwards
-          and launches["fused_conv_bn_act"] == CONV_PER_FORWARD * forwards,
-          f"launches {launches} over {forwards} forwards")
-    served = np.stack([np.asarray(p["logits"], np.float32)
-                       for _, p, _ in responses])
-    check(served.shape == (5, NUM_CLASSES) and bool(np.isfinite(served).all()),
-          f"served logits shape {served.shape} or non-finite")
-    tol = LOGIT_TOL * (1 + np.abs(plain_logits))
-    err = np.abs(served - plain_logits)
-    check(bool((err <= tol).all()), f"logits differ: max {err.max()}")
-    top2 = np.sort(plain_logits, axis=1)[:, -2:]
-    margin = top2[:, 1] - top2[:, 0]
-    decisive = margin > 2 * LOGIT_TOL * (1 + np.abs(top2[:, 1]))
-    agree = served.argmax(1) == plain_logits.argmax(1)
-    check(bool(decisive.any()), "no request has a decisive plain top-1 margin")
-    check(bool(agree[decisive].all()), "top-1 differs on a decisive row")
-    emit("serve", requests=len(responses), http=[c for c, _, _ in responses],
-         server_build_s=build_s, buckets=list(server.engine.buckets),
-         forwards=forwards, launches=launches,
-         launches_per_forward={k: v / forwards for k, v in launches.items()},
-         request_ms_client=[ms for _, _, ms in responses],
-         request_ms_server=[p["latency_ms"] for _, p, _ in responses],
-         logit_max_abs_err=float(err.max()), logit_std=float(plain_logits.std()),
-         logit_tolerance=f"{LOGIT_TOL}*(1+|plain|)",
-         top1_agree=int(agree.sum()), top1_decisive=int(decisive.sum()),
-         top1_planted=int((plain_logits.argmax(1) == np.arange(5)).sum()),
-         top1_margin=margin.tolist(),
-         stats=stats, health=health)
+    server, launches["serve"], fields = serve_phase(torch, art, clips, plain_logits,
+                                                    "slowfast_r50")
+    emit("serve", **fields)
 
     # 6. bucket-8 forward times, host clock around synchronised forwards
-    def forward_ms(engine, reps=5):
-        engine.predict(batch)
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            engine.predict(batch)
-            times.append((time.perf_counter() - t) * 1e3)
-        return times
-
-    kernel_times = forward_ms(server.engine)
-    plain_times = forward_ms(plain_engine)
-    off_engine = InferenceEngine(
-        create_model(serve_cfg(parse_cli, "off").model, "bf16"), state,
-        num_classes=NUM_CLASSES, max_batch_size=BUCKET, device_normalize=norm,
-        input_dtype="uint8", model_name="slowfast_r50")
-    off_times = forward_ms(off_engine)
-    emit("timing", bucket=BUCKET, forward_ms_kernels=kernel_times,
-         forward_ms_plain=plain_times, forward_ms_unfused_cudnn=off_times,
+    off_engine = make_engine(torch, "slowfast_r50", state, norm, "off")
+    emit("timing", bucket=BUCKET,
+         forward_ms_kernels=forward_ms(torch, server.engine, batch),
+         forward_ms_plain=forward_ms(torch, plain_engine, batch),
+         forward_ms_unfused_cudnn=forward_ms(torch, off_engine, batch),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     emit("profile", bucket=BUCKET, **profile_forward(torch, server.engine, batch))
     del server, plain_engine, off_engine
@@ -980,6 +1347,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
 
     # 8. train: the main training path, counters zeroed just before fit()
     train = train_phase(torch, work)
+    launches["train"] = train["launches"]
     emit("train", **train)
     # 9. kernels against plain on one training micro-step
     emit("train_parity", **train_parity_phase(torch))
@@ -989,30 +1357,134 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          fit_input_wait_frac=train["result"].get("input_wait_frac"),
          **train_timing_phase(torch), empty_profiles=EMPTY_PROFILES[0],
          event_timed=EVENT_TIMED[0])
+    slowfast_s = time.perf_counter() - t_start
+
+    rows += depthwise_phases(torch, work, launches)
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
-        mine = [r for r in rows if r["kernel"] == kname]
+        model, fwd_phase, dx_phase = LINE[kname.split(".")[0]]
+        mine = [r for r in rows if r["kernel"] == kname and r["model"] == model]
         flop_ms = sum(r["flop_ms"] * r["per_forward"] for r in mine)
         byte_ms = sum(r["byte_ms"] * r["per_forward"] for r in mine)
-        # forward launches: the serve phase's; dx launches: the train phase's
-        count = train["launches"][kname] if kname.endswith("bwd_dx") else launches[kname]
+        phase = dx_phase if kname.endswith("bwd_dx") else fwd_phase
+        count = launches[phase][kname]
+        check(count > 0, f"{kname} was not launched on the main path ({phase})")
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": count,
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == kname),
             "ms": sum(r["kernel_ms"] * r["per_forward"] for r in mine),
             "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in mine),
             "bound_ms": sum(r["bound_ms"] * r["per_forward"] for r in mine),
             "bound_by": "operations" if flop_ms > byte_ms else "bytes",
             "library_ms": sum(r["library_ms"] * r["per_forward"] for r in mine),
         })
+    emit("seconds", slowfast=slowfast_s, total=time.perf_counter() - t_start,
+         empty_profiles=EMPTY_PROFILES[0], event_timed=EVENT_TIMED[0])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+def depthwise_phases(torch, work: str, launches: dict):
+    """Phases 11-17: X3D-M and CSN-R101 through the depthwise kernel. Fills
+    `launches` with the main-path phases' counts; returns the kernel rows."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    # 11. weights, artifacts, the plain paths and their site shapes
+    rng = np.random.default_rng(SEED + 10)
+    t0 = time.perf_counter()
+    art, x_state, x_clips, norm, n_params = make_artifact(torch, work, "x3d_m", rng)
+    x_batch = bucket_batch(x_clips, BUCKET)
+    x_plain = make_engine(torch, "x3d_m", x_state, norm, "xla")
+    pw_sites = record_sites(torch, x_plain.model, lambda: x_plain.predict(x_batch))
+    x_dw_sites = record_dw_sites(lambda: x_plain.predict(x_batch))
+    x_plain_logits = x_plain.predict(x_batch)[:5]
+    want = expected_forward_launches("x3d_m")
+    check(len(pw_sites) == want["fused_pw_bn_act"]
+          and len(x_dw_sites) == want["fused_dw_bn_act"],
+          f"X3D-M sites {len(pw_sites)} pointwise / {len(x_dw_sites)} depthwise, "
+          f"expected {want}")
+    emit("x3d_weights", artifact=art, params=n_params, pointwise_sites=len(pw_sites),
+         depthwise_sites=len(x_dw_sites), seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _, c_state, c_clips, c_norm, c_params = make_artifact(
+        torch, work, "csn_r101", rng, requests=CSN_BUCKET, bucket=CSN_BUCKET)
+    c_batch = bucket_batch(c_clips, CSN_BUCKET)
+    c_plain = make_engine(torch, "csn_r101", c_state, c_norm, "xla", bucket=CSN_BUCKET)
+    c_dw_sites = record_dw_sites(lambda: c_plain.predict(c_batch))
+    c_plain_logits = c_plain.predict(c_batch)
+    emit("csn_weights", params=c_params, depthwise_sites=len(c_dw_sites),
+         seconds=time.perf_counter() - t0)
+
+    # 12. the depthwise kernel at every site shape, then the pointwise
+    # kernel at X3D-M's sites
+    t0 = time.perf_counter()
+    rows = dw_kernel_phase(torch, "x3d_m", x_dw_sites)
+    rows += dw_kernel_phase(torch, "csn_r101", c_dw_sites)
+    rows += kernel_phase(torch, pw_sites, "x3d_m", DW_REPS)
+    emit("kernels_seconds", seconds=time.perf_counter() - t0)
+
+    # 13. x3d_serve: the main path for row 3, counters zeroed just before
+    server, launches["x3d_serve"], fields = serve_phase(torch, art, x_clips,
+                                                        x_plain_logits, "x3d_m")
+    emit("x3d_serve", **fields)
+    engines = {"kernels": server.engine, "plain": x_plain,
+               "unfused_cudnn": make_engine(torch, "x3d_m", x_state, norm, "off"),
+               "depthwise_impl_pallas": make_engine(torch, "x3d_m", x_state, norm,
+                                                    "off", "pallas")}
+    emit("x3d_timing", bucket=BUCKET,
+         **{f"forward_ms_{k}": forward_ms(torch, e, x_batch) for k, e in engines.items()},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("x3d_profile", bucket=BUCKET, **profile_forward(torch, server.engine, x_batch))
+    emit("x3d_profile_unfused_cudnn", bucket=BUCKET,
+         **profile_forward(torch, engines["unfused_cudnn"], x_batch))
+
+    # 14. x3d_depthwise_impl: the main path for row 4's forward
+    shift = make_engine(torch, "x3d_m", x_state, norm, "off", "shift")
+    fused.reset_launch_counts()
+    got = engines["depthwise_impl_pallas"].predict(x_batch)
+    launches["x3d_depthwise_impl"] = dict(fused.LAUNCHES)
+    check_launches(launches["x3d_depthwise_impl"], expected_depthwise_impl_launches(),
+                   1, "X3D-M depthwise_impl pallas")
+    emit("x3d_depthwise_impl", launches=launches["x3d_depthwise_impl"],
+         **hold_logits(got[:5], shift.predict(x_batch)[:5], "depthwise_impl pallas"))
+    del server, engines, shift, x_plain
+    free_cuda(torch)
+
+    # 15. x3d_train: the main training path for rows 1 and 3, then for row 4
+    train = train_phase(torch, work, X3D_TRAIN)
+    launches["x3d_train"] = train["launches"]
+    emit("x3d_train", **train)
+    dw_train = depthwise_impl_train_phase(torch, work)
+    launches["x3d_train_depthwise_impl"] = dw_train["launches"]
+    emit("x3d_train_depthwise_impl", **dw_train)
+    # 16. the backward through rows 1, 3 and 4 against plain autograd; times
+    emit("x3d_train_parity", **x3d_train_parity_phase(torch))
+    emit("x3d_train_timing", batch=X3D_TRAIN["batch"],
+         fit_clips_per_sec=train["result"].get("clips_per_sec"),
+         **train_timing_phase(torch, X3D_TRAIN, (
+             ("auto", "conv"), ("off", "conv"), ("xla", "conv"), ("off", "pallas"))))
+
+    # 17. csn_serve: one CSN-R101 bucket-4 forward through the kernels
+    engine = make_engine(torch, "csn_r101", c_state, c_norm, "auto", bucket=CSN_BUCKET)
+    fused.reset_launch_counts()
+    got = engine.predict(c_batch)
+    csn_launches = dict(fused.LAUNCHES)
+    check_launches(csn_launches, expected_forward_launches("csn_r101"), 1, "CSN-R101")
+    off = make_engine(torch, "csn_r101", c_state, c_norm, "off", bucket=CSN_BUCKET)
+    emit("csn_serve", bucket=CSN_BUCKET, launches=csn_launches,
+         **hold_logits(got, c_plain_logits, "CSN-R101"),
+         forward_ms_kernels=forward_ms(torch, engine, c_batch, 3),
+         forward_ms_plain=forward_ms(torch, c_plain, c_batch, 3),
+         forward_ms_unfused_cudnn=forward_ms(torch, off, c_batch, 3))
+    del engine, off, c_plain
+    free_cuda(torch)
+    return rows
 
 
 if __name__ == "__main__":

@@ -4,11 +4,11 @@
 weights are drawn as the JAX package initialises them (`init_like_jax`),
 from a `torch.Generator` seeded with `seed`; the caller sets the mode
 (`.train()` is torch's default, the serving engine calls `.eval()`). Ported
-here: slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50 and
-tiny3d; any other name of the JAX package raises NotImplementedError
-(ROADMAP.md). Each model class carries `backbone_param_filter(path)` (True
-for the backbone, `path` the state_dict key split on ".") for
-`--model.freeze_backbone`.
+here: slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50, tiny3d,
+x3d_xs, x3d_s, x3d_m, x3d_l and csn_r101; any other name of the JAX package
+raises NotImplementedError (ROADMAP.md). Each model class carries
+`backbone_param_filter(path)` (True for the backbone, `path` the
+state_dict key split on ".") for `--model.freeze_backbone`.
 """
 
 from __future__ import annotations
@@ -24,9 +24,11 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
     BNAffine,
     lecun_normal_,
 )
+from pytorchvideo_accelerate_tpu_torch.models.csn import CSN
 from pytorchvideo_accelerate_tpu_torch.models.heads import ResBasicHead
 from pytorchvideo_accelerate_tpu_torch.models.resnet3d import SlowR50
 from pytorchvideo_accelerate_tpu_torch.models.slowfast import SlowFast
+from pytorchvideo_accelerate_tpu_torch.models.x3d import X3D
 from pytorchvideo_accelerate_tpu_torch.precision import policy_compute_dtype
 
 _REGISTRY: Dict[str, Callable] = {
@@ -53,13 +55,28 @@ _REGISTRY: Dict[str, Callable] = {
     "slowfast_r101": lambda cfg, dtype: SlowFast(
         cfg.num_classes, depths=(3, 4, 23, 3), alpha=cfg.slowfast_alpha,
         dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
+    # XS, S and M share the trunk; they differ in sampling (frames, crop)
+    "x3d_xs": lambda cfg, dtype: _x3d(cfg, dtype),
+    "x3d_s": lambda cfg, dtype: _x3d(cfg, dtype),
+    "x3d_m": lambda cfg, dtype: _x3d(cfg, dtype),
+    # depth factor 5.0: pytorchvideo create_x3d stage depths (1,2,5,3) x 5
+    "x3d_l": lambda cfg, dtype: _x3d(cfg, dtype, depths=(5, 10, 25, 15)),
+    "csn_r101": lambda cfg, dtype: CSN(
+        cfg.num_classes, dropout_rate=cfg.dropout_rate,
+        depthwise_impl=cfg.depthwise_impl, fused=cfg.fused_kernels,
+        dtype=dtype),
 }
 
 # families of the JAX package that later slices of the port bring over
-_NOT_PORTED = ("x3d_xs", "x3d_s", "x3d_m", "x3d_l", "csn_r101",
-               "r2plus1d_r50", "mvit_b", "mvit_b_32x3", "mvit_t",
+_NOT_PORTED = ("r2plus1d_r50", "mvit_b", "mvit_b_32x3", "mvit_t",
                "videomae_b", "videomae_b_pretrain", "videomae_t",
                "videomae_t_pretrain")
+
+
+def _x3d(cfg: ModelConfig, dtype, **kw) -> X3D:
+    return X3D(cfg.num_classes, dropout_rate=cfg.dropout_rate,
+               depthwise_impl=cfg.depthwise_impl, fused=cfg.fused_kernels,
+               dtype=dtype, **kw)
 
 
 def available_models():
@@ -68,12 +85,16 @@ def available_models():
 
 def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the JAX package's init does: lecun-normal conv
-    kernels (models/common.py `ConvKernelParam`, flax `nn.Conv`), BN scale 1,
-    bias 0, running mean 0, var 1, and the head's normal(0.01) kernel with
-    a zero bias. Modules are visited in registration order, so one seed
-    gives one set of weights."""
+    kernels (models/common.py `ConvKernelParam`, flax `nn.Conv`; a
+    depthwise kernel's fan-in is its taps) with zero biases (X3D's SE
+    `fc1`/`fc2`), BN scale 1, bias 0, running mean 0, var 1, the
+    `ResBasicHead`'s normal(0.01) kernel with a zero bias, and any other
+    Linear (X3D's `proj`, a flax `nn.Dense`) lecun-normal with a zero bias.
+    Modules are visited in registration order, so one seed gives one set of
+    weights."""
+    head_projs = set()
     for m in model.modules():
-        if isinstance(m, nn.Conv3d):
+        if isinstance(m, (nn.Conv3d, nn.Linear)) and m not in head_projs:
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 with torch.no_grad():
@@ -86,6 +107,7 @@ def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.fill_(1.0)
         elif isinstance(m, ResBasicHead):
             m.reset_parameters_like_jax(generator)
+            head_projs.add(m.proj)
 
 
 def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",

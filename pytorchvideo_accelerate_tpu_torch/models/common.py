@@ -9,14 +9,15 @@ every state_dict key is the flax path with a leaf rename (models/convert.py).
 
 Train mode (`module.train()`) normalises with batch statistics and updates
 the BN running averages with flax semantics; eval mode uses the running
-averages. `init_like_jax` draws the weights the way the JAX package
-initialises them.
+averages. `init_like_jax` (models/__init__.py) draws the weights the way
+the JAX package initialises them. `SeededDropout` is the dropout of every
+head: its mask comes from an explicit generator that the trainer reseeds.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,6 +116,62 @@ def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
     return end_island(apply_act(raw32 * mul + add, act), dtype)
 
 
+class SeededDropout(nn.Module):
+    """Dropout in train mode with flax's semantics (keep with probability
+    1 - rate, scale the kept values by 1 / (1 - rate)), its mask drawn from
+    an explicit generator per device seeded by `reseed` (the trainer reseeds
+    every head's dropout from (seed, step) each optimizer step, as the JAX
+    package derives its dropout key). Identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+        self.reseed(0)
+
+    def reseed(self, seed: int) -> None:
+        self._seed = int(seed)
+        self._generators: Dict[torch.device, torch.Generator] = {}
+
+    def _generator(self, device: torch.device) -> torch.Generator:
+        g = self._generators.get(device)
+        if g is None:
+            g = torch.Generator(device=device)
+            g.manual_seed(self._seed)
+            self._generators[device] = g
+        return g
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self._generator(x.device),
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def fused_site(fused_op, x: torch.Tensor, w: torch.Tensor, bn: BNAffine,
+               act: str, mode: str, dtype, training: bool) -> torch.Tensor:
+    """One fused conv -> BN -> act site over the port's NCDHW activation
+    `x`: `fused_op` (`fused_conv3d_bn_act` or `fused_depthwise_bn_act`) on
+    its NDHWC view with the OIDHW weight `w` as DHWIO. Eval mode folds the
+    running-average affine into the kernel; train mode runs the conv pass
+    alone and lets batch statistics, affine and act ride its raw output as
+    one f32 tail (`fused_train_norm_act`, autodiff through the stats)."""
+    x, w = x.to(dtype), w.to(dtype)
+    # NCDHW channels_last_3d -> its NDHWC view (no copy), OIDHW -> DHWIO
+    xl, wl = x.permute(0, 2, 3, 4, 1).contiguous(), w.permute(2, 3, 4, 1, 0)
+    n = wl.shape[-1]
+    if training:
+        raw = fused_op(xl, wl, torch.ones(n, device=x.device),
+                       torch.zeros(n, device=x.device), act="identity",
+                       mode=mode)
+        y = fused_train_norm_act(raw, bn, act, dtype)
+    else:
+        mul, add = bn.affine()
+        y = fused_op(xl, wl, mul, add, act=act, mode=mode)
+    return y.permute(0, 4, 1, 2, 3)
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     """flax's `lecun_normal()`: a normal truncated at two standard deviations,
     scaled to variance 1/fan_in (fan_in = Cin * taps for an OIDHW conv
@@ -154,25 +211,12 @@ class ConvBNAct(nn.Module):
                      and self.act in FUSED_ACTS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fuse:
+            return fused_site(fused_conv3d_bn_act, x, self.conv.weight,
+                              self.norm, self.act, self.fused, self.dtype,
+                              self.training)
         x = x.to(self.dtype)
         w = self.conv.weight.to(self.dtype)
-        if self.fuse:
-            # NCDHW channels_last_3d -> its NDHWC view (no copy), DHWIO weight
-            xl, wl = x.permute(0, 2, 3, 4, 1).contiguous(), w.permute(2, 3, 4, 1, 0)
-            if self.training:
-                # the fused conv pass alone; batch stats, affine and act ride
-                # its raw output as one f32 tail (autodiff through the stats)
-                n = wl.shape[-1]
-                raw = fused_conv3d_bn_act(
-                    xl, wl, torch.ones(n, device=x.device),
-                    torch.zeros(n, device=x.device), act="identity",
-                    mode=self.fused)
-                y = fused_train_norm_act(raw, self.norm, self.act, self.dtype)
-            else:
-                mul, add = self.norm.affine()
-                y = fused_conv3d_bn_act(xl, wl, mul, add, act=self.act,
-                                        mode=self.fused)
-            return y.permute(0, 4, 1, 2, 3)
         bias = None if self.conv.bias is None else self.conv.bias.to(self.dtype)
         x = F.conv3d(x, w, bias, self.stride, self.conv.padding, 1, self.groups)
         if self.norm is not None:

@@ -1,6 +1,6 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-Each `csrc/<name>.cu` compiles with `nvcc` into its own shared library with
+Each `csrc/<source>.cu` compiles with `nvcc` into its own shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
 minutes). Libraries land in `ops/_build/` (listed in .gitignore) under a name
 that carries a hash of the sources and flags: an edited source rebuilds,
@@ -22,17 +22,24 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("fused_pw_bn_act", "fused_conv_bn_act")
+# the sources under csrc/, one library each
+KERNELS = ("fused_pw_bn_act", "fused_conv_bn_act", "depthwise3d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the entry points (see the extern "C" block of each source)
+# entry point -> (source, C function, argtypes); see the extern "C" block of
+# each source
 _SIGNATURES = {
-    "fused_pw_bn_act": ("pva_fused_pw_bn_act", [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "fused_conv_bn_act": ("pva_fused_conv_bn_act",
+    "fused_pw_bn_act": ("fused_pw_bn_act", "pva_fused_pw_bn_act",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "fused_conv_bn_act": ("fused_conv_bn_act", "pva_fused_conv_bn_act",
                           [_P, _P, _P, _P] + [_I] * 10 + [_P]),
+    "fused_dw_bn_act": ("depthwise3d", "pva_fused_dw_bn_act",
+                        [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+    "depthwise3d_s1": ("depthwise3d", "pva_depthwise3d_s1",
+                       [_P, _P, _P] + [_I] * 8 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -98,26 +105,29 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, built first if missing."""
-    lib = _loaded.get(name)
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<source>.cu`, built first if missing, with
+    the argtypes of its entry points set."""
+    lib = _loaded.get(source)
     if lib is not None:
         return lib
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(source)
         if lib is None:
-            path = library_path(name)
+            path = library_path(source)
             if not path.exists():
-                build([name])
+                build([source])
             lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _loaded[name] = lib
+            for src, fn_name, argtypes in _SIGNATURES.values():
+                if src == source:
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            _loaded[source] = lib
     return lib
 
 
 def entry(name: str):
-    """The C entry point of kernel `name` (argtypes set)."""
-    return getattr(load(name), _SIGNATURES[name][0])
+    """The C function of entry point `name` (argtypes set)."""
+    source, fn_name, _ = _SIGNATURES[name]
+    return getattr(load(source), fn_name)

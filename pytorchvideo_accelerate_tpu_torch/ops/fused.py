@@ -8,6 +8,12 @@ functions, same NDHWC layout, same `mode` vocabulary:
 - `fused_conv3d_bn_act`: dense stride-1 SAME conv with odd taps + affine +
   act; on the card `csrc/fused_conv_bn_act.cu` (implicit GEMM). A (1,1,1)
   weight routes to the pointwise kernel, even taps to the plain version.
+- `fused_depthwise_bn_act`: depthwise stride-1 SAME conv with odd taps +
+  affine + act (X3D `conv_b`/`stem_t`, CSN `conv_b`); on the card
+  `csrc/depthwise3d.cu` (`pva_fused_dw_bn_act`), even taps take the plain
+  version. The same source's `pva_depthwise3d_s1` (no bias, no act) serves
+  `ops/depthwise.py`, whose plain tap sum lives here too
+  (`depthwise_taps_f32`).
 
 Norm-affine contract: callers pass the resolved per-channel (scale, bias).
 The scale folds into the weights in f32 and the folded weight is rounded to
@@ -19,13 +25,14 @@ hand kernel (the name is kept so configs round-trip with the JAX package) and
 raises on a CPU tensor; "xla" runs the plain version. Nothing falls back: a
 kernel that fails to build or launch raises.
 
-Gradients: "auto" and "pallas" go through `PwBnAct` / `ConvBnAct`, the
-`torch.autograd.Function` counterparts of the JAX package's custom VJPs
-(`_pw_pallas`, `_conv_pallas`). Their forward is the kernel (its plain
-version for a CPU tensor) and their backward computes dx with the same
-kernel against the transposed (conv: tap-flipped, channel-transposed)
-weights, dwf and db as f32 contractions in PyTorch, as the JAX package
-leaves them to XLA. On the card those contractions are float32 matmuls
+Gradients: "auto" and "pallas" go through `PwBnAct` / `ConvBnAct` /
+`DwBnAct`, the `torch.autograd.Function` counterparts of the JAX package's
+custom VJPs (`_pw_pallas`, `_conv_pallas`, `_dw_pallas`). Their forward is
+the kernel (its plain version for a CPU tensor) and their backward
+computes dx with the same kernel against the transposed (conv:
+tap-flipped, channel-transposed; depthwise: tap-flipped) weights, dwf and
+db as f32 contractions in PyTorch, as the JAX package leaves them to XLA.
+On the card those contractions are float32 matmuls
 (`torch.backends.cuda.matmul.allow_tf32` stays False). "xla" is plain
 autograd through the plain versions. The scale fold stays outside the
 Functions, so autograd carries dw and dscale through it.
@@ -55,7 +62,9 @@ _ACT_CODE = {"identity": 0, "relu": 1, "silu": 2}
 # launches per key since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "fused_pw_bn_act": 0, "fused_conv_bn_act": 0,
-    "fused_pw_bn_act.bwd_dx": 0, "fused_conv_bn_act.bwd_dx": 0}
+    "fused_pw_bn_act.bwd_dx": 0, "fused_conv_bn_act.bwd_dx": 0,
+    "fused_dw_bn_act": 0, "fused_dw_bn_act.bwd_dx": 0,
+    "depthwise3d_s1": 0, "depthwise3d_s1.bwd_dx": 0}
 
 
 def reset_launch_counts() -> None:
@@ -120,40 +129,90 @@ def conv_bn_act_plain(x, wf, bias32, act: str):
     return end_island(apply_act(y, act), x.dtype).contiguous()
 
 
+def depthwise_taps_f32(x, k, stride=(1, 1, 1), padding=None):
+    """The f32 sum of a depthwise conv's taps, in tap order (dt, dh, dw): the
+    shift decomposition of the JAX package's `depthwise_conv3d_shift`
+    without its final cast. x (B,T,H,W,C); k (kt,kh,kw,1,C); padding
+    defaults to k//2 per dim. x is cast to f32 once, before the taps, so
+    autograd of this version also sums dx over the taps in f32 and rounds
+    it to x's dtype once."""
+    kt, kh, kw, one, c = k.shape
+    if one != 1 or x.shape[-1] != c:
+        raise ValueError(f"depthwise taps (kt,kh,kw,1,C) for x {tuple(x.shape)}, "
+                         f"got {tuple(k.shape)}")
+    pt, ph, pw = (kt // 2, kh // 2, kw // 2) if padding is None else padding
+    st, sh, sw = stride
+    xp = F.pad(f32_island(x), (0, 0, pw, pw, ph, ph, pt, pt))
+    t, h, w = x.shape[1:4]
+    ot = (t + 2 * pt - kt) // st + 1
+    oh = (h + 2 * ph - kh) // sh + 1
+    ow = (w + 2 * pw - kw) // sw + 1
+    k32 = f32_island(k)
+    out = None
+    for it in range(kt):
+        for ih in range(kh):
+            for iw in range(kw):
+                tap = xp[:, it:it + (ot - 1) * st + 1:st,
+                         ih:ih + (oh - 1) * sh + 1:sh,
+                         iw:iw + (ow - 1) * sw + 1:sw, :]
+                term = tap * k32[it, ih, iw, 0]
+                out = term if out is None else out + term
+    return out
+
+
+def depthwise_tap_grads_f32(x, dy32, taps):
+    """d(stride-1 SAME depthwise conv)/d(taps) in f32: per tap, the sum over
+    (B, T, H, W) of the shifted padded input times the f32 output gradient
+    `dy32`. Returns (kt, kh, kw, 1, C) f32."""
+    kt, kh, kw = taps
+    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2, kt // 2, kt // 2))
+    t, h, w = x.shape[1:4]
+    rows = [(f32_island(xp[:, dt:dt + t, dh:dh + h, dw:dw + w, :]) * dy32)
+            .sum(dim=(0, 1, 2, 3))
+            for dt in range(kt) for dh in range(kh) for dw in range(kw)]
+    return torch.stack(rows).reshape(kt, kh, kw, 1, -1)
+
+
+def dw_bn_act_plain(x, kf, bias32, act: str):
+    """act(depthwise_conv3d_s1(x, kf) + bias) in f32, one cast to x's dtype.
+    x NDHWC, kf (kt,kh,kw,1,C); SAME padding k//2 per dim."""
+    y = depthwise_taps_f32(x, kf) + bias32
+    return end_island(apply_act(y, act), x.dtype)
+
+
 # --- CUDA kernel wrappers ----------------------------------------------------
 
 
-def _check_operands(x, wf, bias32):
+def _check_operands(x, wf, bias32=None):
     if x.dtype != torch.bfloat16 or wf.dtype != torch.bfloat16:
         raise TypeError(
             "the fused CUDA kernels take bfloat16 activations and weights, "
             f"got {x.dtype}/{wf.dtype}; run --mixed_precision bf16, or "
             "--model.fused_kernels off|xla for float32")
-    if bias32.dtype != torch.float32:
+    if bias32 is not None and bias32.dtype != torch.float32:
         raise TypeError(f"fused bias must be float32, got {bias32.dtype}")
-    if not (x.device == wf.device == bias32.device):
+    if len({t.device for t in (x, wf, bias32) if t is not None}) != 1:
         raise ValueError("fused kernel operands must share one CUDA device")
     if max(x.numel(), wf.numel()) >= 2 ** 31:
         raise ValueError("fused kernel operands must hold < 2**31 elements")
 
 
-def _launch(name: str, x, wf, bias32, out_shape, dims, act: str,
-            count: str):
-    """Launch kernel `name` on the current stream: (x, wf, bias32, out,
-    *dims, act code, stream) -> CUDA error code. Counts the launch under
-    `LAUNCHES[count]`."""
+def _launch(name: str, operands, out_shape, dims, count: str):
+    """Launch entry point `name` on the current stream: (*operands, out,
+    *dims, stream) -> CUDA error code, the output in operands[0]'s dtype.
+    Counts the launch under `LAUNCHES[count]`."""
     from pytorchvideo_accelerate_tpu_torch.ops import _build
 
-    _check_operands(x, wf, bias32)
-    x, wf, bias32 = x.contiguous(), wf.contiguous(), bias32.contiguous()
+    operands = [t.contiguous() for t in operands]
+    x = operands[0]
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     fn = _build.entry(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), wf.data_ptr(), bias32.data_ptr(),
-                out.data_ptr(), *dims, _ACT_CODE[act], stream)
+        rc = fn(*(t.data_ptr() for t in operands), out.data_ptr(), *dims,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[count] += 1
@@ -161,17 +220,37 @@ def _launch(name: str, x, wf, bias32, out_shape, dims, act: str,
 
 
 def _pw_cuda(x2d, wf, bias32, act: str, count: str = "fused_pw_bn_act"):
+    _check_operands(x2d, wf, bias32)
     m, cin = x2d.shape
     cout = wf.shape[1]
-    return _launch("fused_pw_bn_act", x2d, wf, bias32, (m, cout),
-                   (m, cin, cout), act, count)
+    return _launch("fused_pw_bn_act", (x2d, wf, bias32), (m, cout),
+                   (m, cin, cout, _ACT_CODE[act]), count)
 
 
 def _conv_cuda(x, wf, bias32, act: str, count: str = "fused_conv_bn_act"):
+    _check_operands(x, wf, bias32)
     b, t, h, w, cin = x.shape
     kt, kh, kw, _, cout = wf.shape
-    return _launch("fused_conv_bn_act", x, wf, bias32, (b, t, h, w, cout),
-                   (b, t, h, w, cin, cout, kt, kh, kw), act, count)
+    return _launch("fused_conv_bn_act", (x, wf, bias32), (b, t, h, w, cout),
+                   (b, t, h, w, cin, cout, kt, kh, kw, _ACT_CODE[act]), count)
+
+
+def _dw_cuda(x, k, bias32, act: str, count: str):
+    """The depthwise stencil (csrc/depthwise3d.cu) on NDHWC x and
+    (kt,kh,kw,1,C) odd taps: `fused_dw_bn_act` with the f32 bias and act, or
+    `depthwise3d_s1` (no bias, no act) when `bias32` is None."""
+    _check_operands(x, k, bias32)
+    b, t, h, w, c = x.shape
+    kt, kh, kw, one, kc = k.shape
+    if one != 1 or kc != c or not all(d % 2 for d in (kt, kh, kw)):
+        raise ValueError(f"depthwise kernel takes odd (kt,kh,kw,1,C) taps for "
+                         f"x {tuple(x.shape)}, got {tuple(k.shape)}")
+    k2d = k.reshape(kt * kh * kw, c)
+    dims = (b, t, h, w, c, kt, kh, kw)
+    if bias32 is None:
+        return _launch("depthwise3d_s1", (x, k2d), x.shape, dims, count)
+    return _launch("fused_dw_bn_act", (x, k2d, bias32), x.shape,
+                   dims + (_ACT_CODE[act],), count)
 
 
 # --- custom autograd (the JAX package's _pw_pallas / _conv_pallas VJPs) -----
@@ -187,6 +266,12 @@ def _conv_apply(x, wf, bias32, act, kernel: bool, count="fused_conv_bn_act"):
     if kernel:
         return _conv_cuda(x, wf, bias32, act, count)
     return conv_bn_act_plain(x, wf, bias32, act)
+
+
+def _dw_apply(x, kf, bias32, act, kernel: bool, count="fused_dw_bn_act"):
+    if kernel:
+        return _dw_cuda(x, kf, bias32, act, count)
+    return dw_bn_act_plain(x, kf, bias32, act)
 
 
 def _dz(g, z_fn, act: str):
@@ -274,6 +359,41 @@ class ConvBnAct(torch.autograd.Function):
         return dx, dwf, db, None, None
 
 
+class DwBnAct(torch.autograd.Function):
+    """act(depthwise_conv3d_s1(x, kf) + bias32), SAME k//2 padding, kf
+    (kt,kh,kw,1,C) scale-folded, with the backward of `_dw_bwd`
+    (pallas_fused.py): dx by the same kernel on bf16 dz against the
+    tap-flipped taps (zero bias, identity), dkf by per-tap f32 reductions
+    over the padded input, db = sum(dz32)."""
+
+    @staticmethod
+    def forward(ctx, x, kf, bias32, act: str, kernel: bool):
+        ctx.act, ctx.kernel = act, kernel
+        ctx.save_for_backward(x, kf, bias32)
+        return _dw_apply(x, kf, bias32, act, kernel)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, kf, bias32 = ctx.saved_tensors
+        need_x, need_k, need_b = ctx.needs_input_grad[:3]
+        dz32 = _dz(g, lambda: _dw_apply(x, kf, bias32, "identity",
+                                        ctx.kernel), ctx.act)
+        dx = dkf = db = None
+        if need_x:
+            dz = end_island(dz32, x.dtype).contiguous()
+            zeros = torch.zeros(kf.shape[-1], dtype=torch.float32,
+                                device=kf.device)
+            dx = _dw_apply(dz, kf.flip(0, 1, 2), zeros, "identity",
+                           ctx.kernel, "fused_dw_bn_act.bwd_dx")
+        if need_k:
+            dkf = end_island(depthwise_tap_grads_f32(x, dz32, kf.shape[:3]),
+                             kf.dtype)
+        if need_b:
+            db = dz32.sum(dim=(0, 1, 2, 3))
+        return dx, dkf, db, None, None
+
+
 # --- public dispatchers ------------------------------------------------------
 
 
@@ -313,3 +433,19 @@ def fused_conv3d_bn_act(x, w, scale, bias, *, act: str = "identity",
     if mode == "xla" or not all(k % 2 for k in (kt, kh, kw)):
         return conv_bn_act_plain(x, wf, bias32, act)
     return ConvBnAct.apply(x, wf, bias32, act, kernel)
+
+
+def fused_depthwise_bn_act(x, k, scale, bias, *, act: str = "identity",
+                           mode: str = "auto"):
+    """Depthwise stride-1 SAME conv + resolved norm affine + act.
+    x: (B,T,H,W,C); k: (kt,kh,kw,1,C); scale/bias: (C,) f32. The scale folds
+    into the per-channel taps in f32, rounded to x's dtype; even taps run the
+    plain version (the kernel hard-codes odd SAME geometry)."""
+    if act not in _ACT_CODE:
+        raise ValueError(f"fused act must be one of {FUSED_ACTS}, got {act!r}")
+    scale32, bias32 = f32_island(scale), f32_island(bias)
+    kf = end_island(f32_island(k) * scale32, x.dtype)
+    kernel = _use_kernel(mode, x)
+    if mode == "xla" or not all(d % 2 for d in k.shape[:3]):
+        return dw_bn_act_plain(x, kf, bias32, act)
+    return DwBnAct.apply(x, kf, bias32, act, kernel)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from pytorchvideo_accelerate_tpu_torch.models.heads import ResBasicHead
+from pytorchvideo_accelerate_tpu_torch.models.common import SeededDropout
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import global_norm
 
@@ -122,11 +122,12 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     `accum_steps`, then the update and the EMA. `metrics`: "loss" (mean over
     micro-steps), "grad_norm" (global norm of the averaged grads, before
     clipping), "accuracy" (device scalars) and "lr" (the schedule at the
-    step before the update, a float). `dropout_seed`: the heads' dropout
-    generators are reseeded from (seed, step) at every step."""
+    step before the update, a float). `dropout_seed`: every `SeededDropout`
+    of the model (each head's dropout) is reseeded from (seed, step) at
+    every step."""
     named = dict(model.named_parameters())
     params = [p for p in named.values() if p.requires_grad]
-    heads = [m for m in model.modules() if isinstance(m, ResBasicHead)]
+    dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
 
     def forward_loss(batch: dict):
         batch = device_normalize_batch(batch, device_normalize)
@@ -137,8 +138,8 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     def step(state, batch: dict) -> dict:
         model.train()
         if dropout_seed is not None:
-            for h in heads:
-                h.reseed((dropout_seed * 1_000_003 + state.step) % 2 ** 63)
+            for d in dropouts:
+                d.reseed((dropout_seed * 1_000_003 + state.step) % 2 ** 63)
         for p in params:
             p.grad = None
         losses, corrects, counts = [], [], []

@@ -12,17 +12,22 @@ and round once to bf16, so they differ by about one bf16 ulp plus the f32
 summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|). The
 backward's dx launch is held to the same bound against the plain dx on the
 same bf16 dz; dw and db are f32 contractions that the kernel path and the
-plain path compute alike (2e-3 relative). A tiny3d training micro-step
-through the kernels against the plain lowering (`xla`, TF32 off): loss
-within 5e-2 * (1 + |loss|), the whole gradient within 5e-2 relative
-(every layer rounds to bf16 in another summation order).
+plain path compute alike (2e-3 relative). The depthwise kernel
+(`csrc/depthwise3d.cu`) is held the same way through both of its entry
+points: `fused_depthwise_bn_act` (forward and the `DwBnAct` dx; its dk
+and dscale, which pass through bf16-rounded folded taps, within one bf16
+ulp, 1e-2 relative) and `Depthwise3dS1` (forward and dx). A tiny3d and a
+tiny X3D training micro-step through the kernels against the plain
+lowering (`xla`, TF32 off): loss within 5e-2 * (1 + |loss|), the whole
+gradient within 5e-2 relative (every layer rounds to bf16 in another
+summation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pytorchvideo_accelerate_tpu_torch.ops import fused
+from pytorchvideo_accelerate_tpu_torch.ops import depthwise, fused
 
 pytestmark = pytest.mark.cuda
 
@@ -109,6 +114,118 @@ def test_backward_dx_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
         assert err <= 2e-3 * (1 + want.abs().max().item()), err
 
 
+DW_CASES = [
+    ((2, 4, 9, 11), 54, (3, 3, 3)),   # X3D res2 width: a ragged channel tail
+    ((1, 6, 7, 5), 24, (5, 1, 1)),    # X3D stem_t
+    ((1, 3, 5, 6), 18, (3, 3, 3)),
+    ((2, 4, 7, 7), 64, (3, 3, 3)),    # CSN res2 width
+    ((1, 5, 6, 4), 8, (1, 3, 3)),     # taps sized at run time
+]
+
+
+def _dw_inputs(shape, c, taps, seed, device):
+    x, w, s, b = _inputs(shape, 1, c, taps, seed, device)
+    x = torch.from_numpy(np.random.default_rng(seed + 7).standard_normal(
+        shape + (c,), np.float32)).to(device, torch.bfloat16)
+    return x, w, s, b
+
+
+@pytest.mark.parametrize("act", ["identity", "relu", "silu"])
+@pytest.mark.parametrize("shape,c,taps", DW_CASES)
+def test_dw_bn_act_kernel_matches_plain(cuda, shape, c, taps, act):
+    x, k, s, b = _dw_inputs(shape, c, taps, 4, cuda)
+    before = fused.LAUNCHES["fused_dw_bn_act"]
+    got = fused.fused_depthwise_bn_act(x, k, s, b, act=act, mode="pallas")
+    want = fused.fused_depthwise_bn_act(x, k, s, b, act=act, mode="xla")
+    torch.cuda.synchronize()
+    _check(got, want)
+    assert fused.LAUNCHES["fused_dw_bn_act"] == before + 1
+
+
+@pytest.mark.parametrize("act", ["identity", "silu"])
+@pytest.mark.parametrize("shape,c,taps", DW_CASES)
+def test_dw_bn_act_backward_dx_kernel_matches_plain(cuda, shape, c, taps, act):
+    x, k, s, b = _dw_inputs(shape, c, taps, 5, cuda)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        shape + (c,), np.float32)).to(cuda, torch.bfloat16)
+    grads = {}
+    for mode in ("pallas", "xla"):
+        xr = x.clone().requires_grad_()
+        kr = k.float().requires_grad_()
+        sr, br = s.clone().requires_grad_(), b.clone().requires_grad_()
+        y = fused.fused_depthwise_bn_act(xr, kr.bfloat16(), sr, br, act=act,
+                                         mode=mode)
+        before = fused.LAUNCHES["fused_dw_bn_act.bwd_dx"]
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["fused_dw_bn_act.bwd_dx"] == before + (mode == "pallas")
+        grads[mode] = [t.grad for t in (xr, kr, sr, br)]
+    _check(grads["pallas"][0], grads["xla"][0])
+    # dk and dscale pass through dkf rounded to bf16 (kf's dtype, as
+    # `_dw_bwd` does) on both sides; with silu the custom backward takes
+    # act' at the bf16-rounded recomputed z, so a sum may round to the
+    # neighbouring bf16 value: one ulp, 2^-7 relative
+    for got, want in zip(grads["pallas"][1:], grads["xla"][1:]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-2 * (1 + want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("shape,c,taps", DW_CASES)
+def test_depthwise3d_s1_kernel_matches_plain(cuda, shape, c, taps):
+    """Forward and dx of `Depthwise3dS1` through the kernel against the same
+    Function's plain version; dk is the same f32 reduction on both sides."""
+    x, k, _, _ = _dw_inputs(shape, c, taps, 8, cuda)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        shape + (c,), np.float32)).to(cuda, torch.bfloat16)
+    out = {}
+    for kernel in (True, False):
+        xr, kr = x.clone().requires_grad_(), k.clone().requires_grad_()
+        before = dict(fused.LAUNCHES)
+        y = depthwise.Depthwise3dS1.apply(xr, kr, kernel)
+        y.backward(g)
+        torch.cuda.synchronize()
+        for key in ("depthwise3d_s1", "depthwise3d_s1.bwd_dx"):
+            assert fused.LAUNCHES[key] == before[key] + kernel
+        out[kernel] = (y, xr.grad, kr.grad)
+    for got, want in zip(out[True][:2], out[False][:2]):
+        _check(got, want)
+    torch.testing.assert_close(out[True][2], out[False][2], rtol=2e-2, atol=2e-2)
+
+
+def test_tiny_x3d_train_micro_step_kernels_match_plain(cuda):
+    from pytorchvideo_accelerate_tpu_torch.models import init_like_jax
+    from pytorchvideo_accelerate_tpu_torch.models.x3d import X3D
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
+        _loss_and_metrics,
+    )
+
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((4, 8, 64, 64, 3), np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 5, 4)).to(cuda)
+    out = {}
+    for mode in ("auto", "xla"):
+        model = X3D(5, depths=(3, 2), stem_features=8, stage_features=(8, 16),
+                    head_features=32, dropout_rate=0.0, fused=mode,
+                    dtype=torch.bfloat16)
+        init_like_jax(model, torch.Generator().manual_seed(1))
+        model = model.to(cuda).train()
+        before = dict(fused.LAUNCHES)
+        loss, _, _ = _loss_and_metrics(model(x), labels,
+                                       torch.ones(4, device=cuda), 0.0)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        out[mode] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]),
+                     launched)
+    (lk, gk, nk), (lp, gp, np_) = out["auto"], out["xla"]
+    assert abs(lk - lp) <= 5e-2 * (1 + abs(lp))
+    assert ((gk - gp).norm() / gp.norm()).item() <= 5e-2
+    # stem_t and the 3 stride-1 conv_b: one forward and one dx launch each
+    assert nk["fused_dw_bn_act"] == nk["fused_dw_bn_act.bwd_dx"] == 4
+    assert nk["fused_pw_bn_act"] == nk["fused_pw_bn_act.bwd_dx"] == 2 * 5 + 1
+    assert not any(np_.values())
+
+
 def test_tiny3d_train_micro_step_kernels_match_plain(cuda):
     from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
     from pytorchvideo_accelerate_tpu_torch.models import create_model
@@ -158,3 +275,8 @@ def test_float32_raises_on_the_card(cuda):
     x, w, s, b = _inputs((1, 2, 3, 4), 8, 8, (1, 1, 1), 0, cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         fused.fused_pointwise_bn_act(x.float(), w.float(), s, b, mode="auto")
+    x, k, s, b = _dw_inputs((1, 3, 4, 4), 8, (3, 3, 3), 0, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused.fused_depthwise_bn_act(x.float(), k.float(), s, b, mode="auto")
+    with pytest.raises(TypeError, match="bfloat16"):
+        depthwise.Depthwise3dS1.apply(x.float(), k.float(), True)

@@ -89,7 +89,7 @@ def _jax_logits(name, fused):
 
 
 @pytest.mark.parametrize("name", ["slowfast_r50", "slow_r50", "c2d_r50",
-                                  "slowfast_t", "tiny3d"])
+                                  "slowfast_t", "tiny3d", "x3d_m", "csn_r101"])
 def test_state_dict_maps_jax_tree_one_to_one(name):
     """Every leaf of the (full-width) flax tree maps to exactly one port key
     with the right shape, and no port key is left over."""
@@ -130,6 +130,23 @@ def test_jax_tree_round_trips_through_state_dict():
         np.testing.assert_array_equal(back[k], flat[k])
 
 
+@pytest.mark.parametrize("name", ["x3d_m", "csn_r101"])
+def test_depthwise_families_round_trip_jax_port_jax(name):
+    """JAX tree -> the port's model (a strict load) -> its state_dict -> the
+    JAX tree, bitwise: the depthwise kernels (kt,kh,kw,1,C) cross as the
+    grouped (C,1,kt,kh,kw) weight under the converter's usual transpose."""
+    flat = _seeded_tree(name)
+    model = _torch_model(name, "auto")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           state_dict_from_jax(flat).items()}, strict=True)
+    dw = [k for k in flat if k.endswith("conv_b/kernel") or k.endswith("conv_b/conv/kernel")]
+    assert dw and all(flat[k].shape[3] == 1 for k in dw)
+    back = flatten_tree(jax_tree_from_state_dict(model.state_dict()))
+    assert sorted(back) == sorted(flat)
+    for k in flat:
+        np.testing.assert_array_equal(back[k], flat[k])
+
+
 def test_slowfast_r50_fused_site_counts():
     """41 pointwise + 51 odd-tap conv sites take the fused kernels; the 18
     strided or (7,1,1)-lateral sites keep the unfused path."""
@@ -140,14 +157,15 @@ def test_slowfast_r50_fused_site_counts():
     assert (len(pw), len(fused) - len(pw), len(sites) - len(fused)) == (41, 51, 18)
 
 
-@pytest.mark.parametrize("name", ["slowfast_r50", "slow_r50", "x3d_s"])
+@pytest.mark.parametrize("name", ["slowfast_r50", "slow_r50", "x3d_s", "x3d_m",
+                                  "csn_r101"])
 def test_model_input_spec_matches_jax(name):
     d = dict(num_frames=32, crop_size=224)
     assert (tmodels.model_input_spec(ModelConfig(name=name), DataConfig(**d))
             == jmodels.model_input_spec(JModelConfig(name=name), JDataConfig(**d)))
 
 
-@pytest.mark.parametrize("name,err", [("x3d_s", NotImplementedError),
+@pytest.mark.parametrize("name,err", [("r2plus1d_r50", NotImplementedError),
                                       ("mvit_b", NotImplementedError),
                                       ("no_such_net", ValueError)])
 def test_unported_or_unknown_model_raises(name, err):

@@ -476,6 +476,18 @@ def test_init_draws_like_jax():
                                           torch.from_numpy(_labels(4, 3)),
                                           torch.ones(4), 0.0)
     assert abs(loss.item() - np.log(NUM_CLASSES)) < 0.25
+    # X3D: its `proj` is a bare flax Dense (lecun-normal, zero bias), its SE
+    # convs carry zero biases, a depthwise kernel's fan-in is its 27 taps
+    x3d = tmodels.create_model(ModelConfig(name="x3d_s", num_classes=400),
+                               "fp32", seed=3)
+    for w, fan_in in ((x3d.proj.weight, 2048), (x3d.head_conv.weight, 432),
+                      (x3d.res4_block0.conv_b.weight, 27),
+                      (x3d.res4_block0.se.fc1.weight, 216)):
+        np.testing.assert_allclose(w.detach().std().item(), np.sqrt(1.0 / fan_in),
+                                   rtol=0.1)
+    for b in (x3d.proj.bias, x3d.res4_block0.se.fc1.bias,
+              x3d.res4_block0.se.fc2.bias):
+        assert not b.detach().any()
 
 
 def test_loss_decreases_on_a_learnable_batch():
