@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: serve and train full-width SlowFast-R50,
-serve and train full-width X3D-M, and serve CSN-R101, on one GPU.
+serve and train full-width X3D-M, serve CSN-R101, serve and train MViT-B,
+and serve VideoMAE-B and pretrain it (MAE), on one GPU.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
@@ -66,16 +67,47 @@ Drives the port only (no JAX), one JSON line per phase:
 17. csn_serve  the engine runs one CSN-R101 bucket-4 forward under `auto`:
             67 pointwise and 30 depthwise launches; logits against the
             plain path; forward times
+18. mvit_weights, videomae_weights  seeded MViT-B and VideoMAE-B artifacts
+            (16 frames at 224^2, a residual branch's last projection x0.1,
+            head planted on 5 request clips), the `attention dense` engine
+            on the same weights, and the attention sites of its bucket-8
+            forward (and of one VideoMAE-B pretraining forward, B=8)
+19. kernels (attention)  the flash kernels (`csrc/flash_attention.cu`) at
+            every distinct site shape: forward (out and lse) against
+            `flash_fwd_plain`, dq and dk/dv against `flash_bwd_plain`;
+            kernel, plain and library (`F.scaled_dot_product_attention`,
+            timed only) device times
+20. mvit_serve  `build_server` serves MViT-B under `attention pallas,
+            depthwise_impl pallas`: 16 flash and 4 `depthwise3d_s1` launches
+            per forward; logits against the dense engine; mvit_timing
+            (flash, dense) and mvit_profile (with the strided pools' cuDNN
+            grouped-conv time)
+21. videomae_serve  VideoMAE-B the same way: 12 flash launches per forward
+22. mvit_train  `run.main` trains MViT-B (B=8, bf16, lr 0.01) for 2 steps
+            with a checkpoint each step: per micro-step 16 flash forward,
+            16 dq, 16 dk/dv, 4 `depthwise3d_s1` and 4 of its dx launches
+            (plus the eval forwards); the step-1 checkpoint restored
+            bitwise; the export serves the trainer's logits
+23. mvit_train_parity, mvit_train_timing  end to end the loss through the
+            kernels against `attention dense`; with the forward fixed the
+            whole gradient and one SGD update against plain autograd; ms
+            per micro-step and peak memory of both, a profile
+24. videomae_pretrain  `run.main` pretrains VideoMAE-B (B=8, MAE ratio
+            0.9) for 2 steps: 16 forward, 16 dq and 16 dk/dv launches per
+            micro-step; the step-1 checkpoint restored bitwise
+25. videomae_pretrain_parity  one micro-step under one mask: the loss
+            through the kernels against `attention dense`; times, memory
 
-Then the kernels' JSON line (8 entries; its ms, plain_ms, library_ms and
+Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
 the model that carries it, SlowFast-R50 for the pointwise and conv kernels,
-X3D-M for the depthwise ones; for a dx row over the dx launches of one B=8
-micro-step; launches are those of the main-path phase that runs the
-kernel: serve, train, x3d_serve, x3d_depthwise_impl and x3d_train), the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}. Any
-failed check raises: the script exits non-zero and prints no result. It
-exits non-zero at once without CUDA.
+X3D-M for the depthwise ones, MViT-B for the flash ones; for a backward
+row over its launches in one B=8 micro-step; launches are those of the
+main-path phase that runs the kernel: serve, train, x3d_serve,
+x3d_depthwise_impl, x3d_train, mvit_serve and mvit_train), the nvidia-smi
+line, and as the last line {"ok": true, "device": {...}}. Any failed check
+raises: the script exits non-zero and prints no result. It exits non-zero
+at once without CUDA.
 
 Tolerances. Kernel vs plain version: both multiply bf16 operands exactly,
 sum in f32 and round once to bf16, so elementwise
@@ -85,7 +117,9 @@ compounded over ~50 layers: |served - plain| <= 5e-2 * (1 + |plain|), and
 top-1 must agree wherever the plain top-1 margin exceeds 2 * 5e-2 * (1 +
 |top logit|). The training loss, the head's gradient (SlowFast), and (with
 the forward held fixed) the whole gradient and one SGD update: within 5e-2
-(the gradients relative in the 2-norm).
+(the gradients relative in the 2-norm). The flash kernels' dq, dk and dv are
+held elementwise like the forward, against `flash_bwd_plain` on the same
+(out, lse).
 """
 
 from __future__ import annotations
@@ -115,6 +149,12 @@ PLANTED_LOGIT = 6.0
 # in these random nets: X3D-M's conv5 output drifts ~50% from an f32 run of
 # the same weights (a CPU run at 8x112^2), at 0.1 ~3%
 RESIDUAL_BN_SCALE = 0.1
+# the same for the transformers: scale of each block's residual branch's
+# last projection (`proj`, `mlp_fc2`) in the seeded serving weights. At
+# the full scale a CPU run of MViT-B at 4x32^2 (all 16 blocks, full width)
+# put bf16 logits 0.063 from an f32 run of the same weights, past the
+# 5e-2 * (1 + |plain|) tolerance; at 0.1, 0.038
+RESIDUAL_PROJ_SCALE = 0.1
 PW_PER_FORWARD, CONV_PER_FORWARD = 41, 51
 SITES_PER_FORWARD = {"fused_pw_bn_act": PW_PER_FORWARD,
                      "fused_conv_bn_act": CONV_PER_FORWARD}
@@ -123,13 +163,26 @@ X3D_DEPTHS, CSN_DEPTHS = (3, 5, 11, 7), (3, 4, 23, 3)
 CSN_BUCKET = 4
 # (frames, crop) each model is served and trained at
 GEOMETRY = {"slowfast_r50": (FRAMES, CROP), "x3d_m": (16, 224),
-            "csn_r101": (32, 224)}
+            "csn_r101": (32, 224), "mvit_b": (16, 224), "videomae_b": (16, 224),
+            "videomae_b_pretrain": (16, 224)}
+# the attention slice: MViT-B (models/mvit.py) and VideoMAE-B
+# (models/videomae.py) through the flash kernels
+MVIT_STAGE_STARTS, MVIT_DEPTH, MVIT_KV_STRIDE = (1, 3, 14), 16, (1, 8, 8)
+VIT_DEPTH, VIT_DECODER_DEPTH = 12, 4
+TRANSFORMER_LR = 0.01
+ATTN_ARGV = ["--model.attention", "pallas", "--model.depthwise_impl", "pallas"]
 # the train phases: run.main on the reference recipe's geometry for
 # SlowFast-R50; two steps of B=8 with a checkpoint each step for X3D-M
 SLOWFAST_TRAIN = dict(name="slowfast_r50", batch=8, accum=4, epochs=2,
                       videos=64, ckpt_every=2)
 X3D_TRAIN = dict(name="x3d_m", batch=8, accum=1, epochs=1, videos=16,
                  ckpt_every=1)
+# two steps of B=8 with a checkpoint each step, through the flash kernels
+# (and row 4 at MViT's stride-1 K/V pools); SGD at lr 0.01 (MViT's global
+# gradient norm at init is ~37: a CPU f32 run of mvit_t)
+MVIT_TRAIN = dict(X3D_TRAIN, name="mvit_b", lr=TRANSFORMER_LR, argv=ATTN_ARGV)
+MAE_TRAIN = dict(X3D_TRAIN, name="videomae_b_pretrain", lr=TRANSFORMER_LR,
+                 argv=ATTN_ARGV[:2], pretrain=True)
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
 DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
@@ -143,6 +196,7 @@ NAMED_SITES = {
     "slow_res4.block1.conv_a": "slow res4 conv_a (3,1,1) 1024->256",
 }
 _DW_SRC = "pytorchvideo_accelerate_tpu_torch/ops/csrc/depthwise3d.cu"
+_FLASH_SRC = "pytorchvideo_accelerate_tpu_torch/ops/csrc/flash_attention.cu"
 SOURCES = {
     "fused_pw_bn_act": ("pytorchvideo_accelerate_tpu_torch/ops/csrc/fused_pw_bn_act.cu",
                         "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:123"),
@@ -160,6 +214,11 @@ SOURCES = {
     "fused_dw_bn_act.bwd_dx": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:350"),
     "depthwise3d_s1": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_depthwise.py:58"),
     "depthwise3d_s1.bwd_dx": (_DW_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_depthwise.py:157"),
+    # the flash attention forward and its custom VJP's two backward kernels
+    # (ops/flash_attention.py FlashAttention)
+    "flash_attention": (_FLASH_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:54"),
+    "flash_attention.bwd_dq": (_FLASH_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:93"),
+    "flash_attention.bwd_dkv": (_FLASH_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:116"),
 }
 # per kernel of the kernels line: the model whose bucket-8 forward (and B=8
 # micro-step, for dx) its times are summed over, and the main-path phases
@@ -167,7 +226,8 @@ SOURCES = {
 LINE = {"fused_pw_bn_act": ("slowfast_r50", "serve", "train"),
         "fused_conv_bn_act": ("slowfast_r50", "serve", "train"),
         "fused_dw_bn_act": ("x3d_m", "x3d_serve", "x3d_train"),
-        "depthwise3d_s1": ("x3d_m", "x3d_depthwise_impl", "x3d_train_depthwise_impl")}
+        "depthwise3d_s1": ("x3d_m", "x3d_depthwise_impl", "x3d_train_depthwise_impl"),
+        "flash_attention": ("mvit_b", "mvit_serve", "mvit_train")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -215,6 +275,14 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     if kev:
         return sum(e.time_range.elapsed_us() for e in kev) / reps / 1e3
     EVENT_TIMED[0] += 1
+    return event_ms(torch, fn, reps)
+
+
+def event_ms(torch, fn, reps: int = 20) -> float:
+    """ms of one `fn()` call from CUDA events around `reps` calls after a
+    warm-up call (the gaps between launches included)."""
+    fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -225,22 +293,35 @@ def device_ms(torch, fn, reps: int = 20) -> float:
 
 
 def serve_cfg(parse_cli, fused: str, name: str = "slowfast_r50",
-              impl: str = "conv", bucket: int = BUCKET):
+              impl: str = "conv", bucket: int = BUCKET, attention: str = "dense"):
     frames, crop = GEOMETRY[name]
     return parse_cli([
         "--model.name", name, "--model.num_classes", str(NUM_CLASSES),
         "--model.fused_kernels", fused, "--model.depthwise_impl", impl,
+        "--model.attention", attention,
         "--num_frames", str(frames), "--data.crop_size", str(crop),
         "--slowfast_alpha", str(ALPHA), "--data.host_cast", "u8",
         "--mixed_precision", "bf16", "--serve.max_batch_size", str(bucket)])
 
 
+def is_transformer(name: str) -> bool:
+    return name.startswith(("mvit", "videomae"))
+
+
 def u8_clips(rng, name: str, n: int) -> dict:
-    """n seeded u8 noise clips at `name`'s serving geometry, NDHWC."""
+    """n seeded u8 clips at `name`'s serving geometry, NDHWC: noise, and for
+    the transformers noise of +-48 around a per-clip colour. Their heads
+    read a mean over thousands of tokens, which averages pure noise clips
+    to nearly one feature; a colour per clip keeps the request clips'
+    pooled features apart, so the planted head stays well conditioned."""
     frames, crop = GEOMETRY[name]
     if name.startswith("slowfast"):
         return {"slow": rng.integers(0, 256, (n, frames // ALPHA, crop, crop, 3), np.uint8),
                 "fast": rng.integers(0, 256, (n, frames, crop, crop, 3), np.uint8)}
+    if is_transformer(name):
+        base = rng.integers(48, 208, (n, 1, 1, 1, 3))
+        noise = rng.integers(-48, 48, (n, frames, crop, crop, 3))
+        return {"video": (base + noise).astype(np.uint8)}
     return {"video": rng.integers(0, 256, (n, frames, crop, crop, 3), np.uint8)}
 
 
@@ -254,25 +335,33 @@ def bucket_batch(clips, bucket: int) -> dict:
 def seeded_state_dict(model, rng):
     """He-scaled conv weights (fan-in = in-channels x taps), BN affine near
     identity (a residual branch's final BN scale times RESIDUAL_BN_SCALE),
-    Linear weights std 1/sqrt(in), zero Linear and conv biases, running
-    statistics 0 and 1."""
+    LayerNorm scales near 1, Linear weights std 1/sqrt(in) (a transformer
+    block's `proj` and `mlp_fc2` times RESIDUAL_PROJ_SCALE), zero Linear and
+    conv biases, running statistics 0 and 1; MViT's pos_embed and VideoMAE's
+    mask_token std 0.02."""
     sd = model.state_dict()
     out = {}
     for name, t in sd.items():
         shape = tuple(t.shape)
-        stem, leaf = name.rsplit(".", 1)
+        stem, _, leaf = name.rpartition(".")
         bn = f"{stem}.running_var" in sd
         if leaf == "weight" and len(shape) == 5:
             fan_in = int(np.prod(shape[1:]))
             v = rng.standard_normal(shape, np.float32) * np.sqrt(2.0 / fan_in)
         elif leaf == "weight" and len(shape) == 2:
             v = rng.standard_normal(shape, np.float32) / np.sqrt(shape[1])
+            if "block" in stem and stem.rpartition(".")[2] in ("proj", "mlp_fc2"):
+                v *= RESIDUAL_PROJ_SCALE
         elif leaf == "weight" and bn:
             v = rng.uniform(0.8, 1.2, shape).astype(np.float32)
             if stem.endswith("conv_c.norm"):
                 v *= RESIDUAL_BN_SCALE
         elif leaf == "bias" and bn:
             v = rng.standard_normal(shape, np.float32) * 0.05
+        elif leaf == "weight" and len(shape) == 1:  # LayerNorm scale
+            v = rng.uniform(0.8, 1.2, shape).astype(np.float32)
+        elif leaf in ("pos_embed", "mask_token"):
+            v = rng.standard_normal(shape, np.float32) * 0.02
         elif leaf in ("bias", "running_mean"):
             v = np.zeros(shape, np.float32)
         elif leaf == "running_var":
@@ -284,8 +373,12 @@ def seeded_state_dict(model, rng):
 
 
 def head_proj(model):
-    """The classifier's final Linear (`head.proj`, or X3D's `proj`)."""
-    return model.head.proj if hasattr(model, "head") else model.proj
+    """The classifier's final Linear (`head.proj`, X3D's `proj`, or the
+    transformers' `head`)."""
+    head = getattr(model, "head", None)
+    if head is None:
+        return model.proj
+    return getattr(head, "proj", head)
 
 
 def device_inputs(torch, clips: dict, norm):
@@ -303,6 +396,9 @@ def calibrate_bn(torch, model, clips, norm):
     `clips` (one unfused bf16 forward), so activations stay O(1) through
     the ~50 layers and the logits are not all ~0."""
     from pytorchvideo_accelerate_tpu_torch.models.common import BNAffine
+
+    if not any(isinstance(m, BNAffine) for m in model.modules()):
+        return
 
     def hook(bn, args):
         x = args[0].float()
@@ -345,11 +441,13 @@ def plant_head(torch, model, clips, norm, logit: float = PLANTED_LOGIT):
 
 
 def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
-                  bucket: int = BUCKET):
+                  bucket: int = BUCKET, attention: str = "dense",
+                  impl: str = "conv"):
     """Seeded `name` weights, BN calibrated on 2 noise clips, head classes
     planted on `requests` request clips, exported with the port's
-    `export_inference`. Returns (artifact path, its state, the clips, the
-    normalisation, the parameter count)."""
+    `export_inference` under a config that serves through `attention` and
+    `impl`. Returns (artifact path, its state, the clips, the normalisation,
+    the parameter count)."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
     from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
@@ -358,9 +456,10 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
     )
 
     art = os.path.join(work, f"{name}_artifact")
-    cfg = serve_cfg(parse_cli, "auto", name, bucket=bucket)
+    cfg = serve_cfg(parse_cli, "auto", name, impl, bucket, attention)
     norm = (cfg.data.mean, cfg.data.std)
-    calib = create_model(serve_cfg(parse_cli, "off", name).model, "bf16").eval()
+    calib = create_model(serve_cfg(parse_cli, "off", name).model, "bf16",
+                         data_cfg=cfg.data).eval()
     state = seeded_state_dict(calib, rng)
     calib.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     calib.cuda()
@@ -379,13 +478,14 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
 
 
 def make_engine(torch, name: str, state, norm, fused: str, impl: str = "conv",
-                bucket: int = BUCKET):
+                bucket: int = BUCKET, attention: str = "dense"):
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
     from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
 
+    cfg = serve_cfg(parse_cli, fused, name, impl, attention=attention)
     return InferenceEngine(
-        create_model(serve_cfg(parse_cli, fused, name, impl).model, "bf16"),
+        create_model(cfg.model, "bf16", data_cfg=cfg.data),
         state, num_classes=NUM_CLASSES, max_batch_size=bucket,
         device_normalize=norm, input_dtype="uint8", model_name=name)
 
@@ -401,6 +501,12 @@ def expected_forward_launches(name: str) -> dict:
     entries is depthwise."""
     if name == "slowfast_r50":
         return dict(SITES_PER_FORWARD)
+    if name == "mvit_b":
+        return expected_mvit_launches()
+    if name == "videomae_b":
+        return {"flash_attention": VIT_DEPTH}
+    if name == "videomae_b_pretrain":
+        return {"flash_attention": VIT_DEPTH + VIT_DECODER_DEPTH}
     if name == "x3d_m":
         blocks = sum(X3D_DEPTHS)
         return {"fused_pw_bn_act": 2 * blocks + 1,
@@ -408,6 +514,20 @@ def expected_forward_launches(name: str) -> dict:
     blocks = sum(CSN_DEPTHS)
     return {"fused_pw_bn_act": 2 * blocks + 1,
             "fused_dw_bn_act": blocks - (len(CSN_DEPTHS) - 1)}
+
+
+def expected_mvit_launches() -> dict:
+    """Launches of one MViT-B eval forward under `attention pallas,
+    depthwise_impl pallas`, from models/mvit.py's schedule: one flash
+    attention per block; the K/V pools run in every block, and those whose
+    kv stride has halved to (1,1,1) (the blocks after the last stage start
+    that brings it there) are stride-1 depthwise sites, two per block."""
+    kv, s1_blocks = list(MVIT_KV_STRIDE), 0
+    for i in range(MVIT_DEPTH):
+        if i in MVIT_STAGE_STARTS:
+            kv = [max(s // 2, 1) if j > 0 else s for j, s in enumerate(kv)]
+        s1_blocks += kv == [1, 1, 1]
+    return {"flash_attention": MVIT_DEPTH, "depthwise3d_s1": 2 * s1_blocks}
 
 
 def expected_depthwise_impl_launches() -> dict:
@@ -678,6 +798,7 @@ KERNEL_CLASSES = (  # (class, substrings of the device kernel's name)
     ("fused_pw_bn_act", ("fused_pw_bn_act",)),
     ("fused_conv_bn_act", ("fused_conv_bn_act",)),
     ("depthwise3d", ("depthwise3d",)),
+    ("flash_attention", ("flash_",)),
     ("memcpy", ("memcpy", "Memcpy")),
     # cuDNN's convolutions first: their names hold "gemm" too
     ("cudnn_conv", ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")),
@@ -744,9 +865,11 @@ def train_argv(out: str, fused: str = "auto", spec: dict = SLOWFAST_TRAIN,
                impl: str = "conv"):
     """`run.main`'s argv for `spec` on synthetic clips at the model's
     geometry (SlowFast-R50: the reference recipe, 32 frames at 256^2, batch
-    8 x accumulation 4, 2 epochs of 64 videos), bf16."""
+    8 x accumulation 4, 2 epochs of 64 videos), bf16, SGD at `spec`'s lr,
+    with `spec`'s extra flags last."""
     frames, crop = GEOMETRY[spec["name"]]
-    return ["--synthetic", "--model.name", spec["name"],
+    return ["--lr", str(spec.get("lr", BASE_LR)),
+            "--synthetic", "--model.name", spec["name"],
             "--model.num_classes", str(NUM_CLASSES), "--num_frames", str(frames),
             "--data.crop_size", str(crop), "--batch_size", str(spec["batch"]),
             "--gradient_accumulation_steps", str(spec["accum"]),
@@ -755,7 +878,7 @@ def train_argv(out: str, fused: str = "auto", spec: dict = SLOWFAST_TRAIN,
             "--checkpointing_steps", str(spec["ckpt_every"]),
             "--mixed_precision", "bf16", "--model.fused_kernels", fused,
             "--model.depthwise_impl", impl, "--output_dir", out,
-            "--log_every", "1"]
+            "--log_every", "1"] + spec.get("argv", [])
 
 
 def expected_train_launches(spec: dict, per_forward: dict) -> dict:
@@ -773,8 +896,13 @@ def expected_train_launches(spec: dict, per_forward: dict) -> dict:
     out = {"steps": steps, "micro_steps": micro, "eval_forwards": evals}
     for k in SOURCES:
         n = per_forward.get(k.split(".")[0], 0)
-        out[k] = n * micro if k.endswith("bwd_dx") else n * (micro + evals)
+        out[k] = n * micro if is_backward(k) else n * (micro + evals)
     return out
+
+
+def is_backward(kname: str) -> bool:
+    """A backward launch key ("<kernel>.bwd_dx", ".bwd_dq", ".bwd_dkv")."""
+    return "." in kname
 
 
 def host_copy(state) -> dict:
@@ -801,9 +929,9 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
     """Train `spec`'s model at full width through `run.main`: the launch
     counters zeroed just before fit(), read just after; lr per step against
     the closed-form cosine; the checkpoint of step `ckpt_every` restored
-    bitwise; the final checkpoint exported and served by the
-    InferenceEngine, its logits held against the trainer's eval-mode
-    forward."""
+    bitwise; for a classifier, the final checkpoint exported and served by
+    the InferenceEngine, its logits held against the trainer's eval-mode
+    forward (a pretraining run has no head to serve)."""
     import math
 
     from pytorchvideo_accelerate_tpu_torch import run as trun
@@ -817,7 +945,9 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
     out = os.path.join(work, f"train_{spec['name']}")
     argv = train_argv(out, spec=spec)
     seen = {"metrics": [], "snap": None}
-    make_step = loop.make_train_step
+    pretrain = spec.get("pretrain", False)
+    step_name = "make_pretrain_step" if pretrain else "make_train_step"
+    make_step = getattr(loop, step_name)
 
     def recording(model, optimizer, **kw):
         step = make_step(model, optimizer, **kw)
@@ -832,13 +962,13 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
 
     per_forward = expected_forward_launches(spec["name"])
     want = expected_train_launches(spec, per_forward)
-    loop.make_train_step = recording
+    setattr(loop, step_name, recording)
     fused.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         result = trun.main(argv)
     finally:
-        loop.make_train_step = make_step
+        setattr(loop, step_name, make_step)
     fit_s = time.perf_counter() - t0
     launches = dict(fused.LAUNCHES)
     losses = [m["loss"].item() for m in seen["metrics"]]
@@ -847,7 +977,8 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
           f"steps {result['steps']} / {len(losses)}, expected {want['steps']}")
     check(all(math.isfinite(v) for v in losses + [result["train_loss"]]),
           f"non-finite loss {losses} {result['train_loss']}")
-    cosine = [BASE_LR * 0.5 * (1 + math.cos(math.pi * k / want["steps"]))
+    lr0 = spec.get("lr", BASE_LR)
+    cosine = [lr0 * 0.5 * (1 + math.cos(math.pi * k / want["steps"]))
               for k in range(want["steps"])]
     check(all(abs(a - b) <= 1e-12 for a, b in zip(lrs, cosine)),
           f"lr per step {lrs}, schedule {cosine}")
@@ -865,6 +996,20 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
     check(not bad, f"restore not bitwise at {bad[:4]}")
     check(extra["data_state"] == {"epoch": 0, "position": ckpt_every},
           f"restored LoaderState {extra['data_state']}")
+    out_fields = {
+        "fit_s": fit_s, "result": result, "losses": losses, "lr": lrs,
+        "launches": launches, "expected_launches": want,
+        "launches_per_micro_step": {
+            k: (launches[k] - (0 if is_backward(k) else
+                               want["eval_forwards"] * per_forward.get(k, 0)))
+            / want["micro_steps"] for k in SOURCES},
+        "restored_step": step, "restored_loader_state": extra["data_state"],
+        "restore_bitwise": True}
+    if pretrain:
+        tr.close()
+        del tr
+        free_cuda(torch)
+        return out_fields
 
     # export the final checkpoint; the engine serves it
     art = os.path.join(work, f"trained_{spec['name']}_artifact")
@@ -886,14 +1031,7 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
         (err <= LOGIT_TOL * (1 + np.abs(plain))).all()),
         f"served trained logits differ from the trainer's: max {err.max()}")
     free_cuda(torch)
-    return {"fit_s": fit_s, "result": result, "losses": losses, "lr": lrs,
-            "launches": launches, "expected_launches": want,
-            "launches_per_micro_step": {
-                k: (launches[k] - (0 if k.endswith("bwd_dx") else
-                                   want["eval_forwards"] * per_forward.get(k, 0)))
-                / want["micro_steps"] for k in SOURCES},
-            "restored_step": step, "restored_loader_state": extra["data_state"],
-            "restore_bitwise": True, "served_logit_max_abs_err": float(err.max()),
+    return {**out_fields, "served_logit_max_abs_err": float(err.max()),
             "served_logit_std": float(plain.std())}
 
 
@@ -943,7 +1081,8 @@ def micro_step_fn(torch, fused_mode: str, batch, spec: dict = SLOWFAST_TRAIN,
 
     cfg = parse_cli(train_argv("unused", fused_mode, spec, impl)
                     + ["--model.dropout_rate", "0"])
-    model = create_model(cfg.model, "bf16", seed=seed).cuda().train()
+    model = create_model(cfg.model, "bf16", seed=seed,
+                         data_cfg=cfg.data).cuda().train()
     inputs = model_inputs(batch)
     ones = torch.ones(batch["label"].shape[0], device="cuda")
 
@@ -968,12 +1107,13 @@ def train_batch(torch, seed: int, spec: dict = SLOWFAST_TRAIN) -> dict:
 
 def site_functions():
     """{autograd Function of a kernel site: its plain version}."""
-    from pytorchvideo_accelerate_tpu_torch.ops import depthwise, fused
+    from pytorchvideo_accelerate_tpu_torch.ops import depthwise, flash_attention, fused
 
     return {fused.PwBnAct: fused.pw_bn_act_plain,
             fused.ConvBnAct: fused.conv_bn_act_plain,
             fused.DwBnAct: fused.dw_bn_act_plain,
-            depthwise.Depthwise3dS1: depthwise.depthwise_conv3d_shift}
+            depthwise.Depthwise3dS1: depthwise.depthwise_conv3d_shift,
+            flash_attention.FlashAttention: flash_attention.flash_fwd_plain}
 
 
 def with_site_backward(make, fn):
@@ -996,6 +1136,15 @@ def plain_site_backward(torch, cls, _):
     saved: the reference that the custom backward (dx through the kernel)
     is held to."""
     plain = site_functions()[cls]
+    if getattr(cls, "__name__", "") == "FlashAttention":
+        def flash_backward(ctx, g):
+            # saved (q, k, v, out, lse): differentiate the plain forward
+            # at q, k, v
+            ops = [t.detach().requires_grad_() for t in ctx.saved_tensors[:3]]
+            with torch.enable_grad():
+                y = plain(*ops, ctx.scale)[0]
+            return (*torch.autograd.grad(y, ops, g), None)
+        return flash_backward
 
     def backward(ctx, g):
         ops = [t.detach().requires_grad_(need)
@@ -1167,17 +1316,9 @@ def train_timing_phase(torch, spec: dict = SLOWFAST_TRAIN,
     for mode, impl in modes:
         key = mode if impl == "conv" else f"{mode}_{impl}"
         model, _, fn = micro_step_fn(torch, mode, batch, spec, impl)
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(3):
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        out[f"micro_step_ms_{key}"] = times
-        out[f"peak_mem_gb_{key}"] = torch.cuda.max_memory_allocated() / 1e9
+        timed = micro_step_times(torch, fn)
+        out[f"micro_step_ms_{key}"] = timed["micro_step_ms"]
+        out[f"peak_mem_gb_{key}"] = timed["peak_mem_gb"]
         if mode == "auto":
             out["profile"] = profile_of(torch, fn, 2, "micro_step")
             out["site_grads_not_contiguous"], out["site_grads"] = \
@@ -1360,6 +1501,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     slowfast_s = time.perf_counter() - t_start
 
     rows += depthwise_phases(torch, work, launches)
+    t_attention = time.perf_counter()
+    rows += attention_phases(torch, work, launches)
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -1367,7 +1510,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
         mine = [r for r in rows if r["kernel"] == kname and r["model"] == model]
         flop_ms = sum(r["flop_ms"] * r["per_forward"] for r in mine)
         byte_ms = sum(r["byte_ms"] * r["per_forward"] for r in mine)
-        phase = dx_phase if kname.endswith("bwd_dx") else fwd_phase
+        phase = dx_phase if is_backward(kname) else fwd_phase
         count = launches[phase][kname]
         check(count > 0, f"{kname} was not launched on the main path ({phase})")
         kernels.append({
@@ -1380,7 +1523,9 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             "bound_by": "operations" if flop_ms > byte_ms else "bytes",
             "library_ms": sum(r["library_ms"] * r["per_forward"] for r in mine),
         })
-    emit("seconds", slowfast=slowfast_s, total=time.perf_counter() - t_start,
+    emit("seconds", slowfast=slowfast_s,
+         attention=time.perf_counter() - t_attention,
+         total=time.perf_counter() - t_start,
          empty_profiles=EMPTY_PROFILES[0], event_timed=EVENT_TIMED[0])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1483,6 +1628,369 @@ def depthwise_phases(torch, work: str, launches: dict):
          forward_ms_plain=forward_ms(torch, c_plain, c_batch, 3),
          forward_ms_unfused_cudnn=forward_ms(torch, off, c_batch, 3))
     del engine, off, c_plain
+    free_cuda(torch)
+    return rows
+
+
+def record_attn_sites(run):
+    """[(q shape, k shape)] of every attention call that `run()` makes under
+    `attention dense`, in call order, (B, N, H, D) each."""
+    from pytorchvideo_accelerate_tpu_torch.ops import attention
+
+    sites = []
+    plain = attention.dense_attention
+
+    def recording(q, k, v, scale=None, mask=None):
+        sites.append((tuple(q.shape), tuple(k.shape)))
+        return plain(q, k, v, scale, mask)
+
+    attention.dense_attention = recording
+    try:
+        run()
+    finally:
+        attention.dense_attention = plain
+    return sites
+
+
+def record_pool_sites(torch, model, run):
+    """[(NCDHW input shape, stride)] of every depthwise pool (`DepthwiseConv3D`)
+    that `run()` goes through."""
+    from pytorchvideo_accelerate_tpu_torch.ops.depthwise import DepthwiseConv3D
+
+    sites = []
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: sites.append((tuple(args[0].shape), mod.stride)))
+        for m in model.modules() if isinstance(m, DepthwiseConv3D)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return sites
+
+
+def attn_bound(kname: str, b: int, nq: int, nk: int, h: int, d: int):
+    """(flops, bytes) of one launch: per (b, h) the forward does 4 Nq Nk D
+    FLOPs, dq 6x and dk/dv 8x that (their recompute of s included); each
+    bf16 operand (q, k, v, dO) read once and each output (out, dq, dk, dv)
+    written once, lse and delta 4 bytes a query row."""
+    per_flop = nq * nk * d
+    if kname == "flash_attention":
+        flops, nbytes = 4 * per_flop, 2 * (2 * nq + 2 * nk) * d + 4 * nq
+    elif kname.endswith("bwd_dq"):
+        flops, nbytes = 6 * per_flop, 2 * (3 * nq + 2 * nk) * d + 8 * nq
+    else:
+        flops, nbytes = 8 * per_flop, 2 * (2 * nq + 4 * nk) * d + 8 * nq
+    return float(b * h * flops), float(b * h * nbytes)
+
+
+def max_excess(got, want) -> tuple:
+    """(max |got - want|, max of |got - want| - KERNEL_TOL * (1 + |want|),
+    relative 2-norm error), both in f32."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return (err.max().item(), (err - KERNEL_TOL * (1 + want.abs())).max().item(),
+            ((got - want).norm() / want.norm()).item())
+
+
+def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
+    """The three flash kernels at every distinct attention site shape of
+    `model`'s forward: the forward's out and lse against `flash_fwd_plain`,
+    dq and dk/dv (from the plain forward's out and lse) against
+    `flash_bwd_plain`, elementwise within KERNEL_TOL * (1 + |plain|); device
+    times of each kernel launch, of the plain version (for both backward
+    rows, `flash_bwd_plain`, which computes dq, dk and dv together) and of
+    the library call: one bf16 `F.scaled_dot_product_attention` forward,
+    and its backward (dq, dk and dv together) on both backward rows, timed
+    with CUDA events: the profiler's events of that backward came back
+    incomplete (0.63 ms for MViT-B's 16 sites, 93% of the bf16 peak)."""
+    import torch.nn.functional as F
+
+    from pytorchvideo_accelerate_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(SEED + 20)
+    uniq = {}
+    for i, key in enumerate(sites):
+        uniq.setdefault(key, []).append(f"{model} attention site {i}")
+    rows = []
+    for (q_shape, k_shape), names in uniq.items():
+        b, nq, h, d = q_shape
+        nk = k_shape[1]
+
+        def randn(*shape):
+            return torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda().bfloat16()
+
+        q, k, v, dout = randn(b, nq, h, d), randn(b, nk, h, d), randn(b, nk, h, d), randn(b, nq, h, d)
+        scale = d ** -0.5
+        out, lse = fa._fwd_cuda(q, k, v, scale)
+        p_out, p_lse = fa.flash_fwd_plain(q, k, v, scale)
+        grads = fa._bwd_cuda(q, k, v, p_out, p_lse, dout, scale, True, True)
+        p_grads = fa.flash_bwd_plain(q, k, v, p_out, p_lse, dout, scale)
+        torch.cuda.synchronize()
+        errs = {"out": max_excess(out, p_out), "lse": max_excess(lse, p_lse)}
+        errs.update(zip(("dq", "dk", "dv"), (max_excess(g, w) for g, w in zip(grads, p_grads))))
+        for what, (_, excess, _) in errs.items():
+            check(excess <= 0, f"{model} attention {q_shape} x {k_shape}: {what} "
+                  f"errors {errs[what]} over {KERNEL_TOL}*(1+|plain|)")
+        del out, lse, grads, p_grads
+        # launch-only closures over preallocated outputs
+        dims, delta = (b, h, nq, nk, d), fa.attention_delta(p_out, dout)
+        o_buf, l_buf = torch.empty_like(q), torch.empty_like(p_lse)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        launch = {
+            "flash_attention": lambda: fa._call(
+                "flash_attention", (q, k, v, o_buf, l_buf), dims, (q, k, v), scale, q.device),
+            "flash_attention.bwd_dq": lambda: fa._call(
+                "flash_attention.bwd_dq", (q, k, v, dout, p_lse, delta, dq), dims,
+                (q, k, v, dout), scale, q.device),
+            "flash_attention.bwd_dkv": lambda: fa._call(
+                "flash_attention.bwd_dkv", (q, k, v, dout, p_lse, delta, dk, dv), dims,
+                (q, k, v, dout), scale, q.device)}
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dlib = dout.transpose(1, 2)
+        plain_bwd_ms = device_ms(torch, lambda: fa.flash_bwd_plain(
+            q, k, v, p_out, p_lse, dout, scale), reps)
+        lib_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dlib, retain_graph=True), reps)
+        timed = {
+            "flash_attention": (
+                device_ms(torch, launch["flash_attention"], reps),
+                device_ms(torch, lambda: fa.flash_fwd_plain(q, k, v, scale), reps),
+                device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach()), reps), errs["out"]),
+            "flash_attention.bwd_dq": (
+                device_ms(torch, launch["flash_attention.bwd_dq"], reps),
+                plain_bwd_ms, lib_bwd_ms, errs["dq"]),
+            "flash_attention.bwd_dkv": (
+                device_ms(torch, launch["flash_attention.bwd_dkv"], reps),
+                plain_bwd_ms, lib_bwd_ms,
+                max(errs["dk"], errs["dv"]))}
+        for kname, (kernel_ms, plain_ms, library_ms, err) in timed.items():
+            flops, nbytes = attn_bound(kname, b, nq, nk, h, d)
+            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            row = {"kernel": kname, "model": model, "sites": names,
+                   "per_forward": len(names), "q": list(q_shape), "k": list(k_shape),
+                   "max_abs_err": err[0], "rel_err": err[2],
+                   "tolerance": f"{KERNEL_TOL}*(1+|plain|)",
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                   "flop_ms": t_ops, "byte_ms": t_bytes,
+                   "achieved_tflops": flops / kernel_ms / 1e9}
+            if kname == "flash_attention":
+                row["lse_max_abs_err"] = errs["lse"][0]
+            else:
+                row["plain_and_library_compute"] = "dq, dk and dv together"
+                if kname.endswith("bwd_dkv"):
+                    row["dk_dv_max_abs_err"] = [errs["dk"][0], errs["dv"][0]]
+            emit("kernels", **row)
+            rows.append(row)
+        del q, k, v, dout, p_out, p_lse, delta, o_buf, l_buf, dq, dk, dv
+        del qt, kt, vt, lib_out, dlib, launch
+        free_cuda(torch)
+    return rows
+
+
+def strided_pool_ms(torch, pool_sites, reps: int = 5) -> dict:
+    """Device time of the strided MViT pools, each one bf16 cuDNN grouped
+    `F.conv3d(groups=C)` as the model runs them (depthwise_impl pallas keeps
+    only the stride-1 pools)."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(SEED + 21)
+    total, n = 0.0, 0
+    for shape, stride in pool_sites:
+        if stride == (1, 1, 1):
+            continue
+        c = shape[1]
+        x = torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda().bfloat16(
+            ).contiguous(memory_format=torch.channels_last_3d)
+        w = torch.from_numpy(rng.standard_normal((c, 1, 3, 3, 3), np.float32)).cuda().bfloat16()
+        total += device_ms(torch, lambda: F.conv3d(x, w, None, stride, 1, 1, c), reps)
+        n += 1
+    return {"strided_pools": n, "strided_pool_grouped_conv_ms": total}
+
+
+def transformer_weights(torch, work: str, name: str, rng):
+    """A seeded, planted `name` artifact served through the flash kernels
+    (and row 4 for MViT), the `attention dense` engine on its weights, the
+    bucket-8 batch, the plain logits and the attention sites."""
+    impl = "pallas" if name == "mvit_b" else "conv"
+    t0 = time.perf_counter()
+    art, state, clips, norm, n_params = make_artifact(torch, work, name, rng,
+                                                      attention="pallas", impl=impl)
+    batch = bucket_batch(clips, BUCKET)
+    plain = make_engine(torch, name, state, norm, "off", attention="dense")
+    sites = record_attn_sites(lambda: plain.predict(batch))
+    want = expected_forward_launches(name)["flash_attention"]
+    check(len(sites) == want, f"{name}: {len(sites)} attention sites, expected {want}")
+    logits = plain.predict(batch)[:len(clips)]
+    emit(f"{name.split('_')[0]}_weights", artifact=art, params=n_params,
+         attention_sites=len(sites),
+         distinct_sites=sorted({(s[0], s[1]) for s in sites}),
+         seconds=time.perf_counter() - t0)
+    return art, state, clips, norm, batch, plain, sites, logits
+
+
+def mae_micro_step(torch, attention: str, x, seed: int = 0):
+    """(model, fn) for a fresh seeded VideoMAE-B pretraining model in bf16
+    under `attention`: fn() runs one micro-step (forward + backward) of the
+    reconstruction loss on `x` under the mask of `mask_generator(SEED, 0,
+    0)`, the same mask for every call and lowering, and returns the loss."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import mask_generator
+
+    spec = dict(MAE_TRAIN, argv=["--model.attention", attention])
+    cfg = parse_cli(train_argv("unused", "off", spec))
+    model = create_model(cfg.model, "bf16", seed=seed, data_cfg=cfg.data).cuda().train()
+
+    def fn():
+        model.zero_grad(set_to_none=True)
+        loss = model(x, generator=mask_generator(SEED, 0, 0))["loss"]
+        loss.backward()
+        return loss
+    return model, fn
+
+
+def micro_step_times(torch, fn, reps: int = 3) -> dict:
+    """Host-clock ms of `reps` synchronised `fn()` calls after one warm-up
+    call, and the peak device memory over them."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return {"micro_step_ms": times,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def attention_phases(torch, work: str, launches: dict):
+    """Phases 18-25: MViT-B and VideoMAE-B (classifier and MAE pretraining)
+    through the flash attention kernels. Fills `launches` with the
+    main-path phases' counts; returns the kernel rows."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    # 18. weights, artifacts, the dense engines and their attention sites
+    rng = np.random.default_rng(SEED + 30)
+    m_art, _, m_clips, _, m_batch, m_plain, m_sites, m_logits = transformer_weights(
+        torch, work, "mvit_b", rng)
+    pool_sites = record_pool_sites(torch, m_plain.model, lambda: m_plain.predict(m_batch))
+    v_art, _, v_clips, _, v_batch, v_plain, v_sites, v_logits = transformer_weights(
+        torch, work, "videomae_b", rng)
+    mae_x = torch.from_numpy(train_clips(np.random.default_rng(SEED + 31), MAE_TRAIN,
+                                         MAE_TRAIN["batch"])["video"]).cuda()
+    model, _ = mae_micro_step(torch, "dense", mae_x)
+    with torch.no_grad():
+        mae_sites = record_attn_sites(
+            lambda: model(mae_x, generator=torch.Generator().manual_seed(0)))
+    del model
+    free_cuda(torch)
+    check(len(mae_sites) == VIT_DEPTH + VIT_DECODER_DEPTH,
+          f"MAE attention sites {len(mae_sites)}")
+
+    # 19. the flash kernels at every distinct site shape
+    t0 = time.perf_counter()
+    rows = attn_kernel_phase(torch, "mvit_b", m_sites)
+    rows += attn_kernel_phase(torch, "videomae_b", v_sites)
+    rows += attn_kernel_phase(torch, "videomae_b_pretrain", mae_sites)
+    emit("attention_kernels_seconds", seconds=time.perf_counter() - t0)
+
+    # 20. mvit_serve: the main path for row 5, counters zeroed just before
+    server, launches["mvit_serve"], fields = serve_phase(torch, m_art, m_clips,
+                                                         m_logits, "mvit_b")
+    emit("mvit_serve", **fields)
+    emit("mvit_timing", bucket=BUCKET,
+         forward_ms_flash=forward_ms(torch, server.engine, m_batch),
+         forward_ms_dense=forward_ms(torch, m_plain, m_batch),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("mvit_profile", bucket=BUCKET, **profile_forward(torch, server.engine, m_batch),
+         **strided_pool_ms(torch, pool_sites))
+    del server, m_plain
+    free_cuda(torch)
+
+    # 21. videomae_serve
+    server, launches["videomae_serve"], fields = serve_phase(torch, v_art, v_clips,
+                                                             v_logits, "videomae_b")
+    emit("videomae_serve", **fields)
+    emit("videomae_timing", bucket=BUCKET,
+         forward_ms_flash=forward_ms(torch, server.engine, v_batch),
+         forward_ms_dense=forward_ms(torch, v_plain, v_batch),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("videomae_profile", bucket=BUCKET, **profile_forward(torch, server.engine, v_batch))
+    del server, v_plain
+    free_cuda(torch)
+
+    # 22. mvit_train: the main training path for rows 5-7 (and row 4 at the
+    # stride-1 K/V pools), counters zeroed just before fit()
+    train = train_phase(torch, work, MVIT_TRAIN)
+    launches["mvit_train"] = train["launches"]
+    emit("mvit_train", **train)
+    # 23. with the forward fixed, the backward through the kernels against
+    # plain autograd; end to end, flash against dense; times and memory
+    batch = train_batch(torch, SEED + 32, MVIT_TRAIN)
+    dense = dict(MVIT_TRAIN, argv=["--model.attention", "dense",
+                                   "--model.depthwise_impl", "shift"])
+    e2e = {}
+    for label, spec in (("flash", MVIT_TRAIN), ("dense", dense)):
+        model, _, fn = micro_step_fn(torch, "off", batch, spec)
+        e2e[label] = (fn().item(), torch.cat([p.grad.float().flatten()
+                                              for p in model.parameters()]))
+        del model, fn
+        free_cuda(torch)
+    (lf, gf), (ld, gd) = e2e["flash"], e2e["dense"]
+    parity = {"loss_flash": lf, "loss_dense": ld, "loss_abs_err": abs(lf - ld),
+              "loss_tolerance": LOGIT_TOL * (1 + abs(ld)),
+              "grad_rel_err_end_to_end": rel_err(gf, gd), "rel_tolerance": LOGIT_TOL}
+    del e2e, gf, gd
+    check(parity["loss_abs_err"] <= parity["loss_tolerance"], f"MViT-B train loss {parity}")
+    grad, update = fixed_forward_parity(torch, "off", batch, MVIT_TRAIN)
+    parity.update(grad_rel_err_same_forward=grad, update_rel_err_same_forward=update)
+    check(grad <= LOGIT_TOL and update <= LOGIT_TOL, f"MViT-B gradients {parity}")
+    emit("mvit_train_parity", **parity)
+    timing = {}
+    for label, spec in (("flash", MVIT_TRAIN), ("dense", dense)):
+        model, _, fn = micro_step_fn(torch, "off", batch, spec)
+        timing[label] = micro_step_times(torch, fn)
+        if label == "flash":
+            timing["profile"] = profile_of(torch, fn, 2, "micro_step")
+        del model, fn
+        free_cuda(torch)
+    emit("mvit_train_timing", batch=MVIT_TRAIN["batch"],
+         fit_clips_per_sec=train["result"].get("clips_per_sec"), **timing)
+    del batch
+    free_cuda(torch)
+
+    # 24. videomae_pretrain: MAE pretraining through the kernels
+    train = train_phase(torch, work, MAE_TRAIN)
+    launches["videomae_pretrain"] = train["launches"]
+    emit("videomae_pretrain", **train)
+    # 25. one micro-step under the same mask: flash against dense; times
+    out = {}
+    for attention in ("pallas", "dense"):
+        model, fn = mae_micro_step(torch, attention, mae_x)
+        loss = fn().item()
+        out[attention] = (loss, torch.cat([p.grad.float().flatten()
+                                           for p in model.parameters()]))
+        out[f"timing_{attention}"] = micro_step_times(torch, fn)
+        if attention == "pallas":
+            fused.reset_launch_counts()
+            fn()
+            out["launches_per_micro_step"] = {k: v for k, v in fused.LAUNCHES.items() if v}
+        del model, fn
+        free_cuda(torch)
+    (lf, gf), (ld, gd) = out.pop("pallas"), out.pop("dense")
+    check(abs(lf - ld) <= LOGIT_TOL * (1 + abs(ld)), f"MAE loss {lf} vs {ld}")
+    emit("videomae_pretrain_parity", loss_flash=lf, loss_dense=ld,
+         loss_abs_err=abs(lf - ld), loss_tolerance=LOGIT_TOL * (1 + abs(ld)),
+         grad_rel_err_end_to_end=rel_err(gf, gd), **out)
+    del gf, gd, mae_x
     free_cuda(torch)
     return rows
 

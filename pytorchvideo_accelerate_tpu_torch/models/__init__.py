@@ -5,8 +5,13 @@ weights are drawn as the JAX package initialises them (`init_like_jax`),
 from a `torch.Generator` seeded with `seed`; the caller sets the mode
 (`.train()` is torch's default, the serving engine calls `.eval()`). Ported
 here: slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50, tiny3d,
-x3d_xs, x3d_s, x3d_m, x3d_l and csn_r101; any other name of the JAX package
-raises NotImplementedError (ROADMAP.md). Each model class carries
+x3d_xs, x3d_s, x3d_m, x3d_l, csn_r101, mvit_b, mvit_b_32x3, mvit_t,
+videomae_b, videomae_b_pretrain, videomae_t and videomae_t_pretrain; any
+other name of the JAX package raises NotImplementedError (ROADMAP.md), and
+so do the options of the transformer families that need several devices
+(`--model.attention ring|ulysses`) or are not ported (`--model.remat`).
+MViT's `pos_embed` is sized by the clip geometry, `data_cfg` (num_frames,
+crop_size; `DataConfig()` when none is given). Each classifier class carries
 `backbone_param_filter(path)` (True for the backbone, `path` the
 state_dict key split on ".") for `--model.freeze_backbone`.
 """
@@ -18,59 +23,99 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
+from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig
 from pytorchvideo_accelerate_tpu_torch.models.common import (
     FUSED_MODES,
     BNAffine,
+    LayerNorm,
     lecun_normal_,
 )
 from pytorchvideo_accelerate_tpu_torch.models.csn import CSN
 from pytorchvideo_accelerate_tpu_torch.models.heads import ResBasicHead
+from pytorchvideo_accelerate_tpu_torch.models.mvit import MViT
 from pytorchvideo_accelerate_tpu_torch.models.resnet3d import SlowR50
 from pytorchvideo_accelerate_tpu_torch.models.slowfast import SlowFast
+from pytorchvideo_accelerate_tpu_torch.models.videomae import (
+    VideoMAEClassifier,
+    VideoMAEForPretraining,
+)
 from pytorchvideo_accelerate_tpu_torch.models.x3d import X3D
+from pytorchvideo_accelerate_tpu_torch.ops.attention import check_backend
 from pytorchvideo_accelerate_tpu_torch.precision import policy_compute_dtype
 
+# each entry: (ModelConfig, compute dtype, DataConfig) -> module
 _REGISTRY: Dict[str, Callable] = {
-    "slow_r50": lambda cfg, dtype: SlowR50(
+    "slow_r50": lambda cfg, dtype, data: SlowR50(
         cfg.num_classes, dropout_rate=cfg.dropout_rate,
         fused=cfg.fused_kernels, dtype=dtype),
     # deliberately tiny Slow-style net for tests and CLI smokes
-    "tiny3d": lambda cfg, dtype: SlowR50(
+    "tiny3d": lambda cfg, dtype, data: SlowR50(
         cfg.num_classes, depths=(1, 1, 1, 1), stem_features=8,
         dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
     # c2d_r50: no temporal convs, plus the (2,1,1) pool after res2
-    "c2d_r50": lambda cfg, dtype: SlowR50(
+    "c2d_r50": lambda cfg, dtype, data: SlowR50(
         cfg.num_classes, temporal_kernels=(1, 1, 1, 1),
         stage1_temporal_pool=True, dropout_rate=cfg.dropout_rate,
         fused=cfg.fused_kernels, dtype=dtype),
-    "slowfast_r50": lambda cfg, dtype: SlowFast(
+    "slowfast_r50": lambda cfg, dtype, data: SlowFast(
         cfg.num_classes, alpha=cfg.slowfast_alpha,
         dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
     # deliberately tiny SlowFast: one block per stage, 16-channel stem
-    "slowfast_t": lambda cfg, dtype: SlowFast(
+    "slowfast_t": lambda cfg, dtype, data: SlowFast(
         cfg.num_classes, depths=(1, 1, 1, 1), stem_features=16,
         alpha=cfg.slowfast_alpha, dropout_rate=cfg.dropout_rate,
         fused=cfg.fused_kernels, dtype=dtype),
-    "slowfast_r101": lambda cfg, dtype: SlowFast(
+    "slowfast_r101": lambda cfg, dtype, data: SlowFast(
         cfg.num_classes, depths=(3, 4, 23, 3), alpha=cfg.slowfast_alpha,
         dropout_rate=cfg.dropout_rate, fused=cfg.fused_kernels, dtype=dtype),
     # XS, S and M share the trunk; they differ in sampling (frames, crop)
-    "x3d_xs": lambda cfg, dtype: _x3d(cfg, dtype),
-    "x3d_s": lambda cfg, dtype: _x3d(cfg, dtype),
-    "x3d_m": lambda cfg, dtype: _x3d(cfg, dtype),
+    "x3d_xs": lambda cfg, dtype, data: _x3d(cfg, dtype),
+    "x3d_s": lambda cfg, dtype, data: _x3d(cfg, dtype),
+    "x3d_m": lambda cfg, dtype, data: _x3d(cfg, dtype),
     # depth factor 5.0: pytorchvideo create_x3d stage depths (1,2,5,3) x 5
-    "x3d_l": lambda cfg, dtype: _x3d(cfg, dtype, depths=(5, 10, 25, 15)),
-    "csn_r101": lambda cfg, dtype: CSN(
+    "x3d_l": lambda cfg, dtype, data: _x3d(cfg, dtype, depths=(5, 10, 25, 15)),
+    "csn_r101": lambda cfg, dtype, data: CSN(
         cfg.num_classes, dropout_rate=cfg.dropout_rate,
         depthwise_impl=cfg.depthwise_impl, fused=cfg.fused_kernels,
         dtype=dtype),
+    "mvit_b": lambda cfg, dtype, data: _mvit(cfg, dtype, data),
+    # hub mvit_base_32x3: the same trunk, drop_path 0.3, 32 frames x stride 3
+    "mvit_b_32x3": lambda cfg, dtype, data: _mvit(cfg, dtype, data,
+                                                  drop_path_rate=0.3),
+    # deliberately tiny MViT: depth 2, dim 16, uniform schedule
+    "mvit_t": lambda cfg, dtype, data: _mvit(
+        cfg, dtype, data, depth=2, embed_dim=16, num_heads=2, stage_starts=(),
+        drop_path_rate=0.0),
+    "videomae_b": lambda cfg, dtype, data: _videomae(cfg, dtype),
+    "videomae_b_pretrain": lambda cfg, dtype, data: VideoMAEForPretraining(
+        mask_ratio=cfg.mask_ratio, attention_backend=cfg.attention,
+        dtype=dtype),
+    # deliberately tiny VideoMAE classifier and its pretraining twin
+    "videomae_t": lambda cfg, dtype, data: _videomae(
+        cfg, dtype, dim=32, depth=4, num_heads=2, tubelet=(2, 8, 8)),
+    "videomae_t_pretrain": lambda cfg, dtype, data: VideoMAEForPretraining(
+        dim=32, depth=4, num_heads=2, decoder_dim=16, decoder_depth=2,
+        decoder_heads=2, tubelet=(2, 8, 8), mask_ratio=cfg.mask_ratio,
+        attention_backend=cfg.attention, dtype=dtype),
 }
 
 # families of the JAX package that later slices of the port bring over
-_NOT_PORTED = ("r2plus1d_r50", "mvit_b", "mvit_b_32x3", "mvit_t",
-               "videomae_b", "videomae_b_pretrain", "videomae_t",
-               "videomae_t_pretrain")
+_NOT_PORTED = ("r2plus1d_r50",)
+_TRANSFORMERS = ("mvit", "videomae")
+
+
+def _mvit(cfg: ModelConfig, dtype, data: DataConfig, **kw) -> MViT:
+    return MViT(cfg.num_classes,
+                input_grid=(data.num_frames, data.crop_size, data.crop_size),
+                dropout_rate=cfg.dropout_rate, attention_backend=cfg.attention,
+                depthwise_impl=cfg.depthwise_impl, dtype=dtype, **kw)
+
+
+def _videomae(cfg: ModelConfig, dtype, **kw) -> VideoMAEClassifier:
+    return VideoMAEClassifier(
+        cfg.num_classes, dropout_rate=cfg.dropout_rate,
+        attention_backend=cfg.attention, attn_mask=cfg.attn_mask,
+        attn_window=cfg.attn_window, dtype=dtype, **kw)
 
 
 def _x3d(cfg: ModelConfig, dtype, **kw) -> X3D:
@@ -87,34 +132,48 @@ def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight as the JAX package's init does: lecun-normal conv
     kernels (models/common.py `ConvKernelParam`, flax `nn.Conv`; a
     depthwise kernel's fan-in is its taps) with zero biases (X3D's SE
-    `fc1`/`fc2`), BN scale 1, bias 0, running mean 0, var 1, the
-    `ResBasicHead`'s normal(0.01) kernel with a zero bias, and any other
-    Linear (X3D's `proj`, a flax `nn.Dense`) lecun-normal with a zero bias.
-    Modules are visited in registration order, so one seed gives one set of
-    weights."""
-    head_projs = set()
-    for m in model.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)) and m not in head_projs:
-            lecun_normal_(m.weight, generator)
-            if m.bias is not None:
-                with torch.no_grad():
+    `fc1`/`fc2`, the transformers' patch embeds), BN scale 1, bias 0,
+    running mean 0, var 1, LayerNorm scale 1, bias 0, the
+    `ResBasicHead`'s and `VideoMAEClassifier`'s normal(0.01) head kernel
+    with a zero bias, and any other Linear (X3D's `proj`, MViT's `head`,
+    every flax `nn.Dense`) lecun-normal with a zero bias. MViT's
+    `pos_embed` is flax's `truncated_normal(0.02)`: a standard normal cut at
+    +-2, times 0.02; VideoMAE's `mask_token` is normal(0.02). Modules are
+    visited in registration order, so one seed gives one set of weights."""
+    heads = set()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv3d, nn.Linear)) and m not in heads:
+                lecun_normal_(m.weight, generator)
+                if m.bias is not None:
                     m.bias.zero_()
-        elif isinstance(m, BNAffine):
-            with torch.no_grad():
+            elif isinstance(m, BNAffine):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-        elif isinstance(m, ResBasicHead):
-            m.reset_parameters_like_jax(generator)
-            head_projs.add(m.proj)
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, ResBasicHead):
+                m.reset_parameters_like_jax(generator)
+                heads.add(m.proj)
+            elif isinstance(m, VideoMAEClassifier):
+                m.reset_parameters_like_jax(generator)
+                heads.add(m.head)
+            elif isinstance(m, MViT):
+                nn.init.trunc_normal_(m.pos_embed, 0.0, 0.02, -0.04, 0.04,
+                                      generator=generator)
+            elif isinstance(m, VideoMAEForPretraining):
+                nn.init.normal_(m.mask_token, 0.0, 0.02, generator=generator)
 
 
 def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
-                 seed: int = 0) -> nn.Module:
+                 seed: int = 0, data_cfg: DataConfig = None) -> nn.Module:
     """Build the module for `cfg.name`, initialised by `init_like_jax` from
     a generator seeded with `seed`. `mixed_precision` "bf16"/"fp16" computes
-    in bf16 with f32 parameters, else f32."""
+    in bf16 with f32 parameters, else f32. `data_cfg` gives the clip
+    geometry that sizes MViT's `pos_embed` (default `DataConfig()`)."""
     if cfg.name in _NOT_PORTED:
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported to PyTorch yet (see the port "
@@ -126,7 +185,14 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
         raise ValueError(
             f"model.fused_kernels must be one of {FUSED_MODES}, got "
             f"{cfg.fused_kernels!r}")
-    model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision))
+    if cfg.name.startswith(_TRANSFORMERS):
+        check_backend(cfg.attention)
+        if cfg.remat:
+            raise NotImplementedError(
+                "model.remat (per-block activation checkpointing) is not "
+                "ported to PyTorch yet (see the port queue in ROADMAP.md)")
+    model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision),
+                                data_cfg or DataConfig())
     init_like_jax(model, torch.Generator().manual_seed(seed))
     return model
 

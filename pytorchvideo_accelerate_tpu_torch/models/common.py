@@ -1,4 +1,4 @@
-"""Shared building blocks for 3D-CNN video backbones.
+"""Shared building blocks for the video backbones.
 
 Counterpart of the JAX package's `models/common.py`. Layout: activations are
 NCDHW tensors in `torch.channels_last_3d` memory, which is NDHWC underneath,
@@ -11,7 +11,13 @@ Train mode (`module.train()`) normalises with batch statistics and updates
 the BN running averages with flax semantics; eval mode uses the running
 averages. `init_like_jax` (models/__init__.py) draws the weights the way
 the JAX package initialises them. `SeededDropout` is the dropout of every
-head: its mask comes from an explicit generator that the trainer reseeds.
+head: its mask comes from an explicit generator that the trainer reseeds;
+`DropPath` (the transformers' stochastic depth) is one too.
+
+The transformer families (models/mvit.py, models/videomae.py) build on
+`LayerNorm` and `Dense`, flax's `nn.LayerNorm` (epsilon 1e-6, statistics
+in f32) and `nn.Dense(dtype=...)` with torch parameters (`weight`/`bias`
+for flax's `scale`/`kernel` and `bias`).
 """
 
 from __future__ import annotations
@@ -147,6 +153,57 @@ class SeededDropout(nn.Module):
         mask = torch.rand(x.shape, generator=self._generator(x.device),
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(SeededDropout):
+    """Stochastic depth with the JAX package's `_drop_path` semantics: in
+    train mode each sample's branch is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), one draw per sample; identity in eval mode or
+    at rate 0. Its generator is reseeded like every `SeededDropout`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=self._generator(x.device),
+                          device=x.device) < keep
+        return x * mask.to(x.dtype) / keep
+
+
+class LayerNorm(nn.Module):
+    """flax's `nn.LayerNorm` over the last dim: statistics in f32 (the fast
+    variance E[x^2] - E[x]^2 clamped at 0), epsilon 1e-6 (torch's default
+    is 1e-5), (x - mean) * (rsqrt(var + eps) * scale) + bias in f32, cast
+    to `dtype`. `weight`/`bias` are the flax `scale`/`bias`."""
+
+    def __init__(self, features: int, eps: float = 1e-6, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = f32_island(x)
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp_min((x32 * x32).mean(-1, keepdim=True) - mean * mean,
+                              0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return end_island(y, self.dtype)
+
+
+class Dense(nn.Linear):
+    """flax's `nn.Dense(dtype=...)`: input, kernel and bias cast to `dtype`,
+    one matmul in that dtype."""
+
+    def __init__(self, in_features: int, features: int, dtype=torch.float32):
+        super().__init__(in_features, features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
 
 
 def fused_site(fused_op, x: torch.Tensor, w: torch.Tensor, bn: BNAffine,

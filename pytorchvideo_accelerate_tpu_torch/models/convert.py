@@ -5,10 +5,17 @@ the flax path joined with "." and a leaf renamed:
 
     params/<path>/kernel (5-D, DHWIO)  -> <path>.weight (OIDHW)
     params/<path>/kernel (2-D, in,out) -> <path>.weight (out, in)
-    params/<path>/scale                -> <path>.weight   (BatchNorm)
+    params/<path>/scale                -> <path>.weight   (BatchNorm, LayerNorm)
     params/<path>/bias                 -> <path>.bias
+    params/<path>/pos_embed            -> <path>.pos_embed (unchanged)
+    params/<path>/mask_token           -> <path>.mask_token (unchanged)
     batch_stats/<path>/mean            -> <path>.running_mean
     batch_stats/<path>/var             -> <path>.running_var
+
+`pos_embed` (MViT, (1, T, H, W, C)) and `mask_token` (VideoMAE
+pretraining, (1, 1, dec_dim)) are free parameters of the model itself, so
+at the top level their key is the bare name. The transformer trees carry
+no batch_stats.
 
 A JAX training state crosses too (`train_state_from_jax` and its inverse
 `jax_train_state_from_port`): params and batch_stats as above, the optax
@@ -26,6 +33,8 @@ import numpy as np
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_INV = {v: k for k, v in _STATS.items()}
+# free parameters, carried across with their name and layout unchanged
+_FREE = ("pos_embed", "mask_token")
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -79,9 +88,11 @@ def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
     for key, v in state_dict.items():
         arr = (v.detach().cpu().numpy() if hasattr(v, "detach")
                else np.asarray(v))
-        stem, leaf = key.rsplit(".", 1)
-        path = stem.replace(".", "/")
-        if leaf in _STATS_INV:
+        *stem, leaf = key.split(".")
+        path = "/".join(stem)
+        if leaf in _FREE:
+            flat["/".join(["params"] + stem + [leaf])] = arr
+        elif leaf in _STATS_INV:
             flat[f"batch_stats/{path}/{_STATS_INV[leaf]}"] = arr
         elif leaf == "weight" and arr.ndim == 5:        # OIDHW -> DHWIO
             flat[f"params/{path}/kernel"] = np.ascontiguousarray(
@@ -99,6 +110,8 @@ def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
 
 def _param_leaf_to_port(path: str, leaf: str, arr: np.ndarray):
     """(state_dict key, array) of one flax `params` leaf."""
+    if leaf in _FREE:
+        return f"{path}.{leaf}" if path else leaf, arr
     if leaf == "kernel" and arr.ndim == 5:      # DHWIO -> OIDHW
         return f"{path}.weight", np.ascontiguousarray(arr.transpose(4, 3, 0, 1, 2))
     if leaf == "kernel" and arr.ndim == 2:      # (in, out) -> (out, in)

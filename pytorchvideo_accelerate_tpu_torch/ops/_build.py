@@ -23,12 +23,14 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # the sources under csrc/, one library each
-KERNELS = ("fused_pw_bn_act", "fused_conv_bn_act", "depthwise3d")
+KERNELS = ("fused_pw_bn_act", "fused_conv_bn_act", "depthwise3d",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # entry point -> (source, C function, argtypes); see the extern "C" block of
 # each source
 _SIGNATURES = {
@@ -40,6 +42,13 @@ _SIGNATURES = {
                         [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "depthwise3d_s1": ("depthwise3d", "pva_depthwise3d_s1",
                        [_P, _P, _P] + [_I] * 8 + [_P]),
+    # (pointers, B H Nq Nk D, (b, n, h) strides of q k v [dO], scale, stream)
+    "flash_attention": ("flash_attention", "pva_flash_fwd",
+                        [_P] * 5 + [_I] * 14 + [_F, _P]),
+    "flash_attention.bwd_dq": ("flash_attention", "pva_flash_bwd_dq",
+                               [_P] * 7 + [_I] * 17 + [_F, _P]),
+    "flash_attention.bwd_dkv": ("flash_attention", "pva_flash_bwd_dkv",
+                                [_P] * 8 + [_I] * 17 + [_F, _P]),
 }
 
 _lock = threading.Lock()

@@ -43,7 +43,9 @@ The kernels take bf16 only; a float32 tensor on the card raises (use
 Each kernel wrapper counts its launches in `LAUNCHES` (a plain int per
 key, bumped only where a kernel is launched) so a run can show that the
 main path went through the kernels: the forward launches under the
-kernel's name, the backward's dx launches under "<name>.bwd_dx".
+kernel's name, the backward's dx launches under "<name>.bwd_dx". The
+depthwise (`ops/depthwise.py`) and attention (`ops/flash_attention.py`)
+wrappers count here too.
 """
 
 from __future__ import annotations
@@ -64,7 +66,9 @@ LAUNCHES: Dict[str, int] = {
     "fused_pw_bn_act": 0, "fused_conv_bn_act": 0,
     "fused_pw_bn_act.bwd_dx": 0, "fused_conv_bn_act.bwd_dx": 0,
     "fused_dw_bn_act": 0, "fused_dw_bn_act.bwd_dx": 0,
-    "depthwise3d_s1": 0, "depthwise3d_s1.bwd_dx": 0}
+    "depthwise3d_s1": 0, "depthwise3d_s1.bwd_dx": 0,
+    "flash_attention": 0, "flash_attention.bwd_dq": 0,
+    "flash_attention.bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:

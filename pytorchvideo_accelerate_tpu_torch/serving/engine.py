@@ -138,7 +138,7 @@ class InferenceEngine:
                 f"artifact {path} carries no num_classes (meta.json) and its "
                 "config has none — cannot size the classifier head")
         cfg.model.num_classes = num_classes
-        model = create_model(cfg.model, cfg.mixed_precision)
+        model = create_model(cfg.model, cfg.mixed_precision, data_cfg=cfg.data)
         # u8-trained runs ship raw uint8 clips and normalize on the device
         u8 = cfg.data.host_cast == "u8"
         engine = cls(

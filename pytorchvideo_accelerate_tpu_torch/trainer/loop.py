@@ -9,7 +9,11 @@ one, an eval pass at each epoch end, and returns the JAX trainer's result
 keys with its throughput numbers (`clips_per_sec`, `steps_per_sec`,
 `input_wait_frac`). `evaluate()`, `export_inference()` and `_maybe_resume()`
 serve `run.py`'s `--eval_only`, `--export_inference` and
-`--resume_from_checkpoint`.
+`--resume_from_checkpoint`. A `*_pretrain` model (VideoMAE) trains
+self-supervised (`make_pretrain_step`, `make_pretrain_eval_step`): no
+labels, float32 clips (`data.host_cast u8` is refused: the MAE target is
+computed from the raw clip), one eval view, and `val_recon_loss` in place
+of the accuracies.
 
 It runs on the CUDA card unless the config asks for the CPU (`--cpu`); on a
 host without CUDA it raises. Options whose effect this slice lacks raise
@@ -43,6 +47,8 @@ from pytorchvideo_accelerate_tpu_torch.trainer.metrics import MeanLoss, SumMetri
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
 from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
     make_eval_step,
+    make_pretrain_eval_step,
+    make_pretrain_step,
     make_train_step,
 )
 from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
@@ -77,7 +83,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
          "a mesh or pipeline of more than one device (multi-GPU)"),
         (bool(m.pretrained_path), "model.pretrained_path (the hub converter)"),
         (o.mixup_alpha > 0 or o.cutmix_alpha > 0, "mixup/cutmix"),
-        (m.name.endswith("_pretrain"), "VideoMAE pretraining"),
     ]
     for bad, what in refused:
         if bad:
@@ -106,6 +111,9 @@ class Trainer:
     def __init__(self, cfg: TrainConfig):
         refuse_unported(cfg)
         self.cfg = cfg
+        # self-supervised objective (VideoMAE): no labels, the model
+        # computes its own loss
+        self.is_pretraining = cfg.model.name.endswith("_pretrain")
         self.device = resolve_train_device(cfg)
         self.checkpointing_steps = _parse_checkpointing_steps(
             cfg.checkpoint.checkpointing_steps)
@@ -128,8 +136,14 @@ class Trainer:
         if d.host_cast not in ("auto", "fp32", "u8"):
             raise ValueError(f"data.host_cast must be 'auto', 'fp32' or "
                              f"'u8', got {d.host_cast!r}")
+        if d.host_cast == "u8" and self.is_pretraining:
+            raise ValueError(
+                "data.host_cast='u8' is supervised-only: the MAE target is "
+                "computed from the raw clip in fp32 (models/videomae.py patchify)")
         u8 = d.host_cast == "u8"
-        bf16 = cfg.mixed_precision in ("bf16", "fp16") and d.host_cast == "auto"
+        # the MAE target is the raw clip: no host cast to bf16 either
+        bf16 = (cfg.mixed_precision in ("bf16", "fp16")
+                and d.host_cast == "auto" and not self.is_pretraining)
         common = dict(
             num_frames=d.num_frames,
             is_slowfast=cfg.model.name.startswith("slowfast"),
@@ -142,8 +156,15 @@ class Trainer:
         )
         train_tf = make_transform(training=True, **common)
         self._device_normalize = train_tf.device_normalize
-        val_tf = make_transform(training=False,
-                                num_spatial_crops=d.eval_num_spatial_crops,
+        # multi-view eval is supervised-only: the pretrain eval step scores
+        # reconstructions clip by clip
+        eval_clips = 1 if self.is_pretraining else d.eval_num_clips
+        eval_spatial = 1 if self.is_pretraining else d.eval_num_spatial_crops
+        if self.is_pretraining and (d.eval_num_clips > 1
+                                    or d.eval_num_spatial_crops > 1):
+            print("multi-view eval options ignored for self-supervised "
+                  "pretraining", flush=True)
+        val_tf = make_transform(training=False, num_spatial_crops=eval_spatial,
                                 **common)
         self.num_classes = cfg.model.num_classes or 4
         self.train_source = SyntheticClipSource(
@@ -152,7 +173,7 @@ class Trainer:
         self.val_source = SyntheticClipSource(
             val_tf, num_videos=max(d.synthetic_num_videos // 4, 4),
             num_classes=self.num_classes, seed=cfg.seed + 1,
-            num_clips=d.eval_num_clips)
+            num_clips=eval_clips)
         loader_kw = dict(seed=cfg.seed, num_workers=d.num_workers,
                          prefetch_batches=d.prefetch_batches,
                          transport=d.transport)
@@ -173,7 +194,7 @@ class Trainer:
         if not cfg.model.num_classes:
             cfg.model.num_classes = self.num_classes
         self.model = create_model(cfg.model, cfg.mixed_precision,
-                                  seed=cfg.seed).to(self.device)
+                                  seed=cfg.seed, data_cfg=cfg.data).to(self.device)
         steps_per_epoch = self.train_loader.steps_per_epoch()
         self.total_steps = max(steps_per_epoch * cfg.optim.num_epochs, 1)
         optimizer = build_optimizer(
@@ -184,6 +205,13 @@ class Trainer:
         self.lr_schedule = optimizer.schedule
         self.state = TrainState.create(self.model, optimizer,
                                        ema_decay=cfg.optim.ema_decay)
+        if self.is_pretraining:
+            self.train_step = make_pretrain_step(
+                self.model, optimizer,
+                accum_steps=cfg.optim.gradient_accumulation_steps,
+                ema_decay=cfg.optim.ema_decay, seed=cfg.seed)
+            self.eval_step = make_pretrain_eval_step(self.model)
+            return
         self.train_step = make_train_step(
             self.model, optimizer,
             accum_steps=cfg.optim.gradient_accumulation_steps,
@@ -251,6 +279,9 @@ class Trainer:
         try:
             self._maybe_resume()
             acc, acc5, loss = self._run_eval(epoch=0)
+            if self.is_pretraining:
+                print(f"evaluate: val_recon_loss={loss:.4f}")
+                return {"val_recon_loss": loss}
             print(f"evaluate: val_acc={acc:.4f} val_acc5={acc5:.4f}")
             return {"val_accuracy": acc, "val_accuracy_top5": acc5,
                     "val_loss": loss}
@@ -270,7 +301,7 @@ class Trainer:
         cfg = self.cfg
         starting_epoch = self._maybe_resume()
         gstep = self.state.step
-        last_val_acc = last_val_acc5 = 0.0
+        last_val_acc = last_val_acc5 = last_val_loss = 0.0
         last_train_loss = float("nan")
         last_perf: Dict[str, float] = {}
         epoch_train_times = []
@@ -299,9 +330,12 @@ class Trainer:
                 t_train = time.time() - t_epoch
                 epoch_train_times.append(t_train)
                 wait_s = self.train_prefetch.pop_wait()
-                last_val_acc, last_val_acc5, _ = self._run_eval(epoch)
-                print(f"epoch {epoch}: val_acc={last_val_acc:.4f} "
-                      f"val_acc5={last_val_acc5:.4f} "
+                last_val_acc, last_val_acc5, last_val_loss = self._run_eval(epoch)
+                val_str = (f"val_recon_loss={last_val_loss:.4f}"
+                           if self.is_pretraining else
+                           f"val_acc={last_val_acc:.4f} "
+                           f"val_acc5={last_val_acc5:.4f}")
+                print(f"epoch {epoch}: {val_str} "
                       f"train_loss={last_train_loss:.4f} "
                       f"({time.time() - t_epoch:.1f}s)", flush=True)
                 if t_train > 0 and steps_done > 0:
@@ -317,9 +351,13 @@ class Trainer:
             self._save("final", cfg.optim.num_epochs - 1)
         finally:
             self.close()
-        return {"train_loss": last_train_loss, "steps": self.state.step,
-                "epoch_train_times": epoch_train_times,
-                "flops_per_step": None, "analytic_flops_per_step": None,
-                "preempted": False, **last_perf,
-                "val_accuracy": last_val_acc,
-                "val_accuracy_top5": last_val_acc5}
+        result = {"train_loss": last_train_loss, "steps": self.state.step,
+                  "epoch_train_times": epoch_train_times,
+                  "flops_per_step": None, "analytic_flops_per_step": None,
+                  "preempted": False, **last_perf}
+        if self.is_pretraining:
+            result["val_recon_loss"] = last_val_loss
+        else:
+            result["val_accuracy"] = last_val_acc
+            result["val_accuracy_top5"] = last_val_acc5
+        return result

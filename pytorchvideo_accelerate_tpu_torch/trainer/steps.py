@@ -6,6 +6,8 @@ PyTorch runs eagerly, so a "step" is a plain function over the live
 divided by the accumulation count once per effective step, the optimizer
 update, the EMA. Eval metrics are masked sums (`loss_sum`, `correct`,
 `correct5`, `count`) the host adds across batches (trainer/metrics.py).
+VideoMAE pretraining has its own pair (`make_pretrain_step`,
+`make_pretrain_eval_step`) over the same update step.
 
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
@@ -112,40 +114,32 @@ def _mask_of(batch: dict) -> torch.Tensor:
     return mask
 
 
-def make_train_step(model, optimizer, accum_steps: int = 1,
-                    label_smoothing: float = 0.0, device_normalize=None,
-                    ema_decay: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> Callable:
-    """Build `step(state, batch) -> metrics`. One call is one optimizer
-    step: forward + backward per micro-batch in order (the BN running
-    averages thread through them), the summed grads divided by
-    `accum_steps`, then the update and the EMA. `metrics`: "loss" (mean over
-    micro-steps), "grad_norm" (global norm of the averaged grads, before
-    clipping), "accuracy" (device scalars) and "lr" (the schedule at the
-    step before the update, a float). `dropout_seed`: every `SeededDropout`
-    of the model (each head's dropout) is reseeded from (seed, step) at
-    every step."""
+def _make_update_step(model, optimizer, forward_loss: Callable,
+                      accum_steps: int, ema_decay: float,
+                      dropout_seed: Optional[int], with_accuracy: bool) -> Callable:
+    """The optimizer step shared by the supervised and the MAE objective:
+    `forward_loss(micro_batch, step, micro) -> (loss, correct, count)` per
+    micro-batch in order, backward each, the summed grads divided by
+    `accum_steps`, then the update (clip inside `optimizer.step`) and the
+    EMA. Every `SeededDropout` of the model (head dropout, drop path) is
+    reseeded at every step from (dropout_seed, step), each module on a
+    stream of its own."""
     named = dict(model.named_parameters())
     params = [p for p in named.values() if p.requires_grad]
     dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
 
-    def forward_loss(batch: dict):
-        batch = device_normalize_batch(batch, device_normalize)
-        logits = model(model_inputs(batch))
-        return _loss_and_metrics(logits, batch["label"], _mask_of(batch),
-                                 label_smoothing)
-
     def step(state, batch: dict) -> dict:
         model.train()
         if dropout_seed is not None:
-            for d in dropouts:
-                d.reseed((dropout_seed * 1_000_003 + state.step) % 2 ** 63)
+            base = dropout_seed * 1_000_003 + state.step
+            for i, d in enumerate(dropouts):
+                d.reseed((base + i * 0x9E3779B97F4A7C15) % 2 ** 63)
         for p in params:
             p.grad = None
         losses, corrects, counts = [], [], []
         for i in range(accum_steps):
             mb = batch if accum_steps == 1 else {k: v[i] for k, v in batch.items()}
-            loss, correct, count = forward_loss(mb)
+            loss, correct, count = forward_loss(mb, state.step, i)
             loss.backward()
             losses.append(loss.detach())
             corrects.append(correct)
@@ -162,11 +156,89 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
             torch._foreach_mul_(ema, ema_decay)
             torch._foreach_add_(ema, live, alpha=1.0 - ema_decay)
         state.step += 1
-        correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
-        return {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
-                "accuracy": correct / torch.clamp_min(count, 1.0), "lr": lr}
+        out = {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
+               "lr": lr}
+        if with_accuracy:
+            correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
+            out["accuracy"] = correct / torch.clamp_min(count, 1.0)
+        return out
 
     return step
+
+
+def make_train_step(model, optimizer, accum_steps: int = 1,
+                    label_smoothing: float = 0.0, device_normalize=None,
+                    ema_decay: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> Callable:
+    """Build `step(state, batch) -> metrics`. One call is one optimizer
+    step: forward + backward per micro-batch in order (the BN running
+    averages thread through them), the summed grads divided by
+    `accum_steps`, then the update and the EMA. `metrics`: "loss" (mean over
+    micro-steps), "grad_norm" (global norm of the averaged grads, before
+    clipping), "accuracy" (device scalars) and "lr" (the schedule at the
+    step before the update, a float). `dropout_seed`: every `SeededDropout`
+    of the model (each head's dropout) is reseeded from (seed, step) at
+    every step."""
+
+    def forward_loss(batch: dict, step: int, micro: int):
+        batch = device_normalize_batch(batch, device_normalize)
+        logits = model(model_inputs(batch))
+        return _loss_and_metrics(logits, batch["label"], _mask_of(batch),
+                                 label_smoothing)
+
+    return _make_update_step(model, optimizer, forward_loss, accum_steps,
+                             ema_decay, dropout_seed, with_accuracy=True)
+
+
+def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
+    """The tube-mask generator of one pretraining micro-step (CPU: the
+    mask is drawn on the host, so a seed gives one mask on every device)."""
+    return torch.Generator().manual_seed(
+        (seed * 1_000_003 + step) * 1_009 + micro)
+
+
+def make_pretrain_step(model, optimizer, accum_steps: int = 1,
+                       ema_decay: float = 0.0, seed: int = 0) -> Callable:
+    """Build the VideoMAE self-supervised step `step(state, batch) ->
+    metrics` (JAX `make_pretrain_step`): no labels, the model returns its
+    own reconstruction loss under a tube mask drawn from
+    `mask_generator(seed, step, micro)`; the same accumulation, clip and
+    EMA as `make_train_step`. `metrics`: "loss", "grad_norm", "lr"."""
+
+    def forward_loss(batch: dict, step: int, micro: int):
+        out = model(batch["video"], generator=mask_generator(seed, step, micro))
+        zero = torch.zeros((), device=out["loss"].device)
+        return out["loss"], zero, zero
+
+    return _make_update_step(model, optimizer, forward_loss, accum_steps,
+                             ema_decay, seed, with_accuracy=False)
+
+
+def make_pretrain_eval_step(model) -> Callable:
+    """Eval for MAE pretraining (JAX `make_pretrain_eval_step`): the
+    reconstruction loss per clip under the deterministic mask (a generator
+    seeded 0), summed over the batch mask so padded val-tail clips do not
+    bias the mean; the same {loss_sum, correct, correct5, count} contract
+    (accuracy reads 0). EMA weights when the state carries them."""
+
+    def eval_step(state, batch: dict) -> dict:
+        model.eval()
+        with torch.no_grad():
+            x = batch["video"]
+            kwargs = {"generator": torch.Generator().manual_seed(0)}
+            ema = state.eval_params()
+            out = (model(x, **kwargs) if ema is None
+                   else functional_call(model, ema, (x,), kwargs))
+            err = (f32_island(out["pred"]) - f32_island(out["target"])) ** 2
+            per_sample = err.mean(dim=tuple(range(1, err.dim())))
+            mask = batch.get("mask")
+            if mask is None:
+                mask = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+            zero = torch.zeros((), device=x.device)
+            return {"loss_sum": (per_sample * mask).sum(), "correct": zero,
+                    "correct5": zero, "count": mask.sum()}
+
+    return eval_step
 
 
 def make_eval_step(model, label_smoothing: float = 0.0,

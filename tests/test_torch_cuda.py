@@ -12,7 +12,11 @@ and round once to bf16, so they differ by about one bf16 ulp plus the f32
 summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|). The
 backward's dx launch is held to the same bound against the plain dx on the
 same bf16 dz; dw and db are f32 contractions that the kernel path and the
-plain path compute alike (2e-3 relative). The depthwise kernel
+plain path compute alike (2e-3 relative). The flash attention kernels
+(`csrc/flash_attention.cu`) are held the same way: the forward's out and
+lse, and dq, dk, dv from the same (out, lse), against `flash_fwd_plain` /
+`flash_bwd_plain` at a ragged MViT shape (Nq != Nk, D 96) and a ViT one
+(D 64). The depthwise kernel
 (`csrc/depthwise3d.cu`) is held the same way through both of its entry
 points: `fused_depthwise_bn_act` (forward and the `DwBnAct` dx; its dk
 and dscale, which pass through bf16-rounded folded taps, within one bf16
@@ -27,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from pytorchvideo_accelerate_tpu_torch.ops import depthwise, fused
+from pytorchvideo_accelerate_tpu_torch.ops import depthwise, flash_attention, fused
 
 pytestmark = pytest.mark.cuda
 
@@ -280,3 +284,83 @@ def test_float32_raises_on_the_card(cuda):
         fused.fused_depthwise_bn_act(x.float(), k.float(), s, b, mode="auto")
     with pytest.raises(TypeError, match="bfloat16"):
         depthwise.Depthwise3dS1.apply(x.float(), k.float(), True)
+
+
+# (B, Nq, Nk, H, D): a ragged MViT-like site (q pooled grid against a
+# strided K/V pool, D 96) and a ViT one (D 64); neither length a tile multiple
+FLASH_CASES = [(2, 200, 72, 2, 96), (1, 160, 160, 3, 64)]
+
+
+def _flash_inputs(b, nq, nk, h, d, seed, device):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            device, torch.bfloat16)
+    return t(b, nq, h, d), t(b, nk, h, d), t(b, nk, h, d), t(b, nq, h, d)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, b, nq, nk, h, d):
+    q, k, v, dout = _flash_inputs(b, nq, nk, h, d, 0, cuda)
+    scale = d ** -0.5
+    before = dict(fused.LAUNCHES)
+    out, lse = flash_attention._fwd_cuda(q, k, v, scale)
+    want_out, want_lse = flash_attention.flash_fwd_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    _check(out, want_out)
+    _check(lse, want_lse)
+    dq, dk, dv = flash_attention._bwd_cuda(q, k, v, want_out, want_lse, dout,
+                                           scale, True, True)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), flash_attention.flash_bwd_plain(
+            q, k, v, want_out, want_lse, dout, scale)):
+        _check(got, want)
+    for key in ("flash_attention", "flash_attention.bwd_dq",
+                "flash_attention.bwd_dkv"):
+        assert fused.LAUNCHES[key] == before[key] + 1
+
+
+def test_flash_strided_qkv_views_match_contiguous(cuda):
+    """q/k/v as the split views of one qkv projection: read through their
+    strides, the same result as contiguous copies."""
+    b, n, h, d = 2, 130, 2, 64
+    qkv = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (b, n, 3 * h * d), np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = (t.reshape(b, n, h, d) for t in qkv.split(h * d, dim=-1))
+    assert not q.is_contiguous()
+    got = flash_attention.flash_attention(q, k, v)
+    want = flash_attention.flash_attention(q.contiguous(), k.contiguous(),
+                                           v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_autograd_launches_all_three(cuda):
+    q, k, v, dout = _flash_inputs(1, 96, 200, 2, 64, 5, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fused.LAUNCHES)
+    flash_attention.flash_attention(*leaves).backward(dout)
+    torch.cuda.synchronize()
+    launched = {k_: fused.LAUNCHES[k_] - before[k_] for k_ in before}
+    assert launched["flash_attention"] == 1
+    assert launched["flash_attention.bwd_dq"] == 1
+    assert launched["flash_attention.bwd_dkv"] == 1
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    out = flash_attention.flash_fwd_plain(*ref, 64 ** -0.5)[0]
+    out.backward(dout.float())
+    for got, want in zip(leaves, ref):
+        assert ((got.grad.float() - want.grad).norm() / want.grad.norm()).item() <= 2e-2
+
+
+def test_flash_refuses_what_the_kernels_do_not_take(cuda):
+    q, k, v, _ = _flash_inputs(1, 32, 32, 1, 64, 6, cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention.flash_attention(q.float(), k.float(), v.float())
+    for d in (8, 24, 144):
+        q, k, v, _ = _flash_inputs(1, 32, 32, 1, d, 6, cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention.flash_attention(q, k, v)
+    q, k, v, _ = _flash_inputs(1, 32, 32, 1, 128, 6, cuda)
+    with pytest.raises(ValueError, match="last dim"):
+        flash_attention.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])

@@ -89,16 +89,19 @@ def _jax_logits(name, fused):
 
 
 @pytest.mark.parametrize("name", ["slowfast_r50", "slow_r50", "c2d_r50",
-                                  "slowfast_t", "tiny3d", "x3d_m", "csn_r101"])
+                                  "slowfast_t", "tiny3d", "x3d_m", "csn_r101",
+                                  "mvit_b", "videomae_b"])
 def test_state_dict_maps_jax_tree_one_to_one(name):
     """Every leaf of the (full-width) flax tree maps to exactly one port key
-    with the right shape, and no port key is left over."""
+    with the right shape, and no port key is left over (MViT's pos_embed
+    sized to the same 8x32x32 clips)."""
     tree = _abstract_tree(name, num_classes=700)
     zeros = {k: np.broadcast_to(np.float32(0), v.shape)
              for k, v in flatten_tree(tree).items()}
     mapped = state_dict_from_jax(zeros)
     want = tmodels.create_model(
-        ModelConfig(name=name, num_classes=700), "bf16").state_dict()
+        ModelConfig(name=name, num_classes=700), "bf16",
+        data_cfg=DataConfig(num_frames=8, crop_size=32)).state_dict()
     assert len(mapped) == len(zeros)
     assert sorted(mapped) == sorted(want)
     for k, v in want.items():
@@ -158,19 +161,23 @@ def test_slowfast_r50_fused_site_counts():
 
 
 @pytest.mark.parametrize("name", ["slowfast_r50", "slow_r50", "x3d_s", "x3d_m",
-                                  "csn_r101"])
+                                  "csn_r101", "mvit_b", "videomae_b"])
 def test_model_input_spec_matches_jax(name):
     d = dict(num_frames=32, crop_size=224)
     assert (tmodels.model_input_spec(ModelConfig(name=name), DataConfig(**d))
             == jmodels.model_input_spec(JModelConfig(name=name), JDataConfig(**d)))
 
 
-@pytest.mark.parametrize("name,err", [("r2plus1d_r50", NotImplementedError),
-                                      ("mvit_b", NotImplementedError),
-                                      ("no_such_net", ValueError)])
-def test_unported_or_unknown_model_raises(name, err):
+@pytest.mark.parametrize("name,err,extra", [
+    ("r2plus1d_r50", NotImplementedError, {}),
+    # MViT is ported; its context-parallel attention (several GPUs) is not
+    ("mvit_b", NotImplementedError, {"attention": "ring"}),
+    ("no_such_net", ValueError, {})],
+    ids=["r2plus1d_r50-NotImplementedError", "mvit_b-NotImplementedError",
+         "no_such_net-ValueError"])
+def test_unported_or_unknown_model_raises(name, err, extra):
     with pytest.raises(err):
-        tmodels.create_model(ModelConfig(name=name, num_classes=3))
+        tmodels.create_model(ModelConfig(name=name, num_classes=3, **extra))
 
 
 def test_bad_fused_mode_raises():

@@ -580,6 +580,45 @@ def test_run_fits_checkpoints_resumes_and_exports(tmp_path):
     np.testing.assert_allclose(eng.predict(clips), want, atol=1e-5)
 
 
+# one eval view, fp32: the CPU's bf16 grouped conv3d weight gradient is
+# wrong (errors larger than the gradient itself at MViT's pools), which
+# took a bf16 run of mvit_t to a non-finite loss; the card runs cuDNN
+_TRANSFORMER_RUN = (_RUN[:_RUN.index("--data.eval_num_clips")]
+                    + ["--mixed_precision", "fp32"])
+
+
+def test_run_pretrains_videomae_checkpoints_and_resumes(tmp_path):
+    """`run.main` on `videomae_t_pretrain`: 2 optimizer steps of the MAE
+    objective (no labels) with a checkpoint each, a resume that continues
+    the step count, and the reconstruction loss as the eval metric; u8
+    clips are refused (the MAE target is the raw clip)."""
+    argv = _TRANSFORMER_RUN + ["--model.name", "videomae_t_pretrain",
+                               "--num_epochs", "1", "--gradient_accumulation_steps",
+                               "1", "--data.synthetic_num_videos", "4",
+                               "--model.attention", "pallas",
+                               "--checkpointing_steps", "1",
+                               "--output_dir", str(tmp_path / "pre")]
+    res = trun.main(argv)
+    assert res["steps"] == 2 and np.isfinite(res["train_loss"])
+    assert np.isfinite(res["val_recon_loss"]) and "val_accuracy" not in res
+    ck = Checkpointer(str(tmp_path / "pre" / "checkpoints"))
+    assert ck.all_steps() == [1, 2]
+    res2 = trun.main(argv + ["--num_epochs", "2", "--resume_from_checkpoint", "auto"])
+    assert res2["steps"] == 4
+    assert set(trun.main(argv + ["--eval_only"])) == {"val_recon_loss"}
+    with pytest.raises(ValueError, match="u8"):
+        Trainer(parse_cli(argv + ["--data.host_cast", "u8"]))
+
+
+def test_run_fits_mvit_t(tmp_path):
+    res = trun.main(_TRANSFORMER_RUN + [
+        "--model.name", "mvit_t", "--num_epochs", "1",
+        "--model.attention", "pallas", "--model.depthwise_impl", "pallas",
+        "--output_dir", str(tmp_path / "mvit")])
+    assert res["steps"] == 2 and np.isfinite(res["train_loss"])
+    assert 0.0 <= res["val_accuracy"] <= 1.0
+
+
 def test_write_config_and_eval_only(tmp_path):
     path = str(tmp_path / "cfg.json")
     assert trun.main(_RUN + ["--write_config", path]) == {"config_written": path}
@@ -600,7 +639,8 @@ def test_trainer_without_cpu_flag_needs_cuda():
     ["--guard.enabled"], ["--data.dataplane_workers", "2"],
     ["--data.cache_dir", "/nonexistent"], ["--data.synthetic", "false"],
     ["--mesh.data", "2"], ["--model.pretrained_path", "w.npz"],
-    ["--optim.mixup_alpha", "0.2"], ["--model.name", "videomae_t_pretrain"],
+    ["--optim.mixup_alpha", "0.2"],
+    ["--model.name", "videomae_t_pretrain", "--model.remat"],
     ["--data.transport", "process"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
