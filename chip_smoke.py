@@ -72,11 +72,16 @@ Drives the port only (no JAX), one JSON line per phase:
             head planted on 5 request clips), the `attention dense` engine
             on the same weights, and the attention sites of its bucket-8
             forward (and of one VideoMAE-B pretraining forward, B=8)
-19. kernels (attention)  the flash kernels (`csrc/flash_attention.cu`) at
-            every distinct site shape: forward (out and lse) against
-            `flash_fwd_plain`, dq and dk/dv against `flash_bwd_plain`;
-            kernel, plain and library (`F.scaled_dot_product_attention`,
-            timed only) device times
+19. kernels (attention)  the flash kernels (`csrc/flash_attention.cu`,
+            `csrc/flash_attention_bwd.cu`) at every distinct site shape:
+            forward (out and lse) against `flash_fwd_plain`, dq and dk/dv
+            (launched through the wrapper's plan: `launch_dq`,
+            `launch_dkv` with its query splits) against `flash_bwd_plain`,
+            two backward launches bitwise equal; kernel, plain and library
+            (`F.scaled_dot_product_attention`, timed only) device times,
+            the backward's ratio to the library's, each backward kernel's
+            ptxas report (registers, spills) and runtime attributes
+            (shared memory, blocks per SM)
 20. mvit_serve  `build_server` serves MViT-B under `attention pallas,
             depthwise_impl pallas`: 16 flash and 4 `depthwise3d_s1` launches
             per forward; logits against the dense engine; mvit_timing
@@ -91,7 +96,10 @@ Drives the port only (no JAX), one JSON line per phase:
 23. mvit_train_parity, mvit_train_timing  end to end the loss through the
             kernels against `attention dense`; with the forward fixed the
             whole gradient and one SGD update against plain autograd; ms
-            per micro-step and peak memory of both, a profile
+            per micro-step and peak memory of both, a profile;
+            videomae_train_timing: one B=8 VideoMAE-B classifier micro-step
+            through the kernels (12 + 12 + 12 launches) against dense
+            attention, ms and peak memory of both
 24. videomae_pretrain  `run.main` pretrains VideoMAE-B (B=8, MAE ratio
             0.9) for 2 steps: 16 forward, 16 dq and 16 dk/dv launches per
             micro-step; the step-1 checkpoint restored bitwise
@@ -183,6 +191,9 @@ X3D_TRAIN = dict(name="x3d_m", batch=8, accum=1, epochs=1, videos=16,
 MVIT_TRAIN = dict(X3D_TRAIN, name="mvit_b", lr=TRANSFORMER_LR, argv=ATTN_ARGV)
 MAE_TRAIN = dict(X3D_TRAIN, name="videomae_b_pretrain", lr=TRANSFORMER_LR,
                  argv=ATTN_ARGV[:2], pretrain=True)
+# one B=8 micro-step of the VideoMAE-B classifier (fine-tuning), timed only
+VIDEOMAE_TRAIN = dict(X3D_TRAIN, name="videomae_b", lr=TRANSFORMER_LR,
+                      argv=ATTN_ARGV[:2])
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
 DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
@@ -197,6 +208,7 @@ NAMED_SITES = {
 }
 _DW_SRC = "pytorchvideo_accelerate_tpu_torch/ops/csrc/depthwise3d.cu"
 _FLASH_SRC = "pytorchvideo_accelerate_tpu_torch/ops/csrc/flash_attention.cu"
+_FLASH_BWD_SRC = "pytorchvideo_accelerate_tpu_torch/ops/csrc/flash_attention_bwd.cu"
 SOURCES = {
     "fused_pw_bn_act": ("pytorchvideo_accelerate_tpu_torch/ops/csrc/fused_pw_bn_act.cu",
                         "pytorchvideo_accelerate_tpu/ops/pallas_fused.py:123"),
@@ -217,8 +229,8 @@ SOURCES = {
     # the flash attention forward and its custom VJP's two backward kernels
     # (ops/flash_attention.py FlashAttention)
     "flash_attention": (_FLASH_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:54"),
-    "flash_attention.bwd_dq": (_FLASH_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:93"),
-    "flash_attention.bwd_dkv": (_FLASH_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:116"),
+    "flash_attention.bwd_dq": (_FLASH_BWD_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:93"),
+    "flash_attention.bwd_dkv": (_FLASH_BWD_SRC, "pytorchvideo_accelerate_tpu/ops/pallas_attention.py:116"),
 }
 # per kernel of the kernels line: the model whose bucket-8 forward (and B=8
 # micro-step, for dx) its times are summed over, and the main-path phases
@@ -1684,6 +1696,46 @@ def attn_bound(kname: str, b: int, nq: int, nk: int, h: int, d: int):
     return float(b * h * flops), float(b * h * nbytes)
 
 
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from an `nvcc -Xptxas=-v` log."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def bwd_build_facts(which: str, d: int) -> dict:
+    """ptxas's report of the backward kernel `which` ("dq" or "dkv") at head
+    dim d, and what the runtime says of it (registers, local memory,
+    dynamic shared memory, blocks per SM). No spills at D = 64 and 96."""
+    from pytorchvideo_accelerate_tpu_torch.ops import _build
+    from pytorchvideo_accelerate_tpu_torch.ops import flash_attention as fa
+
+    tag = f"{which}_kernelILi{d}E"
+    report = [v for k, v in ptxas_report(_build.build_logs.get(
+        "flash_attention_bwd", "")).items() if tag in k]
+    facts = {"ptxas": report[0] if report else None,
+             "runtime": fa.bwd_kernel_attrs(which, d)}
+    if d in (64, 96):
+        spills = (report[0].get("spill_stores", 0) if report else 0) + \
+            facts["runtime"]["local_bytes"]
+        check(spills == 0, f"flash {which} kernel at D={d} spills: {facts}")
+    return facts
+
+
 def max_excess(got, want) -> tuple:
     """(max |got - want|, max of |got - want| - KERNEL_TOL * (1 + |want|),
     relative 2-norm error), both in f32."""
@@ -1733,19 +1785,29 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
             check(excess <= 0, f"{model} attention {q_shape} x {k_shape}: {what} "
                   f"errors {errs[what]} over {KERNEL_TOL}*(1+|plain|)")
         del out, lse, grads, p_grads
-        # launch-only closures over preallocated outputs
+        # launch-only closures over preallocated outputs; the backward ones
+        # go through the wrapper's launch plan (dk/dv splits, workspace)
         dims, delta = (b, h, nq, nk, d), fa.attention_delta(p_out, dout)
         o_buf, l_buf = torch.empty_like(q), torch.empty_like(p_lse)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        bufs = [tuple(torch.empty_like(t) for t in (q, k, v)) for _ in range(2)]
+        dq, dk, dv = bufs[0]
         launch = {
             "flash_attention": lambda: fa._call(
                 "flash_attention", (q, k, v, o_buf, l_buf), dims, (q, k, v), scale, q.device),
-            "flash_attention.bwd_dq": lambda: fa._call(
-                "flash_attention.bwd_dq", (q, k, v, dout, p_lse, delta, dq), dims,
-                (q, k, v, dout), scale, q.device),
-            "flash_attention.bwd_dkv": lambda: fa._call(
-                "flash_attention.bwd_dkv", (q, k, v, dout, p_lse, delta, dk, dv), dims,
-                (q, k, v, dout), scale, q.device)}
+            "flash_attention.bwd_dq": lambda: fa.launch_dq(
+                q, k, v, dout, p_lse, delta, dq, scale),
+            "flash_attention.bwd_dkv": lambda: fa.launch_dkv(
+                q, k, v, dout, p_lse, delta, dk, dv, scale)}
+        # no atomics: two launches on the same inputs agree bitwise
+        splits = [fa.launch_dkv(q, k, v, dout, p_lse, delta, g[1], g[2], scale)
+                  for g in bufs]
+        for g in bufs:
+            fa.launch_dq(q, k, v, dout, p_lse, delta, g[0], scale)
+        torch.cuda.synchronize()
+        bitwise = {w: torch.equal(bufs[0][i], bufs[1][i])
+                   for i, w in enumerate(("dq", "dk", "dv"))}
+        check(all(bitwise.values()), f"{model} attention {q_shape} x {k_shape}: two "
+              f"backward launches differ {bitwise}")
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt)
         dlib = dout.transpose(1, 2)
@@ -1766,6 +1828,7 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
                 device_ms(torch, launch["flash_attention.bwd_dkv"], reps),
                 plain_bwd_ms, lib_bwd_ms,
                 max(errs["dk"], errs["dv"]))}
+        bwd_ms = timed["flash_attention.bwd_dq"][0] + timed["flash_attention.bwd_dkv"][0]
         for kname, (kernel_ms, plain_ms, library_ms, err) in timed.items():
             flops, nbytes = attn_bound(kname, b, nq, nk, h, d)
             t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -1782,12 +1845,17 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
             if kname == "flash_attention":
                 row["lse_max_abs_err"] = errs["lse"][0]
             else:
-                row["plain_and_library_compute"] = "dq, dk and dv together"
-                if kname.endswith("bwd_dkv"):
-                    row["dk_dv_max_abs_err"] = [errs["dk"][0], errs["dv"][0]]
+                which = "dkv" if kname.endswith("bwd_dkv") else "dq"
+                row.update(plain_and_library_compute="dq, dk and dv together",
+                           library_ratio=bwd_ms / library_ms,
+                           bitwise_equal_two_launches=True,
+                           build=bwd_build_facts(which, d))
+                if which == "dkv":
+                    row.update(dk_dv_max_abs_err=[errs["dk"][0], errs["dv"][0]],
+                               splits=splits[0])
             emit("kernels", **row)
             rows.append(row)
-        del q, k, v, dout, p_out, p_lse, delta, o_buf, l_buf, dq, dk, dv
+        del q, k, v, dout, p_out, p_lse, delta, o_buf, l_buf, dq, dk, dv, bufs
         del qt, kt, vt, lib_out, dlib, launch
         free_cuda(torch)
     return rows
@@ -1869,6 +1937,39 @@ def micro_step_times(torch, fn, reps: int = 3) -> dict:
         times.append((time.perf_counter() - t) * 1e3)
     return {"micro_step_ms": times,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def videomae_train_timing(torch) -> dict:
+    """One B=8 micro-step of the VideoMAE-B classifier through the flash
+    kernels against `attention dense`: the launches of one micro-step (12
+    forward, 12 dq, 12 dk/dv), ms per micro-step and peak memory of each,
+    and the loss of both on the same batch and weights."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    batch = train_batch(torch, SEED + 33, VIDEOMAE_TRAIN)
+    dense = dict(VIDEOMAE_TRAIN, argv=["--model.attention", "dense"])
+    out = {"batch": VIDEOMAE_TRAIN["batch"]}
+    for label, spec in (("flash", VIDEOMAE_TRAIN), ("dense", dense)):
+        model, _, fn = micro_step_fn(torch, "off", batch, spec)
+        out[f"loss_{label}"] = fn().item()
+        out[label] = micro_step_times(torch, fn)
+        if label == "flash":
+            fused.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            out["launches_per_micro_step"] = {k: v for k, v in fused.LAUNCHES.items() if v}
+        del model, fn
+        free_cuda(torch)
+    want = {k: VIT_DEPTH for k in ("flash_attention", "flash_attention.bwd_dq",
+                                   "flash_attention.bwd_dkv")}
+    check(out["launches_per_micro_step"] == want,
+          f"VideoMAE-B micro-step launches {out['launches_per_micro_step']}, expected {want}")
+    out["loss_tolerance"] = LOGIT_TOL * (1 + abs(out["loss_dense"]))
+    check(abs(out["loss_flash"] - out["loss_dense"]) <= out["loss_tolerance"],
+          f"VideoMAE-B train loss {out}")
+    del batch
+    free_cuda(torch)
+    return out
 
 
 def attention_phases(torch, work: str, launches: dict):
@@ -1966,6 +2067,7 @@ def attention_phases(torch, work: str, launches: dict):
          fit_clips_per_sec=train["result"].get("clips_per_sec"), **timing)
     del batch
     free_cuda(torch)
+    emit("videomae_train_timing", **videomae_train_timing(torch))
 
     # 24. videomae_pretrain: MAE pretraining through the kernels
     train = train_phase(torch, work, MAE_TRAIN)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # the sources under csrc/, one library each
 KERNELS = ("fused_pw_bn_act", "fused_conv_bn_act", "depthwise3d",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -42,13 +42,18 @@ _SIGNATURES = {
                         [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "depthwise3d_s1": ("depthwise3d", "pva_depthwise3d_s1",
                        [_P, _P, _P] + [_I] * 8 + [_P]),
-    # (pointers, B H Nq Nk D, (b, n, h) strides of q k v [dO], scale, stream)
+    # (pointers, B H Nq Nk D [splits], (b, n, h) strides of q k v [dO],
+    # scale, stream)
     "flash_attention": ("flash_attention", "pva_flash_fwd",
                         [_P] * 5 + [_I] * 14 + [_F, _P]),
-    "flash_attention.bwd_dq": ("flash_attention", "pva_flash_bwd_dq",
+    "flash_attention.bwd_dq": ("flash_attention_bwd", "pva_flash_bwd_dq",
                                [_P] * 7 + [_I] * 17 + [_F, _P]),
-    "flash_attention.bwd_dkv": ("flash_attention", "pva_flash_bwd_dkv",
-                                [_P] * 8 + [_I] * 17 + [_F, _P]),
+    "flash_attention.bwd_dkv": ("flash_attention_bwd", "pva_flash_bwd_dkv",
+                                [_P] * 9 + [_I] * 18 + [_F, _P]),
+    # (which: 0 dq, 1 dk/dv; D; int[4] out): registers, local bytes,
+    # dynamic shared memory, blocks per SM of one backward kernel
+    "flash_attention.bwd_attrs": ("flash_attention_bwd", "pva_flash_bwd_attrs",
+                                  [_I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,49 +1,41 @@
-// Flash attention for Hopper (sm_90a): the forward and both backward passes.
+// Flash attention forward for Hopper (sm_90a).
 //
 // Replaces: pytorchvideo_accelerate_tpu/ops/pallas_attention.py
 //   pva_flash_fwd     <- `_fwd_kernel`     (:54, pallas_call :160)
-//   pva_flash_bwd_dq  <- `_bwd_dq_kernel`  (:93, pallas_call :227)
-//   pva_flash_bwd_dkv <- `_bwd_dkv_kernel` (:116, pallas_call :246)
-// The three belong to one custom VJP (`_flash_bhnd`), ported as
-// ops/flash_attention.py `FlashAttention`.
+// The backward kernels (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) are
+// csrc/flash_attention_bwd.cu; the three belong to one custom VJP
+// (`_flash_bhnd`), ported as ops/flash_attention.py `FlashAttention`.
 //
-// What they compute, per (batch b, head h), q (Nq, D), k/v (Nk, D) bf16,
-// s = q k^T * scale in f32:
-//   fwd: online softmax over K/V tiles: m, l running max and sum (f32),
-//        p = exp(s - m) rounded to bf16 before P V, O rescaled in f32 and
-//        divided by l at the end; out bf16, lse = m + log(max(l, 1e-30)) f32.
-//   dq:  p = exp(s - lse) recomputed, ds = p * (dO V^T - delta) * scale,
-//        dq = bf16(ds) K accumulated in f32 over K tiles.
-//   dkv: the K/V tile is fixed, Q tiles stream: dv += bf16(p)^T dO and
-//        dk += bf16(ds)^T Q in f32.
-// delta = rowsum(dO * O) comes in precomputed (a plain torch reduction, as
-// the reference's jnp precompute). Key columns past Nk take s = -1e30
-// (NEG_INF of the reference, not -inf), so their p is exactly 0. Query rows
-// past Nq are loaded as zeros, contribute nothing and are never stored.
+// What it computes, per (batch b, head h), q (Nq, D), k/v (Nk, D) bf16,
+// s = q k^T * scale in f32: an online softmax over K/V tiles: m, l running
+// max and sum (f32), p = exp(s - m) rounded to bf16 before P V, O rescaled
+// in f32 and divided by l at the end; out bf16, lse = m + log(max(l, 1e-30))
+// f32. Key columns past Nk take s = -1e30 (NEG_INF of the reference, not
+// -inf), so their p is exactly 0. Query rows past Nq are loaded as zeros,
+// contribute nothing and are never stored.
 //
-// What bounds them on the H100: per (b, h) they move (2 Nq + 2 Nk) D bf16
-// values plus 4 Nq bytes of lse and do 4 Nq Nk D FLOPs forward (6x for dq,
-// 8x for dk/dv, recompute included). At every MViT-B and ViT-B site
-// (Nq, Nk >= 160, D 64 or 96) that is far above the ~295 FLOP/byte ridge:
-// the tensor cores bound them.
-// What the design does about it: the Pallas kernels' sequential third grid
+// What bounds it on the H100: per (b, h) it moves (2 Nq + 2 Nk) D bf16
+// values plus 4 Nq bytes of lse and does 4 Nq Nk D FLOPs. At every MViT-B
+// and ViT-B site (Nq, Nk >= 160, D 64 or 96) that is far above the ~295
+// FLOP/byte ridge: the tensor cores bound it.
+// What the design does about it: the Pallas kernel's sequential third grid
 // axis (VMEM scratch carried across K blocks) becomes a loop inside one
 // thread block, so S and P never leave shared memory and each Q tile reads
-// K/V once. The three products run on the tensor cores (WMMA bf16 16x16x16
+// K/V once. The two products run on the tensor cores (WMMA bf16 16x16x16
 // with f32 accumulation). Blocks of 128 threads (4 warps) own a 64-row
 // tile; warp w owns rows 16w..16w+15, so the softmax rows a warp updates
 // are its own and only warp-level syncs are needed inside a tile step.
-// Running sums (O, dq, dk, dv) live in shared f32 tiles, which lets D be a
-// runtime value (any multiple of 16 up to 128; the path uses 64 and 96;
-// D = 96 is not a power of two). Per-row stats are one value per row
-// (B*H*Nq), not the TPU's 128-lane broadcast tile. Loads are single
-// buffered; cp.async/TMA pipelining, wgmma and warp specialisation are
-// later work.
+// The running O lives in a shared f32 tile, which lets D be a runtime value
+// (any multiple of 16 up to 128; the path uses 64 and 96; D = 96 is not a
+// power of two). Per-row stats are one value per row (B*H*Nq), not the
+// TPU's 128-lane broadcast tile. Loads are single buffered; the backward's
+// design (register-resident sums, mma.sync, cp.async stages) is the next
+// step for this kernel.
 //
-// Layout: q, k, v and dO are read as (B, N, H, D) through element strides
+// Layout: q, k and v are read as (B, N, H, D) through element strides
 // (b, n, h; the last dim contiguous), so the qkv projection's split views
-// need no copy. out, dq, dk, dv are written (B, N, H, D) contiguous;
-// lse and delta are (B, H, Nq) f32.
+// need no copy. out is written (B, N, H, D) contiguous; lse is (B, H, Nq)
+// f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -54,7 +46,7 @@ namespace pva_flash {
 using bf16 = __nv_bfloat16;
 using namespace nvcuda;
 
-constexpr int BR = 64;         // rows of a tile (queries, or keys in dkv)
+constexpr int BR = 64;         // query rows of a tile
 constexpr int BC = 64;         // columns streamed per step
 constexpr int THREADS = 128;   // 4 warps x 16 rows
 constexpr int MAX_D = 128;
@@ -100,11 +92,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* base, i
     if (r0 + r < n) v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * sn + c);
     *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
   }
-}
-
-// One per-row f32 stat (lse or delta) of rows r0.. into sh[64]; 0 past n.
-__device__ __forceinline__ void load_stat(float* dst, const float* src, int r0, int n) {
-  for (int r = threadIdx.x; r < BR; r += THREADS) dst[r] = (r0 + r < n) ? src[r0 + r] : 0.f;
 }
 
 // C(16 x 64) of this warp = A(16 rows of a, D deep) * B^T where B holds 64
@@ -261,135 +248,6 @@ flash_fwd_kernel(View q, View k, View v, bf16* __restrict__ out, float* __restri
   store_rows(out, Os, LDF, q0, Nq, b, h, H, D);
 }
 
-size_t dq_smem(int D) {
-  Carver c(nullptr);
-  c.take<bf16>(4 * BR * ldh(D));  // Q, dO, K, V
-  c.take<float>(2 * BR * LDS);    // S, dP
-  c.take<bf16>(BR * LDP);         // dS
-  c.take<float>(BR * ldf(D));     // dq
-  c.take<float>(2 * BR);          // lse, delta
-  return c.off;
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Nq,
-                    int Nk, int D, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver c(smem);
-  const int LDH = ldh(D), LDF = ldf(D);
-  bf16* Qs = c.take<bf16>(4 * BR * LDH);
-  bf16* dOs = Qs + BR * LDH;
-  bf16* Ks = dOs + BR * LDH;
-  bf16* Vs = Ks + BR * LDH;
-  float* Ss = c.take<float>(2 * BR * LDS);
-  float* dPs = Ss + BR * LDS;
-  bf16* dSs = c.take<bf16>(BR * LDP);
-  float* dQs = c.take<float>(BR * LDF);
-  float* Ls = c.take<float>(2 * BR);
-  float* Ds = Ls + BR;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* kb = k.p + (size_t)b * k.sb + (size_t)h * k.sh;
-  const bf16* vb = v.p + (size_t)b * v.sb + (size_t)h * v.sh;
-
-  load_rows(Qs, LDH, q.p + (size_t)b * q.sb + (size_t)h * q.sh, q.sn, q0, Nq, D);
-  load_rows(dOs, LDH, dout.p + (size_t)b * dout.sb + (size_t)h * dout.sh, dout.sn, q0, Nq, D);
-  load_stat(Ls, lse + (size_t)bh * Nq, q0, Nq);
-  load_stat(Ds, delta + (size_t)bh * Nq, q0, Nq);
-  zero_f32(dQs, BR * LDF);
-  const int row = warp * 16 + (lane >> 1);
-  const int c0 = (lane & 1) * (BC / 2);
-
-  for (int k0 = 0; k0 < Nk; k0 += BC) {
-    load_rows(Ks, LDH, kb, k.sn, k0, Nk, D);
-    load_rows(Vs, LDH, vb, v.sn, k0, Nk, D);
-    __syncthreads();
-    rows_times_rows_t(Qs, Ks, LDH, D, Ss, warp);
-    rows_times_rows_t(dOs, Vs, LDH, D, dPs, warp);
-    __syncwarp();
-    const float L = Ls[row], Dl = Ds[row];
-    for (int j = c0; j < c0 + BC / 2; ++j) {
-      const float p = (k0 + j < Nk) ? expf(Ss[row * LDS + j] * scale - L) : 0.f;
-      dSs[row * LDP + j] = __float2bfloat16(p * (dPs[row * LDS + j] - Dl) * scale);
-    }
-    __syncwarp();
-    accumulate_p_times(dQs, LDF, dSs, Ks, LDH, D, warp);
-    __syncthreads();
-  }
-  store_rows(dq, dQs, LDF, q0, Nq, b, h, H, D);
-}
-
-size_t dkv_smem(int D) {
-  Carver c(nullptr);
-  c.take<bf16>(4 * BR * ldh(D));  // K, V, Q, dO
-  c.take<float>(2 * BR * LDS);    // S^T, dP^T
-  c.take<bf16>(2 * BR * LDP);     // P^T, dS^T
-  c.take<float>(2 * BR * ldf(D)); // dk, dv
-  c.take<float>(2 * BR);          // lse, delta of the Q tile
-  return c.off;
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(View q, View k, View v, View dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Nq, int Nk, int D, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carver c(smem);
-  const int LDH = ldh(D), LDF = ldf(D);
-  bf16* Ks = c.take<bf16>(4 * BR * LDH);
-  bf16* Vs = Ks + BR * LDH;
-  bf16* Qs = Vs + BR * LDH;
-  bf16* dOs = Qs + BR * LDH;
-  float* STs = c.take<float>(2 * BR * LDS);
-  float* dPTs = STs + BR * LDS;
-  bf16* PTs = c.take<bf16>(2 * BR * LDP);
-  bf16* dSTs = PTs + BR * LDP;
-  float* dKs = c.take<float>(2 * BR * LDF);
-  float* dVs = dKs + BR * LDF;
-  float* Ls = c.take<float>(2 * BR);
-  float* Ds = Ls + BR;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qb = q.p + (size_t)b * q.sb + (size_t)h * q.sh;
-  const bf16* db = dout.p + (size_t)b * dout.sb + (size_t)h * dout.sh;
-
-  load_rows(Ks, LDH, k.p + (size_t)b * k.sb + (size_t)h * k.sh, k.sn, k0, Nk, D);
-  load_rows(Vs, LDH, v.p + (size_t)b * v.sb + (size_t)h * v.sh, v.sn, k0, Nk, D);
-  zero_f32(dKs, 2 * BR * LDF);
-  // lane pair: one key row of the warp's 16, 32 query columns each
-  const int row = warp * 16 + (lane >> 1);
-  const int c0 = (lane & 1) * (BC / 2);
-  const bool key_ok = k0 + row < Nk;
-
-  for (int q0 = 0; q0 < Nq; q0 += BC) {
-    load_rows(Qs, LDH, qb, q.sn, q0, Nq, D);
-    load_rows(dOs, LDH, db, dout.sn, q0, Nq, D);
-    load_stat(Ls, lse + (size_t)bh * Nq, q0, Nq);
-    load_stat(Ds, delta + (size_t)bh * Nq, q0, Nq);
-    __syncthreads();
-    rows_times_rows_t(Ks, Qs, LDH, D, STs, warp);   // s^T = k q^T
-    rows_times_rows_t(Vs, dOs, LDH, D, dPTs, warp); // dp^T = v dO^T
-    __syncwarp();
-    for (int j = c0; j < c0 + BC / 2; ++j) {
-      const bool ok = key_ok && q0 + j < Nq;
-      const float p = ok ? expf(STs[row * LDS + j] * scale - Ls[j]) : 0.f;
-      PTs[row * LDP + j] = __float2bfloat16(p);
-      dSTs[row * LDP + j] = __float2bfloat16(p * (dPTs[row * LDS + j] - Ds[j]) * scale);
-    }
-    __syncwarp();
-    accumulate_p_times(dVs, LDF, PTs, dOs, LDH, D, warp);
-    accumulate_p_times(dKs, LDF, dSTs, Qs, LDH, D, warp);
-    __syncthreads();
-  }
-  store_rows(dk, dKs, LDF, k0, Nk, b, h, H, D);
-  store_rows(dv, dVs, LDF, k0, Nk, b, h, H, D);
-}
-
 inline bool bad_d(int D) { return D <= 0 || D % 16 != 0 || D > MAX_D; }
 
 template <typename Kernel>
@@ -400,9 +258,9 @@ int set_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace pva_flash
 
-// C entry points (bound with ctypes). Pointers are device pointers; strides
+// C entry point (bound with ctypes). Pointers are device pointers; strides
 // are in elements over (B, N, H, D) with the last dim contiguous; `stream` is
-// the caller's cudaStream_t. Each launches asynchronously, allocates nothing,
+// the caller's cudaStream_t. It launches asynchronously, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for a D that is
 // not a multiple of 16 up to 128), so a refused launch reaches the caller.
 using pva_flash::View;
@@ -422,48 +280,5 @@ extern "C" int pva_flash_fwd(const void* q, const void* k, const void* v, void* 
       View{static_cast<const pva_flash::bf16*>(k), k_sb, k_sn, k_sh},
       View{static_cast<const pva_flash::bf16*>(v), v_sb, v_sn, v_sh},
       static_cast<pva_flash::bf16*>(out), static_cast<float*>(lse), H, Nq, Nk, D, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int pva_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                                const void* lse, const void* delta, void* dq, int B, int H,
-                                int Nq, int Nk, int D, int q_sb, int q_sn, int q_sh, int k_sb,
-                                int k_sn, int k_sh, int v_sb, int v_sn, int v_sh, int do_sb,
-                                int do_sn, int do_sh, float scale, void* stream) {
-  if (pva_flash::bad_d(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pva_flash::dq_smem(D);
-  int rc = pva_flash::set_smem(pva_flash::flash_bwd_dq_kernel, smem);
-  if (rc) return rc;
-  dim3 grid((Nq + pva_flash::BR - 1) / pva_flash::BR, B * H);
-  pva_flash::flash_bwd_dq_kernel<<<grid, pva_flash::THREADS, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      View{static_cast<const pva_flash::bf16*>(q), q_sb, q_sn, q_sh},
-      View{static_cast<const pva_flash::bf16*>(k), k_sb, k_sn, k_sh},
-      View{static_cast<const pva_flash::bf16*>(v), v_sb, v_sn, v_sh},
-      View{static_cast<const pva_flash::bf16*>(dout), do_sb, do_sn, do_sh},
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<pva_flash::bf16*>(dq), H, Nq, Nk, D, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int pva_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                 const void* lse, const void* delta, void* dk, void* dv, int B,
-                                 int H, int Nq, int Nk, int D, int q_sb, int q_sn, int q_sh,
-                                 int k_sb, int k_sn, int k_sh, int v_sb, int v_sn, int v_sh,
-                                 int do_sb, int do_sn, int do_sh, float scale, void* stream) {
-  if (pva_flash::bad_d(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pva_flash::dkv_smem(D);
-  int rc = pva_flash::set_smem(pva_flash::flash_bwd_dkv_kernel, smem);
-  if (rc) return rc;
-  dim3 grid((Nk + pva_flash::BR - 1) / pva_flash::BR, B * H);
-  pva_flash::flash_bwd_dkv_kernel<<<grid, pva_flash::THREADS, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      View{static_cast<const pva_flash::bf16*>(q), q_sb, q_sn, q_sh},
-      View{static_cast<const pva_flash::bf16*>(k), k_sb, k_sn, k_sh},
-      View{static_cast<const pva_flash::bf16*>(v), v_sb, v_sn, v_sh},
-      View{static_cast<const pva_flash::bf16*>(dout), do_sb, do_sn, do_sh},
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<pva_flash::bf16*>(dk), static_cast<pva_flash::bf16*>(dv), H, Nq, Nk, D,
-      scale);
   return static_cast<int>(cudaGetLastError());
 }

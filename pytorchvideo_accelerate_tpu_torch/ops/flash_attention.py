@@ -9,9 +9,15 @@ package's `ops/pallas_attention.py`.
   backward computes delta = rowsum(f32(dO) * f32(out)) with plain torch (a
   jnp precompute in the reference) and then dq and dk/dv.
 - On a CUDA tensor each pass launches its hand kernel
-  (`csrc/flash_attention.cu`: `pva_flash_fwd`, `pva_flash_bwd_dq`,
-  `pva_flash_bwd_dkv`) or raises; on a CPU tensor it runs the plain
-  versions `flash_fwd_plain` / `flash_bwd_plain`. Nothing falls back.
+  (`csrc/flash_attention.cu`: `pva_flash_fwd`;
+  `csrc/flash_attention_bwd.cu`: `pva_flash_bwd_dq`, `pva_flash_bwd_dkv`)
+  or raises; on a CPU tensor it runs the plain versions `flash_fwd_plain`
+  / `flash_bwd_plain`. Nothing falls back.
+- dk/dv runs one block per 64 keys and (b, h). Where that leaves the card
+  short, `dkv_splits` cuts the query loop into ranges of whole 64-row
+  tiles (`dkv_split_rows`): each block sums its range into an f32
+  workspace and the same entry point sums the ranges in order, so the
+  result stays deterministic.
 
 The plain versions take one pass over all keys and round where the kernels
 round: the unnormalised p to q's dtype before P V, then / l; delta from the
@@ -41,6 +47,11 @@ from pytorchvideo_accelerate_tpu_torch.ops.fused import LAUNCHES
 from pytorchvideo_accelerate_tpu_torch.precision import end_island, f32_island
 
 MAX_HEAD_DIM = 128
+# rows a dk/dv block owns (keys), and the unit its query ranges are cut in
+DKV_ROWS = 64
+# blocks per SM the dk/dv grid should reach before the query loop is split
+DKV_BLOCKS_PER_SM = 2
+MAX_DKV_SPLITS = 16
 
 
 # --- plain PyTorch versions (CPU tensors, tests, the card's reference) -------
@@ -85,6 +96,34 @@ def flash_bwd_plain(q, k, v, out, lse, dout, scale: float):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, f32_island(k))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, f32_island(q))
     return end_island(dq, q.dtype), end_island(dk, k.dtype), end_island(dv, v.dtype)
+
+
+# --- the dk/dv launch plan ---------------------------------------------------
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dkv_splits(b: int, h: int, nq: int, nk: int, sm_count: int) -> int:
+    """How many query ranges the dk/dv kernel cuts its loop into: 1 where
+    ceil(nk / 64) * b * h blocks already give every SM DKV_BLOCKS_PER_SM
+    blocks, else enough ranges to reach that (at most one per 64-row query
+    tile and MAX_DKV_SPLITS), reduced so that no range is empty."""
+    blocks = _cdiv(nk, DKV_ROWS) * b * h
+    tiles = _cdiv(nq, DKV_ROWS)
+    if blocks == 0 or blocks >= DKV_BLOCKS_PER_SM * sm_count or tiles < 2:
+        return 1
+    splits = min(_cdiv(DKV_BLOCKS_PER_SM * sm_count, blocks), tiles,
+                 MAX_DKV_SPLITS)
+    return _cdiv(tiles, _cdiv(tiles, splits))
+
+
+def dkv_split_rows(nq: int, splits: int):
+    """[(start, stop)] query rows of each split, as the kernel cuts them:
+    ceil(tiles / splits) whole 64-row tiles each, the last one ragged."""
+    per = _cdiv(_cdiv(nq, DKV_ROWS), splits) * DKV_ROWS
+    return [(min(nq, s * per), min(nq, (s + 1) * per)) for s in range(splits)]
 
 
 # --- CUDA kernel wrappers ----------------------------------------------------
@@ -158,26 +197,61 @@ def _fwd_cuda(q, k, v, scale: float):
     return out, lse
 
 
+def launch_dq(q, k, v, dout, lse, delta, dq, scale: float) -> None:
+    """One `pva_flash_bwd_dq` launch into `dq` (B, Nq, H, D) from checked
+    operands (`_operand`), lse and delta (B, H, Nq) f32 contiguous."""
+    b, nq, h, d = q.shape
+    _call("flash_attention.bwd_dq", (q, k, v, dout, lse, delta, dq),
+          (b, h, nq, k.shape[1], d), (q, k, v, dout), scale, q.device)
+
+
+def launch_dkv(q, k, v, dout, lse, delta, dk, dv, scale: float) -> int:
+    """One `pva_flash_bwd_dkv` call into `dk`, `dv` (B, Nk, H, D): it picks
+    the query splits for this card (`dkv_splits`) and allocates their f32
+    workspace (2, splits, B, H, Nk, D). Returns the splits."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = dkv_splits(b, h, nq, nk, sms)
+    ws = torch.empty((2 * splits * b * h * nk * d if splits > 1 else 0,),
+                     dtype=torch.float32, device=q.device)
+    _call("flash_attention.bwd_dkv", (q, k, v, dout, lse, delta, dk, dv, ws),
+          (b, h, nq, nk, d, splits), (q, k, v, dout), scale, q.device)
+    return splits
+
+
+def bwd_kernel_attrs(which: str, d: int) -> dict:
+    """Build facts of the backward kernel `which` ("dq" or "dkv") at head
+    dim `d` on the current card: registers and local memory (spill) bytes
+    a thread, dynamic shared memory a block, resident blocks per SM."""
+    from pytorchvideo_accelerate_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 4)()
+    rc = _build.entry("flash_attention.bwd_attrs")(
+        {"dq": 0, "dkv": 1}[which], d, out)
+    if rc != 0:
+        raise RuntimeError(f"flash backward attributes: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
+
+
 def _bwd_cuda(q, k, v, out, lse, dout, scale: float, need_q: bool,
               need_kv: bool):
     _check_shapes(q, k, v, dout)
     q, k, v = _operand(q, "q"), _operand(k, "k"), _operand(v, "v")
     dout = _operand(dout, "dO")
-    b, nq, h, d = q.shape
+    b, _, h, d = q.shape
     nk = k.shape[1]
     delta = attention_delta(out, dout)
     lse = lse.contiguous()
-    dims = (b, h, nq, nk, d)
     dq = dk = dv = None
     if need_q:
         dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-        _call("flash_attention.bwd_dq", (q, k, v, dout, lse, delta, dq), dims,
-              (q, k, v, dout), scale, q.device)
+        launch_dq(q, k, v, dout, lse, delta, dq, scale)
     if need_kv:
         dk = torch.empty((b, nk, h, d), dtype=k.dtype, device=k.device)
         dv = torch.empty((b, nk, h, d), dtype=v.dtype, device=v.device)
-        _call("flash_attention.bwd_dkv", (q, k, v, dout, lse, delta, dk, dv),
-              dims, (q, k, v, dout), scale, q.device)
+        launch_dkv(q, k, v, dout, lse, delta, dk, dv, scale)
     return dq, dk, dv
 
 

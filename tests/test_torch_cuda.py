@@ -13,10 +13,12 @@ summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|). The
 backward's dx launch is held to the same bound against the plain dx on the
 same bf16 dz; dw and db are f32 contractions that the kernel path and the
 plain path compute alike (2e-3 relative). The flash attention kernels
-(`csrc/flash_attention.cu`) are held the same way: the forward's out and
-lse, and dq, dk, dv from the same (out, lse), against `flash_fwd_plain` /
-`flash_bwd_plain` at a ragged MViT shape (Nq != Nk, D 96) and a ViT one
-(D 64). The depthwise kernel
+(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`) are held the
+same way: the forward's out and lse, and dq, dk, dv from the same (out,
+lse), against `flash_fwd_plain` / `flash_bwd_plain` at a ragged MViT shape
+(Nq != Nk, D 96), a ViT one (D 64), shapes where dk/dv splits its query
+loop, D 16, 32 and 128, and Nq < 16 against one key; two backward launches
+are bitwise equal. The depthwise kernel
 (`csrc/depthwise3d.cu`) is held the same way through both of its entry
 points: `fused_depthwise_bn_act` (forward and the `DwBnAct` dx; its dk
 and dscale, which pass through bf16-rounded folded taps, within one bf16
@@ -287,8 +289,14 @@ def test_float32_raises_on_the_card(cuda):
 
 
 # (B, Nq, Nk, H, D): a ragged MViT-like site (q pooled grid against a
-# strided K/V pool, D 96) and a ViT one (D 64); neither length a tile multiple
-FLASH_CASES = [(2, 200, 72, 2, 96), (1, 160, 160, 3, 64)]
+# strided K/V pool, D 96) and a ViT one (D 64); neither length a tile
+# multiple. Then shapes where dk/dv splits its query loop (Nq >> Nk, small
+# B*H: `dkv_splits` gives 16 and 10 on an H100), the other head dims the
+# backward instantiates (16, 32, 128), and Nq < 16 against a single key.
+FLASH_CASES = [(2, 200, 72, 2, 96), (1, 160, 160, 3, 64),
+               (1, 1000, 72, 2, 64), (2, 600, 100, 1, 96),
+               (1, 100, 90, 2, 16), (2, 77, 130, 1, 32), (1, 150, 200, 2, 128),
+               (2, 5, 1, 3, 64)]
 
 
 def _flash_inputs(b, nq, nk, h, d, seed, device):
@@ -319,6 +327,21 @@ def test_flash_kernels_match_plain(cuda, b, nq, nk, h, d):
     for key in ("flash_attention", "flash_attention.bwd_dq",
                 "flash_attention.bwd_dkv"):
         assert fused.LAUNCHES[key] == before[key] + 1
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", [(1, 1000, 72, 2, 64), (1, 160, 160, 3, 64)])
+def test_flash_backward_is_bitwise_deterministic(cuda, b, nq, nk, h, d):
+    """No atomics: dq, dk and dv of two launches on the same inputs are
+    equal bit for bit, with the dk/dv query split (first shape) and
+    without."""
+    q, k, v, dout = _flash_inputs(b, nq, nk, h, d, 3, cuda)
+    scale = d ** -0.5
+    out, lse = flash_attention._fwd_cuda(q, k, v, scale)
+    first = flash_attention._bwd_cuda(q, k, v, out, lse, dout, scale, True, True)
+    second = flash_attention._bwd_cuda(q, k, v, out, lse, dout, scale, True, True)
+    torch.cuda.synchronize()
+    for got, want in zip(first, second):
+        assert torch.equal(got, want)
 
 
 def test_flash_strided_qkv_views_match_contiguous(cuda):
