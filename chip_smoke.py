@@ -79,9 +79,10 @@ Drives the port only (no JAX), one JSON line per phase:
             `launch_dkv` with its query splits) against `flash_bwd_plain`,
             two backward launches bitwise equal; kernel, plain and library
             (`F.scaled_dot_product_attention`, timed only) device times,
-            the backward's ratio to the library's, each backward kernel's
-            ptxas report (registers, spills) and runtime attributes
-            (shared memory, blocks per SM)
+            each kernel's ratio to the library's, each kernel's ptxas
+            report (registers, spills; none at D = 64 and 96) and runtime
+            attributes (shared memory, blocks per SM); lse within 1e-4
+            absolute; two forward launches bitwise equal in out and lse
 20. mvit_serve  `build_server` serves MViT-B under `attention pallas,
             depthwise_impl pallas`: 16 flash and 4 `depthwise3d_s1` launches
             per forward; logits against the dense engine; mvit_timing
@@ -149,6 +150,7 @@ FRAMES, CROP, ALPHA, BUCKET = 32, 256, 4, 8
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 1e-2
+LSE_TOL = 1e-4  # flash lse, absolute: f32 all through, feeds the backward
 LOGIT_TOL = 5e-2
 PLANTED_LOGIT = 6.0
 # scale of each residual branch's final BN (`conv_c.norm.weight`) in the
@@ -1717,18 +1719,19 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def bwd_build_facts(which: str, d: int) -> dict:
-    """ptxas's report of the backward kernel `which` ("dq" or "dkv") at head
-    dim d, and what the runtime says of it (registers, local memory,
+def flash_build_facts(which: str, d: int) -> dict:
+    """ptxas's report of the flash kernel `which` ("fwd", "dq" or "dkv") at
+    head dim d, and what the runtime says of it (registers, local memory,
     dynamic shared memory, blocks per SM). No spills at D = 64 and 96."""
     from pytorchvideo_accelerate_tpu_torch.ops import _build
     from pytorchvideo_accelerate_tpu_torch.ops import flash_attention as fa
 
     tag = f"{which}_kernelILi{d}E"
+    source = "flash_attention" if which == "fwd" else "flash_attention_bwd"
     report = [v for k, v in ptxas_report(_build.build_logs.get(
-        "flash_attention_bwd", "")).items() if tag in k]
+        source, "")).items() if tag in k]
     facts = {"ptxas": report[0] if report else None,
-             "runtime": fa.bwd_kernel_attrs(which, d)}
+             "runtime": fa.kernel_attrs(which, d)}
     if d in (64, 96):
         spills = (report[0].get("spill_stores", 0) if report else 0) + \
             facts["runtime"]["local_bytes"]
@@ -1784,6 +1787,8 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
         for what, (_, excess, _) in errs.items():
             check(excess <= 0, f"{model} attention {q_shape} x {k_shape}: {what} "
                   f"errors {errs[what]} over {KERNEL_TOL}*(1+|plain|)")
+        check(errs["lse"][0] <= LSE_TOL, f"{model} attention {q_shape} x {k_shape}: "
+              f"lse error {errs['lse'][0]} over {LSE_TOL}")
         del out, lse, grads, p_grads
         # launch-only closures over preallocated outputs; the backward ones
         # go through the wrapper's launch plan (dk/dv splits, workspace)
@@ -1803,11 +1808,15 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
                   for g in bufs]
         for g in bufs:
             fa.launch_dq(q, k, v, dout, p_lse, delta, g[0], scale)
+        fwd_twice = [fa._fwd_cuda(q, k, v, scale) for _ in range(2)]
         torch.cuda.synchronize()
         bitwise = {w: torch.equal(bufs[0][i], bufs[1][i])
                    for i, w in enumerate(("dq", "dk", "dv"))}
+        bitwise.update(out=torch.equal(fwd_twice[0][0], fwd_twice[1][0]),
+                       lse=torch.equal(fwd_twice[0][1], fwd_twice[1][1]))
+        del fwd_twice
         check(all(bitwise.values()), f"{model} attention {q_shape} x {k_shape}: two "
-              f"backward launches differ {bitwise}")
+              f"launches differ {bitwise}")
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt)
         dlib = dout.transpose(1, 2)
@@ -1843,13 +1852,16 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
                    "flop_ms": t_ops, "byte_ms": t_bytes,
                    "achieved_tflops": flops / kernel_ms / 1e9}
             if kname == "flash_attention":
-                row["lse_max_abs_err"] = errs["lse"][0]
+                row.update(lse_max_abs_err=errs["lse"][0], lse_tolerance=LSE_TOL,
+                           library_ratio=kernel_ms / library_ms,
+                           bitwise_equal_two_launches=True,
+                           build=flash_build_facts("fwd", d))
             else:
                 which = "dkv" if kname.endswith("bwd_dkv") else "dq"
                 row.update(plain_and_library_compute="dq, dk and dv together",
                            library_ratio=bwd_ms / library_ms,
                            bitwise_equal_two_launches=True,
-                           build=bwd_build_facts(which, d))
+                           build=flash_build_facts(which, d))
                 if which == "dkv":
                     row.update(dk_dv_max_abs_err=[errs["dk"][0], errs["dv"][0]],
                                splits=splits[0])

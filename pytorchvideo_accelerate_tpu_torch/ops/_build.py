@@ -50,8 +50,10 @@ _SIGNATURES = {
                                [_P] * 7 + [_I] * 17 + [_F, _P]),
     "flash_attention.bwd_dkv": ("flash_attention_bwd", "pva_flash_bwd_dkv",
                                 [_P] * 9 + [_I] * 18 + [_F, _P]),
-    # (which: 0 dq, 1 dk/dv; D; int[4] out): registers, local bytes,
-    # dynamic shared memory, blocks per SM of one backward kernel
+    # ([which: 0 dq, 1 dk/dv;] D; int[4] out): registers, local bytes,
+    # dynamic shared memory, blocks per SM of one kernel
+    "flash_attention.fwd_attrs": ("flash_attention", "pva_flash_fwd_attrs",
+                                  [_I, _P]),
     "flash_attention.bwd_attrs": ("flash_attention_bwd", "pva_flash_bwd_attrs",
                                   [_I, _I, _P]),
 }

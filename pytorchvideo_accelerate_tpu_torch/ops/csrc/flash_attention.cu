@@ -4,281 +4,320 @@
 //   pva_flash_fwd     <- `_fwd_kernel`     (:54, pallas_call :160)
 // The backward kernels (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) are
 // csrc/flash_attention_bwd.cu; the three belong to one custom VJP
-// (`_flash_bhnd`), ported as ops/flash_attention.py `FlashAttention`.
+// (`_flash_bhnd`), ported as ops/flash_attention.py `FlashAttention`. Both
+// sources take their PTX wrappers and fragment helpers from flash_mma.cuh.
 //
 // What it computes, per (batch b, head h), q (Nq, D), k/v (Nk, D) bf16,
 // s = q k^T * scale in f32: an online softmax over K/V tiles: m, l running
-// max and sum (f32), p = exp(s - m) rounded to bf16 before P V, O rescaled
-// in f32 and divided by l at the end; out bf16, lse = m + log(max(l, 1e-30))
-// f32. Key columns past Nk take s = -1e30 (NEG_INF of the reference, not
-// -inf), so their p is exactly 0. Query rows past Nq are loaded as zeros,
-// contribute nothing and are never stored.
+// max and sum (f32), p = exp(s - m) rounded to bf16 before P V (l summed
+// from the unrounded p), O rescaled in f32 and divided by l at the end;
+// out bf16, lse = m + log(max(l, 1e-30)) f32. Key columns past Nk get
+// p = 0 (the reference's s = -1e30). Query rows past Nq are loaded as
+// zeros, contribute nothing and are never stored.
 //
 // What bounds it on the H100: per (b, h) it moves (2 Nq + 2 Nk) D bf16
 // values plus 4 Nq bytes of lse and does 4 Nq Nk D FLOPs. At every MViT-B
 // and ViT-B site (Nq, Nk >= 160, D 64 or 96) that is far above the ~295
 // FLOP/byte ridge: the tensor cores bound it.
-// What the design does about it: the Pallas kernel's sequential third grid
-// axis (VMEM scratch carried across K blocks) becomes a loop inside one
-// thread block, so S and P never leave shared memory and each Q tile reads
-// K/V once. The two products run on the tensor cores (WMMA bf16 16x16x16
-// with f32 accumulation). Blocks of 128 threads (4 warps) own a 64-row
-// tile; warp w owns rows 16w..16w+15, so the softmax rows a warp updates
-// are its own and only warp-level syncs are needed inside a tile step.
-// The running O lives in a shared f32 tile, which lets D be a runtime value
-// (any multiple of 16 up to 128; the path uses 64 and 96; D = 96 is not a
-// power of two). Per-row stats are one value per row (B*H*Nq), not the
-// TPU's 128-lane broadcast tile. Loads are single buffered; the backward's
-// design (register-resident sums, mma.sync, cp.async stages) is the next
-// step for this kernel.
+//
+// What the design does about it:
+// - A block is 4 warps. Each warp owns two m16 row tiles (32 query rows;
+//   one tile at D > 96, for registers), so a block owns 128 rows (64 at
+//   D > 96), and every K or V fragment a warp reads from shared memory by
+//   ldmatrix feeds two products: half the shared-memory reads per product
+//   of one row tile a warp.
+// - Q is brought into registers once (ldmatrix A fragments, D / 16 k steps
+//   a row tile) and held for the whole K loop, so is the running O (D / 8
+//   m16n8 f32 C fragments a row tile) and the per-row m and l.
+// - S = Q K^T is an mma.sync m16n8k16 (bf16 in, f32 accumulate) into
+//   register C fragments, K the "rows" B operand. The softmax works on the
+//   fragments: a lane holds 2 rows x 2 columns of each n8 tile; row maxima
+//   reduce over the lane quad (__shfl_xor_sync 1, 2). The max is taken on
+//   the unscaled s (scale >= 0; the wrapper flips the sign of q otherwise),
+//   so p = exp2(s * scale log2(e) - m * scale log2(e)) is one FMA and one
+//   MUFU.EX2 (ex2.approx.ftz), and lse's m is the reference's
+//   max(s * scale). l is summed per lane and reduced over the quad once, at
+//   the end.
+// - P stays in registers: its C fragments are packed to bf16 in place as
+//   the A operand of O += P V, V the k-major B operand (ldmatrix.trans).
+//   alpha rescales the O fragments in registers. Neither S, P nor O touch
+//   shared memory inside the loop.
+// - K and V stream by 16-byte cp.async in two stages: tile j + 1 is in
+//   flight while tile j computes, one __syncthreads per step. Rows past Nk
+//   are zero-filled by the copy's src-size operand; the key mask runs on
+//   the last tile only. 64 keys a step (32 at D = 80 and 96, where two row
+//   tiles of O take D registers a lane).
+// - Epilogue: O times 1/l in registers, each warp stages its bf16 rows
+//   through its own rows of the Q tile (free once Q is in registers) and
+//   writes `out` in 16-byte stores; one lane per row writes lse.
+// - D is a template parameter (any multiple of 16 up to 128; the path uses
+//   64 and 96), so every fragment array has a compile-time size and lives
+//   in registers. Shared memory: Q and two stages of K and V (53 KB at
+//   D = 96, 55 KB at D = 64), two blocks an SM (registers the limit).
+// - No split over K: the grid is (ceil(Nq / 128), B * H), at least 192
+//   blocks at every site of the path. No atomics: deterministic.
+// wgmma, TMA and warp specialisation are later steps.
 //
 // Layout: q, k and v are read as (B, N, H, D) through element strides
-// (b, n, h; the last dim contiguous), so the qkv projection's split views
-// need no copy. out is written (B, N, H, D) contiguous; lse is (B, H, Nq)
-// f32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// (b, n, h; the last dim contiguous, rows 16-byte aligned), so the qkv
+// projection's split views need no copy. out is written (B, N, H, D)
+// contiguous; lse is (B, H, Nq) f32.
+#include "flash_mma.cuh"
 
 namespace pva_flash {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace pva_mma;
 
-constexpr int BR = 64;         // query rows of a tile
-constexpr int BC = 64;         // columns streamed per step
-constexpr int THREADS = 128;   // 4 warps x 16 rows
-constexpr int MAX_D = 128;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_INF = -1e30f;
-constexpr int LDS = BC + 4;    // f32 score tile leading dim
-constexpr int LDP = BC + 8;    // bf16 probability tile leading dim
+constexpr float LOG2E = 1.4426950408889634f;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
+// m16 row tiles a warp owns: two up to D = 96 (B fragments are read from
+// shared memory once for both), one above (registers)
+template <int D>
+__host__ __device__ constexpr int fwd_mt() { return D <= 96 ? 2 : 1; }
+// query rows of a block
+template <int D>
+__host__ __device__ constexpr int fwd_br() { return WARPS * 16 * fwd_mt<D>(); }
+// keys streamed per step: 32 where two row tiles of D > 64 hold O
+template <int D>
+__host__ __device__ constexpr int fwd_bc() { return fwd_mt<D>() == 2 && D > 64 ? 32 : 64; }
 
-struct View {  // one (B, N, H, D) operand
-  const bf16* p;
-  int sb, sn, sh;
-};
-
-// Carves 128-byte aligned regions out of dynamic shared memory.
-struct Carver {
-  unsigned char* base;
-  size_t off = 0;
-  __host__ __device__ Carver(unsigned char* b) : base(b) {}
-  template <typename T>
-  __host__ __device__ T* take(size_t count) {
-    T* out = base ? reinterpret_cast<T*>(base + off) : nullptr;
-    off += (count * sizeof(T) + 127) / 128 * 128;
-    return out;
-  }
-};
-
-__host__ __device__ inline int ldh(int D) { return D + 8; }  // bf16 operand tiles
-__host__ __device__ inline int ldf(int D) { return D + 4; }  // f32 running sums
-
-// 64 rows x D of one (b, h) slice into a bf16 tile, 16-byte chunks; rows at
-// or past n are zeros.
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* base, int sn,
-                                          int r0, int n, int D) {
-  const int chunks = D / 8;
-  for (int idx = threadIdx.x; idx < BR * chunks; idx += THREADS) {
-    const int r = idx / chunks;
-    const int c = (idx % chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * sn + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
+// 2^x in one MUFU.EX2; subnormal results flush to 0 (p and alpha never
+// need them: l >= 1 and O carries the row's largest p = 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// C(16 x 64) of this warp = A(16 rows of a, D deep) * B^T where B holds 64
-// rows of D: the score tile s = q k^T (or k q^T, v dO^T ...), f32 into c.
-__device__ __forceinline__ void rows_times_rows_t(const bf16* a, const bf16* b, int ld, int D,
-                                                  float* c, int warp) {
-  Acc acc[BC / 16];
+template <int D>
+constexpr size_t fwd_smem() {
+  return (size_t)(fwd_br<D>() + 4 * fwd_bc<D>()) * (D + 8) * sizeof(bf16);  // Q; 2 x (K, V)
+}
+
+// The softmax step on one m16 row tile's S fragments (unscaled q k^T, NT n8
+// tiles): s becomes p = exp2(s * sl - m_new * sl), the running max m and
+// per-lane sums l move to the new max and the O fragments are rescaled.
+// MASK: keys at or past nk (key0 is this lane's first column) get p = 0.
+template <bool MASK, int NT, int DT>
+__device__ __forceinline__ void softmax_step(float (&s)[NT][4], float (&o)[DT][4], float (&m)[2],
+                                             float (&l)[2], float sl, int key0, int nk) {
+  float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int j = 0; j < BC / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + warp * 16 * ld + kk, ld);
+  for (int t = 0; t < NT; ++t) {
 #pragma unroll
-    for (int j = 0; j < BC / 16; ++j) {
-      FragBCol fb;
-      wmma::load_matrix_sync(fb, b + j * 16 * ld + kk, ld);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    for (int e = 0; e < 4; ++e) {
+      if (MASK && key0 + t * 8 + (e & 1) >= nk) s[t][e] = NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+    }
+  }
+  float ms[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2_ftz((m[r] - m_new) * sl);
+    ms[r] = m_new * sl;
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_ftz(fmaf(s[t][e], sl, -ms[e >> 1]));
+      if (MASK && key0 + t * 8 + (e & 1) >= nk) p = 0.f;
+      s[t][e] = p;
+      l[e >> 1] += p;
     }
   }
 #pragma unroll
-  for (int j = 0; j < BC / 16; ++j)
-    wmma::store_matrix_sync(c + warp * 16 * LDS + j * 16, acc[j], LDS, wmma::mem_row_major);
-}
-
-// sum(16 x D, f32 in shared) of this warp += P(16 x 64, bf16) * X(64 rows x D)
-__device__ __forceinline__ void accumulate_p_times(float* sum, int ldsum, const bf16* p,
-                                                   const bf16* x, int ldx, int D, int warp) {
-  for (int d0 = 0; d0 < D; d0 += 16) {
-    Acc acc;
-    float* dst = sum + warp * 16 * ldsum + d0;
-    wmma::load_matrix_sync(acc, dst, ldsum, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < BC; kk += 16) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, p + warp * 16 * LDP + kk, LDP);
-      wmma::load_matrix_sync(fb, x + kk * ldx + d0, ldx);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(dst, acc, ldsum, wmma::mem_row_major);
+  for (int t = 0; t < DT; ++t) {
+    o[t][0] *= alpha[0];
+    o[t][1] *= alpha[0];
+    o[t][2] *= alpha[1];
+    o[t][3] *= alpha[1];
   }
 }
 
-__device__ __forceinline__ void zero_f32(float* x, int count) {
-  for (int i = threadIdx.x; i < count; i += THREADS) x[i] = 0.f;
-}
-
-// rows [r0, r0 + 64) of a shared f32 tile (64 x D) -> bf16 at
-// out + ((b * n + row) * H + h) * D, rows past n skipped.
-__device__ __forceinline__ void store_rows(bf16* out, const float* src, int ld, int r0, int n,
-                                           int b, int h, int H, int D) {
-  for (int idx = threadIdx.x; idx < BR * D; idx += THREADS) {
-    const int r = idx / D;
-    const int c = idx % D;
-    if (r0 + r < n)
-      out[(((size_t)b * n + r0 + r) * H + h) * D + c] = __float2bfloat16(src[r * ld + c]);
-  }
-}
-
-size_t fwd_smem(int D) {
-  Carver c(nullptr);
-  c.take<bf16>(3 * BR * ldh(D));  // Q, K, V
-  c.take<float>(BR * LDS);        // S
-  c.take<bf16>(BR * LDP);         // P
-  c.take<float>(BR * ldf(D));     // O
-  c.take<float>(3 * BR);          // m, l, alpha
-  return c.off;
-}
-
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(View q, View k, View v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int H, int Nq, int Nk, int D, float scale) {
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
+fwd_kernel(View q, View k, View v, bf16* __restrict__ out, float* __restrict__ lse, int H,
+           int Nq, int Nk, float scale) {
+  constexpr int MT = fwd_mt<D>(), BR = fwd_br<D>(), BC = fwd_bc<D>();
+  constexpr int LD = D + 8, NT = BC / 8, DT = D / 8, KT = D / 16, CH = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  Carver c(smem);
-  const int LDH = ldh(D), LDF = ldf(D);
-  bf16* Qs = c.take<bf16>(3 * BR * LDH);
-  bf16* Ks = Qs + BR * LDH;
-  bf16* Vs = Ks + BR * LDH;
-  float* Ss = c.take<float>(BR * LDS);
-  bf16* Ps = c.take<bf16>(BR * LDP);
-  float* Os = c.take<float>(BR * LDF);
-  float* ms = c.take<float>(3 * BR);
-  float* ls = ms + BR;
-  float* alphas = ls + BR;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BR * LD;      // 2 stages
+  bf16* Vs = Ks + 2 * BC * LD;  // 2 stages
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* qb = q.p + (size_t)b * q.sb + (size_t)h * q.sh;
-  const bf16* kb = k.p + (size_t)b * k.sb + (size_t)h * k.sh;
-  const bf16* vb = v.p + (size_t)b * v.sb + (size_t)h * v.sh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * BR, w0 = q0 + warp * 16 * MT;  // this warp's first row
+  const bf16* kb = k.head(b, h);
+  const bf16* vb = v.head(b, h);
 
-  load_rows(Qs, LDH, qb, q.sn, q0, Nq, D);
-  zero_f32(Os, BR * LDF);
-  for (int r = threadIdx.x; r < BR; r += THREADS) {
-    ms[r] = NEG_INF;
-    ls[r] = 0.f;
-  }
-  // each lane pair owns one row of the warp's 16: 32 columns per lane
-  const int row = warp * 16 + (lane >> 1);
-  const int c0 = (lane & 1) * (BC / 2);
+  load_tile<BR, D, THREADS>(Qs, q.head(b, h), q.sn, q0, Nq);
+  load_tile<BC, D, THREADS>(Ks, kb, k.sn, 0, Nk);
+  load_tile<BC, D, THREADS>(Vs, vb, v.sn, 0, Nk);
+  cp_commit();
 
-  for (int k0 = 0; k0 < Nk; k0 += BC) {
-    load_rows(Ks, LDH, kb, k.sn, k0, Nk, D);
-    load_rows(Vs, LDH, vb, v.sn, k0, Nk, D);
-    __syncthreads();
-    rows_times_rows_t(Qs, Ks, LDH, D, Ss, warp);
-    __syncwarp();
-    float* srow = Ss + row * LDS;
-    float mx = NEG_INF;
-    for (int j = c0; j < c0 + BC / 2; ++j) {
-      const float s = (k0 + j < Nk) ? srow[j] * scale : NEG_INF;
-      srow[j] = s;
-      mx = fmaxf(mx, s);
+  const float sl = scale * LOG2E;
+  bf16* Qw = Qs + warp * 16 * MT * LD;
+  uint32_t qa[MT][KT][4];
+  float o[MT][DT][4] = {};
+  float m[MT][2], l[MT][2];  // rows g and g + 8 of each row tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+  const int steps = (Nk + BC - 1) / BC;
+  for (int j = 0; j < steps; ++j) {
+    cp_wait_all();
+    __syncthreads();  // tile j landed; every warp is done with tile j - 1
+    if (j == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) load_a<LD>(qa[mt][kk], Qw + mt * 16 * LD, kk * 16, lane);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_prev = ms[row];
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.f;
-    for (int j = c0; j < c0 + BC / 2; ++j) {
-      const float p = expf(srow[j] - m_new);
-      sum += p;
-      Ps[row * LDP + j] = __float2bfloat16(p);
+    if (j + 1 < steps) {
+      const int nxt = (j + 1) & 1;
+      load_tile<BC, D, THREADS>(Ks + nxt * BC * LD, kb, k.sn, (j + 1) * BC, Nk);
+      load_tile<BC, D, THREADS>(Vs + nxt * BC * LD, vb, v.sn, (j + 1) * BC, Nk);
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m_prev - m_new);
-    __syncwarp();  // both lanes of the pair have read ms[row]
-    if ((lane & 1) == 0) {
-      ms[row] = m_new;
-      ls[row] = ls[row] * alpha + sum;
-      alphas[row] = alpha;
+    cp_commit();
+    const bf16* Kt = Ks + (j & 1) * BC * LD;
+    const bf16* Vt = Vs + (j & 1) * BC * LD;
+
+    // s = q k^T (unscaled): this warp's 16 MT rows x BC keys
+    float s[MT][NT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int n = 0; n < BC; n += 16) {
+        uint32_t bk[4];
+        load_b_rows<LD>(bk, Kt, n, kk * 16, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(s[mt][n / 8], qa[mt][kk], bk[0], bk[1]);
+          mma(s[mt][n / 8 + 1], qa[mt][kk], bk[2], bk[3]);
+        }
+      }
     }
-    __syncwarp();
-    for (int idx = lane; idx < 16 * D; idx += 32) {
-      const int r = warp * 16 + idx / D;
-      Os[r * LDF + idx % D] *= alphas[r];
+    const int key0 = j * BC + (lane & 3) * 2;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (j * BC + BC > Nk)
+        softmax_step<true>(s[mt], o[mt], m[mt], l[mt], sl, key0, Nk);
+      else
+        softmax_step<false>(s[mt], o[mt], m[mt], l[mt], sl, key0, Nk);
     }
-    __syncwarp();
-    accumulate_p_times(Os, LDF, Ps, Vs, LDH, D, warp);
-    __syncthreads();  // K/V tiles are overwritten next step
+    // o += bf16(p) v
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) c_to_a(a[mt], s[mt], kk);
+#pragma unroll
+      for (int n = 0; n < D; n += 16) {
+        uint32_t bv[4];
+        load_b_cols<LD>(bv, Vt, kk * 16, n, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(o[mt][n / 8], a[mt], bv[0], bv[1]);
+          mma(o[mt][n / 8 + 1], a[mt], bv[2], bv[3]);
+        }
+      }
+    }
   }
 
-  for (int r = threadIdx.x; r < BR; r += THREADS) {
-    const float l = ls[r];
-    if (q0 + r < Nq) lse[(size_t)bh * Nq + q0 + r] = ms[r] + logf(fmaxf(l, 1e-30f));
-    ls[r] = 1.f / l;
+  // l over the lane quad; lse by the quad's first lane; O / l staged as
+  // bf16 in this warp's rows of the Q tile (only this warp reads them)
+  const int g = lane >> 2, c = (lane & 3) * 2;
+  float* lse_bh = lse + (size_t)bh * Nq;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      inv[r] = 1.f / lr;
+      const int row = w0 + mt * 16 + r * 8 + g;
+      if ((lane & 3) == 0 && row < Nq)
+        lse_bh[row] = m[mt][r] * scale + logf(fmaxf(lr, 1e-30f));
+    }
+    bf16* rows = Qw + (mt * 16 + g) * LD + c;
+#pragma unroll
+    for (int t = 0; t < DT; ++t) {
+      *reinterpret_cast<uint32_t*>(rows + t * 8) =
+          pack_bf16(o[mt][t][0] * inv[0], o[mt][t][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(rows + 8 * LD + t * 8) =
+          pack_bf16(o[mt][t][2] * inv[1], o[mt][t][3] * inv[1]);
+    }
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BR * D; idx += THREADS) {
-    const int r = idx / D;
-    Os[r * LDF + idx % D] *= ls[r];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < MT * CH / 2; ++i) {  // 16 MT rows x CH chunks, 32 lanes
+    const int idx = i * 32 + lane;
+    const int r = idx / CH, col = (idx % CH) * 8;
+    if (w0 + r < Nq)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * Nq + w0 + r) * H + h) * D + col) =
+          *reinterpret_cast<const uint4*>(Qw + r * LD + col);
   }
-  __syncthreads();
-  store_rows(out, Os, LDF, q0, Nq, b, h, H, D);
 }
 
-inline bool bad_d(int D) { return D <= 0 || D % 16 != 0 || D > MAX_D; }
-
-template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+template <int D>
+int run_fwd(View q, View k, View v, bf16* out, float* lse, int B, int H, int Nq, int Nk,
+            float scale, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem<D>();
+  int rc = set_smem(fwd_kernel<D>, smem);
+  if (rc) return rc;
+  dim3 grid((Nq + fwd_br<D>() - 1) / fwd_br<D>(), B * H);
+  fwd_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, out, lse, H, Nq, Nk, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace pva_flash
 
-// C entry point (bound with ctypes). Pointers are device pointers; strides
+// C entry points (bound with ctypes). Pointers are device pointers; strides
 // are in elements over (B, N, H, D) with the last dim contiguous; `stream` is
 // the caller's cudaStream_t. It launches asynchronously, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for a D that is
-// not a multiple of 16 up to 128), so a refused launch reaches the caller.
+// not a multiple of 16 up to 128, or a negative scale), so a
+// refused launch reaches the caller.
 using pva_flash::View;
+using pva_flash::bf16;
 
 extern "C" int pva_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int H, int Nq, int Nk, int D, int q_sb, int q_sn, int q_sh,
                              int k_sb, int k_sn, int k_sh, int v_sb, int v_sn, int v_sh,
                              float scale, void* stream) {
-  if (pva_flash::bad_d(D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = pva_flash::fwd_smem(D);
-  int rc = pva_flash::set_smem(pva_flash::flash_fwd_kernel, smem);
-  if (rc) return rc;
-  dim3 grid((Nq + pva_flash::BR - 1) / pva_flash::BR, B * H);
-  pva_flash::flash_fwd_kernel<<<grid, pva_flash::THREADS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-      View{static_cast<const pva_flash::bf16*>(q), q_sb, q_sn, q_sh},
-      View{static_cast<const pva_flash::bf16*>(k), k_sb, k_sn, k_sh},
-      View{static_cast<const pva_flash::bf16*>(v), v_sb, v_sn, v_sh},
-      static_cast<pva_flash::bf16*>(out), static_cast<float*>(lse), H, Nq, Nk, D, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (!(scale >= 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+  const View qv{static_cast<const bf16*>(q), q_sb, q_sn, q_sh};
+  const View kv{static_cast<const bf16*>(k), k_sb, k_sn, k_sh};
+  const View vv{static_cast<const bf16*>(v), v_sb, v_sn, v_sh};
+  bf16* o = static_cast<bf16*>(out);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return pva_flash::with_d(D, [&](auto d) {
+    return pva_flash::run_fwd<decltype(d)::value>(qv, kv, vv, o, l, B, H, Nq, Nk, scale, st);
+  });
+}
+
+// Build facts of the forward kernel at head dim D: out[4] = registers a
+// thread, local memory a thread (bytes; spills), the dynamic shared memory
+// a block launches with, and resident blocks per SM.
+extern "C" int pva_flash_fwd_attrs(int D, int* out) {
+  return pva_flash::with_d(D, [&](auto d) {
+    constexpr int DD = decltype(d)::value;
+    return pva_flash::attrs_of(pva_flash::fwd_kernel<DD>, pva_flash::THREADS,
+                               pva_flash::fwd_smem<DD>(), out);
+  });
 }

@@ -13,6 +13,11 @@ package's `ops/pallas_attention.py`.
   `csrc/flash_attention_bwd.cu`: `pva_flash_bwd_dq`, `pva_flash_bwd_dkv`)
   or raises; on a CPU tensor it runs the plain versions `flash_fwd_plain`
   / `flash_bwd_plain`. Nothing falls back.
+- The forward (`pva_flash_fwd`) keeps Q, S, P and the running O of each
+  warp's 32 query rows in registers (mma.sync, cp.async K/V stages); it
+  takes its row max on q k^T unscaled, so `_fwd_cuda` hands it -q and
+  -scale for a negative scale. `kernel_attrs` reports each kernel's
+  registers, spills, shared memory and blocks per SM.
 - dk/dv runs one block per 64 keys and (b, h). Where that leaves the card
   short, `dkv_splits` cuts the query loop into ranges of whole 64-row
   tiles (`dkv_split_rows`): each block sums its range into an f32
@@ -187,6 +192,8 @@ def _check_shapes(q, k, v, dout=None):
 
 def _fwd_cuda(q, k, v, scale: float):
     _check_shapes(q, k, v)
+    if scale < 0:  # the kernel takes its row max on q k^T unscaled
+        q, scale = -q, -scale
     q, k, v = _operand(q, "q"), _operand(k, "k"), _operand(v, "v")
     b, nq, h, d = q.shape
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
@@ -220,17 +227,20 @@ def launch_dkv(q, k, v, dout, lse, delta, dk, dv, scale: float) -> int:
     return splits
 
 
-def bwd_kernel_attrs(which: str, d: int) -> dict:
-    """Build facts of the backward kernel `which` ("dq" or "dkv") at head
-    dim `d` on the current card: registers and local memory (spill) bytes
-    a thread, dynamic shared memory a block, resident blocks per SM."""
+def kernel_attrs(which: str, d: int) -> dict:
+    """Build facts of the flash kernel `which` ("fwd", "dq" or "dkv") at
+    head dim `d` on the current card: registers and local memory (spill)
+    bytes a thread, dynamic shared memory a block, resident blocks per SM."""
     from pytorchvideo_accelerate_tpu_torch.ops import _build
 
     out = (ctypes.c_int * 4)()
-    rc = _build.entry("flash_attention.bwd_attrs")(
-        {"dq": 0, "dkv": 1}[which], d, out)
+    if which == "fwd":
+        rc = _build.entry("flash_attention.fwd_attrs")(d, out)
+    else:
+        rc = _build.entry("flash_attention.bwd_attrs")(
+            {"dq": 0, "dkv": 1}[which], d, out)
     if rc != 0:
-        raise RuntimeError(f"flash backward attributes: CUDA error {rc}")
+        raise RuntimeError(f"flash {which} attributes: CUDA error {rc}")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
 

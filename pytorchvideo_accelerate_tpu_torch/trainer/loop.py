@@ -17,8 +17,10 @@ of the accuracies.
 
 It runs on the CUDA card unless the config asks for the CPU (`--cpu`); on a
 host without CUDA it raises. Options whose effect this slice lacks raise
-NotImplementedError naming their ROADMAP item; telemetry-only options print
-one line saying they are not ported yet.
+NotImplementedError naming their ROADMAP item, a multi-process job (flags
+or the launcher's PVA_* env) among them; telemetry and debug options
+(`obs.*`, `debug_nans`, `debug_asserts`, `profile`) and a
+`model.pretrained` without a path print one line each and train on.
 """
 
 from __future__ import annotations
@@ -66,12 +68,35 @@ def _parse_checkpointing_steps(value: str):
         f"checkpointing_steps must be a number or 'epoch', got {value!r}")
 
 
+def _process_settings(cfg: TrainConfig):
+    """(coordinator address, number of processes, process id) as the JAX
+    package's `parallel/distributed.py` resolves them: the config first,
+    then the launcher's PVA_COORDINATOR_ADDRESS, PVA_NUM_PROCESSES and
+    PVA_PROCESS_ID."""
+    address = cfg.coordinator_address or os.environ.get(
+        "PVA_COORDINATOR_ADDRESS", "")
+    num = cfg.num_processes or int(os.environ.get("PVA_NUM_PROCESSES", "0"))
+    pid, env_pid = cfg.process_id, os.environ.get("PVA_PROCESS_ID", "")
+    if pid < 0 and env_pid:
+        pid = int(env_pid)
+    return address, num, pid
+
+
+def _say(line: str) -> None:
+    print(f"pytorchvideo_accelerate_tpu_torch: {line}", flush=True)
+
+
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
-    computed and that this slice of the port lacks; print one line for the
-    telemetry-only ones."""
+    computed and that this slice of the port lacks; print one line for each
+    telemetry or debug option and for a `model.pretrained` without a path."""
     d, m, o = cfg.data, cfg.model, cfg.optim
+    address, num_processes, process_id = _process_settings(cfg)
     refused = [
+        (num_processes > 1 or bool(address) or process_id >= 0,
+         f"a multi-process job (coordinator_address {address!r}, num_processes "
+         f"{num_processes}, process_id {process_id}; flags or PVA_* env; "
+         "Multi-GPU, ROADMAP.md A.5)"),
         (cfg.guard.enabled, "guard.enabled (reliability/guard.py, guard_skip)"),
         (d.dataplane_workers > 0, "data.dataplane_workers (the dataplane)"),
         (bool(d.cache_dir), "data.cache_dir (data/cache.py)"),
@@ -90,9 +115,18 @@ def refuse_unported(cfg: TrainConfig) -> None:
                 f"{what} is not ported to PyTorch yet (see the port queue in "
                 "ROADMAP.md)")
     if cfg.obs.enabled or cfg.tracking.with_tracking:
-        print("pytorchvideo_accelerate_tpu_torch: obs.* telemetry and "
-              "tracking.with_tracking are not ported yet (ROADMAP.md); "
-              "training runs without them", flush=True)
+        _say("obs.* telemetry and tracking.with_tracking are not ported yet "
+             "(ROADMAP.md); training runs without them")
+    for on, flag in ((cfg.debug_nans, "debug_nans"),
+                     (cfg.debug_asserts, "debug_asserts"),
+                     (cfg.profile, "profile")):
+        if on:
+            _say(f"{flag} is not ported yet (ROADMAP.md); training runs "
+                 "without it")
+    if m.pretrained and not m.pretrained_path:
+        _say("--model.pretrained set but --model.pretrained_path empty: "
+             "training from scratch. Convert a checkpoint first and pass "
+             "its path.")
 
 
 def resolve_train_device(cfg: TrainConfig) -> torch.device:

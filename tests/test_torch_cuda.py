@@ -17,8 +17,10 @@ plain path compute alike (2e-3 relative). The flash attention kernels
 same way: the forward's out and lse, and dq, dk, dv from the same (out,
 lse), against `flash_fwd_plain` / `flash_bwd_plain` at a ragged MViT shape
 (Nq != Nk, D 96), a ViT one (D 64), shapes where dk/dv splits its query
-loop, D 16, 32 and 128, and Nq < 16 against one key; two backward launches
-are bitwise equal. The depthwise kernel
+loop, D 16, 32 and 128, and Nq < 16 against one key, lse also within 1e-4
+absolute (f32 all through); two forward and two backward launches are
+bitwise equal; the forward spills nothing at D 64 and 96 and fits two
+blocks on an SM. The depthwise kernel
 (`csrc/depthwise3d.cu`) is held the same way through both of its entry
 points: `fused_depthwise_bn_act` (forward and the `DwBnAct` dx; its dk
 and dscale, which pass through bf16-rounded folded taps, within one bf16
@@ -318,6 +320,7 @@ def test_flash_kernels_match_plain(cuda, b, nq, nk, h, d):
     torch.cuda.synchronize()
     _check(out, want_out)
     _check(lse, want_lse)
+    assert (lse - want_lse).abs().max().item() <= 1e-4
     dq, dk, dv = flash_attention._bwd_cuda(q, k, v, want_out, want_lse, dout,
                                            scale, True, True)
     torch.cuda.synchronize()
@@ -342,6 +345,25 @@ def test_flash_backward_is_bitwise_deterministic(cuda, b, nq, nk, h, d):
     torch.cuda.synchronize()
     for got, want in zip(first, second):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d", FLASH_CASES)
+def test_flash_forward_is_bitwise_deterministic(cuda, b, nq, nk, h, d):
+    q, k, v, _ = _flash_inputs(b, nq, nk, h, d, 7, cuda)
+    first = flash_attention._fwd_cuda(q, k, v, d ** -0.5)
+    second = flash_attention._fwd_cuda(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    for got, want in zip(first, second):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 96])
+def test_flash_forward_attributes(cuda, d):
+    """The register-resident forward does not spill at the path's head dims
+    and leaves room for at least two blocks on an SM."""
+    attrs = flash_attention.kernel_attrs("fwd", d)
+    assert attrs["local_bytes"] == 0, attrs
+    assert attrs["blocks_per_sm"] >= 2, attrs
 
 
 def test_flash_strided_qkv_views_match_contiguous(cuda):

@@ -645,3 +645,48 @@ def test_trainer_without_cpu_flag_needs_cuda():
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(parse_cli(_RUN + extra))
+
+
+@pytest.mark.parametrize("extra,env", [
+    (["--num_processes", "2"], {}),
+    (["--coordinator_address", "localhost:1234"], {}),
+    (["--process_id", "0"], {}),
+    ([], {"PVA_COORDINATOR_ADDRESS": "localhost:1234"}),
+    ([], {"PVA_NUM_PROCESSES": "2"}),
+    ([], {"PVA_PROCESS_ID": "1"})])
+def test_multi_process_jobs_raise(extra, env, monkeypatch):
+    """A job of several processes, set by flag or by the launcher's PVA_*
+    env, is refused naming the multi-GPU item, not trained as independent
+    replicas that share one output_dir."""
+    for key in ("PVA_COORDINATOR_ADDRESS", "PVA_NUM_PROCESSES", "PVA_PROCESS_ID"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        Trainer(parse_cli(_RUN + extra))
+
+
+@pytest.mark.parametrize("extra,line", [
+    (["--debug_nans"], "debug_nans is not ported yet"),
+    (["--debug_asserts"], "debug_asserts is not ported yet"),
+    (["--profile"], "profile is not ported yet"),
+    (["--model.pretrained"], "training from scratch. Convert a checkpoint")])
+def test_debug_and_pathless_pretrained_flags_print_one_line(extra, line, capsys,
+                                                            tmp_path):
+    res = trun.main(_RUN + extra + ["--num_epochs", "1",
+                                    "--output_dir", str(tmp_path / "run")])
+    assert res["steps"] == 2 and np.isfinite(res["train_loss"])
+    said = [ln for ln in capsys.readouterr().out.splitlines() if line in ln]
+    assert len(said) == 1 and said[0].startswith("pytorchvideo_accelerate_tpu_torch:")
+
+
+def test_default_single_process_config_raises_and_prints_no_flag_line(
+        capsys, monkeypatch):
+    """The default run (num_processes 0, no PVA_* env) trains as before:
+    only the obs.* line that the default config has always printed."""
+    for key in ("PVA_COORDINATOR_ADDRESS", "PVA_NUM_PROCESSES", "PVA_PROCESS_ID"):
+        monkeypatch.delenv(key, raising=False)
+    Trainer(parse_cli(_RUN)).close()
+    said = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("pytorchvideo_accelerate_tpu_torch:")]
+    assert len(said) == 1 and "obs.* telemetry" in said[0]
