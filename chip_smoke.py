@@ -8,17 +8,25 @@ and serve VideoMAE-B and pretrain it (MAE), on one GPU.
 Drives the port only (no JAX), one JSON line per phase:
 
 1. device   the card, and its name and power limit from nvidia-smi
-2. build    the kernels compiled from ops/csrc with nvcc, one process each
+2. build    the kernels compiled from ops/csrc with nvcc, one process each;
+            gemm_build: ptxas's registers and spills and the runtime's
+            attributes of both GEMM kernels in every tile configuration
+            (`fused.gemm_attrs`): no spills, at most 227 KB of shared
+            memory, at least one block per SM
 3. weights  seeded SlowFast-R50 weights (K700 head), BN running stats
             calibrated to the real batch statistics, head classes 0-4
             planted on the 5 request clips (`plant_head`), written as an
             inference artifact with the port's `export_inference`
 4. kernels  every fused site of one bucket-8 forward: the CUDA kernel held
-            against its plain PyTorch version on the same bf16 inputs, and
-            kernel / plain / library (cuDNN or cuBLAS + bias + act) device
-            times from torch.profiler; then the same for the backward's dx
-            launch of the kernel (the transposed stencil on a bf16 dz;
-            library: `dz @ wf^T`, `torch.nn.grad.conv3d_input`)
+            against its plain PyTorch version on the same bf16 inputs, two
+            launches bitwise equal, and kernel / plain / library (cuDNN or
+            cuBLAS + bias + act) device times (`device_ms`), with the
+            GEMM configuration `gemm_plan` chose, its attributes, TFLOP/s,
+            GB/s and the ratio to the library; then the same for the
+            backward's dx launch of the kernel (the transposed stencil on a
+            bf16 dz; library: `dz @ wf^T`, `torch.nn.grad.conv3d_input`);
+            kernel_sums: rows 1, 1b, 2, 2b summed over the forward's
+            sites, with the host time of the wrappers' plan lookup
 5. serve    the port's HTTP server (`build_server`, micro scheduler) answers
             5 /predict requests (4 concurrent, then 1); the launch counters,
             zeroed just before, must show 41 pointwise and 51 conv launches
@@ -45,7 +53,8 @@ Drives the port only (no JAX), one JSON line per phase:
             `dw_bn_act_plain`, `depthwise3d_s1` against
             `depthwise_conv3d_shift`; library: one bf16 `F.conv3d(groups=C)`
             (+ bias + act) and `conv3d_input(groups=C)`; then the pointwise
-            kernel at X3D-M's sites (widths 24 and 54 take its scalar path)
+            kernel, forward and dx, at X3D-M's 53 sites (widths 54 and 108
+            take its 4-byte copy path) and CSN-R101's 67, and their sums
 13. x3d_serve  `build_server` serves the X3D-M artifact to 5 /predict
             requests with `{"video": ...}` under `fused_kernels auto`: 53
             pointwise and 23 depthwise launches per forward
@@ -117,6 +126,13 @@ x3d_depthwise_impl, x3d_train, mvit_serve and mvit_train), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
+
+A kernel row's device times (kernel, plain, library) come from CUDA events
+around calls that the card runs back to back (`device_ms`). The
+breakdowns by kernel class come from torch.profiler profiles that
+`device_events` holds complete (`reps` times one call's kernels, or taken
+again); one that stays incomplete is reported as such, not summed. The
+`seconds` phase counts the retakes and the incomplete profiles.
 
 Tolerances. Kernel vs plain version: both multiply bf16 operands exactly,
 sum in f32 and round once to bf16, so elementwise
@@ -253,57 +269,116 @@ def check(cond: bool, message: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {message}")
 
 
-EMPTY_PROFILES = [0]  # profiles that came back without device events
-EVENT_TIMED = [0]  # device_ms calls timed with CUDA events instead
+PROFILE_RETAKES = [0]  # profiles taken again: incomplete (see `device_events`)
+INCOMPLETE_PROFILES = [0]  # breakdowns left without a complete profile
+SPIN_CYCLES_PER_S = 2.0e9  # at least the card's SM clock (H100 SXM: 1.98 GHz)
 
 
-def device_events(torch, fn, reps: int, attempts: int = 5):
-    """The device-side events (kernels, copies) of `reps` calls of `fn`,
-    recorded by torch.profiler after one warm-up call. Now and then a
-    profile on the card comes back with no device events at all; it is
-    taken again, up to `attempts` times."""
+class IncompleteProfile(RuntimeError):
+    pass
+
+
+def _profiled(torch, fn, reps: int):
+    """The device-side events (kernels, copies) torch.profiler records over
+    `reps` calls of `fn`. The profile object is freed here: its table of
+    bound methods makes it a reference cycle, which would keep its trace
+    alive until the cyclic garbage collector runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(attempts):
-        fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kev:
-            return kev
-        EMPTY_PROFILES[0] += 1
-    return []
+    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    prof.profiler.kineto_results = None
+    prof.profiler = None
+    prof.action_map = None
+    return kev
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
-    """Device time of one `fn()` call: the summed durations of the device
-    work it launches, averaged over `reps` calls. Host launch overhead and
-    the gaps between launches are left out. Should every profile come back
-    empty, CUDA events around the `reps` calls time it instead (gaps
-    included), and `EVENT_TIMED` counts it."""
-    kev = device_events(torch, fn, reps)
-    if kev:
-        return sum(e.time_range.elapsed_us() for e in kev) / reps / 1e3
-    EVENT_TIMED[0] += 1
-    return event_ms(torch, fn, reps)
+def device_events(torch, fn, reps: int, attempts: int = 4):
+    """The device-side events of `reps` calls of `fn` after one warm-up
+    call, from a profile that is known to be complete. On the card a
+    profile can come back with some or all of its device events missing:
+    from the X3D phases on, a profile of one depthwise launch held no event
+    at all, and one of ten held three or ten, however often it was taken.
+    So a profile of one call counts the kernels a call launches, and the
+    profile of `reps` calls is kept only if it holds `reps` times as many,
+    to within 1% (exactly, below 100 kernels); otherwise both are taken
+    again after a garbage collection, and after `attempts`
+    `IncompleteProfile` is raised. The 1% admits what a call really varies
+    by: a bucket-8 SlowFast-R50 forward launched 1323 or 1324 kernels (an
+    elementwise kernel more or less) on the H100, while a lost call or a
+    lost window is a third or all of a profile. Copies and memsets are kept
+    but not counted: a pageable host-to-device copy shows as a varying
+    number of chunks."""
+    import gc
+    from collections import Counter
 
+    def kernels(events):
+        return Counter(e.name for e in events
+                       if not e.name.startswith(("Memcpy", "Memset")))
 
-def event_ms(torch, fn, reps: int = 20) -> float:
-    """ms of one `fn()` call from CUDA events around `reps` calls after a
-    warm-up call (the gaps between launches included)."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    seen = []
+    for _ in range(attempts):
+        one = kernels(_profiled(torch, fn, 1))
+        kev = _profiled(torch, fn, reps)
+        many = kernels(kev)
+        want = reps * sum(one.values())
+        if want and abs(sum(many.values()) - want) <= want // 100:
+            return kev
+        diff = sorted((k[:48], many[k], reps * one[k]) for k in set(many) | set(one)
+                      if many[k] != reps * one[k])
+        seen.append((sum(one.values()), sum(many.values()), diff[:3]))
+        PROFILE_RETAKES[0] += 1
+        gc.collect()
+    raise IncompleteProfile(
+        f"no complete profile of {reps} calls in {attempts} attempts (kernels "
+        f"of one call, of {reps}, first names that differ: {seen})")
+
+
+def device_ms(torch, fn, reps: int = 20, attempts: int = 8) -> float:
+    """Device time of one `fn()` call: CUDA events around `reps` calls that
+    the card runs back to back. The calls are queued behind a spin kernel
+    (`torch.cuda._sleep`) sized to outlast the host's launching of them; the
+    start event must still be pending when the last call has been queued,
+    which proves the card had not begun them, so no host gap is timed. If it
+    was not (a slow host, or a launch queue that filled), the calls are
+    timed again in chunks half the size behind a spin twice as long. Only
+    the card's own gaps between back-to-back kernels (about a microsecond)
+    count beyond the kernels. Fails the smoke after `attempts`."""
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t  # launching one call
+    torch.cuda.synchronize()
+    chunk, scale = reps, 3.0
+    for _ in range(attempts):
+        total, done = 0.0, 0
+        while done < reps:
+            k = min(chunk, reps - done)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (scale * host_s * k + 2e-4)))
+            start.record()
+            for _ in range(k):
+                fn()
+            end.record()
+            queued = not start.query()
+            torch.cuda.synchronize()
+            if not queued:
+                break
+            total += start.elapsed_time(end)
+            done += k
+        if done == reps:
+            return total / reps
+        chunk, scale = max(1, chunk // 2), scale * 2
+    raise RuntimeError(f"chip_smoke check failed: {reps} calls never ran back "
+                       f"to back ({attempts} attempts)")
 
 
 def serve_cfg(parse_cli, fused: str, name: str = "slowfast_r50",
@@ -648,10 +723,18 @@ def dw_site_bound(x_shape, k_shape, bias: bool):
 
 
 def _kernel_row(torch, kname, model, names, x_shape, w_shape, act, kern,
-                plain, library, bound, reps: int = 20) -> dict:
+                plain, library, bound, reps: int = 20, facts=None) -> dict:
     """Hold `kern()` against `plain()` and time kernel, plain and library
-    (device time); `bound` is the site's (flops, bytes)."""
-    got = kern().float()
+    (device time); `bound` is the site's (flops, bytes). With `facts` (the
+    GEMM kernels' configuration and build facts, added to the row) two
+    launches must also be bitwise equal."""
+    got = kern()
+    if facts is not None:
+        again = kern()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{names[0]} ({kname}): two launches differ")
+        del again
+    got = got.float()
     want = plain().float()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"{names[0]}: non-finite output")
@@ -674,9 +757,77 @@ def _kernel_row(torch, kname, model, names, x_shape, w_shape, act, kern,
            "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "flop_ms": t_ops, "byte_ms": t_bytes,
-           "named": [NAMED_SITES[n] for n in names if n in NAMED_SITES]}
+           "tflops": flops / kernel_ms / 1e9, "gbps": nbytes / kernel_ms / 1e6,
+           "library_ratio": kernel_ms / library_ms,
+           "named": [NAMED_SITES[n] for n in names if n in NAMED_SITES],
+           **(facts or {})}
     emit("kernels", **row)
     return row
+
+
+def gemm_facts(kname: str, config: int) -> dict:
+    """The GEMM configuration a launch of `kname` ran in, and its build
+    facts on this card (`fused.gemm_attrs`)."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    return {"config": config, "tile": fused.gemm_tile(config)[0],
+            "path": fused.gemm_path(config),
+            "attrs": fused.gemm_attrs(kname.split(".")[0], config)}
+
+
+def gemm_build_facts() -> dict:
+    """ptxas's registers and spills and the runtime's attributes of both GEMM
+    kernels in every configuration, ptxas's lines found by the config id in
+    the kernel's mangled name (`<kernel>_kernelILi<id>EE`). Each must have
+    its ptxas report, spill nothing, fit a block's 227 KB of shared memory
+    and at least one block per SM."""
+    from pytorchvideo_accelerate_tpu_torch.ops import _build, fused
+
+    out = {}
+    for kname in ("fused_pw_bn_act", "fused_conv_bn_act"):
+        report = ptxas_report(_build.build_logs.get(kname, ""))
+        for config in range(fused.GEMM_CONFIGS):
+            tag = f"{kname}_kernelILi{config}EE"
+            ptx = [v for k, v in report.items() if tag in k]
+            check(len(ptx) == 1, f"{kname} config {config}: {len(ptx)} ptxas reports")
+            facts = {"ptxas": ptx[0], **gemm_facts(kname, config)}
+            attrs = facts["attrs"]
+            check(ptx[0].get("spill_stores", 0) + attrs["local_bytes"] == 0
+                  and 0 < attrs["smem_bytes"] <= 227 * 1024
+                  and attrs["blocks_per_sm"] >= 1, f"{kname} config {config}: {facts}")
+            out[f"{kname}/{config}"] = facts
+    return out
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host-clock microseconds of one `fn()` call, over `reps` calls."""
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e6
+
+
+def kernel_sums(rows) -> dict:
+    """{model: {kernel: ms, library_ms, plain_ms, bound_ms summed over the
+    model's launches, and their ratio}} of the GEMM kernels' rows, with
+    `plan_host_ms`: the host time the wrappers' plan lookup and checks
+    (`fused._gemm_config` on contiguous operands) add over those launches."""
+    out = {}
+    for r in rows:
+        if not r["kernel"].startswith(("fused_pw_bn_act", "fused_conv_bn_act")):
+            continue
+        d = out.setdefault(r["model"], {}).setdefault(
+            r["kernel"], {"launches": 0, "ms": 0.0, "library_ms": 0.0,
+                          "plain_ms": 0.0, "bound_ms": 0.0, "plan_host_ms": 0.0})
+        d["launches"] += r["per_forward"]
+        d["plan_host_ms"] += r["plan_host_us"] * r["per_forward"] / 1e3
+        for key, field in (("ms", "kernel_ms"), ("library_ms", "library_ms"),
+                           ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms")):
+            d[key] += r[field] * r["per_forward"]
+    for kernels in out.values():
+        for d in kernels.values():
+            d["library_ratio"] = d["ms"] / d["library_ms"]
+    return out
 
 
 def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
@@ -711,6 +862,10 @@ def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
         if pw:
             x2d, w2d = x.reshape(-1, cin), wf.reshape(cin, cout)
             dz2d, wt = dz.reshape(-1, cout), wf.reshape(cin, cout).t().contiguous()
+            plans = (lambda: fused._gemm_config(None, *x2d.shape, cout,
+                                                x2d.contiguous(), w2d.contiguous()),
+                     lambda: fused._gemm_config(None, *dz2d.shape, cin,
+                                                dz2d.contiguous(), wt.contiguous()))
             fwd = (lambda: fused._pw_cuda(x2d, w2d, bias, act),
                    lambda: fused.pw_bn_act_plain(x2d, w2d, bias, act),
                    lambda: act_(torch.addmm(bias16, x2d, w2d), act))
@@ -723,6 +878,11 @@ def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
             wc = wf.permute(4, 3, 0, 1, 2).contiguous(
                 memory_format=torch.channels_last_3d)
             wt = wf.flip(0, 1, 2).transpose(3, 4).contiguous()
+            m, taps = b * t * h * w, kt * kh * kw
+            plans = (lambda: fused._gemm_config(None, m, taps * cin, cout,
+                                                x.contiguous(), wf.contiguous()),
+                     lambda: fused._gemm_config(None, m, taps * cout, cin,
+                                                dz.contiguous(), wt.contiguous()))
             fwd = (lambda: fused._conv_cuda(x, wf, bias, act),
                    lambda: fused.conv_bn_act_plain(x, wf, bias, act),
                    lambda: act_(F.conv3d(xc, wc, bias16, padding=pads), act))
@@ -731,13 +891,17 @@ def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
                    lambda: fused.conv_bn_act_plain(dz, wt, zeros, "identity"),
                    lambda: torch.nn.grad.conv3d_input(
                        (b, cin, t, h, w), wc, dzc, padding=pads))
+        facts = [{**gemm_facts(kname, plan()), "plan_host_us": host_us(plan)}
+                 for plan in plans]
         rows.append(_kernel_row(torch, kname, model, names, x_shape, w_shape,
-                                act, *fwd, site_bound(x_shape, w_shape), reps))
+                                act, *fwd, site_bound(x_shape, w_shape), reps,
+                                facts[0]))
         # dx: the same stencil with Cin and Cout swapped
         rows.append(_kernel_row(torch, kname + ".bwd_dx", model, names,
                                 x_shape, w_shape, "identity", *bwd,
                                 site_bound((b, t, h, w, cout),
-                                           (kt, kh, kw, cout, cin)), reps))
+                                           (kt, kh, kw, cout, cin)), reps,
+                                facts[1]))
     if model == "slowfast_r50":
         for label_site in NAMED_SITES:
             check(label_site in sites, f"named site {label_site} not on the path")
@@ -833,9 +997,11 @@ def profile_forward(torch, engine, batch, reps: int = 3) -> dict:
 def profile_of(torch, fn, reps: int, unit: str) -> dict:
     """Device time by kernel class over `reps` calls of `fn`, per call, and
     the device's busy share of the span the calls' device work covers."""
-    kev = device_events(torch, fn, reps)
-    if not kev:
-        return {"device_events": 0}
+    try:
+        kev = device_events(torch, fn, reps)
+    except IncompleteProfile as e:
+        INCOMPLETE_PROFILES[0] += 1
+        return {"complete": False, "reason": str(e)}
     span_us = (max(e.time_range.end for e in kev)
                - min(e.time_range.start for e in kev))
     busy_us = sum(e.time_range.elapsed_us() for e in kev)
@@ -848,7 +1014,7 @@ def profile_of(torch, fn, reps: int, unit: str) -> dict:
         names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "device_events": len(kev), "reps": reps,
+        "complete": True, "device_events": len(kev), "reps": reps,
         f"device_ms_per_{unit}": busy_us / reps / 1e3,
         f"span_ms_per_{unit}": span_us / reps / 1e3,
         "device_busy_share": busy_us / span_us,
@@ -1455,6 +1621,7 @@ def main() -> int:
             for k, v in _build.build_logs.items()}
     emit("build", seconds=seconds, total_s=time.perf_counter() - t0,
          ptxas=regs)
+    emit("gemm_build", **gemm_build_facts())
 
     with tempfile.TemporaryDirectory(prefix="pva_chip_smoke_") as work:
         return run(torch, work, smi, kind)
@@ -1483,6 +1650,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
 
     # 4. kernels at every site shape of the bucket-8 forward
     rows = kernel_phase(torch, sites)
+    emit("kernel_sums", **kernel_sums(rows))
 
     # 5. serve: the main path, counters zeroed just before it
     server, launches["serve"], fields = serve_phase(torch, art, clips, plain_logits,
@@ -1510,8 +1678,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     emit("train_timing", batch=TRAIN_BATCH, nvidia_smi=smi,
          fit_clips_per_sec=train["result"].get("clips_per_sec"),
          fit_input_wait_frac=train["result"].get("input_wait_frac"),
-         **train_timing_phase(torch), empty_profiles=EMPTY_PROFILES[0],
-         event_timed=EVENT_TIMED[0])
+         **train_timing_phase(torch), profile_retakes=PROFILE_RETAKES[0],
+         incomplete_profiles=INCOMPLETE_PROFILES[0])
     slowfast_s = time.perf_counter() - t_start
 
     rows += depthwise_phases(torch, work, launches)
@@ -1540,7 +1708,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     emit("seconds", slowfast=slowfast_s,
          attention=time.perf_counter() - t_attention,
          total=time.perf_counter() - t_start,
-         empty_profiles=EMPTY_PROFILES[0], event_timed=EVENT_TIMED[0])
+         profile_retakes=PROFILE_RETAKES[0],
+         incomplete_profiles=INCOMPLETE_PROFILES[0])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1575,10 +1744,16 @@ def depthwise_phases(torch, work: str, launches: dict):
         torch, work, "csn_r101", rng, requests=CSN_BUCKET, bucket=CSN_BUCKET)
     c_batch = bucket_batch(c_clips, CSN_BUCKET)
     c_plain = make_engine(torch, "csn_r101", c_state, c_norm, "xla", bucket=CSN_BUCKET)
+    c_pw_sites = record_sites(torch, c_plain.model, lambda: c_plain.predict(c_batch))
     c_dw_sites = record_dw_sites(lambda: c_plain.predict(c_batch))
     c_plain_logits = c_plain.predict(c_batch)
-    emit("csn_weights", params=c_params, depthwise_sites=len(c_dw_sites),
-         seconds=time.perf_counter() - t0)
+    c_want = expected_forward_launches("csn_r101")
+    check(len(c_pw_sites) == c_want["fused_pw_bn_act"]
+          and len(c_dw_sites) == c_want["fused_dw_bn_act"],
+          f"CSN-R101 sites {len(c_pw_sites)} pointwise / {len(c_dw_sites)} "
+          f"depthwise, expected {c_want}")
+    emit("csn_weights", params=c_params, pointwise_sites=len(c_pw_sites),
+         depthwise_sites=len(c_dw_sites), seconds=time.perf_counter() - t0)
 
     # 12. the depthwise kernel at every site shape, then the pointwise
     # kernel at X3D-M's sites
@@ -1586,6 +1761,8 @@ def depthwise_phases(torch, work: str, launches: dict):
     rows = dw_kernel_phase(torch, "x3d_m", x_dw_sites)
     rows += dw_kernel_phase(torch, "csn_r101", c_dw_sites)
     rows += kernel_phase(torch, pw_sites, "x3d_m", DW_REPS)
+    rows += kernel_phase(torch, c_pw_sites, "csn_r101", DW_REPS)
+    emit("kernel_sums", **kernel_sums(rows))
     emit("kernels_seconds", seconds=time.perf_counter() - t0)
 
     # 13. x3d_serve: the main path for row 3, counters zeroed just before
@@ -1756,9 +1933,7 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
     times of each kernel launch, of the plain version (for both backward
     rows, `flash_bwd_plain`, which computes dq, dk and dv together) and of
     the library call: one bf16 `F.scaled_dot_product_attention` forward,
-    and its backward (dq, dk and dv together) on both backward rows, timed
-    with CUDA events: the profiler's events of that backward came back
-    incomplete (0.63 ms for MViT-B's 16 sites, 93% of the bf16 peak)."""
+    and its backward (dq, dk and dv together) on both backward rows."""
     import torch.nn.functional as F
 
     from pytorchvideo_accelerate_tpu_torch.ops import flash_attention as fa
@@ -1822,7 +1997,7 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
         dlib = dout.transpose(1, 2)
         plain_bwd_ms = device_ms(torch, lambda: fa.flash_bwd_plain(
             q, k, v, p_out, p_lse, dout, scale), reps)
-        lib_bwd_ms = event_ms(torch, lambda: torch.autograd.grad(
+        lib_bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dlib, retain_graph=True), reps)
         timed = {
             "flash_attention": (

@@ -34,10 +34,17 @@ _F = ctypes.c_float
 # entry point -> (source, C function, argtypes); see the extern "C" block of
 # each source
 _SIGNATURES = {
+    # (x, w, bias, out, dims..., act, GEMM config id, stream)
     "fused_pw_bn_act": ("fused_pw_bn_act", "pva_fused_pw_bn_act",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P] + [_I] * 5 + [_P]),
     "fused_conv_bn_act": ("fused_conv_bn_act", "pva_fused_conv_bn_act",
-                          [_P, _P, _P, _P] + [_I] * 10 + [_P]),
+                          [_P, _P, _P, _P] + [_I] * 11 + [_P]),
+    # (kernel: 0 pointwise, 1 conv; config; int[4] out): registers, local
+    # bytes, dynamic shared memory, blocks per SM of one GEMM configuration
+    "fused_pw_bn_act.attrs": ("fused_pw_bn_act", "pva_fused_gemm_attrs",
+                              [_I, _I, _P]),
+    "fused_conv_bn_act.attrs": ("fused_conv_bn_act", "pva_fused_gemm_attrs",
+                                [_I, _I, _P]),
     "fused_dw_bn_act": ("depthwise3d", "pva_fused_dw_bn_act",
                         [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "depthwise3d_s1": ("depthwise3d", "pva_depthwise3d_s1",

@@ -4,143 +4,161 @@
 // Replaces: pytorchvideo_accelerate_tpu/ops/pallas_fused.py `_conv_bn_act_kernel`
 // (forward): act(conv3d_s1(x, wf) + b) over NDHWC x (B, T, H, W, Cin), wf
 // (kt, kh, kw, Cin, Cout) BN-scale-folded bf16, b folded f32 bias, f32
-// accumulation over all taps and one bf16 store.
+// accumulation over all taps and one bf16 store; and the dx of its custom
+// VJP `_conv_bwd`, which ops/fused.py `ConvBnAct.backward` launches as this
+// kernel on the tap-flipped, channel-transposed weights with a zero bias.
 //
 // Implicit GEMM: rows are the M = B*T*H*W output positions, columns Cout, and
 // the reduction runs over K = kt*kh*kw*Cin, tap-major (k = tap*Cin + c), which
 // is the memory order of wf, so wf is read as a (K, Cout) row-major matrix.
-// Each K step gathers, for every row of the tile, the input row shifted by the
-// step's tap and writes zeros where that row lies outside the volume: the SAME
-// padding is never materialised (the Pallas wrapper pads a copy of x first).
+// Each K step gathers, for every row of the tile, the input row shifted by
+// the step's taps and zero-fills (cp.async src-size 0) where that row lies
+// outside the volume: the SAME padding is never materialised.
 //
 // What bounds it on the card: the (3,1,1) and (1,3,3) sites do 3 or 9 times
-// the pointwise work on the same bytes; the slow-pathway (1,3,3) sites (64 to
-// 512 channels, K = 576 to 4608) sit above the ~295 FLOP/byte ridge and are
-// tensor-core bound, the narrow fast-pathway ones (8 to 64 channels) are bound
-// by bytes.
-// What the design does about it: the TPU kernel moves one halo window (tile +
-// k-1 rows, full W, full Cin) into VMEM; at Cin = 1024 that window is ~2.6 MB
-// and cannot fit a block's 227 KB of shared memory. Here the window is cut
-// along K instead: a block keeps only a 64 x 32 slice of the gathered input
-// and a 32 x 64 slice of wf in shared memory, the neighbouring taps' reloads
-// of the same input rows are served mostly by L1/L2, and the output is
-// written once, already biased and activated.
+// the pointwise work on the same bytes; the slow pathway's sites (64 to 512
+// channels, K = 576 to 6144) sit far above the ~295 FLOP/byte ridge and are
+// bound by the tensor cores, the fast pathway's (8 to 32 channels) by bytes.
+// What the design does about it: the TPU kernel moves one halo window (tile
+// + k-1 rows, full W, full Cin) into VMEM; at Cin = 1024 that window is ~2.6
+// MB and cannot fit a block's 227 KB of shared memory. Here the window is cut
+// along K instead: the tile engine of fused_gemm.cuh keeps three or four
+// BK-deep stages of the gathered input and of wf in shared memory, all but
+// one in flight by cp.async while mma.sync runs the products of the other,
+// with 128 x 128 tiles at the wide sites. The neighbouring taps'
+// reloads of the same input rows are served by L1/L2. Each thread decodes
+// its rows' (t, h, w) once; its column's (tap, channel) advances from step to
+// step without a division.
 #include "fused_gemm.cuh"
 
 namespace pva {
 
-// each thread gathers two (row, 8-channel chunk) slots of the A tile per K
-// step; rows r = threadIdx.x / 4 and r + 32, chunk column (threadIdx.x % 4) * 8
-constexpr int ROWS_PER_THREAD = BM * BK / 8 / THREADS;  // 2
+// one tile a block: the gather's state would have to advance to the next
+// tile inside the K loop; whether persistent blocks would pay here is not
+// measured (no A/B of the two is recorded)
+constexpr bool PERSISTENT = false;
 
-__global__ void __launch_bounds__(THREADS)
-fused_conv_bn_act_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                         const float* __restrict__ bias, bf16* __restrict__ out,
-                         int B, int T, int H, int W, int Cin, int N,
-                         int kt, int kh, int kw, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + A_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);
+// A tile gathered from x: each thread copies one 8-column group of
+// T::A_PASSES rows a step. With Cin % 8 == 0 (16-byte path) the 8 columns
+// lie in one tap; otherwise the group is cut into chunks of 2 (Cin even) or
+// 1 and each chunk finds its own tap. A BK-deep step may straddle taps
+// (Cin = 8 or 16 at BK = 32).
+template <typename T>
+struct ConvRows {
+  const bf16* x;
+  int Td, Hd, Wd, Cin, kt, kh, kw;
+  int tt[T::A_PASSES], hh[T::A_PASSES], ww[T::A_PASSES];  // tt far negative past M
+  int row_off[T::A_PASSES];                            // m * Cin: x's row at the output's position
+  int c, dt, dh, dw;  // (channel, tap) of this thread's column at the next step
 
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 2;
-  const int wn = warp % 2;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int M = B * T * H * W;
-  const int K = kt * kh * kw * Cin;
-  const int pt = kt / 2, ph = kh / 2, pw = kw / 2;
-  const bool vec = (Cin % 8) == 0;  // an 8-chunk then never straddles two taps
+  int M;
 
-  // decode this thread's output rows once: (b, t, h, w) of each
-  const int c_col = (threadIdx.x % (BK / 8)) * 8;
-  int rb[ROWS_PER_THREAD], rt[ROWS_PER_THREAD], rh[ROWS_PER_THREAD], rw[ROWS_PER_THREAD];
-  bool rvalid[ROWS_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-    const int m = m0 + threadIdx.x / (BK / 8) + j * (THREADS / (BK / 8));
-    rvalid[j] = m < M;
-    const int mm = rvalid[j] ? m : 0;
-    rw[j] = mm % W;
-    int q = mm / W;
-    rh[j] = q % H;
-    q /= H;
-    rt[j] = q % T;
-    rb[j] = q / T;
-  }
+  __device__ ConvRows(const bf16* x_, int Td_, int Hd_, int Wd_, int Cin_, int kt_, int kh_,
+                      int kw_, int M_)
+      : x(x_), Td(Td_), Hd(Hd_), Wd(Wd_), Cin(Cin_), kt(kt_), kh(kh_), kw(kw_), M(M_) {}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // the next step is K step 0 of the row tile at m0: decode its rows once
+  __device__ __forceinline__ void reset(int m0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int j = 0; j < ROWS_PER_THREAD; ++j) {
-      const int r = threadIdx.x / (BK / 8) + j * (THREADS / (BK / 8));
-      uint4 v = zero16();
-      if (vec) {
-        const int k = k0 + c_col;
-        if (rvalid[j] && k < K) {
-          const int tap = k / Cin;
-          const int ci = k - tap * Cin;
-          const int dw = tap % kw;
-          const int dh = (tap / kw) % kh;
-          const int dt = tap / (kw * kh);
-          const int ti = rt[j] + dt - pt;
-          const int hi = rh[j] + dh - ph;
-          const int wi = rw[j] + dw - pw;
-          if (ti >= 0 && ti < T && hi >= 0 && hi < H && wi >= 0 && wi < W) {
-            const size_t off = ((((size_t)rb[j] * T + ti) * H + hi) * W + wi) * Cin + ci;
-            v = *reinterpret_cast<const uint4*>(x + off);
-          }
-        }
-      } else {
-        __align__(16) bf16 tmp[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          tmp[e] = __float2bfloat16(0.f);
-          const int k = k0 + c_col + e;
-          if (!rvalid[j] || k >= K) continue;
-          const int tap = k / Cin;
-          const int ci = k - tap * Cin;
-          const int dw = tap % kw;
-          const int dh = (tap / kw) % kh;
-          const int dt = tap / (kw * kh);
-          const int ti = rt[j] + dt - pt;
-          const int hi = rh[j] + dh - ph;
-          const int wi = rw[j] + dw - pw;
-          if (ti >= 0 && ti < T && hi >= 0 && hi < H && wi >= 0 && wi < W)
-            tmp[e] = x[((((size_t)rb[j] * T + ti) * H + hi) * W + wi) * Cin + ci];
-        }
-        v = *reinterpret_cast<const uint4*>(tmp);
-      }
-      *reinterpret_cast<uint4*>(As + r * A_LD + c_col) = v;
+    for (int i = 0; i < T::A_PASSES; ++i) {
+      const int m = m0 + threadIdx.x / T::GROUPS + i * T::A_ROWS;
+      const int mm = m < M ? m : 0;
+      ww[i] = mm % Wd;
+      int q = mm / Wd;
+      hh[i] = q % Hd;
+      q /= Hd;
+      tt[i] = m < M ? q % Td : -(1 << 28);  // never inside the volume
+      row_off[i] = mm * Cin;
     }
-    load_w_tile(Bs, w, k0, n0, K, N);
-    __syncthreads();
-    mma_tile(As, Bs, wm, wn, acc);
-    __syncthreads();
+    c = dt = dh = dw = 0;
+    advance(c, dt, dh, dw, (threadIdx.x % T::GROUPS) * 8);
   }
-  store_bias_act(Cs, wm, wn, acc, bias, out, m0, n0, M, N, act);
+
+  // (c, tap) moved `by` columns along k = tap * Cin + c, taps in (dt, dh, dw)
+  // order; dt reaches kt past K
+  __device__ __forceinline__ void advance(int& c_, int& dt_, int& dh_, int& dw_, int by) const {
+    c_ += by;
+    while (c_ >= Cin) {
+      c_ -= Cin;
+      if (++dw_ == kw) {
+        dw_ = 0;
+        if (++dh_ == kh) {
+          dh_ = 0;
+          ++dt_;
+        }
+      }
+    }
+  }
+
+  template <int PATH>
+  __device__ __forceinline__ void load(bf16* As) {
+    constexpr int V = chunk_elems<PATH>();
+    const int r0 = threadIdx.x / T::GROUPS, col = (threadIdx.x % T::GROUPS) * 8;
+    int sc = c, sdt = dt, sdh = dh, sdw = dw;
+#pragma unroll
+    for (int j = 0; j < 8; j += V) {
+      if (j) advance(sc, sdt, sdh, sdw, V);
+      const bool tap_ok = sdt < kt;
+      const int ot = sdt - kt / 2, oh = sdh - kh / 2, ow = sdw - kw / 2;
+      const int shift = ((ot * Hd + oh) * Wd + ow) * Cin + sc;
+#pragma unroll
+      for (int i = 0; i < T::A_PASSES; ++i) {
+        const bool ok = tap_ok && static_cast<unsigned>(tt[i] + ot) < static_cast<unsigned>(Td) &&
+                        static_cast<unsigned>(hh[i] + oh) < static_cast<unsigned>(Hd) &&
+                        static_cast<unsigned>(ww[i] + ow) < static_cast<unsigned>(Wd);
+        copy_chunk<PATH>(As + (r0 + i * T::A_ROWS) * T::A_LD + col + j,
+                         x + (ok ? (long long)row_off[i] + shift : 0LL), x, ok);
+      }
+    }
+    advance(c, dt, dh, dw, T::BK);
+  }
+};
+
+// The 4-byte and plain-load gathers walk each chunk's own tap and do not fit
+// the 8-warp tiles' 128 registers a thread: those paths give up the tile's
+// blocks per SM rather than spill. No site of the main path takes them
+// (every SlowFast and CSN conv has Cin % 8 == 0).
+template <int CONFIG>
+__global__ void __launch_bounds__(Config<CONFIG>::Tile::THREADS,
+                                  Config<CONFIG>::PATH == PATH_CP16
+                                      ? Config<CONFIG>::Tile::MIN_BLOCKS : 1)
+fused_conv_bn_act_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                         const float* __restrict__ bias, bf16* __restrict__ out, int B, int Td,
+                         int Hd, int Wd, int Cin, int N, int kt, int kh, int kw, int act) {
+  using Cfg = Config<CONFIG>;
+  const int M = B * Td * Hd * Wd;
+  ConvRows<typename Cfg::Tile> a(x, Td, Hd, Wd, Cin, kt, kh, kw, M);
+  gemm_bias_act<Cfg, PERSISTENT>(a, w, bias, out, M, kt * kh * kw * Cin, N, act);
 }
 
 }  // namespace pva
 
-// C entry point (bound with ctypes): x (B, T, H, W, Cin) and out (B, T, H, W,
-// N) contiguous bf16, w (kt*kh*kw*Cin, N) contiguous bf16, bias (N,) f32.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// C entry points (bound with ctypes): x (B, T, H, W, Cin) and out (B, T, H,
+// W, N) contiguous bf16, w (kt*kh*kw*Cin, N) contiguous bf16, bias (N,) f32,
+// odd taps; `config` is a tile * 3 + path id of fused_gemm.cuh (ops/fused.py
+// `gemm_plan`), and the caller guarantees its path's alignment. Launches on
+// `stream`, allocates nothing, returns cudaGetLastError()
+// (cudaErrorInvalidValue for an unknown config).
 extern "C" int pva_fused_conv_bn_act(const void* x, const void* w, const void* bias, void* out,
                                      int B, int T, int H, int W, int Cin, int N, int kt, int kh,
-                                     int kw, int act, void* stream) {
-  const int M = B * T * H * W;
-  dim3 grid((M + pva::BM - 1) / pva::BM, (N + pva::BN - 1) / pva::BN);
-  pva::fused_conv_bn_act_kernel<<<grid, pva::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const pva::bf16*>(x), static_cast<const pva::bf16*>(w),
-      static_cast<const float*>(bias), static_cast<pva::bf16*>(out), B, T, H, W, Cin, N, kt, kh,
-      kw, act);
-  return static_cast<int>(cudaGetLastError());
+                                     int kw, int act, int config, void* stream) {
+  return pva::with_config(config, [&](auto id) {
+    constexpr int C = decltype(id)::value;
+    return pva::launch<pva::Config<C>, pva::PERSISTENT>(pva::fused_conv_bn_act_kernel<C>, B * T * H * W, N,
+                            static_cast<cudaStream_t>(stream),
+                            static_cast<const pva::bf16*>(x), static_cast<const pva::bf16*>(w),
+                            static_cast<const float*>(bias), static_cast<pva::bf16*>(out), B, T,
+                            H, W, Cin, N, kt, kh, kw, act);
+  });
+}
+
+// Build facts of one configuration (see fused_pw_bn_act.cu); `kernel` 1
+// names this source's kernel.
+extern "C" int pva_fused_gemm_attrs(int kernel, int config, int* out) {
+  if (kernel != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return pva::with_config(config, [&](auto id) {
+    using Cfg = pva::Config<decltype(id)::value>;
+    return pva_mma::attrs_of(pva::fused_conv_bn_act_kernel<decltype(id)::value>, Cfg::Tile::THREADS,
+                             Cfg::Tile::smem_bytes(pva::PERSISTENT), out);
+  });
 }

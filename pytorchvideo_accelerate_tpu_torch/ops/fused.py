@@ -8,6 +8,10 @@ functions, same NDHWC layout, same `mode` vocabulary:
 - `fused_conv3d_bn_act`: dense stride-1 SAME conv with odd taps + affine +
   act; on the card `csrc/fused_conv_bn_act.cu` (implicit GEMM). A (1,1,1)
   weight routes to the pointwise kernel, even taps to the plain version.
+  Both kernels run on the tile engine of `csrc/fused_gemm.cuh`; `gemm_plan`
+  picks its tile configuration and copy path per call from (M, K, N) and the
+  operands' alignment, and `gemm_attrs` reports a configuration's build
+  facts on the card.
 - `fused_depthwise_bn_act`: depthwise stride-1 SAME conv with odd taps +
   affine + act (X3D `conv_b`/`stem_t`, CSN `conv_b`); on the card
   `csrc/depthwise3d.cu` (`pva_fused_dw_bn_act`), even taps take the plain
@@ -50,6 +54,8 @@ wrappers count here too.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -201,6 +207,126 @@ def _check_operands(x, wf, bias32=None):
         raise ValueError("fused kernel operands must hold < 2**31 elements")
 
 
+# --- the GEMM kernels' tile plan (csrc/fused_gemm.cuh) ------------------------
+
+# (name, BM, BN, BK) of the tiles of csrc/fused_gemm.cuh, in the order of its
+# `TileOf` table (the rest of each tile, its warps, stages and launch bounds,
+# lives there only)
+GEMM_TILES = (
+    ("wide", 128, 128, 32),
+    ("n64", 128, 64, 32),
+    ("n32", 256, 32, 32),
+    ("n16", 256, 16, 32),
+    ("n8", 256, 8, 32),
+    ("k16", 256, 32, 16),
+    ("deep", 128, 128, 32),
+)
+# how the operands reach shared memory, by config id % 3, with the multiple
+# K and N must be of and the byte alignment every operand needs: 16-byte
+# cp.async, 4-byte cp.async, plain loads
+GEMM_PATHS = (("cp16", 8, 16), ("cp4", 2, 4), ("scalar", 1, 1))
+GEMM_CONFIGS = len(GEMM_TILES) * len(GEMM_PATHS)
+H100_SMS = 132
+DEEP_K = 1536  # K from which the plan takes the 4-warp 128 x 128 tile
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_tile(config: int):
+    """(name, BM, BN, BK) of a config id."""
+    return GEMM_TILES[config // len(GEMM_PATHS)]
+
+
+def gemm_path(config: int) -> str:
+    return GEMM_PATHS[config % len(GEMM_PATHS)][0]
+
+
+def gemm_config(tile: str, path: str) -> int:
+    """The config id (tile * 3 + path) of a tile and a path by name."""
+    names = [t[0] for t in GEMM_TILES]
+    return names.index(tile) * len(GEMM_PATHS) + [p[0] for p in GEMM_PATHS].index(path)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, k: int, n: int, sms: int = H100_SMS, align: int = 16) -> int:
+    """The config id the GEMM kernels compute out[m, n] = act(a[m, k] @
+    w[k, n] + b) with, on a card of `sms` SMs; `align` is the largest power
+    of two up to 16 that divides every operand's byte address.
+
+    - Path: 16-byte cp.async where k and n are multiples of 8 (every
+      SlowFast and CSN site), 4-byte where both are even (X3D's 54 and 108
+      channels), plain loads otherwise.
+    - Tile by n: up to 32, the narrowest of the 8-, 16- and 32-wide tiles
+      (BM 256) that covers n, with a 16-deep K step where k <= 16; the 128
+      x 64 tile up to 64; above, a 128 x 128 tile (on the H100 it beat the
+      narrower tiles even where they pad n less: 80, 96, 216 columns): 4
+      warps of 64 x 64 ("deep") from k = 1536, where the products dominate
+      and each fragment it loads feeds more of them, else 8 warps of 64 x
+      32 ("wide"), which hide the copies of a short K better. The 128 x 64
+      tile instead where a 128 x 128 grid would leave SMs without a block
+      (res5, CSN's res4/res5)."""
+    path = next(i for i, (_, mult, need) in enumerate(GEMM_PATHS)
+                if k % mult == 0 and n % mult == 0 and align % need == 0)
+    if n <= 8:
+        tile = "n8"
+    elif n <= 16:
+        tile = "n16"
+    elif n <= 32:
+        tile = "k16" if k <= 16 else "n32"
+    elif n <= 64 or _cdiv(m, 128) * _cdiv(n, 128) < sms:
+        tile = "n64"
+    else:
+        tile = "deep" if k >= DEEP_K else "wide"
+    return gemm_config(tile, GEMM_PATHS[path][0])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _align(*tensors) -> int:
+    """The largest power of two up to 16 dividing every tensor's address."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
+def _gemm_config(config, m: int, k: int, n: int, *operands) -> int:
+    """`config`, or the plan's when None, checked against the shape and the
+    operands' alignment (a forced config must suit them)."""
+    align = _align(*operands)
+    if config is None:
+        config = gemm_plan(m, k, n, _sm_count(operands[0].device.index or 0), align)
+    if not 0 <= config < GEMM_CONFIGS:
+        raise ValueError(f"GEMM config {config} is not one of fused_gemm.cuh's")
+    _, mult, need = GEMM_PATHS[config % len(GEMM_PATHS)]
+    if k % mult or n % mult or align % need:
+        raise ValueError(f"GEMM config {config} ({gemm_path(config)}) needs K and N "
+                         f"multiples of {mult} and {need}-byte aligned operands, "
+                         f"got K {k}, N {n}, alignment {align}")
+    return config
+
+
+def gemm_attrs(kernel: str, config: int) -> dict:
+    """Build facts of `kernel` ("fused_pw_bn_act" or "fused_conv_bn_act") in
+    GEMM configuration `config` on the current card: registers and local
+    memory (spill) bytes a thread, dynamic shared memory a block, resident
+    blocks per SM."""
+    from pytorchvideo_accelerate_tpu_torch.ops import _build
+
+    which = {"fused_pw_bn_act": 0, "fused_conv_bn_act": 1}[kernel]
+    out = (ctypes.c_int * 4)()
+    rc = _build.entry(f"{kernel}.attrs")(which, config, out)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} config {config} attributes: CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
+
+
 def _launch(name: str, operands, out_shape, dims, count: str):
     """Launch entry point `name` on the current stream: (*operands, out,
     *dims, stream) -> CUDA error code, the output in operands[0]'s dtype.
@@ -223,20 +349,31 @@ def _launch(name: str, operands, out_shape, dims, count: str):
     return out
 
 
-def _pw_cuda(x2d, wf, bias32, act: str, count: str = "fused_pw_bn_act"):
+def _pw_cuda(x2d, wf, bias32, act: str, count: str = "fused_pw_bn_act",
+             config=None):
+    """The pointwise kernel; `config` forces a GEMM configuration (else
+    `gemm_plan`'s)."""
     _check_operands(x2d, wf, bias32)
+    x2d, wf = x2d.contiguous(), wf.contiguous()
     m, cin = x2d.shape
     cout = wf.shape[1]
+    config = _gemm_config(config, m, cin, cout, x2d, wf)
     return _launch("fused_pw_bn_act", (x2d, wf, bias32), (m, cout),
-                   (m, cin, cout, _ACT_CODE[act]), count)
+                   (m, cin, cout, _ACT_CODE[act], config), count)
 
 
-def _conv_cuda(x, wf, bias32, act: str, count: str = "fused_conv_bn_act"):
+def _conv_cuda(x, wf, bias32, act: str, count: str = "fused_conv_bn_act",
+               config=None):
+    """The implicit-GEMM conv kernel; `config` forces a GEMM configuration
+    (else `gemm_plan`'s over M = B*T*H*W, K = taps*Cin, N = Cout)."""
     _check_operands(x, wf, bias32)
+    x, wf = x.contiguous(), wf.contiguous()
     b, t, h, w, cin = x.shape
     kt, kh, kw, _, cout = wf.shape
+    config = _gemm_config(config, b * t * h * w, kt * kh * kw * cin, cout, x, wf)
     return _launch("fused_conv_bn_act", (x, wf, bias32), (b, t, h, w, cout),
-                   (b, t, h, w, cin, cout, kt, kh, kw, _ACT_CODE[act]), count)
+                   (b, t, h, w, cin, cout, kt, kh, kw, _ACT_CODE[act], config),
+                   count)
 
 
 def _dw_cuda(x, k, bias32, act: str, count: str):

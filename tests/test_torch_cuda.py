@@ -12,7 +12,13 @@ and round once to bf16, so they differ by about one bf16 ulp plus the f32
 summation order: elementwise |kernel - plain| <= 1e-2 * (1 + |plain|). The
 backward's dx launch is held to the same bound against the plain dx on the
 same bf16 dz; dw and db are f32 contractions that the kernel path and the
-plain path compute alike (2e-3 relative). The flash attention kernels
+plain path compute alike (2e-3 relative). The GEMM engine under both
+(`csrc/fused_gemm.cuh`) is held in every tile configuration x copy path,
+forced past `gemm_plan`, forward and dx, a second launch bitwise equal;
+each configuration spills nothing and fits a block's 227 KB of shared
+memory and at least one block per SM; and a res5-shaped site (K 6144, N
+512) through the plan.
+The flash attention kernels
 (`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`) are held the
 same way: the forward's out and lse, and dq, dk, dv from the same (out,
 lse), against `flash_fwd_plain` / `flash_bwd_plain` at a ragged MViT shape
@@ -76,7 +82,7 @@ def _check(got, want):
     ((1, 2, 3, 5), 12, 10, (1, 1, 1)),     # Cin, Cout not multiples of 8
     ((2, 5, 6, 7), 8, 8, (3, 1, 1)),       # fast conv_a
     ((1, 3, 9, 10), 64, 64, (1, 3, 3)),    # conv_b
-    ((1, 5, 7, 6), 12, 20, (3, 3, 3)),     # odd taps, scalar gather path
+    ((1, 5, 7, 6), 12, 20, (3, 3, 3)),     # odd taps, 4-byte gather path
     ((1, 6, 4, 4), 32, 16, (5, 1, 1)),
 ])
 def test_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
@@ -96,7 +102,7 @@ def test_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
     ((1, 2, 3, 5), 12, 10, (1, 1, 1)),     # Cin, Cout not multiples of 8
     ((2, 5, 6, 7), 8, 8, (3, 1, 1)),       # fast conv_a: dx Cout' = 8
     ((1, 3, 9, 10), 64, 32, (1, 3, 3)),    # conv_b
-    ((1, 5, 7, 6), 12, 20, (3, 3, 3)),     # scalar gather path both ways
+    ((1, 5, 7, 6), 12, 20, (3, 3, 3)),     # 4-byte gather path both ways
 ])
 def test_backward_dx_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
     x, w, s, b = _inputs(shape, cin, cout, taps, 1, cuda)
@@ -120,6 +126,81 @@ def test_backward_dx_kernel_matches_plain(cuda, shape, cin, cout, taps, act):
     for got, want in zip(grads["pallas"][1:], grads["xla"][1:]):
         err = (got - want).abs().max().item()
         assert err <= 2e-3 * (1 + want.abs().max().item()), err
+
+
+# per copy path of the GEMM engine (csrc/fused_gemm.cuh): a pointwise (M,
+# Cin, Cout) and a conv (x spatial shape, Cin, Cout, taps) whose K and N suit
+# the path both ways (forward, and dx with K and N swapped), none a tile
+# multiple: M ragged against every BM, K ragged against BK (taps straddled
+# by a step at Cin 16 and 12), N over one 128-wide tile
+GEMM_CASES = {
+    "cp16": ((1000, 200, 136), ((2, 5, 7, 9), 16, 40, (3, 3, 3))),
+    "cp4": ((777, 54, 108), ((1, 5, 7, 6), 12, 20, (3, 3, 3))),
+    "scalar": ((333, 13, 21), ((1, 4, 5, 6), 5, 7, (3, 1, 3))),
+}
+
+
+def _gemm_launches(kernel, config, case, act, seed, device):
+    """(kernel, plain) outputs of the forward and the dx launch (the same
+    kernel on a bf16 dz against the transposed, for a conv tap-flipped,
+    weights with a zero bias) in one forced GEMM configuration."""
+    rng = np.random.default_rng(seed)
+    if kernel == "fused_pw_bn_act":
+        m, cin, cout = case
+        x, w, _, b = _inputs((m,), cin, cout, (), seed, device)
+        dz = torch.from_numpy(rng.standard_normal((m, cout), np.float32)).to(
+            device, torch.bfloat16)
+        wt, zeros = w.t().contiguous(), torch.zeros(cin, device=device)
+        return [(fused._pw_cuda(x, w, b, act, config=config),
+                 fused.pw_bn_act_plain(x, w, b, act)),
+                (fused._pw_cuda(dz, wt, zeros, "identity", config=config),
+                 fused.pw_bn_act_plain(dz, wt, zeros, "identity"))]
+    shape, cin, cout, taps = case
+    x, w, _, b = _inputs(shape, cin, cout, taps, seed, device)
+    dz = torch.from_numpy(rng.standard_normal(shape + (cout,), np.float32)).to(
+        device, torch.bfloat16)
+    wt = w.flip(0, 1, 2).transpose(3, 4).contiguous()
+    zeros = torch.zeros(cin, device=device)
+    return [(fused._conv_cuda(x, w, b, act, config=config),
+             fused.conv_bn_act_plain(x, w, b, act)),
+            (fused._conv_cuda(dz, wt, zeros, "identity", config=config),
+             fused.conv_bn_act_plain(dz, wt, zeros, "identity"))]
+
+
+@pytest.mark.parametrize("kernel", ["fused_pw_bn_act", "fused_conv_bn_act"])
+@pytest.mark.parametrize("config", range(fused.GEMM_CONFIGS))
+def test_gemm_every_config_matches_plain(cuda, config, kernel):
+    """Every tile configuration x copy path, forced through the plan, forward
+    (silu) and dx against the plain versions; a second launch bitwise
+    equal to the first (each output is one block's sum in a fixed order)."""
+    case = GEMM_CASES[fused.gemm_path(config)][kernel == "fused_conv_bn_act"]
+    first = _gemm_launches(kernel, config, case, "silu", config, cuda)
+    again = _gemm_launches(kernel, config, case, "silu", config, cuda)
+    torch.cuda.synchronize()
+    for (got, want), (got2, _) in zip(first, again):
+        _check(got, want)
+        assert torch.equal(got, got2)
+
+
+@pytest.mark.parametrize("kernel", ["fused_pw_bn_act", "fused_conv_bn_act"])
+@pytest.mark.parametrize("config", range(fused.GEMM_CONFIGS))
+def test_gemm_attributes(cuda, config, kernel):
+    """No configuration spills; each fits a block's 227 KB of shared memory
+    and at least one block per SM."""
+    attrs = fused.gemm_attrs(kernel, config)
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["smem_bytes"] <= 227 * 1024, attrs
+    assert attrs["blocks_per_sm"] >= 1, attrs
+
+
+def test_gemm_res5_site(cuda):
+    """A SlowFast res5 conv_a shape ((3,1,1), Cin 2048 -> 512: K = 6144, N =
+    512) at a small M through the plan, forward and dx (K 1536, N 2048)."""
+    launches = _gemm_launches("fused_conv_bn_act", None,
+                              ((1, 4, 7, 7), 2048, 512, (3, 1, 1)), "relu", 11, cuda)
+    torch.cuda.synchronize()
+    for got, want in launches:
+        _check(got, want)
 
 
 DW_CASES = [
