@@ -12,7 +12,10 @@ Drives the port only (no JAX), one JSON line per phase:
             gemm_build: ptxas's registers and spills and the runtime's
             attributes of both GEMM kernels in every tile configuration
             (`fused.gemm_attrs`): no spills, at most 227 KB of shared
-            memory, at least one block per SM
+            memory, at least one block per SM; dw_build: the same for the
+            depthwise kernel in every configuration x tap instantiation
+            ((3,3,3), (5,1,1), generic; `fused.dw_attrs`), each holding the
+            blocks per SM its plan counts on
 3. weights  seeded SlowFast-R50 weights (K700 head), BN running stats
             calibrated to the real batch statistics, head classes 0-4
             planted on the 5 request clips (`plant_head`), written as an
@@ -51,10 +54,15 @@ Drives the port only (no JAX), one JSON line per phase:
             entry points, forward and dx, at every distinct depthwise site
             shape of those two forwards: `fused_dw_bn_act` against
             `dw_bn_act_plain`, `depthwise3d_s1` against
-            `depthwise_conv3d_shift`; library: one bf16 `F.conv3d(groups=C)`
-            (+ bias + act) and `conv3d_input(groups=C)`; then the pointwise
-            kernel, forward and dx, at X3D-M's 53 sites (widths 54 and 108
-            take its 4-byte copy path) and CSN-R101's 67, and their sums
+            `depthwise_conv3d_shift`, two launches bitwise equal; library:
+            one bf16 `F.conv3d(groups=C)` (+ bias + act) and
+            `conv3d_input(groups=C)`; each row with the configuration and T
+            chunk `dw_plan` chose, its attributes, GB/s and the bound's share
+            of the kernel's time; x3d_dw_dk: the plain tap gradient
+            (`depthwise_tap_grads_f32`) summed over one X3D-M micro-step; then
+            the pointwise kernel, forward and dx, at X3D-M's 53 sites (widths
+            54 and 108 take its 4-byte copy path) and CSN-R101's 67, and the
+            sums of both kernels' rows
 13. x3d_serve  `build_server` serves the X3D-M artifact to 5 /predict
             requests with `{"video": ...}` under `fused_kernels auto`: 53
             pointwise and 23 depthwise launches per forward
@@ -80,7 +88,9 @@ Drives the port only (no JAX), one JSON line per phase:
             (16 frames at 224^2, a residual branch's last projection x0.1,
             head planted on 5 request clips), the `attention dense` engine
             on the same weights, and the attention sites of its bucket-8
-            forward (and of one VideoMAE-B pretraining forward, B=8)
+            forward (and of one VideoMAE-B pretraining forward, B=8); the
+            depthwise rows of `depthwise3d_s1` and its dx at MViT-B's 4
+            stride-1 K/V pools, and their sums
 19. kernels (attention)  the flash kernels (`csrc/flash_attention.cu`,
             `csrc/flash_attention_bwd.cu`) at every distinct site shape:
             forward (out and lse) against `flash_fwd_plain`, dq and dk/dv
@@ -758,6 +768,7 @@ def _kernel_row(torch, kname, model, names, x_shape, w_shape, act, kern,
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "flop_ms": t_ops, "byte_ms": t_bytes,
            "tflops": flops / kernel_ms / 1e9, "gbps": nbytes / kernel_ms / 1e6,
+           "bound_share": max(t_ops, t_bytes) / kernel_ms,
            "library_ratio": kernel_ms / library_ms,
            "named": [NAMED_SITES[n] for n in names if n in NAMED_SITES],
            **(facts or {})}
@@ -809,24 +820,26 @@ def host_us(fn, reps: int = 2000) -> float:
 
 def kernel_sums(rows) -> dict:
     """{model: {kernel: ms, library_ms, plain_ms, bound_ms summed over the
-    model's launches, and their ratio}} of the GEMM kernels' rows, with
-    `plan_host_ms`: the host time the wrappers' plan lookup and checks
-    (`fused._gemm_config` on contiguous operands) add over those launches."""
+    model's launches, and their ratio}} of the GEMM and depthwise kernels'
+    rows, the GEMM rows with `plan_host_ms`: the host time the wrappers'
+    plan lookup and checks (`fused._gemm_config` on contiguous operands) add
+    over those launches."""
     out = {}
     for r in rows:
-        if not r["kernel"].startswith(("fused_pw_bn_act", "fused_conv_bn_act")):
+        if r["kernel"].startswith("flash_attention"):
             continue
         d = out.setdefault(r["model"], {}).setdefault(
             r["kernel"], {"launches": 0, "ms": 0.0, "library_ms": 0.0,
                           "plain_ms": 0.0, "bound_ms": 0.0, "plan_host_ms": 0.0})
         d["launches"] += r["per_forward"]
-        d["plan_host_ms"] += r["plan_host_us"] * r["per_forward"] / 1e3
+        d["plan_host_ms"] += r.get("plan_host_us", 0.0) * r["per_forward"] / 1e3
         for key, field in (("ms", "kernel_ms"), ("library_ms", "library_ms"),
                            ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms")):
             d[key] += r[field] * r["per_forward"]
     for kernels in out.values():
         for d in kernels.values():
             d["library_ratio"] = d["ms"] / d["library_ms"]
+            d["bound_share"] = d["bound_ms"] / d["ms"]
     return out
 
 
@@ -908,74 +921,182 @@ def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
     return rows
 
 
-def dw_kernel_phase(torch, model: str, sites, reps: int = DW_REPS):
-    """The depthwise kernel at every distinct depthwise site shape of
-    `model`'s forward (`record_dw_sites`), through both entry points,
-    forward and the backward's dx (the stencil against the tap-flipped taps
-    on a bf16 dz), each held against its plain version and timed beside
-    its library call (one bf16 cuDNN `F.conv3d(groups=C)`, + bias + act for
-    `fused_dw_bn_act`; `conv3d_input(groups=C)` for dx)."""
+def dw_facts(x_shape, k_shape) -> dict:
+    """The depthwise configuration and T chunk `dw_plan` picks for a site on
+    this card, and the build facts of the kernel it runs there."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    b, t, h, w, c = x_shape
+    taps = tuple(k_shape[:3])
+    config, tchunk = fused.dw_plan(b, t, h, w, c, *taps, fused._sm_count(0))
+    return {"config": config, "tile": fused.dw_tile(config)[0],
+            "path": fused.dw_path(config), "tchunk": tchunk,
+            "blocks": fused.dw_grid(b, t, h, w, c, config, tchunk),
+            "attrs": fused.dw_attrs(config, taps)}
+
+
+# taps each depthwise instantiation is reported at: the two fixed ones and
+# the generic one (any other odd taps)
+DW_BUILD_TAPS = ((3, 3, 3), (5, 1, 1), (3, 5, 5))
+
+
+def dw_build_facts() -> dict:
+    """ptxas's registers and spills and the runtime's attributes of the
+    depthwise kernel that each configuration runs for each of
+    `DW_BUILD_TAPS`, ptxas's line found by the template arguments in the
+    mangled name (`dw_kernelILi<config>ELi<kt>ELi<kh>ELi<kw>EE`, the taps
+    `dw_attrs` says it is compiled for, 0 for the generic ones). Each must
+    have its ptxas report, spill nothing, fit a block's 227 KB of shared
+    memory and, with fixed-size taps, hold the blocks per SM its plan counts
+    on."""
+    from pytorchvideo_accelerate_tpu_torch.ops import _build, fused
+
+    report = ptxas_report(_build.build_logs.get("depthwise3d", ""))
+    out = {}
+    for config in range(fused.DW_CONFIGS):
+        for taps in DW_BUILD_TAPS:
+            attrs = fused.dw_attrs(config, taps)
+            compiled = attrs["compiled_taps"]
+            tag = "dw_kernelILi{}ELi{}ELi{}ELi{}EE".format(config, *compiled)
+            ptx = [v for k, v in report.items() if tag in k]
+            check(len(ptx) == 1, f"depthwise config {config} taps {compiled}: "
+                  f"{len(ptx)} ptxas reports")
+            facts = {"ptxas": ptx[0], "tile": fused.dw_tile(config)[0],
+                     "path": fused.dw_path(config), "taps": taps, "attrs": attrs}
+            check(ptx[0].get("spill_stores", 0) + attrs["local_bytes"] == 0
+                  and 0 < attrs["smem_bytes"] <= 227 * 1024
+                  and attrs["blocks_per_sm"] >= (fused.dw_tile(config)[4]
+                                                 if taps != (3, 5, 5) else 1),
+                  f"depthwise config {config} taps {taps}: {facts}")
+            out["{}/{}{}{}".format(config, *taps)] = facts
+    return out
+
+
+def dw_rows(torch, model: str, x_shape, k_shape, fused_keys, names, rng,
+            reps: int = DW_REPS):
+    """The depthwise kernel's rows at one site shape: `fused_dw_bn_act` for
+    each act of `fused_keys` ({act: site names}; none for MViT-B's pools) and
+    its dx, `depthwise3d_s1` and its dx, each held against its plain version,
+    two launches bitwise equal, timed beside its library call (one bf16
+    cuDNN `F.conv3d(groups=C)`, + bias + act for `fused_dw_bn_act`;
+    `conv3d_input(groups=C)` for dx), with the plan's configuration, GB/s of
+    the bound bytes and the bound's share of the kernel's time."""
     import torch.nn.functional as F
 
     from pytorchvideo_accelerate_tpu_torch.ops import depthwise, fused
 
+    b, t, h, w, c = x_shape
+    kt, kh, kw = k_shape[:3]
+    x = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
+    k = torch.from_numpy(rng.standard_normal(k_shape, np.float32)
+                         / np.sqrt(kt * kh * kw)).cuda().bfloat16()
+    bias = torch.from_numpy(rng.standard_normal(c, np.float32) * 0.1).cuda()
+    dz = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
+    kflip, zeros, bias16 = k.flip(0, 1, 2).contiguous(), torch.zeros(c, device="cuda"), bias.bfloat16()
+    xc, dzc = x.permute(0, 4, 1, 2, 3), dz.permute(0, 4, 1, 2, 3)
+    kc = k.permute(4, 3, 0, 1, 2).contiguous()
+    pads = (kt // 2, kh // 2, kw // 2)
+    facts = dw_facts(x_shape, k_shape)
+
+    def dx_library():
+        return torch.nn.grad.conv3d_input((b, c, t, h, w), kc, dzc,
+                                          padding=pads, groups=c)
+
+    def row(kname, sites, act, kern, plain, library, has_bias):
+        return _kernel_row(torch, kname, model, sites, x_shape, k_shape, act, kern, plain,
+                           library, dw_site_bound(x_shape, k_shape, has_bias), reps, facts)
+
+    rows = []
+    for act, sites in fused_keys.items():
+        rows.append(row(
+            "fused_dw_bn_act", sites, act,
+            lambda: fused._dw_cuda(x, k, bias, act, "fused_dw_bn_act"),
+            lambda: fused.dw_bn_act_plain(x, k, bias, act),
+            lambda: act_(F.conv3d(xc, kc, bias16, padding=pads, groups=c), act), True))
+    if fused_keys:
+        rows.append(row(
+            "fused_dw_bn_act.bwd_dx", names, "identity",
+            lambda: fused._dw_cuda(dz, kflip, zeros, "identity", "fused_dw_bn_act.bwd_dx"),
+            lambda: fused.dw_bn_act_plain(dz, kflip, zeros, "identity"),
+            dx_library, True))
+    rows.append(row(
+        "depthwise3d_s1", names, "identity",
+        lambda: fused._dw_cuda(x, k, None, "identity", "depthwise3d_s1"),
+        lambda: depthwise.depthwise_conv3d_shift(x, k),
+        lambda: F.conv3d(xc, kc, None, padding=pads, groups=c), False))
+    rows.append(row(
+        "depthwise3d_s1.bwd_dx", names, "identity",
+        lambda: fused._dw_cuda(dz, kflip, None, "identity", "depthwise3d_s1.bwd_dx"),
+        lambda: depthwise.depthwise_conv3d_shift(dz, kflip),
+        dx_library, False))
+    del x, k, dz, kflip, xc, dzc, kc
+    free_cuda(torch)
+    return rows
+
+
+def dw_kernel_phase(torch, model: str, sites, reps: int = DW_REPS):
+    """The depthwise kernel at every distinct depthwise site shape of
+    `model`'s forward (`record_dw_sites`), through both entry points,
+    forward and the backward's dx (the stencil against the tap-flipped taps
+    on a bf16 dz): `dw_rows`."""
     rng = np.random.default_rng(SEED + 5)
     fused_keys, s1_keys = {}, {}
     for i, (x_shape, k_shape, act) in enumerate(sites):
         name = f"{model} dw site {i}"
-        fused_keys.setdefault((x_shape, k_shape, act), []).append(name)
+        fused_keys.setdefault((x_shape, k_shape), {}).setdefault(act, []).append(name)
         s1_keys.setdefault((x_shape, k_shape), []).append(name)
     rows = []
     for (x_shape, k_shape), names in s1_keys.items():
-        b, t, h, w, c = x_shape
-        kt, kh, kw = k_shape[:3]
-        x = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
-        k = torch.from_numpy(rng.standard_normal(k_shape, np.float32)
-                             / np.sqrt(kt * kh * kw)).cuda().bfloat16()
-        bias = torch.from_numpy(rng.standard_normal(c, np.float32) * 0.1).cuda()
-        dz = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
-        kflip, zeros, bias16 = k.flip(0, 1, 2).contiguous(), torch.zeros(c, device="cuda"), bias.bfloat16()
-        xc, dzc = x.permute(0, 4, 1, 2, 3), dz.permute(0, 4, 1, 2, 3)
-        kc = k.permute(4, 3, 0, 1, 2).contiguous()
-        pads = (kt // 2, kh // 2, kw // 2)
-
-        def dx_library():
-            return torch.nn.grad.conv3d_input((b, c, t, h, w), kc, dzc,
-                                              padding=pads, groups=c)
-
-        for key in [kk for kk in fused_keys if kk[:2] == (x_shape, k_shape)]:
-            act = key[2]
-            rows.append(_kernel_row(
-                torch, "fused_dw_bn_act", model, fused_keys[key], x_shape, k_shape, act,
-                lambda: fused._dw_cuda(x, k, bias, act, "fused_dw_bn_act"),
-                lambda: fused.dw_bn_act_plain(x, k, bias, act),
-                lambda: act_(F.conv3d(xc, kc, bias16, padding=pads, groups=c), act),
-                dw_site_bound(x_shape, k_shape, True), reps))
-        rows.append(_kernel_row(
-            torch, "fused_dw_bn_act.bwd_dx", model, names, x_shape, k_shape, "identity",
-            lambda: fused._dw_cuda(dz, kflip, zeros, "identity", "fused_dw_bn_act.bwd_dx"),
-            lambda: fused.dw_bn_act_plain(dz, kflip, zeros, "identity"),
-            dx_library, dw_site_bound(x_shape, k_shape, True), reps))
-        rows.append(_kernel_row(
-            torch, "depthwise3d_s1", model, names, x_shape, k_shape, "identity",
-            lambda: fused._dw_cuda(x, k, None, "identity", "depthwise3d_s1"),
-            lambda: depthwise.depthwise_conv3d_shift(x, k),
-            lambda: F.conv3d(xc, kc, None, padding=pads, groups=c),
-            dw_site_bound(x_shape, k_shape, False), reps))
-        rows.append(_kernel_row(
-            torch, "depthwise3d_s1.bwd_dx", model, names, x_shape, k_shape, "identity",
-            lambda: fused._dw_cuda(dz, kflip, None, "identity", "depthwise3d_s1.bwd_dx"),
-            lambda: depthwise.depthwise_conv3d_shift(dz, kflip),
-            dx_library, dw_site_bound(x_shape, k_shape, False), reps))
-        del x, k, dz, kflip, xc, dzc, kc
-        free_cuda(torch)
+        rows += dw_rows(torch, model, x_shape, k_shape, fused_keys[(x_shape, k_shape)],
+                        names, rng, reps)
     return rows
+
+
+def dw_pool_phase(torch, pool_sites, reps: int = DW_REPS):
+    """Row 4 and its dx at MViT-B's stride-1 pools (`record_pool_sites`),
+    (3,3,3) taps over (B, T, H, W, C) token grids: `dw_rows` without the
+    fused entry point."""
+    rng = np.random.default_rng(SEED + 6)
+    keys = {}
+    for i, (shape, stride) in enumerate(pool_sites):
+        if stride == (1, 1, 1):
+            b, c, t, h, w = shape
+            keys.setdefault((b, t, h, w, c), []).append(f"mvit_b pool {i}")
+    check(sum(len(v) for v in keys.values()) == expected_mvit_launches()["depthwise3d_s1"],
+          f"MViT-B stride-1 pools {keys}")
+    rows = []
+    for x_shape, names in keys.items():
+        rows += dw_rows(torch, "mvit_b", x_shape, (3, 3, 3, 1, x_shape[-1]), {}, names,
+                        rng, reps)
+    return rows
+
+
+def dw_dk_ms(torch, sites, reps: int = DW_REPS) -> dict:
+    """Device time of the plain tap gradient (`depthwise_tap_grads_f32` on
+    bf16 x and f32 dz, as `DwBnAct.backward` runs it) summed over the
+    depthwise sites of one micro-step (`sites` of `record_dw_sites`)."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    rng = np.random.default_rng(SEED + 7)
+    total, per_shape = 0.0, {}
+    for x_shape, k_shape, _ in sites:
+        key = (x_shape, tuple(k_shape[:3]))
+        if key not in per_shape:
+            x = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda().bfloat16()
+            dz32 = torch.from_numpy(rng.standard_normal(x_shape, np.float32)).cuda()
+            per_shape[key] = device_ms(
+                torch, lambda: fused.depthwise_tap_grads_f32(x, dz32, key[1]), reps)
+            del x, dz32
+            free_cuda(torch)
+        total += per_shape[key]
+    return {"dk_plain_ms": total, "sites": len(sites),
+            "per_shape_ms": {f"{list(k[0])} {list(k[1])}": v for k, v in per_shape.items()}}
 
 
 KERNEL_CLASSES = (  # (class, substrings of the device kernel's name)
     ("fused_pw_bn_act", ("fused_pw_bn_act",)),
     ("fused_conv_bn_act", ("fused_conv_bn_act",)),
-    ("depthwise3d", ("depthwise3d",)),
+    ("depthwise3d", ("depthwise3d", "dw_kernel")),
     ("flash_attention", ("flash_",)),
     ("memcpy", ("memcpy", "Memcpy")),
     # cuDNN's convolutions first: their names hold "gemm" too
@@ -1622,6 +1743,7 @@ def main() -> int:
     emit("build", seconds=seconds, total_s=time.perf_counter() - t0,
          ptxas=regs)
     emit("gemm_build", **gemm_build_facts())
+    emit("dw_build", **dw_build_facts())
 
     with tempfile.TemporaryDirectory(prefix="pva_chip_smoke_") as work:
         return run(torch, work, smi, kind)
@@ -1760,6 +1882,7 @@ def depthwise_phases(torch, work: str, launches: dict):
     t0 = time.perf_counter()
     rows = dw_kernel_phase(torch, "x3d_m", x_dw_sites)
     rows += dw_kernel_phase(torch, "csn_r101", c_dw_sites)
+    emit("x3d_dw_dk", **dw_dk_ms(torch, x_dw_sites))
     rows += kernel_phase(torch, pw_sites, "x3d_m", DW_REPS)
     rows += kernel_phase(torch, c_pw_sites, "csn_r101", DW_REPS)
     emit("kernel_sums", **kernel_sums(rows))
@@ -2170,6 +2293,8 @@ def attention_phases(torch, work: str, launches: dict):
     m_art, _, m_clips, _, m_batch, m_plain, m_sites, m_logits = transformer_weights(
         torch, work, "mvit_b", rng)
     pool_sites = record_pool_sites(torch, m_plain.model, lambda: m_plain.predict(m_batch))
+    rows = dw_pool_phase(torch, pool_sites)
+    emit("kernel_sums", **kernel_sums(rows))
     v_art, _, v_clips, _, v_batch, v_plain, v_sites, v_logits = transformer_weights(
         torch, work, "videomae_b", rng)
     mae_x = torch.from_numpy(train_clips(np.random.default_rng(SEED + 31), MAE_TRAIN,
@@ -2185,7 +2310,7 @@ def attention_phases(torch, work: str, launches: dict):
 
     # 19. the flash kernels at every distinct site shape
     t0 = time.perf_counter()
-    rows = attn_kernel_phase(torch, "mvit_b", m_sites)
+    rows += attn_kernel_phase(torch, "mvit_b", m_sites)
     rows += attn_kernel_phase(torch, "videomae_b", v_sites)
     rows += attn_kernel_phase(torch, "videomae_b_pretrain", mae_sites)
     emit("attention_kernels_seconds", seconds=time.perf_counter() - t0)

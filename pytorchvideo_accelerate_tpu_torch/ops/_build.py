@@ -45,10 +45,16 @@ _SIGNATURES = {
                               [_I, _I, _P]),
     "fused_conv_bn_act.attrs": ("fused_conv_bn_act", "pva_fused_gemm_attrs",
                                 [_I, _I, _P]),
+    # (x, k, [bias,] out, B T H W C kt kh kw, [act,] config, T chunk, stream)
     "fused_dw_bn_act": ("depthwise3d", "pva_fused_dw_bn_act",
-                        [_P, _P, _P, _P] + [_I] * 9 + [_P]),
+                        [_P, _P, _P, _P] + [_I] * 11 + [_P]),
     "depthwise3d_s1": ("depthwise3d", "pva_depthwise3d_s1",
-                       [_P, _P, _P] + [_I] * 8 + [_P]),
+                       [_P, _P, _P] + [_I] * 10 + [_P]),
+    # (config, kt, kh, kw, int[5] out): registers, local bytes, dynamic
+    # shared memory, blocks per SM and compiled taps of the kernel such a
+    # launch runs
+    "depthwise3d.attrs": ("depthwise3d", "pva_depthwise3d_attrs",
+                          [_I] * 4 + [_P]),
     # (pointers, B H Nq Nk D [splits], (b, n, h) strides of q k v [dO],
     # scale, stream)
     "flash_attention": ("flash_attention", "pva_flash_fwd",

@@ -17,7 +17,9 @@ functions, same NDHWC layout, same `mode` vocabulary:
   `csrc/depthwise3d.cu` (`pva_fused_dw_bn_act`), even taps take the plain
   version. The same source's `pva_depthwise3d_s1` (no bias, no act) serves
   `ops/depthwise.py`, whose plain tap sum lives here too
-  (`depthwise_taps_f32`).
+  (`depthwise_taps_f32`). `dw_plan` picks the stencil's tile, copy path
+  and T chunk per call, and `dw_attrs` reports a configuration's build
+  facts on the card.
 
 Norm-affine contract: callers pass the resolved per-channel (scale, bias).
 The scale folds into the weights in f32 and the folded weight is rounded to
@@ -376,22 +378,137 @@ def _conv_cuda(x, wf, bias32, act: str, count: str = "fused_conv_bn_act",
                    count)
 
 
-def _dw_cuda(x, k, bias32, act: str, count: str):
+# --- the depthwise stencil's plan (csrc/depthwise3d.cu) -----------------------
+
+# (name, CC, HB, WB, blocks per SM) of the tiles of csrc/depthwise3d.cu, in
+# the order of its `DwTileOf` table: channels, output rows and columns of a
+# block, and the blocks an SM holds (its launch bounds). The rest of each
+# tile, its register strips and planes in flight, lives there only.
+DW_TILES = (
+    ("h7", 64, 7, 7, 2),
+    ("n24", 24, 8, 14, 3),
+)
+# how the input planes reach shared memory, by config id % 4, with the
+# multiple C must be of and the byte alignment x needs: 16-, 8- and 4-byte
+# cp.async, plain loads
+DW_PATHS = (("cp16", 8, 16), ("cp8", 4, 8), ("cp4", 2, 4), ("plain", 1, 1))
+DW_CONFIGS = len(DW_TILES) * len(DW_PATHS)
+# the plan's cost of copying one T-halo plane, in planes of products
+DW_HALO_COST = 0.5
+
+
+def dw_tile(config: int):
+    """(name, CC, HB, WB, blocks per SM) of a depthwise config id."""
+    return DW_TILES[config // len(DW_PATHS)]
+
+
+def dw_path(config: int) -> str:
+    return DW_PATHS[config % len(DW_PATHS)][0]
+
+
+def dw_config(tile: str, path: str) -> int:
+    """The config id (tile * 4 + path) of a tile and a path by name."""
+    names = [t[0] for t in DW_TILES]
+    return names.index(tile) * len(DW_PATHS) + [p[0] for p in DW_PATHS].index(path)
+
+
+def dw_grid(b: int, t: int, h: int, w: int, c: int, config: int, tchunk: int) -> int:
+    """Blocks of a launch: T chunks x W tiles x H tiles x channel chunks x B
+    (the kernel decodes blockIdx in that order, T chunk fastest)."""
+    _, cc, hb, wb, _ = dw_tile(config)
+    return _cdiv(t, tchunk) * _cdiv(w, wb) * _cdiv(h, hb) * _cdiv(c, cc) * b
+
+
+def dw_tchunk(b: int, t: int, h: int, w: int, c: int, kt: int, config: int,
+              sms: int = H100_SMS) -> int:
+    """The output planes a block walks in `config`: of the chunks that give
+    at least two blocks per SM (all of T where B x tiles already do), the one
+    that costs least as waves of resident blocks x (planes of products + the
+    T halo's kt - 1 copies at DW_HALO_COST each); 1 where none does."""
+    resident = sms * dw_tile(config)[4]
+
+    def cost(n):
+        waves = _cdiv(dw_grid(b, t, h, w, c, config, n), resident)
+        return waves * (n + DW_HALO_COST * (kt - 1)), -n
+
+    enough = [n for n in range(1, t + 1)
+              if dw_grid(b, t, h, w, c, config, n) >= 2 * sms]
+    return min(enough, key=cost) if enough else 1
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(b: int, t: int, h: int, w: int, c: int, kt: int, kh: int, kw: int,
+            sms: int = H100_SMS, align: int = 16):
+    """(config id, T chunk) the depthwise stencil runs x (b, t, h, w, c) with
+    odd (kt, kh, kw) taps in, on a card of `sms` SMs; `align` is the largest
+    power of two up to 16 dividing x's byte address.
+
+    - Path: 16-byte cp.async where C % 8 == 0 (X3D's 24, 216, 432, every CSN
+      and MViT width), 8-byte where C % 4 == 0 (108), 4-byte where C is even
+      (54), plain loads otherwise.
+    - Tile: n24 for C <= 24 (X3D's stem), h7 otherwise (7 x 7 outputs: every
+      site's H and W is a multiple of 7).
+    - T chunk: `dw_tchunk`. kh and kw choose nothing: the kernel sizes each
+      plane's halo from them at launch."""
+    path = next(i for i, (_, mult, need) in enumerate(DW_PATHS)
+                if c % mult == 0 and align % need == 0)
+    tile = "n24" if c <= 24 else "h7"
+    config = dw_config(tile, DW_PATHS[path][0])
+    return config, dw_tchunk(b, t, h, w, c, kt, config, sms)
+
+
+def dw_attrs(config: int, taps) -> dict:
+    """Build facts of the depthwise kernel that a launch in `config` with
+    `taps` (kt, kh, kw) runs, on the current card: registers and local
+    memory (spill) bytes a thread, dynamic shared memory a block, resident
+    blocks per SM, and the taps it is compiled for ((0, 0, 0): generic)."""
+    from pytorchvideo_accelerate_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 5)()
+    rc = _build.entry("depthwise3d.attrs")(config, *taps, out)
+    if rc != 0:
+        raise RuntimeError(f"depthwise config {config} taps {taps} attributes: CUDA error {rc}")
+    facts = dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), out))
+    facts["compiled_taps"] = (out[4] // 100, out[4] // 10 % 10, out[4] % 10)
+    return facts
+
+
+def _dw_cuda(x, k, bias32, act: str, count: str, config=None, tchunk=None):
     """The depthwise stencil (csrc/depthwise3d.cu) on NDHWC x and
     (kt,kh,kw,1,C) odd taps: `fused_dw_bn_act` with the f32 bias and act, or
-    `depthwise3d_s1` (no bias, no act) when `bias32` is None."""
+    `depthwise3d_s1` (no bias, no act) when `bias32` is None. `config` and
+    `tchunk` force a configuration and T chunk (else `dw_plan`'s; a forced
+    config alone takes `dw_tchunk`'s)."""
     _check_operands(x, k, bias32)
+    x = x.contiguous()
     b, t, h, w, c = x.shape
     kt, kh, kw, one, kc = k.shape
     if one != 1 or kc != c or not all(d % 2 for d in (kt, kh, kw)):
         raise ValueError(f"depthwise kernel takes odd (kt,kh,kw,1,C) taps for "
                          f"x {tuple(x.shape)}, got {tuple(k.shape)}")
+    align = _align(x)
+    sms = _sm_count(x.device.index or 0)
+    if config is None:
+        config, planned = dw_plan(b, t, h, w, c, kt, kh, kw, sms, align)
+    elif not 0 <= config < DW_CONFIGS:
+        raise ValueError(f"depthwise config {config} is not one of depthwise3d.cu's")
+    else:
+        planned = dw_tchunk(b, t, h, w, c, kt, config, sms)
+    _, mult, need = DW_PATHS[config % len(DW_PATHS)]
+    if c % mult or align % need:
+        raise ValueError(f"depthwise config {config} ({dw_path(config)}) needs C a "
+                         f"multiple of {mult} and x {need}-byte aligned, got C {c}, "
+                         f"alignment {align}")
+    tchunk = planned if tchunk is None else tchunk
+    if tchunk < 1:
+        raise ValueError(f"depthwise T chunk must be >= 1, got {tchunk}")
     k2d = k.reshape(kt * kh * kw, c)
     dims = (b, t, h, w, c, kt, kh, kw)
+    plan = (config, tchunk)
     if bias32 is None:
-        return _launch("depthwise3d_s1", (x, k2d), x.shape, dims, count)
+        return _launch("depthwise3d_s1", (x, k2d), x.shape, dims + plan, count)
     return _launch("fused_dw_bn_act", (x, k2d, bias32), x.shape,
-                   dims + (_ACT_CODE[act],), count)
+                   dims + (_ACT_CODE[act],) + plan, count)
 
 
 # --- custom autograd (the JAX package's _pw_pallas / _conv_pallas VJPs) -----

@@ -30,7 +30,11 @@ blocks on an SM. The depthwise kernel
 (`csrc/depthwise3d.cu`) is held the same way through both of its entry
 points: `fused_depthwise_bn_act` (forward and the `DwBnAct` dx; its dk
 and dscale, which pass through bf16-rounded folded taps, within one bf16
-ulp, 1e-2 relative) and `Depthwise3dS1` (forward and dx). A tiny3d and a
+ulp, 1e-2 relative) and `Depthwise3dS1` (forward and dx); in every tile x
+copy path forced past `dw_plan`, with both fixed tap instantiations and
+the generic one, at T chunks of 1, 2, all of T and the plan's, a second
+launch bitwise equal; no configuration spills; launch counts through both
+autograd Functions. A tiny3d and a
 tiny X3D training micro-step through the kernels against the plain
 lowering (`xla`, TF32 off): loss within 5e-2 * (1 + |loss|), the whole
 gradient within 5e-2 relative (every layer rounds to bf16 in another
@@ -279,6 +283,84 @@ def test_depthwise3d_s1_kernel_matches_plain(cuda, shape, c, taps):
     for got, want in zip(out[True][:2], out[False][:2]):
         _check(got, want)
     torch.testing.assert_close(out[True][2], out[False][2], rtol=2e-2, atol=2e-2)
+
+
+# a small twin of each depthwise site class per copy path, (shape, C): the
+# X3D stem's C 24 (the n24 tile), CSN's 64 and X3D's 432 (seven channel
+# chunks, the last ragged), 108 and 54 (the 8- and 4-byte paths), an odd C
+# (plain loads); H 16, 14 and 7 against the tiles' 8 and 7 rows, ragged W
+DW_SITE_TWINS = {
+    "cp16": [((2, 6, 16, 28), 24), ((2, 5, 14, 14), 64), ((1, 4, 7, 7), 432)],
+    "cp8": [((2, 5, 14, 15), 108)],
+    "cp4": [((2, 4, 14, 11), 54)],
+    "plain": [((1, 3, 7, 9), 5)],
+}
+DW_TAP_VARIANTS = [(3, 3, 3), (5, 1, 1), (3, 5, 5)]
+
+
+def _dw_launches(x, k, b, act, config, tchunk):
+    """Forward (bias + act) and dx (the tap-flipped taps, no bias) through
+    both entry points, in a forced configuration and T chunk."""
+    kflip, c = k.flip(0, 1, 2).contiguous(), x.shape[-1]
+    zeros = torch.zeros(c, device=x.device)
+    return [
+        (fused._dw_cuda(x, k, b, act, "fused_dw_bn_act", config, tchunk),
+         fused.dw_bn_act_plain(x, k, b, act)),
+        (fused._dw_cuda(x, kflip, zeros, "identity", "fused_dw_bn_act.bwd_dx", config, tchunk),
+         fused.dw_bn_act_plain(x, kflip, zeros, "identity")),
+        (fused._dw_cuda(x, k, None, "identity", "depthwise3d_s1", config, tchunk),
+         depthwise.depthwise_conv3d_shift(x, k)),
+    ]
+
+
+@pytest.mark.parametrize("taps", DW_TAP_VARIANTS)
+@pytest.mark.parametrize("config", range(fused.DW_CONFIGS))
+def test_dw_every_config_matches_plain(cuda, config, taps):
+    """Every depthwise tile x copy path, forced past `dw_plan`, with the two
+    fixed tap instantiations and the generic one, at the site twins of its
+    path, at T chunks of 1, 2, all of T and the plan's: forward (silu), dx
+    and the unfused entry point against the plain versions, a second launch
+    bitwise equal to the first."""
+    for shape, c in DW_SITE_TWINS[fused.dw_path(config)]:
+        x, k, _, b = _dw_inputs(shape, c, taps, config, cuda)
+        for tchunk in (1, 2, shape[1], None):
+            first = _dw_launches(x, k, b, "silu", config, tchunk)
+            again = _dw_launches(x, k, b, "silu", config, tchunk)
+            torch.cuda.synchronize()
+            for (got, want), (got2, _) in zip(first, again):
+                _check(got, want)
+                assert torch.equal(got, got2), (shape, c, tchunk)
+
+
+@pytest.mark.parametrize("taps", DW_TAP_VARIANTS)
+@pytest.mark.parametrize("config", range(fused.DW_CONFIGS))
+def test_dw_attributes(cuda, config, taps):
+    """No depthwise configuration spills in any tap instantiation; each fits
+    a block's 227 KB of shared memory and, with fixed taps, the blocks per
+    SM `dw_plan` counts on."""
+    attrs = fused.dw_attrs(config, taps)
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["smem_bytes"] <= 227 * 1024, attrs
+    assert attrs["blocks_per_sm"] >= (fused.dw_tile(config)[4] if taps != (3, 5, 5) else 1), attrs
+
+
+@pytest.mark.parametrize("act", ["identity", "silu"])
+def test_dw_autograd_launch_counts(cuda, act):
+    """`DwBnAct`: one forward launch, one more to recompute z for a non-identity
+    act, one dx launch; `Depthwise3dS1`: one forward, one dx."""
+    x, k, s, b = _dw_inputs((2, 4, 14, 14), 64, (3, 3, 3), 11, cuda)
+    xr = x.clone().requires_grad_()
+    before = dict(fused.LAUNCHES)
+    fused.fused_depthwise_bn_act(xr, k, s, b, act=act, mode="pallas").float().sum().backward()
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["fused_dw_bn_act"] - before["fused_dw_bn_act"] == 1 + (act != "identity")
+    assert fused.LAUNCHES["fused_dw_bn_act.bwd_dx"] - before["fused_dw_bn_act.bwd_dx"] == 1
+    xr = x.clone().requires_grad_()
+    before = dict(fused.LAUNCHES)
+    depthwise.Depthwise3dS1.apply(xr, k, True).float().sum().backward()
+    torch.cuda.synchronize()
+    for key in ("depthwise3d_s1", "depthwise3d_s1.bwd_dx"):
+        assert fused.LAUNCHES[key] - before[key] == 1
 
 
 def test_tiny_x3d_train_micro_step_kernels_match_plain(cuda):
