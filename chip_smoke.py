@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: serve and train full-width SlowFast-R50,
 serve and train full-width X3D-M, serve CSN-R101, serve and train MViT-B,
-and serve VideoMAE-B and pretrain it (MAE), on one GPU.
+serve VideoMAE-B and pretrain it (MAE), and serve R(2+1)D-50 and train it
+from a frame cache of real-format clips, on one GPU.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
@@ -125,6 +126,32 @@ Drives the port only (no JAX), one JSON line per phase:
             micro-step; the step-1 checkpoint restored bitwise
 25. videomae_pretrain_parity  one micro-step under one mask: the loss
             through the kernels against `attention dense`; times, memory
+26. r2plus1d_weights, r2plus1d_kernels  a seeded R(2+1)D-50 artifact (16
+            frames at 224^2, 400 classes, 28.1M parameters) and the pointwise
+            and conv kernels, forward and dx, at every fused site shape of
+            its bucket-8 forward (32 pointwise sites, 26 conv sites; the 11
+            strided sites and the stem stay cuDNN)
+27. r2plus1d_serve  `build_server` serves it to 5 /predict requests under
+            `fused_kernels auto`: 32 pointwise and 26 conv launches per
+            forward; logits against the plain path; r2plus1d_timing
+            (kernels, plain, unfused) and r2plus1d_profile
+28. r2plus1d_train  a frame cache (`index.json` + `data.bin`, the format of
+            `data/cache.py`) of seeded uint8 frames: 16 train and 8 val
+            videos of 64 frames at 256x320, 30 fps, labels in 400 classes;
+            `run.main` trains R(2+1)D-50 from it (`--data.cache_dir`, B=8, 16
+            frames at 224^2, bf16) for 2 steps with a checkpoint each step,
+            counters checked as in 8, num_classes taken from the cache, the
+            step-1 checkpoint restored bitwise, the export served;
+            r2plus1d_train_parity (the loss through the kernels against
+            `xla`; with the forward fixed, the whole gradient and one SGD
+            update against plain autograd) and r2plus1d_train_timing
+            (kernels, unfused, plain; peak memory; fit()'s clips/s and input
+            wait share)
+29. real_video_route  with cv2 on this machine: 4 mp4s written with cv2,
+            cached by `build_cache`, a clip read back through `FrameCache`
+            byte-equal to `decode_span`; without it: `Trainer` on a
+            `--data_dir` tree raises `NoVideoDecoderError` naming the cache
+            route. The phase says which case ran
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -132,7 +159,9 @@ the model that carries it, SlowFast-R50 for the pointwise and conv kernels,
 X3D-M for the depthwise ones, MViT-B for the flash ones; for a backward
 row over its launches in one B=8 micro-step; launches are those of the
 main-path phase that runs the kernel: serve, train, x3d_serve,
-x3d_depthwise_impl, x3d_train, mvit_serve and mvit_train), the nvidia-smi
+x3d_depthwise_impl, x3d_train, mvit_serve and mvit_train; the GEMM
+kernels' entries carry the same sums and launches for R(2+1)D-50, from
+r2plus1d_serve and r2plus1d_train, under "r2plus1d_r50"), the nvidia-smi
 line, and as the last line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
@@ -200,7 +229,13 @@ CSN_BUCKET = 4
 # (frames, crop) each model is served and trained at
 GEOMETRY = {"slowfast_r50": (FRAMES, CROP), "x3d_m": (16, 224),
             "csn_r101": (32, 224), "mvit_b": (16, 224), "videomae_b": (16, 224),
-            "videomae_b_pretrain": (16, 224)}
+            "videomae_b_pretrain": (16, 224), "r2plus1d_r50": (16, 224)}
+# head classes of each model's seeded artifact and training run (the hub
+# head of R(2+1)D-50 is Kinetics-400); NUM_CLASSES otherwise
+CLASSES = {"r2plus1d_r50": 400}
+# R(2+1)D-50 (models/r2plus1d.py): blocks per stage, and the stages whose
+# entry strides T (a strided temporal factor, not fused)
+R2_DEPTHS, R2_T_STRIDED_STAGES = (3, 4, 6, 3), 2
 # the attention slice: MViT-B (models/mvit.py) and VideoMAE-B
 # (models/videomae.py) through the flash kernels
 MVIT_STAGE_STARTS, MVIT_DEPTH, MVIT_KV_STRIDE = (1, 3, 14), 16, (1, 8, 8)
@@ -222,6 +257,12 @@ MAE_TRAIN = dict(X3D_TRAIN, name="videomae_b_pretrain", lr=TRANSFORMER_LR,
 # one B=8 micro-step of the VideoMAE-B classifier (fine-tuning), timed only
 VIDEOMAE_TRAIN = dict(X3D_TRAIN, name="videomae_b", lr=TRANSFORMER_LR,
                       argv=ATTN_ARGV[:2])
+# R(2+1)D-50 from a frame cache: 16 train videos (2 steps of B=8, a
+# checkpoint each step) and 8 val videos of 64 frames at 256x320, 30 fps;
+# 16 frames x sampling rate 4 (hub r2plus1d_r50 16x4) span 64 frames
+R2_TRAIN = dict(name="r2plus1d_r50", batch=8, accum=1, epochs=1, videos=16,
+                val_videos=8, ckpt_every=1, sampling_rate=4,
+                cache_frames=64, cache_size=(256, 320), cache_fps=30.0)
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
 DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
@@ -395,7 +436,7 @@ def serve_cfg(parse_cli, fused: str, name: str = "slowfast_r50",
               impl: str = "conv", bucket: int = BUCKET, attention: str = "dense"):
     frames, crop = GEOMETRY[name]
     return parse_cli([
-        "--model.name", name, "--model.num_classes", str(NUM_CLASSES),
+        "--model.name", name, "--model.num_classes", str(classes(name)),
         "--model.fused_kernels", fused, "--model.depthwise_impl", impl,
         "--model.attention", attention,
         "--num_frames", str(frames), "--data.crop_size", str(crop),
@@ -405,6 +446,10 @@ def serve_cfg(parse_cli, fused: str, name: str = "slowfast_r50",
 
 def is_transformer(name: str) -> bool:
     return name.startswith(("mvit", "videomae"))
+
+
+def classes(name: str) -> int:
+    return CLASSES.get(name, NUM_CLASSES)
 
 
 def u8_clips(rng, name: str, n: int) -> dict:
@@ -567,7 +612,7 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
     clips = [{k: v[0] for k, v in u8_clips(rng, name, 1).items()}
              for _ in range(requests)]
     plant_head(torch, calib, clips, norm)
-    export_inference(art, calib, cfg, meta={"num_classes": NUM_CLASSES,
+    export_inference(art, calib, cfg, meta={"num_classes": classes(name),
                                             "model": name})
     del calib
     state, _ = load_inference(art)
@@ -585,7 +630,7 @@ def make_engine(torch, name: str, state, norm, fused: str, impl: str = "conv",
     cfg = serve_cfg(parse_cli, fused, name, impl, attention=attention)
     return InferenceEngine(
         create_model(cfg.model, "bf16", data_cfg=cfg.data),
-        state, num_classes=NUM_CLASSES, max_batch_size=bucket,
+        state, num_classes=classes(name), max_batch_size=bucket,
         device_normalize=norm, input_dtype="uint8", model_name=name)
 
 
@@ -597,9 +642,17 @@ def expected_forward_launches(name: str) -> dict:
     strided first, and stem_t, are depthwise sites. CSN (models/csn.py):
     every block's conv_a and conv_c, and res2 block0's stride-1 branch1 (a
     width change), are pointwise; every conv_b but the strided res3-res5
-    entries is depthwise."""
+    entries is depthwise. R(2+1)D (models/r2plus1d.py): every block's conv_a
+    and conv_c are pointwise; the conv_b_s of every block but a stage's
+    first (spatially strided) and the conv_b_t of every block but the
+    temporally strided res4 and res5 entries are conv sites."""
     if name == "slowfast_r50":
         return dict(SITES_PER_FORWARD)
+    if name == "r2plus1d_r50":
+        blocks = sum(R2_DEPTHS)
+        return {"fused_pw_bn_act": 2 * blocks,
+                "fused_conv_bn_act": (blocks - len(R2_DEPTHS))
+                + (blocks - R2_T_STRIDED_STAGES)}
     if name == "mvit_b":
         return expected_mvit_launches()
     if name == "videomae_b":
@@ -1167,15 +1220,21 @@ def train_argv(out: str, fused: str = "auto", spec: dict = SLOWFAST_TRAIN,
     """`run.main`'s argv for `spec` on synthetic clips at the model's
     geometry (SlowFast-R50: the reference recipe, 32 frames at 256^2, batch
     8 x accumulation 4, 2 epochs of 64 videos), bf16, SGD at `spec`'s lr,
-    with `spec`'s extra flags last."""
+    with `spec`'s extra flags last. A spec with a `cache_dir` reads its
+    clips from that frame cache at its `sampling_rate`, and its head
+    classes from the cache's index (no `--model.num_classes`)."""
     frames, crop = GEOMETRY[spec["name"]]
+    if "cache_dir" in spec:
+        data = ["--data.cache_dir", spec["cache_dir"],
+                "--sampling_rate", str(spec["sampling_rate"])]
+    else:
+        data = ["--synthetic", "--data.synthetic_num_videos", str(spec["videos"]),
+                "--model.num_classes", str(NUM_CLASSES)]
     return ["--lr", str(spec.get("lr", BASE_LR)),
-            "--synthetic", "--model.name", spec["name"],
-            "--model.num_classes", str(NUM_CLASSES), "--num_frames", str(frames),
+            "--model.name", spec["name"], *data, "--num_frames", str(frames),
             "--data.crop_size", str(crop), "--batch_size", str(spec["batch"]),
             "--gradient_accumulation_steps", str(spec["accum"]),
             "--num_epochs", str(spec["epochs"]),
-            "--data.synthetic_num_videos", str(spec["videos"]),
             "--checkpointing_steps", str(spec["ckpt_every"]),
             "--mixed_precision", "bf16", "--model.fused_kernels", fused,
             "--model.depthwise_impl", impl, "--output_dir", out,
@@ -1186,13 +1245,14 @@ def expected_train_launches(spec: dict, per_forward: dict) -> dict:
     """Launch totals of one fit() of `train_argv(spec)`, from the code: the
     loader drops the last partial batch, so an epoch is videos // (B *
     accum) optimizer steps of `accum` micro-steps; the val source holds
-    max(videos // 4, 4) clips in ceil(n / B) eval forwards per epoch. Each
+    `val_videos` (synthetic: max(videos // 4, 4)) clips in ceil(n / B) eval
+    forwards per epoch. Each
     micro-step launches every fused site's kernel once forward and once for
     dx (every site's input needs a gradient: it depends on the stem's
     weights); an eval forward launches each once."""
     steps = spec["videos"] // (spec["batch"] * spec["accum"]) * spec["epochs"]
     micro = steps * spec["accum"]
-    val = max(spec["videos"] // 4, 4)
+    val = spec.get("val_videos", max(spec["videos"] // 4, 4))
     evals = -(-val // spec["batch"]) * spec["epochs"]
     out = {"steps": steps, "micro_steps": micro, "eval_forwards": evals}
     for k in SOURCES:
@@ -1381,7 +1441,8 @@ def micro_step_fn(torch, fused_mode: str, batch, spec: dict = SLOWFAST_TRAIN,
     )
 
     cfg = parse_cli(train_argv("unused", fused_mode, spec, impl)
-                    + ["--model.dropout_rate", "0"])
+                    + ["--model.dropout_rate", "0",
+                       "--model.num_classes", str(classes(spec["name"]))])
     model = create_model(cfg.model, "bf16", seed=seed,
                          data_cfg=cfg.data).cuda().train()
     inputs = model_inputs(batch)
@@ -1402,7 +1463,8 @@ def train_batch(torch, seed: int, spec: dict = SLOWFAST_TRAIN) -> dict:
     rng = np.random.default_rng(seed)
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in train_clips(rng, spec, spec["batch"]).items()}
-    batch["label"] = torch.from_numpy(rng.integers(0, NUM_CLASSES, spec["batch"])).cuda()
+    batch["label"] = torch.from_numpy(
+        rng.integers(0, classes(spec["name"]), spec["batch"])).cuda()
     return batch
 
 
@@ -1699,7 +1761,7 @@ def serve_phase(torch, art: str, clips, plain_logits, name: str):
     check_launches(launches, expected_forward_launches(name), forwards, name)
     served = np.stack([np.asarray(p["logits"], np.float32)
                        for _, p, _ in responses])
-    check(served.shape == (len(clips), NUM_CLASSES),
+    check(served.shape == (len(clips), classes(name)),
           f"served logits shape {served.shape}")
     fields = dict(
         model=name, requests=len(responses), http=[c for c, _, _ in responses],
@@ -1807,13 +1869,13 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     rows += depthwise_phases(torch, work, launches)
     t_attention = time.perf_counter()
     rows += attention_phases(torch, work, launches)
+    t_r2plus1d = time.perf_counter()
+    rows += r2plus1d_phases(torch, work, launches)
+    emit("real_video_route", **real_video_route(torch, work))
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
         model, fwd_phase, dx_phase = LINE[kname.split(".")[0]]
-        mine = [r for r in rows if r["kernel"] == kname and r["model"] == model]
-        flop_ms = sum(r["flop_ms"] * r["per_forward"] for r in mine)
-        byte_ms = sum(r["byte_ms"] * r["per_forward"] for r in mine)
         phase = dx_phase if is_backward(kname) else fwd_phase
         count = launches[phase][kname]
         check(count > 0, f"{kname} was not launched on the main path ({phase})")
@@ -1821,14 +1883,18 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows if r["kernel"] == kname),
-            "ms": sum(r["kernel_ms"] * r["per_forward"] for r in mine),
-            "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in mine),
-            "bound_ms": sum(r["bound_ms"] * r["per_forward"] for r in mine),
-            "bound_by": "operations" if flop_ms > byte_ms else "bytes",
-            "library_ms": sum(r["library_ms"] * r["per_forward"] for r in mine),
+            **line_sums(rows, kname, model),
         })
+        if kname.split(".")[0] in R2_LINE:
+            # this slice's path: R(2+1)D-50's serve and train phases
+            r2_count = launches["r2plus1d_train" if is_backward(kname)
+                                else "r2plus1d_serve"][kname]
+            check(r2_count > 0, f"{kname} was not launched on R(2+1)D-50's path")
+            kernels[-1]["r2plus1d_r50"] = {"launches": r2_count,
+                                           **line_sums(rows, kname, "r2plus1d_r50")}
     emit("seconds", slowfast=slowfast_s,
-         attention=time.perf_counter() - t_attention,
+         attention=t_r2plus1d - t_attention,
+         r2plus1d=time.perf_counter() - t_r2plus1d,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -1838,6 +1904,23 @@ def run(torch, work: str, smi: str, kind: str) -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+R2_LINE = ("fused_pw_bn_act", "fused_conv_bn_act")
+
+
+def line_sums(rows, kname: str, model: str) -> dict:
+    """ms, plain_ms, bound_ms (and what bounds it) and library_ms of
+    `kname`'s rows at `model`'s sites, each summed over its launches in one
+    bucket-8 forward (a backward row: one B=8 micro-step)."""
+    mine = [r for r in rows if r["kernel"] == kname and r["model"] == model]
+    flop_ms = sum(r["flop_ms"] * r["per_forward"] for r in mine)
+    byte_ms = sum(r["byte_ms"] * r["per_forward"] for r in mine)
+    return {"ms": sum(r["kernel_ms"] * r["per_forward"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] * r["per_forward"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] * r["per_forward"] for r in mine),
+            "bound_by": "operations" if flop_ms > byte_ms else "bytes",
+            "library_ms": sum(r["library_ms"] * r["per_forward"] for r in mine)}
 
 
 def depthwise_phases(torch, work: str, launches: dict):
@@ -2407,6 +2490,179 @@ def attention_phases(torch, work: str, launches: dict):
     del gf, gd, mae_x
     free_cuda(torch)
     return rows
+
+
+def write_frame_cache(root: str, split: str, n: int, spec: dict, rng) -> dict:
+    """A frame cache in `data/cache.py`'s format at `root/split`: `n` videos
+    of seeded uint8 frames (noise around a per-video colour) at `spec`'s
+    frame count, size and fps, labels drawn in the model's classes. Returns
+    the index."""
+    from pytorchvideo_accelerate_tpu_torch.data.cache import DATA_NAME, INDEX_NAME
+
+    out = os.path.join(root, split)
+    os.makedirs(out)
+    t, (h, w) = spec["cache_frames"], spec["cache_size"]
+    n_classes = classes(spec["name"])
+    videos, offset = [], 0
+    with open(os.path.join(out, DATA_NAME), "wb") as f:
+        for i in range(n):
+            base = rng.integers(48, 208, (1, 1, 1, 3))
+            frames = (base + rng.integers(-48, 48, (t, h, w, 3))).astype(np.uint8)
+            f.write(frames.tobytes())
+            videos.append({"path": f"seeded/{split}/{i:03d}.mp4",
+                           "label": int(rng.integers(0, n_classes)),
+                           "offset": offset, "frames": t, "height": h, "width": w})
+            offset += frames.nbytes
+    index = {"fps": spec["cache_fps"], "short_side": min(h, w),
+             "num_classes": n_classes, "videos": videos}
+    with open(os.path.join(out, INDEX_NAME), "w") as f:
+        json.dump(index, f)
+    return index
+
+
+def r2plus1d_phases(torch, work: str, launches: dict):
+    """Phases 26-28: R(2+1)D-50 served and trained through the pointwise and
+    conv kernels, trained from a frame cache. Fills `launches` with the
+    main-path phases' counts; returns the kernel rows."""
+    from pytorchvideo_accelerate_tpu_torch.models.common import ConvBNAct
+
+    name = "r2plus1d_r50"
+    # 26. weights, artifact, the plain path and its site shapes
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 40)
+    art, state, clips, norm, n_params = make_artifact(torch, work, name, rng)
+    batch = bucket_batch(clips, BUCKET)
+    plain = make_engine(torch, name, state, norm, "xla")
+    sites = record_sites(torch, plain.model, lambda: plain.predict(batch))
+    plain_logits = plain.predict(batch)[:5]
+    want = expected_forward_launches(name)
+    n_pw = sum(1 for s in sites.values() if s[1][:3] == (1, 1, 1))
+    unfused = [n for n, m in plain.model.named_modules()
+               if isinstance(m, ConvBNAct) and not m.fuse]
+    check(n_pw == want["fused_pw_bn_act"]
+          and len(sites) - n_pw == want["fused_conv_bn_act"] and len(unfused) == 11,
+          f"R(2+1)D-50 sites {n_pw} pointwise / {len(sites) - n_pw} conv / "
+          f"{len(unfused)} unfused, expected {want} / 11")
+    check(28.0e6 < n_params < 28.2e6, f"R(2+1)D-50 parameters {n_params}")
+    emit("r2plus1d_weights", artifact=art, params=n_params, pointwise_sites=n_pw,
+         conv_sites=len(sites) - n_pw, unfused_sites=unfused,
+         seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rows = kernel_phase(torch, sites, name, DW_REPS)
+    emit("r2plus1d_kernels", **kernel_sums(rows)[name],
+         seconds=time.perf_counter() - t0)
+
+    # 27. r2plus1d_serve: this slice's serving path, counters zeroed just
+    # before the server is built
+    server, launches["r2plus1d_serve"], fields = serve_phase(
+        torch, art, clips, plain_logits, name)
+    emit("r2plus1d_serve", **fields)
+    off = make_engine(torch, name, state, norm, "off")
+    emit("r2plus1d_timing", bucket=BUCKET,
+         forward_ms_kernels=forward_ms(torch, server.engine, batch),
+         forward_ms_plain=forward_ms(torch, plain, batch),
+         forward_ms_unfused_cudnn=forward_ms(torch, off, batch),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("r2plus1d_profile", bucket=BUCKET,
+         **profile_forward(torch, server.engine, batch))
+    del server, plain, off
+    free_cuda(torch)
+
+    # 28. r2plus1d_train: run.main from a frame cache, counters zeroed just
+    # before fit()
+    t0 = time.perf_counter()
+    cache = os.path.join(work, "r2plus1d_cache")
+    crng = np.random.default_rng(SEED + 41)
+    for split, n in (("train", R2_TRAIN["videos"]), ("val", R2_TRAIN["val_videos"])):
+        write_frame_cache(cache, split, n, R2_TRAIN, crng)
+    cache_s = time.perf_counter() - t0
+    spec = dict(R2_TRAIN, cache_dir=cache)
+    train = train_phase(torch, work, spec)
+    launches["r2plus1d_train"] = train["launches"]
+    with open(os.path.join(work, f"trained_{name}_artifact", "meta.json")) as f:
+        meta = json.load(f)
+    check(meta["num_classes"] == classes(name),
+          f"num_classes from the cache: {meta['num_classes']}")
+    emit("r2plus1d_train", cache_s=cache_s,
+         cache_bytes=sum(os.path.getsize(os.path.join(cache, s, "data.bin"))
+                         for s in ("train", "val")),
+         exported_num_classes=meta["num_classes"], **train)
+    batch = train_batch(torch, SEED + 42, spec)
+    e2e = {}
+    for mode in ("auto", "xla"):
+        model, _, fn = micro_step_fn(torch, mode, batch, spec)
+        e2e[mode] = (fn().item(), torch.cat([p.grad.float().flatten()
+                                             for p in model.parameters()]))
+        del model, fn
+        free_cuda(torch)
+    (lk, gk), (lp, gp) = e2e["auto"], e2e["xla"]
+    parity = {"loss_kernels": lk, "loss_plain": lp, "loss_abs_err": abs(lk - lp),
+              "loss_tolerance": LOGIT_TOL * (1 + abs(lp)),
+              "grad_rel_err_end_to_end": rel_err(gk, gp), "rel_tolerance": LOGIT_TOL}
+    del e2e, gk, gp
+    check(parity["loss_abs_err"] <= parity["loss_tolerance"],
+          f"R(2+1)D-50 train loss {parity}")
+    grad, update = fixed_forward_parity(torch, "auto", batch, spec)
+    parity.update(grad_rel_err_same_forward=grad, update_rel_err_same_forward=update)
+    check(grad <= LOGIT_TOL and update <= LOGIT_TOL, f"R(2+1)D-50 gradients {parity}")
+    emit("r2plus1d_train_parity", **parity)
+    del batch
+    free_cuda(torch)
+    emit("r2plus1d_train_timing", batch=spec["batch"],
+         fit_clips_per_sec=train["result"].get("clips_per_sec"),
+         fit_input_wait_frac=train["result"].get("input_wait_frac"),
+         fit_epoch_train_s=train["result"].get("epoch_train_times"),
+         **train_timing_phase(torch, spec))
+    return rows
+
+
+def real_video_route(torch, work: str) -> dict:
+    """Phase 29. With cv2 on this machine: 4 mp4s written with cv2 (seeded
+    frames, 48x64, 30 fps), cached by the port's `build_cache`, and one
+    clip read back through `FrameCache` byte-equal to `decode_span`.
+    Without it: `Trainer` on a `--data_dir` tree raises
+    `NoVideoDecoderError`, and its message names the frame-cache route."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.data import decode
+    from pytorchvideo_accelerate_tpu_torch.data.cache import FrameCache, build_cache
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    root = os.path.join(work, "real_videos")
+    rng = np.random.default_rng(SEED + 50)
+    cv2 = decode.cv2
+    paths = [os.path.join(root, split, cls, "v0.mp4")
+             for split in ("train", "val") for cls in ("a", "b")]
+    for path in paths:
+        os.makedirs(os.path.dirname(path))
+    if cv2 is None:
+        for path in paths:  # scanned, never decoded
+            open(path, "wb").close()
+        try:
+            Trainer(parse_cli(["--data_dir", root, "--model.name", "r2plus1d_r50",
+                               "--output_dir", os.path.join(work, "no_cv2")]))
+        except decode.NoVideoDecoderError as e:
+            msg = str(e)
+        else:
+            msg = ""
+        check("--data.cache_dir" in msg and "data.cache build" in msg,
+              f"without cv2, --data_dir raised {msg!r}")
+        return {"route": "no_cv2", "cv2": None, "error": msg}
+    for path in paths:
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (64, 48))
+        check(w.isOpened(), f"cv2 cannot write {path}")
+        for _ in range(24):
+            w.write(rng.integers(0, 256, (48, 64, 3), np.uint8))
+        w.release()
+    index = build_cache(os.path.join(root, "train"), os.path.join(work, "real_cache"),
+                        num_workers=2)
+    cache = FrameCache(os.path.join(work, "real_cache"))
+    got = cache.read(0, 0.2, 0.5).copy()  # a view of the memmap until copied
+    cache.close()
+    want = decode.decode_span(index["videos"][0]["path"], 0.2, 0.5)
+    check(got.shape == want.shape and bool((got == want).all()),
+          "cached clip differs from decode_span")
+    return {"route": "cv2", "cv2": cv2.__version__, "videos": len(index["videos"]),
+            "clip_shape": list(got.shape), "byte_equal": True}
 
 
 if __name__ == "__main__":

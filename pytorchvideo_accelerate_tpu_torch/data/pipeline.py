@@ -1,7 +1,8 @@
 """Host-side clip pipeline: sources, batching, prefetch, state (the port's
-copy of the JAX package's `data/pipeline.py`, synthetic source and thread
-transport only; the real-video source, the decode cache and the process
-transport are queued in ROADMAP.md).
+copy of the JAX package's `data/pipeline.py`: the real-video and synthetic
+sources and the thread transport; the frame-cache source is in
+`data/cache.py`; the bad-sample quarantine and the process transport are
+queued in ROADMAP.md).
 
 - a `ClipSource` maps (epoch, index) to one sample dict, deterministically;
 - per-epoch shuffling from the shared seed, `(seed, 0xDA7A, epoch)`;
@@ -16,6 +17,8 @@ resize runs (tests/test_torch_data.py).
 
 from __future__ import annotations
 
+import logging
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from queue import Empty, Queue
@@ -24,10 +27,20 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from pytorchvideo_accelerate_tpu_torch.data import decode as decode_mod
+from pytorchvideo_accelerate_tpu_torch.data.manifest import Manifest
 from pytorchvideo_accelerate_tpu_torch.data.samplers import (
     random_clip,
     uniform_clips,
 )
+from pytorchvideo_accelerate_tpu_torch.reliability.retry import retry_call
+
+logger = logging.getLogger(__name__)
+
+
+class _DecodeFailure(Exception):
+    """Tag for decode-layer failures crossing the transform boundary: keeps
+    VideoClipSource's substitution from swallowing transform bugs."""
 
 
 class ClipSource:
@@ -65,6 +78,119 @@ def sample_views(read_span: Callable, transform: Callable, duration: float,
     if len(views) == 1:  # no view axis for the single-view case
         return views[0]
     return {k: stack_samples([v[k] for v in views]) for k in views[0]}
+
+
+class VideoClipSource(ClipSource):
+    """Real videos: manifest entry -> clip span -> cv2 decode -> transform.
+
+    `training=True` samples a random span with an RNG derived from (seed,
+    epoch, index): reproducible across restarts, distinct across epochs.
+    Eval takes `num_clips` evenly spaced views (`sample_views`).
+
+    Unreadable videos are substituted, not fatal: up to
+    `_MAX_CONSECUTIVE_FAILURES` replacement indices, each drawn from its own
+    attempt-keyed stream `(seed, 0xBAD, epoch, index, attempt)`, and each
+    attempt samples its span from `(seed, epoch, index, attempt)` (the
+    first from `(seed, epoch, index)`), so the substitution does not depend
+    on how many draws a failed decode consumed or on which paths this
+    process already knows to be bad. Failed paths are remembered and logged
+    once. The label comes from the video actually decoded. Decode reads
+    retry transient failures (`retry_call`, `decode_retries` attempts)
+    first. Only decode failures substitute: transform errors propagate.
+
+    The JAX package's bad-sample `quarantine` comes with the training guard
+    (ROADMAP.md A.3); only `quarantine=None` is taken here. Without cv2 the
+    constructor raises `decode.NoVideoDecoderError`, which names the
+    frame-cache route."""
+
+    _MAX_CONSECUTIVE_FAILURES = 10  # pytorchvideo LabeledVideoDataset parity
+
+    def __init__(self, manifest: Manifest, transform: Callable,
+                 clip_duration: float, training: bool, seed: int = 42,
+                 num_clips: int = 1, decode_retries: int = 2,
+                 retry_base_delay_s: float = 0.05, quarantine=None):
+        if quarantine is not None:
+            raise NotImplementedError(
+                "the bad-sample quarantine (data/manifest.py Quarantine) is "
+                "not ported to PyTorch yet (see the port queue in ROADMAP.md)")
+        decode_mod.require_decoder()
+        self.manifest = manifest
+        self.transform = transform
+        self.clip_duration = clip_duration
+        self.training = training
+        self.seed = seed
+        self.decode_retries = max(int(decode_retries), 1)
+        self.retry_base_delay_s = retry_base_delay_s
+        self.num_clips = max(num_clips, 1) if not training else 1
+        self.num_classes = manifest.num_classes
+        self._meta_cache: Dict[str, decode_mod.VideoMeta] = {}
+        self._meta_lock = threading.Lock()
+        self._failed: set = set()
+
+    def __len__(self) -> int:
+        return len(self.manifest)
+
+    def _meta(self, path: str) -> decode_mod.VideoMeta:
+        with self._meta_lock:
+            meta = self._meta_cache.get(path)
+        if meta is None:
+            meta = decode_mod.probe(path)
+            with self._meta_lock:
+                self._meta_cache[path] = meta
+        return meta
+
+    def _read_span(self, path: str, a: float, b: float) -> np.ndarray:
+        """decode_span with transient failures retried; a decode failure
+        that survives the retries is tagged `_DecodeFailure`."""
+        try:
+            return retry_call(
+                lambda: decode_mod.decode_span(path, a, b),
+                attempts=self.decode_retries, retry_on=decode_mod.DECODE_ERRORS,
+                base_delay_s=self.retry_base_delay_s, deadline_s=5.0)
+        except decode_mod.DECODE_ERRORS as e:
+            raise _DecodeFailure(str(e)) from e
+
+    def _mark_failed(self, path: str, e: BaseException) -> None:
+        with self._meta_lock:
+            self._failed.add(path)
+        logger.warning("skipping unreadable video %s (%s: %s); substituting",
+                       path, type(e).__name__, e)
+
+    def get(self, index: int, epoch: int) -> Dict[str, np.ndarray]:
+        idx = index
+        for attempt in range(self._MAX_CONSECUTIVE_FAILURES):
+            rng = (np.random.default_rng((self.seed, epoch, index))
+                   if attempt == 0
+                   else np.random.default_rng(
+                       (self.seed, epoch, index, attempt)))
+            entry = self.manifest.entries[idx]
+            with self._meta_lock:
+                known_bad = entry.path in self._failed
+            if not known_bad:
+                try:
+                    meta = self._meta(entry.path)
+                except decode_mod.DECODE_ERRORS as e:
+                    self._mark_failed(entry.path, e)
+                else:
+                    # only the tagged decode failures substitute: a
+                    # transform's own ValueError must propagate
+                    try:
+                        out = sample_views(
+                            lambda a, b, p=entry.path: self._read_span(p, a, b),
+                            self.transform, meta.duration, self.clip_duration,
+                            self.training, rng, self.num_clips)
+                    except _DecodeFailure as e:
+                        self._mark_failed(entry.path, e)
+                    else:
+                        out["label"] = np.int32(entry.label)
+                        return out
+            # deterministic replacement, also attempt-keyed
+            idx = int(np.random.default_rng(
+                (self.seed, 0xBAD, epoch, index, attempt)
+            ).integers(0, len(self.manifest)))
+        raise IOError(
+            f"{self._MAX_CONSECUTIVE_FAILURES} consecutive unreadable videos "
+            f"starting at index {index} (see warnings for paths)")
 
 
 class SyntheticClipSource(ClipSource):

@@ -5,11 +5,11 @@ weights are drawn as the JAX package initialises them (`init_like_jax`),
 from a `torch.Generator` seeded with `seed`; the caller sets the mode
 (`.train()` is torch's default, the serving engine calls `.eval()`). Ported
 here: slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50, tiny3d,
-x3d_xs, x3d_s, x3d_m, x3d_l, csn_r101, mvit_b, mvit_b_32x3, mvit_t,
-videomae_b, videomae_b_pretrain, videomae_t and videomae_t_pretrain; any
-other name of the JAX package raises NotImplementedError (ROADMAP.md), and
-so do the options of the transformer families that need several devices
-(`--model.attention ring|ulysses`) or are not ported (`--model.remat`).
+x3d_xs, x3d_s, x3d_m, x3d_l, csn_r101, r2plus1d_r50, mvit_b, mvit_b_32x3,
+mvit_t, videomae_b, videomae_b_pretrain, videomae_t and videomae_t_pretrain,
+every name of the JAX package's registry. The options of the transformer
+families that need several devices (`--model.attention ring|ulysses`) or
+are not ported (`--model.remat`) raise NotImplementedError (ROADMAP.md).
 MViT's `pos_embed` is sized by the clip geometry, `data_cfg` (num_frames,
 crop_size; `DataConfig()` when none is given). Each classifier class carries
 `backbone_param_filter(path)` (True for the backbone, `path` the
@@ -33,6 +33,7 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
 from pytorchvideo_accelerate_tpu_torch.models.csn import CSN
 from pytorchvideo_accelerate_tpu_torch.models.heads import ResBasicHead
 from pytorchvideo_accelerate_tpu_torch.models.mvit import MViT
+from pytorchvideo_accelerate_tpu_torch.models.r2plus1d import R2Plus1D
 from pytorchvideo_accelerate_tpu_torch.models.resnet3d import SlowR50
 from pytorchvideo_accelerate_tpu_torch.models.slowfast import SlowFast
 from pytorchvideo_accelerate_tpu_torch.models.videomae import (
@@ -78,6 +79,10 @@ _REGISTRY: Dict[str, Callable] = {
         cfg.num_classes, dropout_rate=cfg.dropout_rate,
         depthwise_impl=cfg.depthwise_impl, fused=cfg.fused_kernels,
         dtype=dtype),
+    # hub r2plus1d_r50 (Kinetics-400 16x4)
+    "r2plus1d_r50": lambda cfg, dtype, data: R2Plus1D(
+        cfg.num_classes, dropout_rate=cfg.dropout_rate,
+        fused=cfg.fused_kernels, dtype=dtype),
     "mvit_b": lambda cfg, dtype, data: _mvit(cfg, dtype, data),
     # hub mvit_base_32x3: the same trunk, drop_path 0.3, 32 frames x stride 3
     "mvit_b_32x3": lambda cfg, dtype, data: _mvit(cfg, dtype, data,
@@ -99,8 +104,6 @@ _REGISTRY: Dict[str, Callable] = {
         attention_backend=cfg.attention, dtype=dtype),
 }
 
-# families of the JAX package that later slices of the port bring over
-_NOT_PORTED = ("r2plus1d_r50",)
 _TRANSFORMERS = ("mvit", "videomae")
 
 
@@ -174,10 +177,6 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
     a generator seeded with `seed`. `mixed_precision` "bf16"/"fp16" computes
     in bf16 with f32 parameters, else f32. `data_cfg` gives the clip
     geometry that sizes MViT's `pos_embed` (default `DataConfig()`)."""
-    if cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {cfg.name!r} is not ported to PyTorch yet (see the port "
-            "queue in ROADMAP.md); ported: " + ", ".join(available_models()))
     if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {available_models()}")

@@ -1,8 +1,10 @@
 """The training application: epoch loop, eval, checkpoint and resume
 (a lean counterpart of the JAX package's `trainer/loop.py`).
 
-`Trainer(cfg)` builds the data (synthetic clips through the full transform
-stack), the model, the optimizer and the checkpointer; `fit()` runs the
+`Trainer(cfg)` builds the data (synthetic clips, a frame cache under
+`data.cache_dir`, or real videos from `data.train_list`/`data.val_list` or
+`<data_dir>/{train,val}/{class}/`, each through the full transform stack),
+the model, the optimizer and the checkpointer; `fit()` runs the
 epochs: train steps (gradient accumulation inside the step), checkpoints
 every `checkpointing_steps` optimizer steps or every epoch plus a final
 one, an eval pass at each epoch end, and returns the JAX trainer's result
@@ -16,7 +18,10 @@ computed from the raw clip), one eval view, and `val_recon_loss` in place
 of the accuracies.
 
 It runs on the CUDA card unless the config asks for the CPU (`--cpu`); on a
-host without CUDA it raises. Options whose effect this slice lacks raise
+host without CUDA it raises. Real videos need cv2 to decode; where it is
+missing the real-video branch raises `NoVideoDecoderError`, which names
+the frame-cache route (build the cache where cv2 is, train with
+`--data.cache_dir`). Options whose effect this slice lacks raise
 NotImplementedError naming their ROADMAP item, a multi-process job (flags
 or the launcher's PVA_* env) among them; telemetry and debug options
 (`obs.*`, `debug_nans`, `debug_asserts`, `profile`) and a
@@ -32,11 +37,17 @@ from typing import Dict, Optional
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.config import TrainConfig
+from pytorchvideo_accelerate_tpu_torch.data.cache import CachedClipSource
 from pytorchvideo_accelerate_tpu_torch.data.device_prefetch import DevicePrefetcher
+from pytorchvideo_accelerate_tpu_torch.data.manifest import (
+    from_list,
+    scan_directory,
+)
 from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
     ClipLoader,
     LoaderState,
     SyntheticClipSource,
+    VideoClipSource,
 )
 from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
@@ -99,9 +110,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
          "Multi-GPU, ROADMAP.md A.5)"),
         (cfg.guard.enabled, "guard.enabled (reliability/guard.py, guard_skip)"),
         (d.dataplane_workers > 0, "data.dataplane_workers (the dataplane)"),
-        (bool(d.cache_dir), "data.cache_dir (data/cache.py)"),
-        (not d.synthetic, "real-video data (data/decode.py, manifest.py, "
-                          "VideoClipSource; pass --synthetic)"),
         (any(v > 1 for v in (cfg.mesh.data, cfg.mesh.model, cfg.mesh.fsdp,
                              cfg.mesh.tensor, cfg.mesh.context,
                              cfg.parallel.pipeline_stages)),
@@ -200,14 +208,7 @@ class Trainer:
                   "pretraining", flush=True)
         val_tf = make_transform(training=False, num_spatial_crops=eval_spatial,
                                 **common)
-        self.num_classes = cfg.model.num_classes or 4
-        self.train_source = SyntheticClipSource(
-            train_tf, num_videos=d.synthetic_num_videos,
-            num_classes=self.num_classes, seed=cfg.seed)
-        self.val_source = SyntheticClipSource(
-            val_tf, num_videos=max(d.synthetic_num_videos // 4, 4),
-            num_classes=self.num_classes, seed=cfg.seed + 1,
-            num_clips=eval_clips)
+        self._build_sources(train_tf, val_tf, eval_clips)
         loader_kw = dict(seed=cfg.seed, num_workers=d.num_workers,
                          prefetch_batches=d.prefetch_batches,
                          transport=d.transport)
@@ -222,6 +223,60 @@ class Trainer:
             self.train_loader, self.device, depth=d.device_prefetch_depth)
         self.val_prefetch = DevicePrefetcher(
             self.val_loader, self.device, depth=d.device_prefetch_depth)
+
+    def _build_sources(self, train_tf, val_tf, eval_clips: int) -> None:
+        """The train and val clip sources, and `num_classes`: synthetic
+        clips (`cfg.model.num_classes`, default 4), a frame cache's
+        `<cache_dir>/{train,val}`, or real videos from the list manifests
+        (both or neither) or `<data_dir>/{train,val}`; the last two take
+        `num_classes` from the train source."""
+        cfg, d = self.cfg, self.cfg.data
+        if d.synthetic:
+            self.num_classes = cfg.model.num_classes or 4
+            self.train_source = SyntheticClipSource(
+                train_tf, num_videos=d.synthetic_num_videos,
+                num_classes=self.num_classes, seed=cfg.seed)
+            self.val_source = SyntheticClipSource(
+                val_tf, num_videos=max(d.synthetic_num_videos // 4, 4),
+                num_classes=self.num_classes, seed=cfg.seed + 1,
+                num_clips=eval_clips)
+            return
+        if d.cache_dir:
+            self.train_source = CachedClipSource(
+                os.path.join(d.cache_dir, "train"), train_tf,
+                cfg.clip_duration, training=True, seed=cfg.seed)
+            self.val_source = CachedClipSource(
+                os.path.join(d.cache_dir, "val"), val_tf, cfg.clip_duration,
+                training=False, seed=cfg.seed, num_clips=eval_clips)
+            self.num_classes = self.train_source.num_classes
+            return
+        if d.train_list or d.val_list:
+            if not (d.train_list and d.val_list):
+                raise ValueError(
+                    "train_list and val_list must be set together "
+                    "(mixing a list split with a scanned split would "
+                    "give the two splits different label id spaces)")
+            train_manifest = from_list(d.train_list, root=d.data_dir)
+            val_manifest = from_list(d.val_list, root=d.data_dir)
+            val_max = max(e.label for e in val_manifest.entries)
+            if val_max >= train_manifest.num_classes:
+                raise ValueError(
+                    f"val_list label {val_max} is outside the train "
+                    f"list's class space (num_classes="
+                    f"{train_manifest.num_classes}): out-of-range "
+                    "labels would silently corrupt eval metrics")
+        else:
+            train_manifest = scan_directory(os.path.join(d.data_dir, "train"))
+            val_manifest = scan_directory(os.path.join(d.data_dir, "val"))
+        retry_kw = dict(decode_retries=cfg.reliability.decode_retries,
+                        retry_base_delay_s=cfg.reliability.retry_base_delay_s)
+        self.train_source = VideoClipSource(
+            train_manifest, train_tf, cfg.clip_duration, training=True,
+            seed=cfg.seed, **retry_kw)
+        self.val_source = VideoClipSource(
+            val_manifest, val_tf, cfg.clip_duration, training=False,
+            seed=cfg.seed, num_clips=eval_clips, **retry_kw)
+        self.num_classes = train_manifest.num_classes
 
     def _build_model_and_steps(self) -> None:
         cfg = self.cfg

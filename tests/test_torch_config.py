@@ -59,14 +59,28 @@ def test_bad_flags_fail_on_both_sides(argv):
         tcfg.parse_cli(argv)
 
 
+# a module the card's machine lacks, imported by one port file only, and
+# only optionally (inside `try: ... except ImportError`): decode uses cv2
+# where it is; without it decode raises and names the frame-cache route
+OPTIONAL = {"cv2": "pytorchvideo_accelerate_tpu_torch/data/decode.py"}
+
+
 def _imports(path):
+    """(module, optional) of every absolute import in `path`: optional when
+    the import sits in the body of a `try` that catches ImportError."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    guarded = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                isinstance(h.type, ast.Name) and h.type.id == "ImportError"
+                for h in node.handlers):
+            guarded.update(id(n) for stmt in node.body for n in ast.walk(stmt))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
-                yield alias.name
+                yield alias.name, id(node) in guarded
         elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
-            yield node.module
+            yield node.module, id(node) in guarded
 
 
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -75,5 +89,7 @@ PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_no_jax(path):
-    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
-    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    rel = str(path.relative_to(ROOT))
+    bad = [m for m, optional in _imports(path) if m.split(".")[0] in FORBIDDEN
+           and not (optional and OPTIONAL.get(m.split(".")[0]) == rel)]
+    assert not bad, f"{rel} imports {bad}"

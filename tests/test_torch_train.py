@@ -637,7 +637,6 @@ def test_trainer_without_cpu_flag_needs_cuda():
 
 @pytest.mark.parametrize("extra", [
     ["--guard.enabled"], ["--data.dataplane_workers", "2"],
-    ["--data.cache_dir", "/nonexistent"], ["--data.synthetic", "false"],
     ["--mesh.data", "2"], ["--model.pretrained_path", "w.npz"],
     ["--optim.mixup_alpha", "0.2"],
     ["--model.name", "videomae_t_pretrain", "--model.remat"],
@@ -645,6 +644,24 @@ def test_trainer_without_cpu_flag_needs_cuda():
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(parse_cli(_RUN + extra))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--data.synthetic", "false", "--data.cache_dir", "/nonexistent"],
+    ["--data.synthetic", "false", "--data_dir", "/nonexistent"]],
+    ids=["missing_cache_dir", "missing_data_dir"])
+def test_real_data_routes_raise_what_jax_raises(extra, tmp_path):
+    """The real-data routes are ported: a missing cache directory or
+    data_dir raises in the port exactly what the JAX Trainer raises."""
+    from pytorchvideo_accelerate_tpu.config import parse_cli as jparse_cli
+    from pytorchvideo_accelerate_tpu.trainer.loop import Trainer as JTrainer
+
+    argv = _RUN + ["--output_dir", str(tmp_path)] + extra
+    with pytest.raises(FileNotFoundError) as got:
+        Trainer(parse_cli(argv))
+    with pytest.raises(FileNotFoundError) as want:
+        JTrainer(jparse_cli(argv))
+    assert str(got.value) == str(want.value) and "/nonexistent" in str(got.value)
 
 
 @pytest.mark.parametrize("extra,env", [
