@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port: serve and train full-width SlowFast-R50,
 serve and train full-width X3D-M, serve CSN-R101, serve and train MViT-B,
-serve VideoMAE-B and pretrain it (MAE), and serve R(2+1)D-50 and train it
-from a frame cache of real-format clips, on one GPU.
+serve VideoMAE-B and pretrain it (MAE), serve R(2+1)D-50 and train it
+from a frame cache of real-format clips, and train SlowFast-R50 with
+mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, on one
+GPU.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
@@ -147,11 +149,33 @@ Drives the port only (no JAX), one JSON line per phase:
             update against plain autograd) and r2plus1d_train_timing
             (kernels, unfused, plain; peak memory; fit()'s clips/s and input
             wait share)
-29. real_video_route  with cv2 on this machine: 4 mp4s written with cv2,
+30. features_train  SlowFast-R50 at the reference geometry (32 frames at
+            256^2, B=8 x accumulation 2, 5 steps of synthetic clips) through
+            `Trainer` with mixup 0.8 + cutmix 1.0, the EMA, the guard (LKG
+            every step, rollback after 2) and jsonl tracking every step; the
+            train loader's 3rd and 4th batches NaN-poisoned: both steps
+            report `skipped`, the 3rd leaves the state bitwise, the guard
+            rolls back to its LKG of step 3 (bitwise its file) and the
+            loader resumes at the 5th batch, fit() ends finite, launches
+            exact, the jsonl complete; then one B=8 micro-step under a
+            fixed mixup draw with the forward held fixed against plain
+            autograd, ms per optimizer step plain / mixed / mixed + guard,
+            and fit()'s clips/s with tracking on and off
+31. remat_train  hub mvit_base_32x3 (32 frames at 224^2, drop path 0.3,
+            `attention pallas, depthwise_impl pallas`): B=4 micro-steps with
+            and without `--model.remat`; per run ms, peak memory and the
+            launches of one micro-step (under remat 2 x 16 flash forwards,
+            2 x 4 `depthwise3d_s1`, 16 dq and 16 dk/dv); the loss bitwise
+            equal, the gradients bitwise or within 1e-2
+32. real_video_route  with cv2 on this machine: 4 mp4s written with cv2,
             cached by `build_cache`, a clip read back through `FrameCache`
-            byte-equal to `decode_span`; without it: `Trainer` on a
-            `--data_dir` tree raises `NoVideoDecoderError` naming the cache
-            route. The phase says which case ran
+            byte-equal to `decode_span`; then a list manifest with one
+            corrupt mp4 trained 2 epochs with `--guard.enabled
+            --guard.quarantine_budget 1` (tiny3d, plain lowering): the
+            sidecar names the file, the second epoch never opens it.
+            Without cv2: `Trainer` on a `--data_dir` tree raises
+            `NoVideoDecoderError` naming the cache route. The phase says
+            which case ran
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -161,8 +185,11 @@ row over its launches in one B=8 micro-step; launches are those of the
 main-path phase that runs the kernel: serve, train, x3d_serve,
 x3d_depthwise_impl, x3d_train, mvit_serve and mvit_train; the GEMM
 kernels' entries carry the same sums and launches for R(2+1)D-50, from
-r2plus1d_serve and r2plus1d_train, under "r2plus1d_r50"), the nvidia-smi
-line, and as the last line {"ok": true, "device": {...}}. Any failed check
+r2plus1d_serve and r2plus1d_train, under "r2plus1d_r50"; the rows on
+this slice's paths carry "train_features": the launches of features_train
+(rows 1-2b, with their SlowFast-R50 sums) or of one remat_train
+micro-step (rows 4, 4b, 5, 6, 7)), the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
 
@@ -229,7 +256,8 @@ CSN_BUCKET = 4
 # (frames, crop) each model is served and trained at
 GEOMETRY = {"slowfast_r50": (FRAMES, CROP), "x3d_m": (16, 224),
             "csn_r101": (32, 224), "mvit_b": (16, 224), "videomae_b": (16, 224),
-            "videomae_b_pretrain": (16, 224), "r2plus1d_r50": (16, 224)}
+            "videomae_b_pretrain": (16, 224), "r2plus1d_r50": (16, 224),
+            "mvit_b_32x3": (32, 224)}
 # head classes of each model's seeded artifact and training run (the hub
 # head of R(2+1)D-50 is Kinetics-400); NUM_CLASSES otherwise
 CLASSES = {"r2plus1d_r50": 400}
@@ -263,6 +291,31 @@ VIDEOMAE_TRAIN = dict(X3D_TRAIN, name="videomae_b", lr=TRANSFORMER_LR,
 R2_TRAIN = dict(name="r2plus1d_r50", batch=8, accum=1, epochs=1, videos=16,
                 val_videos=8, ckpt_every=1, sampling_rate=4,
                 cache_frames=64, cache_size=(256, 320), cache_fps=30.0)
+# the training features (mixup/cutmix, the guard, tracking) on SlowFast-R50
+# at the reference geometry: 5 steps of B=8 x accumulation 2 through
+# Trainer, the batches of steps 3 and 4 poisoned with NaN
+FEATURES_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=80, ckpt_every=0,
+                      argv=["--optim.mixup_alpha", "0.8",
+                            "--optim.cutmix_alpha", "1.0",
+                            "--optim.ema_decay", "0.999", "--guard.enabled",
+                            "--guard.lkg_every_steps", "1",
+                            "--guard.rollback_after", "2",
+                            "--tracking.with_tracking",
+                            "--tracking.trackers", "jsonl",
+                            "--tracking.log_every", "1"])
+POISONED_TAKES = (3, 4)  # the train loader's 3rd and 4th batches
+# fit()'s step time with tracking on and off: Trainers of one epoch of 12
+# plain steps each, in turns on, off, off, on (the first interval of each
+# dropped: 20 per setting)
+TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=192, ckpt_every=0)
+TRACKING_ORDER = ("on", "off", "off", "on")
+# the armed guard's and mixing's cost: optimizer steps timed in rounds of
+# plain, mixed, mixed + armed guard (the order turned each round)
+ARMED_ROUNDS = 24
+# hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
+# per-block remat: B=4 micro-steps with and without --model.remat
+REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
+                   argv=ATTN_ARGV + ["--sampling_rate", "3"])
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
 DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
@@ -1266,15 +1319,38 @@ def is_backward(kname: str) -> bool:
     return "." in kname
 
 
-def host_copy(state) -> dict:
-    """Params + BN running averages, SGD momentum buffers and the step of a
-    TrainState, copied to the host."""
-    opt = state.optimizer.opt
-    return {"model": {k: v.detach().cpu().clone()
-                      for k, v in state.model.state_dict().items()},
-            "momentum": {n: opt.state[p]["momentum_buffer"].detach().cpu().clone()
-                         for n, p in state.model.named_parameters()},
-            "step": state.step}
+def cpu_state(state) -> dict:
+    """The leaves of a TrainState that a step writes (model parameters and
+    BN running averages, the optimizer's per-parameter state, the EMA) and
+    its step, copied to the host, in `TrainState.state_dict()`'s layout."""
+    return state_leaves(state.state_dict())
+
+
+def state_leaves(sd: dict) -> dict:
+    """`TrainState.state_dict()` (or its file) without the optimizer's
+    param_groups (the LR the schedule sets), tensors on the host."""
+    def host(v):
+        if hasattr(v, "detach"):
+            return v.detach().cpu().clone()
+        if isinstance(v, dict):
+            return {k: host(x) for k, x in v.items()}
+        return v
+    return {"step": sd["step"], "model": host(sd["model"]),
+            "optimizer_state": host(sd["optimizer"]["state"]),
+            "ema": host(sd["ema"])}
+
+
+def unequal_leaves(torch, a, b, path: str = "") -> list:
+    """Paths at which two nested dicts of tensors differ (bitwise)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and torch.equal(a, b))
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if sorted(map(str, a)) != sorted(map(str, b)):
+            return [f"{path} keys"]
+        return [p for k in a for p in unequal_leaves(torch, a[k], b[k], f"{path}/{k}")]
+    return [] if a == b else [path]
 
 
 def train_clips(rng, spec: dict, n: int) -> dict:
@@ -1317,7 +1393,7 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
             m = step(state, batch)
             seen["metrics"].append(m)
             if state.step == ckpt_every:
-                seen["snap"] = host_copy(state)
+                seen["snap"] = cpu_state(state)
             return m
         return wrapped
 
@@ -1349,11 +1425,9 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
     # the checkpoint of step `ckpt_every` restores bitwise
     tr = loop.Trainer(parse_cli(argv + ["--resume_from_checkpoint", "auto"]))
     extra, step = tr.checkpointer.restore(tr.state, step=ckpt_every)
-    got, snap = host_copy(tr.state), seen["snap"]
+    got, snap = cpu_state(tr.state), seen["snap"]
     check(step == got["step"] == snap["step"] == ckpt_every, f"restored step {step}")
-    bad = [k for k in snap["model"] if not torch.equal(got["model"][k], snap["model"][k])]
-    bad += [k for k in snap["momentum"]
-            if not torch.equal(got["momentum"][k], snap["momentum"][k])]
+    bad = unequal_leaves(torch, got, snap)
     check(not bad, f"restore not bitwise at {bad[:4]}")
     check(extra["data_state"] == {"epoch": 0, "position": ckpt_every},
           f"restored LoaderState {extra['data_state']}")
@@ -1428,15 +1502,20 @@ def free_cuda(torch) -> None:
 
 
 def micro_step_fn(torch, fused_mode: str, batch, spec: dict = SLOWFAST_TRAIN,
-                  impl: str = "conv", seed: int = 0):
+                  impl: str = "conv", seed: int = 0, mix=None):
     """(model, forward, fn) for a fresh seeded `spec` model in bf16 through
     `fused_mode` (and `depthwise_impl` `impl`) on `batch`: forward() returns
     the training loss, fn() runs one training micro-step (forward +
-    backward)."""
+    backward). `mix` (a `steps.MixDraw`): the batch mixed with its flipped
+    self by that draw and the loss of both labels, as the train step's
+    mixup/cutmix computes them."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
     from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
         _loss_and_metrics,
+        mix_batch,
+        mix_weight,
+        mixed_loss,
         model_inputs,
     )
 
@@ -1445,11 +1524,20 @@ def micro_step_fn(torch, fused_mode: str, batch, spec: dict = SLOWFAST_TRAIN,
                        "--model.num_classes", str(classes(spec["name"]))])
     model = create_model(cfg.model, "bf16", seed=seed,
                          data_cfg=cfg.data).cuda().train()
+    labels, lam = batch["label"], None
+    if mix is not None:
+        some = batch["fast" if "fast" in batch else "video"]
+        w_hw = mix_weight(mix, some.shape[-3], some.shape[-2], "cuda")
+        lam = w_hw.mean()
+        batch = mix_batch(batch, w_hw)
     inputs = model_inputs(batch)
-    ones = torch.ones(batch["label"].shape[0], device="cuda")
+    ones = torch.ones(labels.shape[0], device="cuda")
 
     def forward():
-        return _loss_and_metrics(model(inputs), batch["label"], ones, 0.0)[0]
+        logits = model(inputs)
+        if lam is None:
+            return _loss_and_metrics(logits, labels, ones, 0.0)[0]
+        return mixed_loss(logits, labels, lam, ones, 0.0)[0]
 
     def fn():
         model.zero_grad(set_to_none=True)
@@ -1545,13 +1633,14 @@ def rel_err(a, b) -> float:
 
 
 def fixed_forward_parity(torch, fused_mode: str, batch, spec: dict,
-                         impl: str = "conv"):
-    """One micro-step graph through `fused_mode`/`impl` differentiated twice:
-    once through the custom backward (dx launches the kernels), once with
-    each site's backward swapped for torch autograd of its plain version.
-    Returns the relative differences of the whole gradient and of one SGD
-    update."""
-    model, forward, _ = micro_step_fn(torch, fused_mode, batch, spec, impl)
+                         impl: str = "conv", mix=None):
+    """One micro-step graph through `fused_mode`/`impl` (under the fixed
+    `mix`, if any) differentiated twice: once through the custom backward
+    (dx launches the kernels), once with each site's backward swapped for
+    torch autograd of its plain version. Returns the relative differences
+    of the whole gradient and of one SGD update."""
+    model, forward, _ = micro_step_fn(torch, fused_mode, batch, spec, impl,
+                                      mix=mix)
     loss = forward()
     loss.backward(retain_graph=True)
     params = list(model.parameters())
@@ -1871,6 +1960,12 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     rows += attention_phases(torch, work, launches)
     t_r2plus1d = time.perf_counter()
     rows += r2plus1d_phases(torch, work, launches)
+    t_features = time.perf_counter()
+    # 30-31. this slice's paths: the training features on SlowFast-R50,
+    # remat on MViT-B 32x3, counters zeroed just before each
+    emit("features_train", nvidia_smi=smi, **features_train_phase(torch, work, launches))
+    emit("remat_train", nvidia_smi=smi, **remat_train_phase(torch, launches))
+    t_real = time.perf_counter()
     emit("real_video_route", **real_video_route(torch, work))
 
     kernels = []
@@ -1892,9 +1987,22 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             check(r2_count > 0, f"{kname} was not launched on R(2+1)D-50's path")
             kernels[-1]["r2plus1d_r50"] = {"launches": r2_count,
                                            **line_sums(rows, kname, "r2plus1d_r50")}
+        if kname in FEATURES_LINE:
+            # this slice's paths: features_train (SlowFast-R50, the row's
+            # own site shapes) and remat_train (MViT-B 32x3, launches of
+            # one micro-step under remat)
+            phase = FEATURES_LINE[kname]
+            f_count = launches[phase].get(kname, 0)
+            check(f_count > 0, f"{kname} was not launched on {phase}")
+            sub = {"path": phase, "launches": f_count}
+            if phase == "features_train":
+                sub.update(line_sums(rows, kname, "slowfast_r50"))
+            kernels[-1]["train_features"] = sub
     emit("seconds", slowfast=slowfast_s,
          attention=t_r2plus1d - t_attention,
-         r2plus1d=time.perf_counter() - t_r2plus1d,
+         r2plus1d=t_features - t_r2plus1d,
+         features=t_real - t_features,
+         real_video=time.perf_counter() - t_real,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -1907,6 +2015,14 @@ def run(torch, work: str, smi: str, kind: str) -> int:
 
 
 R2_LINE = ("fused_pw_bn_act", "fused_conv_bn_act")
+# the kernel rows on this slice's paths, and the phase whose launches each
+# reports
+FEATURES_LINE = {
+    **{k: "features_train" for k in ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                                      "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")},
+    **{k: "remat_train" for k in ("depthwise3d_s1", "depthwise3d_s1.bwd_dx",
+                                  "flash_attention", "flash_attention.bwd_dq",
+                                  "flash_attention.bwd_dkv")}}
 
 
 def line_sums(rows, kname: str, model: str) -> dict:
@@ -2318,10 +2434,13 @@ def mae_micro_step(torch, attention: str, x, seed: int = 0):
 
 def micro_step_times(torch, fn, reps: int = 3) -> dict:
     """Host-clock ms of `reps` synchronised `fn()` calls after one warm-up
-    call, and the peak device memory over them."""
+    call, the peak device memory over them, and the memory live before
+    them (held by the caller: weights, the batch, what earlier phases
+    left)."""
     fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
     times = []
     for _ in range(reps):
         t = time.perf_counter()
@@ -2329,7 +2448,8 @@ def micro_step_times(torch, fn, reps: int = 3) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     return {"micro_step_ms": times,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "live_mem_gb_before": live / 1e9}
 
 
 def videomae_train_timing(torch) -> dict:
@@ -2616,6 +2736,369 @@ def r2plus1d_phases(torch, work: str, launches: dict):
     return rows
 
 
+def spread(xs) -> dict:
+    """Median and quartiles of `xs`."""
+    q = np.percentile(np.asarray(xs, np.float64), [25, 50, 75])
+    return {"median": float(q[1]), "p25": float(q[0]), "p75": float(q[2]),
+            "n": len(xs)}
+
+
+def overhead(base, other) -> dict:
+    """`other` against `base`, paired by index (each pair timed side by side
+    in one round): the spread of the differences in ms, the median one over
+    the median of `base`, and `resolved`, whether the quartiles of the
+    differences leave out 0 (else the spread covers the effect)."""
+    diff = spread([o - b for b, o in zip(base, other)])
+    return {"diff_ms": diff,
+            "median_rel": diff["median"] / float(np.median(base)),
+            "resolved": diff["p25"] > 0 or diff["p75"] < 0}
+
+
+def armed_step_times(torch) -> dict:
+    """ms of one optimizer step (B=8 x accumulation 2 of FEATURES_TRAIN's
+    geometry, through the kernels) plain, with mixup/cutmix, and with
+    mixup/cutmix and the guard's skip armed, on one model, batch and
+    optimizer: ARMED_ROUNDS rounds of one synchronised step of each, the
+    order turned every round, after two warm-up rounds (the second one
+    finds the optimizer's state made). The costs are the paired per-round
+    differences: mixed - plain, armed - mixed."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import make_train_step
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    spec = FEATURES_TRAIN
+    cfg = parse_cli(train_argv("unused", spec=spec))
+    model = create_model(cfg.model, "bf16", seed=SEED, data_cfg=cfg.data).cuda()
+    opt = build_optimizer(cfg.optim, 100, model.named_parameters())
+    state = TrainState.create(model, opt, ema_decay=cfg.optim.ema_decay)
+    micro = [train_batch(torch, SEED + 60 + i, spec) for i in range(spec["accum"])]
+    batch = {k: torch.stack([m[k] for m in micro]) for k in micro[0]}
+    del micro
+    kinds = ("plain", "mix", "mix_guard")
+    steps = {
+        "plain": make_train_step(model, opt, accum_steps=spec["accum"],
+                                 ema_decay=cfg.optim.ema_decay, dropout_seed=SEED),
+        "mix": make_train_step(model, opt, accum_steps=spec["accum"],
+                               ema_decay=cfg.optim.ema_decay, dropout_seed=SEED,
+                               mixup_alpha=0.8, cutmix_alpha=1.0),
+        "mix_guard": make_train_step(model, opt, accum_steps=spec["accum"],
+                                     ema_decay=cfg.optim.ema_decay,
+                                     dropout_seed=SEED, mixup_alpha=0.8,
+                                     cutmix_alpha=1.0, guard_skip=True)}
+    out = {k: [] for k in kinds}
+    for r in range(ARMED_ROUNDS + 2):
+        for k in kinds[r % 3:] + kinds[:r % 3]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            steps[k](state, batch)
+            torch.cuda.synchronize()
+            if r >= 2:
+                out[k].append((time.perf_counter() - t) * 1e3)
+    res = {f"step_ms_{k}": spread(v) for k, v in out.items()}
+    res["mix_overhead"] = overhead(out["plain"], out["mix"])
+    res["armed_guard_overhead"] = overhead(out["mix"], out["mix_guard"])
+    res["step_ms_raw"] = out
+    del steps, state, opt, model, batch
+    free_cuda(torch)
+    return res
+
+
+def tracking_times(torch, work: str) -> dict:
+    """fit()'s step time with jsonl tracking on and off: TRACKING_TRAIN's
+    Trainers in the turns of TRACKING_ORDER, one process, each step's
+    host-clock interval from its dispatch to the next one's (the loop reads
+    each step's metrics one step late, so an interval is a step's time in
+    the loop, its input wait and logging included), the first of each
+    Trainer dropped; and each fit()'s clips/s."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    out = {"on": [], "off": []}
+    clips = {"on": [], "off": []}
+    for i, label in enumerate(TRACKING_ORDER):
+        extra = (["--tracking.with_tracking", "--tracking.trackers", "jsonl",
+                  "--tracking.logging_dir",
+                  os.path.join(work, f"tracking_logs_{i}")]
+                 if label == "on" else [])
+        tr = Trainer(parse_cli(train_argv(os.path.join(work, f"tracking_{i}"),
+                                          spec=TRACKING_TRAIN) + extra))
+        inner, stamps = tr.train_step, []
+
+        def timed(state, batch, inner=inner, stamps=stamps):
+            stamps.append(time.perf_counter())
+            return inner(state, batch)
+
+        tr.train_step = timed
+        res = tr.fit()
+        out[label] += list(np.diff(stamps)[1:] * 1e3)
+        clips[label].append(res.get("clips_per_sec"))
+        del tr, timed, inner
+        free_cuda(torch)
+    res = {f"fit_step_ms_tracking_{k}": spread(v) for k, v in out.items()}
+    # paired by position: the k-th steady step of an on run against the
+    # k-th of the off run beside it
+    res["tracking_overhead"] = overhead(out["off"], out["on"])
+    res.update({f"fit_clips_per_sec_tracking_{k}": v for k, v in clips.items()})
+    res["fit_step_ms_raw"] = out
+    return res
+
+
+def features_train_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 30. SlowFast-R50 at the reference geometry (32 frames at 256^2,
+    bf16, B=8 x accumulation 2, 80 synthetic videos: 5 steps) through
+    `Trainer` from run.py's parser with mixup 0.8 + cutmix 1.0, the EMA,
+    the guard (LKG every step, rollback after 2 anomalies) and jsonl
+    tracking every step. A wrapper around the train loader NaN-poisons its
+    3rd and 4th batches (`poison_batch`). Checks: steps 3 and 4 report
+    `skipped` 1; step 3 leaves the whole state (parameters, BN running
+    averages, momentum, EMA) bitwise as it found it; observing step 4 the
+    guard rolls back to its LKG of step 3, the restored state bitwise the
+    ring's file, and the loader resumes at the 5th batch; fit() ends with a
+    finite loss; launches exact (one forward and one dx per fused site per
+    micro-step, the skipped and abandoned steps included, plus the eval
+    forwards); the jsonl holds a start line, a line per logged step
+    (train_loss_step, lr, grad_norm), the epoch line and an end line.
+    Counters zeroed just before fit(), read just after."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.reliability.guard import poison_batch
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    t0 = time.perf_counter()
+    spec = FEATURES_TRAIN
+    out_dir = os.path.join(work, "train_features")
+    logs = os.path.join(out_dir, "logs")
+    tr = Trainer(parse_cli(train_argv(out_dir, spec=spec)
+                           + ["--tracking.logging_dir", logs]))
+    seen = {"metrics": [], "positions": [], "takes": 0}
+    inner = tr.train_prefetch
+
+    class Poisoning:
+        """The train prefetcher, its 3rd and 4th batches NaN-poisoned."""
+
+        def pop_wait(self):
+            return inner.pop_wait()
+
+        def epoch(self, *a, **k):
+            it = inner.epoch(*a, **k)
+            try:
+                for batch in it:
+                    seen["takes"] += 1
+                    seen["positions"].append(tr.train_loader.state.to_dict())
+                    yield (poison_batch(batch) if seen["takes"] in POISONED_TAKES
+                           else batch)
+            finally:
+                it.close()
+
+    tr.train_prefetch = Poisoning()
+    real_step, real_rollback = tr.train_step, tr._guard_rollback
+
+    def step(state, batch):
+        call = len(seen["metrics"]) + 1
+        if call == POISONED_TAKES[0]:
+            seen["before"] = cpu_state(state)
+        m = real_step(state, batch)
+        seen["metrics"].append(m)
+        if call == POISONED_TAKES[0]:
+            seen["after"] = cpu_state(state)
+        return m
+
+    def rollback(action):
+        real_rollback(action)
+        seen["rollback"] = (action, cpu_state(tr.state),
+                            tr.train_loader.state.to_dict())
+
+    tr.train_step, tr._guard_rollback = step, rollback
+    fused.reset_launch_counts()
+    t_fit = time.perf_counter()
+    result = tr.fit()
+    fit_s = time.perf_counter() - t_fit
+    launches["features_train"] = counts = dict(fused.LAUNCHES)
+
+    skipped = [m["skipped"].item() for m in seen["metrics"]]
+    losses = [m["loss"].item() for m in seen["metrics"]]
+    want_skipped = [1.0 if i + 1 in POISONED_TAKES else 0.0
+                    for i in range(len(skipped))]
+    check(skipped == want_skipped, f"skipped per step {skipped}")
+    step_keep = unequal_leaves(
+        torch, {k: v for k, v in seen["after"].items() if k != "step"},
+        {k: v for k, v in seen["before"].items() if k != "step"})
+    check(not step_keep and seen["after"]["step"] == seen["before"]["step"] + 1,
+          f"the skipped step changed {step_keep[:4]}")
+    check("rollback" in seen, "the guard did not roll back")
+    action, restored, resumed = seen["rollback"]
+    guard = tr.train_guard
+    lkg_file = state_leaves(torch.load(
+        os.path.join(out_dir, "guard_lkg", str(action.lkg_step), "state.pt"),
+        map_location="cpu", weights_only=True))
+    ring_diff = unequal_leaves(torch, restored, lkg_file)
+    check(action.lkg_step == POISONED_TAKES[0] and guard.rollbacks == 1
+          and guard.skips == 1 and not ring_diff,
+          f"rollback to {action.lkg_step}, rollbacks {guard.rollbacks}, skips "
+          f"{guard.skips}, restored state differs from the ring at {ring_diff[:4]}")
+    check(resumed == {"epoch": 0, "position": POISONED_TAKES[1]}
+          and seen["positions"][-1] == {"epoch": 0,
+                                        "position": POISONED_TAKES[1] + 1},
+          f"loader after the rollback {resumed}, positions {seen['positions']}")
+    n_steps = spec["videos"] // (spec["batch"] * spec["accum"])
+    check(len(seen["metrics"]) == n_steps + 1 and result["steps"] == n_steps - 1,
+          f"steps dispatched {len(seen['metrics'])}, state step {result['steps']}")
+    check(np.isfinite(result["train_loss"]), f"fit() loss {result['train_loss']}")
+    micro = len(seen["metrics"]) * spec["accum"]
+    evals = -(-max(spec["videos"] // 4, 4) // spec["batch"])
+    per_forward = expected_forward_launches("slowfast_r50")
+    want = {k: per_forward.get(k.split(".")[0], 0)
+            * (micro if is_backward(k) else micro + evals) for k in SOURCES}
+    check(counts == want, f"features_train launches {counts}, expected {want}")
+
+    (log_name,) = os.listdir(logs)
+    with open(os.path.join(logs, log_name)) as f:
+        lines = [json.loads(ln) for ln in f]
+    step_lines = [ln for ln in lines if "train_loss_step" in ln]
+    epoch_lines = [ln for ln in lines if "train_loss_epoch" in ln]
+    check(lines[0].get("event") == "start" and lines[-1].get("event") == "end"
+          and [ln["step"] for ln in step_lines] == [1, 2, 3, 4, 4]
+          and all({"lr", "grad_norm"} <= set(ln) for ln in step_lines)
+          and len(epoch_lines) == 1 and len(lines) == len(step_lines) + 3,
+          f"jsonl lines {[sorted(ln) for ln in lines]}")
+    bundle = guard.last_rollback["bundle"]
+    fields = {
+        "fit_s": fit_s, "result": result, "losses": losses, "skipped": skipped,
+        "launches": counts, "expected_launches": want,
+        "micro_steps": micro, "eval_forwards": evals,
+        "rollback": guard.last_rollback, "lkg_ring": guard.ring_steps(),
+        "replay_bundle_files": sorted(os.listdir(bundle)) if bundle else [],
+        "jsonl_lines": len(lines), "restored_bitwise_ring": True,
+        "skipped_step_state_bitwise": True}
+    # the wrappers and the bound `_guard_rollback` close a cycle through the
+    # Trainer: drop them all, so its state (and the guard's snapshot) go now
+    del (tr, seen, restored, lkg_file, step, rollback, real_step, real_rollback,
+         guard, action, inner)
+    free_cuda(torch)
+
+    # the same micro-step with a fixed mix (a mixup and a cutmix draw)
+    # through the kernels and through plain PyTorch, the forward held fixed
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import MixDraw
+
+    batch = train_batch(torch, SEED + 61)
+    for label, draw in (("mixup", MixDraw(False, 0.7)),
+                        ("cutmix", MixDraw(True, 0.6, 0.3, 0.7))):
+        grad, update = fixed_forward_parity(torch, "auto", batch, SLOWFAST_TRAIN,
+                                            mix=draw)
+        check(grad <= LOGIT_TOL and update <= LOGIT_TOL,
+              f"{label} gradients {grad}, update {update}")
+        fields.update({f"{label}_draw": str(draw),
+                       f"{label}_grad_rel_err_same_forward": grad,
+                       f"{label}_update_rel_err_same_forward": update})
+    fields["rel_tolerance"] = LOGIT_TOL
+    del batch
+    free_cuda(torch)
+    fields.update(armed_step_times(torch))
+    fields.update(tracking_times(torch, work))
+    fields["seconds"] = time.perf_counter() - t0
+    return fields
+
+
+def remat_train_phase(torch, launches: dict) -> dict:
+    """Phase 31. hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop
+    path 0.3, `attention pallas, depthwise_impl pallas`, bf16): B=4
+    micro-steps with `--model.remat` and without, on the same weights,
+    batch and drop-path seeds, cuDNN deterministic. Per run: ms per
+    micro-step, peak memory, the launches of one micro-step (counters
+    zeroed just before it; under remat the forward kernels run again in the
+    backward: 2 x 16 flash forwards, 2 x 4 `depthwise3d_s1`; 16 dq, 16 dk/dv
+    and 4 depthwise dx either way). The loss must be bitwise equal; the
+    gradients equal bitwise or within 1e-2 (relative 2-norm), and the phase
+    says which held. A run without remat that does not fit prints its OOM
+    and the largest batch that fits."""
+    from pytorchvideo_accelerate_tpu_torch.models.common import SeededDropout
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    t0 = time.perf_counter()
+    free_cuda(torch)
+    out = {"live_mem_gb_at_start": torch.cuda.memory_allocated() / 1e9}
+    batch = train_batch(torch, SEED + 70, REMAT_TRAIN)
+    mvit = expected_mvit_launches()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out.update(batch=REMAT_TRAIN["batch"], cudnn_deterministic=True)
+    runs = {}
+    try:
+        for label, extra in (("remat", ["--model.remat"]), ("no_remat", [])):
+            spec = dict(REMAT_TRAIN, argv=REMAT_TRAIN["argv"] + extra)
+            model = fn = oom = None
+            try:
+                model, _, fn = micro_step_fn(torch, "off", batch, spec)
+                for i, d in enumerate(m for m in model.modules()
+                                      if isinstance(m, SeededDropout)):
+                    d.reseed(SEED + 1000 + i)  # the same drop paths
+                fused.reset_launch_counts()
+                loss = fn()
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in fused.LAUNCHES.items() if v}
+                runs[label] = (loss.item(), torch.cat(
+                    [p.grad.float().flatten() for p in model.parameters()]))
+                timed = micro_step_times(torch, fn)
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e).splitlines()[0]
+            if oom is not None:  # the traceback's tensors are released here
+                model = fn = None
+                free_cuda(torch)
+                out[f"{label}_oom"] = oom
+                out[f"{label}_largest_batch"] = largest_batch(torch, spec)
+                continue
+            scale = 2 if label == "remat" else 1
+            want = {"flash_attention": scale * mvit["flash_attention"],
+                    "flash_attention.bwd_dq": mvit["flash_attention"],
+                    "flash_attention.bwd_dkv": mvit["flash_attention"],
+                    "depthwise3d_s1": scale * mvit["depthwise3d_s1"],
+                    "depthwise3d_s1.bwd_dx": mvit["depthwise3d_s1"]}
+            check(counts == want, f"{label} launches {counts}, expected {want}")
+            out[label] = {"launches_per_micro_step": counts, **timed}
+            if label == "remat":
+                launches["remat_train"] = counts
+            del model, fn
+            free_cuda(torch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check("remat" in out, "the remat micro-step did not run")
+    if "no_remat" in runs:
+        (lr_, gr), (ln_, gn) = runs["remat"], runs["no_remat"]
+        out["loss_remat"], out["loss_no_remat"] = lr_, ln_
+        check(lr_ == ln_, f"remat loss {lr_} != {ln_}")
+        out["grad_bitwise"] = bool(torch.equal(gr, gn))
+        out["grad_rel_err"] = rel_err(gr, gn)
+        check(out["grad_bitwise"] or out["grad_rel_err"] <= KERNEL_TOL,
+              f"remat gradient differs by {out['grad_rel_err']}")
+        out["peak_mem_saved_gb"] = (out["no_remat"]["peak_mem_gb"]
+                                    - out["remat"]["peak_mem_gb"])
+    del runs, batch
+    free_cuda(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def largest_batch(torch, spec: dict) -> int:
+    """The largest batch below `spec`'s whose micro-step fits, 0 if none."""
+    for b in range(spec["batch"] - 1, 0, -1):
+        small = dict(spec, batch=b)
+        fits = True
+        try:
+            model, _, fn = micro_step_fn(torch, "off",
+                                         train_batch(torch, SEED + 71, small), small)
+            fn()
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        model = fn = None
+        free_cuda(torch)
+        if fits:
+            return b
+    return 0
+
+
 def real_video_route(torch, work: str) -> dict:
     """Phase 29. With cv2 on this machine: 4 mp4s written with cv2 (seeded
     frames, 48x64, 30 fps), cached by the port's `build_cache`, and one
@@ -2662,7 +3145,80 @@ def real_video_route(torch, work: str) -> dict:
     check(got.shape == want.shape and bool((got == want).all()),
           "cached clip differs from decode_span")
     return {"route": "cv2", "cv2": cv2.__version__, "videos": len(index["videos"]),
-            "clip_shape": list(got.shape), "byte_equal": True}
+            "clip_shape": list(got.shape), "byte_equal": True,
+            "quarantine": quarantine_route(torch, work, root)}
+
+
+def quarantine_route(torch, work: str, root: str) -> dict:
+    """A list manifest of the route's two train mp4s and one corrupt
+    `.mp4`, trained on the card for 2 epochs of one batch (tiny3d, plain
+    lowering: this checks the data path) with `--guard.enabled
+    --guard.quarantine_budget 1`: fit() finishes, the sidecar names the
+    corrupt file, and in the second epoch the source is never asked for its
+    index and the file is never opened."""
+    from pytorchvideo_accelerate_tpu_torch import run as trun
+    from pytorchvideo_accelerate_tpu_torch.data import decode
+    from pytorchvideo_accelerate_tpu_torch.data import pipeline
+
+    bad = os.path.join(root, "train", "a", "corrupt.mp4")
+    with open(bad, "wb") as f:
+        f.write(b"not a video container" * 8)
+    lists = {}
+    for split, names in (("train", ["train/a/v0.mp4", "train/b/v0.mp4",
+                                    "train/a/corrupt.mp4"]),
+                         ("val", ["val/a/v0.mp4", "val/b/v0.mp4"])):
+        lists[split] = os.path.join(work, f"quarantine_{split}.txt")
+        with open(lists[split], "w") as f:
+            f.writelines(f"{n} {i % 2}\n" for i, n in enumerate(names))
+    out = os.path.join(work, "quarantine_run")
+    seen, asked = [], []
+    epoch_of = [None]
+    real_get, real_probe, real_span = (pipeline.VideoClipSource.get,
+                                       decode.probe, decode.decode_span)
+
+    def get(self, index, epoch):
+        if self.training:
+            asked.append((epoch, index))
+            epoch_of[0] = epoch
+        return real_get(self, index, epoch)
+
+    def probe(path):
+        seen.append((epoch_of[0], os.path.basename(path)))
+        return real_probe(path)
+
+    def span(path, *a, **k):
+        seen.append((epoch_of[0], os.path.basename(path)))
+        return real_span(path, *a, **k)
+
+    pipeline.VideoClipSource.get, decode.probe, decode.decode_span = get, probe, span
+    try:
+        result = trun.main([
+            "--data_dir", root, "--data.train_list", lists["train"],
+            "--data.val_list", lists["val"], "--model.name", "tiny3d",
+            "--model.fused_kernels", "xla", "--num_frames", "4",
+            "--sampling_rate", "2", "--data.crop_size", "32",
+            "--data.min_short_side_scale", "48",
+            "--data.max_short_side_scale", "48", "--batch_size", "3",
+            "--num_epochs", "2", "--num_workers", "2", "--guard.enabled",
+            "--guard.quarantine_budget", "1", "--reliability.decode_retries",
+            "1", "--output_dir", out])
+    finally:
+        pipeline.VideoClipSource.get, decode.probe, decode.decode_span = (
+            real_get, real_probe, real_span)
+    with open(os.path.join(out, "quarantine.json")) as f:
+        sidecar = json.load(f)
+    bad_index = 2
+    check(result["steps"] == 2 and np.isfinite(result["train_loss"])
+          and list(sidecar["quarantined"]) == [bad]
+          and result["quarantined_clips"] == 1,
+          f"quarantine run {result}, sidecar {sidecar}")
+    check((0, bad_index) in asked and (1, bad_index) not in asked
+          and (1, "corrupt.mp4") not in seen and (0, "corrupt.mp4") in seen,
+          f"asked {asked}, opened {seen}")
+    return {"steps": result["steps"], "train_loss": result["train_loss"],
+            "sidecar": sidecar, "asked": asked,
+            "opened_corrupt_in_epochs": sorted({e for e, n in seen
+                                                if n == "corrupt.mp4"})}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """Host-side clip pipeline: sources, batching, prefetch, state (the port's
 copy of the JAX package's `data/pipeline.py`: the real-video and synthetic
-sources and the thread transport; the frame-cache source is in
-`data/cache.py`; the bad-sample quarantine and the process transport are
-queued in ROADMAP.md).
+sources with the bad-sample quarantine, and the thread transport; the
+frame-cache source is in `data/cache.py`; the process transport is queued
+in ROADMAP.md).
 
 - a `ClipSource` maps (epoch, index) to one sample dict, deterministically;
-- per-epoch shuffling from the shared seed, `(seed, 0xDA7A, epoch)`;
+- per-epoch shuffling from the shared seed, `(seed, 0xDA7A, epoch)`, with
+  quarantined indices remapped onto clean ones (`substitute_indices`);
 - a thread pool decodes and transforms samples, one batch-assembly lane
   keeps `prefetch_batches` batches in flight;
 - the iterator position {epoch, position} is checkpointable (`LoaderState`),
@@ -28,9 +29,10 @@ import numpy as np
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.data import decode as decode_mod
-from pytorchvideo_accelerate_tpu_torch.data.manifest import Manifest
+from pytorchvideo_accelerate_tpu_torch.data.manifest import Manifest, Quarantine
 from pytorchvideo_accelerate_tpu_torch.data.samplers import (
     random_clip,
+    substitute_indices,
     uniform_clips,
 )
 from pytorchvideo_accelerate_tpu_torch.reliability.retry import retry_call
@@ -98,8 +100,11 @@ class VideoClipSource(ClipSource):
     retry transient failures (`retry_call`, `decode_retries` attempts)
     first. Only decode failures substitute: transform errors propagate.
 
-    The JAX package's bad-sample `quarantine` comes with the training guard
-    (ROADMAP.md A.3); only `quarantine=None` is taken here. Without cv2 the
+    With a `quarantine` (`data/manifest.Quarantine`), every failure that
+    survives the retries also counts against the clip's persisted budget;
+    past it the path is quarantined: skipped without a decode attempt, and
+    excluded at the sampler (`quarantined_indices()` feeds
+    `samplers.substitute_indices`), this run and the next. Without cv2 the
     constructor raises `decode.NoVideoDecoderError`, which names the
     frame-cache route."""
 
@@ -108,11 +113,8 @@ class VideoClipSource(ClipSource):
     def __init__(self, manifest: Manifest, transform: Callable,
                  clip_duration: float, training: bool, seed: int = 42,
                  num_clips: int = 1, decode_retries: int = 2,
-                 retry_base_delay_s: float = 0.05, quarantine=None):
-        if quarantine is not None:
-            raise NotImplementedError(
-                "the bad-sample quarantine (data/manifest.py Quarantine) is "
-                "not ported to PyTorch yet (see the port queue in ROADMAP.md)")
+                 retry_base_delay_s: float = 0.05,
+                 quarantine: Optional[Quarantine] = None):
         decode_mod.require_decoder()
         self.manifest = manifest
         self.transform = transform
@@ -123,12 +125,21 @@ class VideoClipSource(ClipSource):
         self.retry_base_delay_s = retry_base_delay_s
         self.num_clips = max(num_clips, 1) if not training else 1
         self.num_classes = manifest.num_classes
+        self.quarantine = quarantine
         self._meta_cache: Dict[str, decode_mod.VideoMeta] = {}
         self._meta_lock = threading.Lock()
         self._failed: set = set()
 
     def __len__(self) -> int:
         return len(self.manifest)
+
+    def quarantined_indices(self) -> set:
+        """Manifest indices of quarantined paths (the sampler's exclusion
+        input); empty without a quarantine."""
+        if self.quarantine is None or len(self.quarantine) == 0:
+            return set()
+        bad = self.quarantine.paths()
+        return {i for i, e in enumerate(self.manifest.entries) if e.path in bad}
 
     def _meta(self, path: str) -> decode_mod.VideoMeta:
         with self._meta_lock:
@@ -153,6 +164,8 @@ class VideoClipSource(ClipSource):
     def _mark_failed(self, path: str, e: BaseException) -> None:
         with self._meta_lock:
             self._failed.add(path)
+        if self.quarantine is not None:
+            self.quarantine.record(path, e)
         logger.warning("skipping unreadable video %s (%s: %s); substituting",
                        path, type(e).__name__, e)
 
@@ -166,6 +179,10 @@ class VideoClipSource(ClipSource):
             entry = self.manifest.entries[idx]
             with self._meta_lock:
                 known_bad = entry.path in self._failed
+            if not known_bad and self.quarantine is not None:
+                # normally the sampler already excluded it; this covers
+                # direct get() callers and paths quarantined mid-epoch
+                known_bad = self.quarantine.contains(entry.path)
             if not known_bad:
                 try:
                     meta = self._meta(entry.path)
@@ -311,6 +328,14 @@ class ClipLoader:
         if self.shuffle:
             rng = np.random.default_rng((self.seed, 0xDA7A, epoch))
             rng.shuffle(idx)
+        # a sidelined clip never reaches the decode pool, and the epoch's
+        # geometry (batch count, loader positions) stays the same
+        quarantined = getattr(self.source, "quarantined_indices", None)
+        if quarantined is not None:
+            bad = quarantined()
+            if bad:
+                idx = substitute_indices(idx, bad, len(self.source),
+                                         self.seed, epoch)
         return idx
 
     @property

@@ -7,9 +7,10 @@ from a `torch.Generator` seeded with `seed`; the caller sets the mode
 here: slowfast_r50, slowfast_r101, slowfast_t, slow_r50, c2d_r50, tiny3d,
 x3d_xs, x3d_s, x3d_m, x3d_l, csn_r101, r2plus1d_r50, mvit_b, mvit_b_32x3,
 mvit_t, videomae_b, videomae_b_pretrain, videomae_t and videomae_t_pretrain,
-every name of the JAX package's registry. The options of the transformer
-families that need several devices (`--model.attention ring|ulysses`) or
-are not ported (`--model.remat`) raise NotImplementedError (ROADMAP.md).
+every name of the JAX package's registry. `--model.remat` checkpoints
+every block of the transformer families (MViT, VideoMAE), as the JAX
+package does; their options that need several devices (`--model.attention
+ring|ulysses`) raise NotImplementedError (ROADMAP.md).
 MViT's `pos_embed` is sized by the clip geometry, `data_cfg` (num_frames,
 crop_size; `DataConfig()` when none is given). Each classifier class carries
 `backbone_param_filter(path)` (True for the backbone, `path` the
@@ -94,14 +95,14 @@ _REGISTRY: Dict[str, Callable] = {
     "videomae_b": lambda cfg, dtype, data: _videomae(cfg, dtype),
     "videomae_b_pretrain": lambda cfg, dtype, data: VideoMAEForPretraining(
         mask_ratio=cfg.mask_ratio, attention_backend=cfg.attention,
-        dtype=dtype),
+        dtype=dtype, remat=cfg.remat),
     # deliberately tiny VideoMAE classifier and its pretraining twin
     "videomae_t": lambda cfg, dtype, data: _videomae(
         cfg, dtype, dim=32, depth=4, num_heads=2, tubelet=(2, 8, 8)),
     "videomae_t_pretrain": lambda cfg, dtype, data: VideoMAEForPretraining(
         dim=32, depth=4, num_heads=2, decoder_dim=16, decoder_depth=2,
         decoder_heads=2, tubelet=(2, 8, 8), mask_ratio=cfg.mask_ratio,
-        attention_backend=cfg.attention, dtype=dtype),
+        attention_backend=cfg.attention, dtype=dtype, remat=cfg.remat),
 }
 
 _TRANSFORMERS = ("mvit", "videomae")
@@ -111,14 +112,15 @@ def _mvit(cfg: ModelConfig, dtype, data: DataConfig, **kw) -> MViT:
     return MViT(cfg.num_classes,
                 input_grid=(data.num_frames, data.crop_size, data.crop_size),
                 dropout_rate=cfg.dropout_rate, attention_backend=cfg.attention,
-                depthwise_impl=cfg.depthwise_impl, dtype=dtype, **kw)
+                depthwise_impl=cfg.depthwise_impl, dtype=dtype,
+                remat=cfg.remat, **kw)
 
 
 def _videomae(cfg: ModelConfig, dtype, **kw) -> VideoMAEClassifier:
     return VideoMAEClassifier(
         cfg.num_classes, dropout_rate=cfg.dropout_rate,
         attention_backend=cfg.attention, attn_mask=cfg.attn_mask,
-        attn_window=cfg.attn_window, dtype=dtype, **kw)
+        attn_window=cfg.attn_window, dtype=dtype, remat=cfg.remat, **kw)
 
 
 def _x3d(cfg: ModelConfig, dtype, **kw) -> X3D:
@@ -186,10 +188,6 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
             f"{cfg.fused_kernels!r}")
     if cfg.name.startswith(_TRANSFORMERS):
         check_backend(cfg.attention)
-        if cfg.remat:
-            raise NotImplementedError(
-                "model.remat (per-block activation checkpointing) is not "
-                "ported to PyTorch yet (see the port queue in ROADMAP.md)")
     model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision),
                                 data_cfg or DataConfig())
     init_like_jax(model, torch.Generator().manual_seed(seed))

@@ -17,17 +17,21 @@ head: its mask comes from an explicit generator that the trainer reseeds;
 The transformer families (models/mvit.py, models/videomae.py) build on
 `LayerNorm` and `Dense`, flax's `nn.LayerNorm` (epsilon 1e-6, statistics
 in f32) and `nn.Dense(dtype=...)` with torch parameters (`weight`/`bias`
-for flax's `scale`/`kernel` and `bias`).
+for flax's `scale`/`kernel` and `bias`). Their blocks take `remat`
+(`--model.remat`): `remat_call` runs a block under activation
+checkpointing, as `nn.remat` wraps the JAX package's blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pytorchvideo_accelerate_tpu_torch.ops.fused import (
     FUSED_ACTS,
@@ -169,6 +173,60 @@ class DropPath(SeededDropout):
         mask = torch.rand(shape, generator=self._generator(x.device),
                           device=x.device) < keep
         return x * mask.to(x.dtype) / keep
+
+
+class _DropMaskStates:
+    """The recompute of a checkpointed block must redraw the drop masks
+    of its forward, but `checkpoint`'s `preserve_rng_state` restores only
+    torch's default generators, and every `SeededDropout` draws from its
+    own. The forward context saves their states; the recompute context
+    rewinds them to those states and, on its way out, puts back the
+    states it found (the post-forward ones)."""
+
+    def __init__(self, generators: List[torch.Generator]):
+        self.generators = generators
+        self.before: List[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def forward(self):
+        self.before = [g.get_state() for g in self.generators]
+        yield
+
+    @contextlib.contextmanager
+    def recompute(self):
+        found = [g.get_state() for g in self.generators]
+        for g, state in zip(self.generators, self.before):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(self.generators, found):
+                g.set_state(state)
+
+
+def check_remat_block(block: nn.Module) -> None:
+    """A checkpointed block's forward runs twice per training step: a
+    `BNAffine` inside would fold its batch statistics into the running
+    averages twice."""
+    bad = [n for n, m in block.named_modules() if isinstance(m, BNAffine)]
+    if bad:
+        raise ValueError(f"remat of a block holding BatchNorm {bad}: the "
+                         "recompute would update its running averages twice")
+
+
+def remat_call(block: nn.Module, fn: Callable, x: torch.Tensor, *args):
+    """`fn(x, *args)` (the body of `block`) under activation checkpointing
+    (`torch.utils.checkpoint`, non-reentrant): only the block's inputs are
+    kept, and the backward runs the forward again. The generators of the
+    block's active `SeededDropout`s are rewound for that recompute, so it
+    draws the forward's masks. Without autograd, a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(x, *args)
+    gens = [m._generator(x.device) for m in block.modules()
+            if isinstance(m, SeededDropout) and m.training and m.rate > 0]
+    states = _DropMaskStates(gens)
+    return checkpoint(fn, x, *args, use_reentrant=False,
+                      context_fn=lambda: (states.forward(), states.recompute()))
 
 
 class LayerNorm(nn.Module):

@@ -22,9 +22,10 @@ conv (cuDNN), as the JAX package leaves them to XLA. Submodules carry the
 flax names, so a state_dict key is the flax path (`block0.attn.qkv.weight`,
 `block14.attn.pool_k.pool.weight`, `pos_embed`).
 
-Not ported: the pipelined block stack (`pipeline`), block-boundary
-sharding (`shard_mesh`), context-parallel meshes and the streaming stem
-seam (`from_stem`); `remat` is refused by `create_model`.
+`remat` checkpoints every block (`models/common.py remat_call`, the JAX
+package's `nn.remat(MViTBlock)`). Not ported: the pipelined block stack
+(`pipeline`), block-boundary sharding (`shard_mesh`), context-parallel
+meshes and the streaming stem seam (`from_stem`).
 
 Input: (B, T, H, W, 3) NDHWC, normalized frames.
 """
@@ -42,6 +43,8 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
     DropPath,
     LayerNorm,
     SeededDropout,
+    check_remat_block,
+    remat_call,
 )
 from pytorchvideo_accelerate_tpu_torch.ops.attention import dot_product_attention
 from pytorchvideo_accelerate_tpu_torch.ops.depthwise import DepthwiseConv3D
@@ -119,13 +122,15 @@ class MViTBlock(nn.Module):
     """pytorchvideo's MultiScaleBlock (dim_mul_in_att=False): attention at
     the input dim, the channel change to `dim_out` in the MLP, the residual
     projected from norm2(x) (`skip_proj`) when the dim changes, the skip
-    max-pooled to the q-pooled grid (kernel stride+1, padding kernel//2)."""
+    max-pooled to the q-pooled grid (kernel stride+1, padding kernel//2).
+    `remat`: the block runs under activation checkpointing."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int, q_stride=ONE,
                  kv_stride=ONE, mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  attention_backend: str = "dense", depthwise_impl: str = "conv",
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.q_stride = tuple(q_stride)
         self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = MultiScaleAttention(dim, num_heads, q_stride, kv_stride,
@@ -135,8 +140,15 @@ class MViTBlock(nn.Module):
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim_out, dtype)
         self.skip_proj = Dense(dim, dim_out, dtype) if dim_out != dim else None
         self.drop_path = DropPath(drop_path)
+        if remat:
+            check_remat_block(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat:
+            return remat_call(self, self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = x
         y = self.attn(self.norm1(x))
         if self.q_stride != ONE:
@@ -171,7 +183,8 @@ class MViT(nn.Module):
                  initial_kv_stride: Sequence[int] = (1, 8, 8),
                  mlp_ratio: float = 4.0, drop_path_rate: float = 0.2,
                  dropout_rate: float = 0.5, attention_backend: str = "dense",
-                 depthwise_impl: str = "conv", dtype=torch.float32):
+                 depthwise_impl: str = "conv", dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
@@ -198,7 +211,7 @@ class MViT(nn.Module):
             self.add_module(f"block{i}", MViTBlock(
                 dim, dim_out, heads, q_stride, tuple(kv_stride), mlp_ratio,
                 drop_path_rate * i / max(depth - 1, 1), attention_backend,
-                depthwise_impl, dtype))
+                depthwise_impl, dtype, remat))
             dim = dim_out
         self.norm = LayerNorm(dim, dtype=dtype)
         self.dropout = SeededDropout(dropout_rate)

@@ -21,9 +21,10 @@ dense|pallas; `attn_mask` causal|windowed (dense only) bands the
 classifier's trunk in time. Submodules carry the flax names (`encoder.
 block0.qkv.weight`, `dec_block1.mlp_fc2.bias`, `mask_token`).
 
+`remat` checkpoints every ViTBlock, encoder and decoder
+(`models/common.py remat_call`, the JAX package's `nn.remat(ViTBlock)`).
 Not ported: the pipelined block stacks (`pipeline`), block-boundary
-sharding and context-parallel meshes; `remat` is refused by
-`create_model`.
+sharding and context-parallel meshes.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
     Dense,
     LayerNorm,
     SeededDropout,
+    check_remat_block,
+    remat_call,
 )
 from pytorchvideo_accelerate_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -73,11 +76,14 @@ def _pos_table(n: int, dim: int, device: torch.device) -> torch.Tensor:
 
 class ViTBlock(nn.Module):
     """Pre-LN transformer block: norm1 -> qkv -> attention -> proj,
-    residual; norm2 -> mlp_fc1 -> erf GELU -> mlp_fc2, residual."""
+    residual; norm2 -> mlp_fc1 -> erf GELU -> mlp_fc2, residual. `remat`:
+    the block runs under activation checkpointing."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 attention_backend: str = "dense", dtype=torch.float32):
+                 attention_backend: str = "dense", dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.dim = dim
         self.num_heads = num_heads
         self.backend = attention_backend
@@ -87,8 +93,15 @@ class ViTBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio), dtype)
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim, dtype)
+        if remat:
+            check_remat_block(self)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        if self.remat:
+            return remat_call(self, self._forward, x, mask)
+        return self._forward(x, mask)
+
+    def _forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         b, n, _ = x.shape
         shape = (b, n, self.num_heads, self.dim // self.num_heads)
         q, k, v = self.qkv(self.norm1(x)).split(self.dim, dim=-1)
@@ -134,7 +147,7 @@ class VideoMAEEncoder(nn.Module):
                  tubelet: Sequence[int] = (2, 16, 16),
                  attention_backend: str = "dense", final_norm: bool = True,
                  attn_mask: str = "none", attn_window: int = 0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         if attn_mask not in ATTN_MASKS:
             raise ValueError(f"unknown attn_mask {attn_mask!r} (none|causal|windowed)")
@@ -146,7 +159,7 @@ class VideoMAEEncoder(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", ViTBlock(dim, num_heads,
                                                   attention_backend=attention_backend,
-                                                  dtype=dtype))
+                                                  dtype=dtype, remat=remat))
         self.norm = LayerNorm(dim, dtype=dtype) if final_norm else None
 
     def blocks(self):
@@ -229,7 +242,8 @@ class VideoMAEForPretraining(nn.Module):
                  decoder_dim: int = 384, decoder_depth: int = 4,
                  decoder_heads: int = 6, tubelet: Sequence[int] = (2, 16, 16),
                  mask_ratio: float = 0.9, norm_pix: bool = True,
-                 attention_backend: str = "dense", dtype=torch.float32):
+                 attention_backend: str = "dense", dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.tubelet = tuple(tubelet)
         self.mask_ratio = mask_ratio
@@ -237,13 +251,14 @@ class VideoMAEForPretraining(nn.Module):
         self.decoder_dim = decoder_dim
         self.decoder_depth = decoder_depth
         self.encoder = VideoMAEEncoder(dim, depth, num_heads, tubelet,
-                                       attention_backend, dtype=dtype)
+                                       attention_backend, dtype=dtype,
+                                       remat=remat)
         self.enc_to_dec = Dense(dim, decoder_dim, dtype)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, decoder_dim))
         for i in range(decoder_depth):
             self.add_module(f"dec_block{i}", ViTBlock(
                 decoder_dim, decoder_heads, attention_backend=attention_backend,
-                dtype=dtype))
+                dtype=dtype, remat=remat))
         self.dec_norm = LayerNorm(decoder_dim, dtype=dtype)
         tt, p, _ = self.tubelet
         self.dec_pred = nn.Linear(decoder_dim, tt * p * p * 3)
@@ -292,12 +307,13 @@ class VideoMAEClassifier(nn.Module):
                  num_heads: int = 12, tubelet: Sequence[int] = (2, 16, 16),
                  dropout_rate: float = 0.0, attention_backend: str = "dense",
                  attn_mask: str = "none", attn_window: int = 0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.encoder = VideoMAEEncoder(dim, depth, num_heads, tubelet,
                                        attention_backend, final_norm=False,
                                        attn_mask=attn_mask,
-                                       attn_window=attn_window, dtype=dtype)
+                                       attn_window=attn_window, dtype=dtype,
+                                       remat=remat)
         self.fc_norm = LayerNorm(dim, dtype=dtype)
         self.dropout = SeededDropout(dropout_rate)
         self.head = nn.Linear(dim, num_classes)

@@ -1,3 +1,3 @@
-"""Resilience helpers (the port's copy of the JAX package's `reliability/`,
-`retry_call` only; fault injection, atomic writes and the guard are queued
-in ROADMAP.md)."""
+"""Resilience helpers (the port's copy of the JAX package's `reliability/`:
+`retry_call`, atomic writes and the training guard; fault injection is
+queued in ROADMAP.md)."""

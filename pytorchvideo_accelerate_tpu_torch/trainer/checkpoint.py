@@ -8,8 +8,9 @@ directory of
                layout (models/convert.py maps them to the port's state_dict)
   meta.json    format tag, step, ema_resolved, quantization, num_classes,
                model name and the resolved TrainConfig dict
-Both files land atomically (tmp file in the same directory, fsync,
-os.replace), so a reader never finds a truncated artifact. The artifact is
+Both files land atomically (`reliability/atomic.py`: tmp file in the same
+directory, fsync, os.replace), so a reader never finds a truncated
+artifact. The artifact is
 the crossing point between the two packages.
 
 Training checkpoints (`Checkpointer`) use the port's own format: one
@@ -40,27 +41,14 @@ from pytorchvideo_accelerate_tpu_torch.models.convert import (
     jax_tree_from_state_dict,
     state_dict_from_jax,
 )
+from pytorchvideo_accelerate_tpu_torch.reliability.atomic import (
+    atomic_write,
+    atomic_write_json,
+)
 
 INFERENCE_FORMAT = "pva-tpu-inference-v1"
 _WEIGHTS_FILE = "weights.npz"
 _META_FILE = "meta.json"
-
-
-def _atomic_write(path: str, write_fn) -> None:
-    d, base = os.path.split(path)
-    root, ext = os.path.splitext(base)
-    tmp = os.path.join(d, f".{root}.tmp-{os.getpid()}{ext}")
-    try:
-        write_fn(tmp)
-        fd = os.open(tmp, os.O_RDONLY)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
 
 
 def _write_json(path: str, obj) -> None:
@@ -90,10 +78,9 @@ def export_inference(path: str, model, config=None,
     if config is not None:
         info["config"] = config.to_dict()
     os.makedirs(path, exist_ok=True)
-    _atomic_write(os.path.join(path, _WEIGHTS_FILE),
-                  lambda tmp: np.savez(tmp, **flatten_tree(tree)))
-    _atomic_write(os.path.join(path, _META_FILE),
-                  lambda tmp: _write_json(tmp, info))
+    atomic_write(os.path.join(path, _WEIGHTS_FILE),
+                 lambda tmp: np.savez(tmp, **flatten_tree(tree)))
+    atomic_write_json(os.path.join(path, _META_FILE), info)
     return path
 
 
@@ -162,6 +149,12 @@ class Checkpointer:
         if self.max_to_keep:
             for old in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def delete(self, step: int) -> None:
+        """Remove checkpoint `step` (a guard ring revisiting a step index
+        after a rollback replaces it)."""
+        shutil.rmtree(os.path.join(self.directory, str(int(step))),
+                      ignore_errors=True)
 
     def restore(self, state, step: Optional[int] = None) -> Tuple[dict, int]:
         """Load checkpoint `step` (default: the latest) into `state` in

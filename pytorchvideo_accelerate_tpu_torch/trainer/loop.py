@@ -11,7 +11,16 @@ one, an eval pass at each epoch end, and returns the JAX trainer's result
 keys with its throughput numbers (`clips_per_sec`, `steps_per_sec`,
 `input_wait_frac`). `evaluate()`, `export_inference()` and `_maybe_resume()`
 serve `run.py`'s `--eval_only`, `--export_inference` and
-`--resume_from_checkpoint`. A `*_pretrain` model (VideoMAE) trains
+`--resume_from_checkpoint`. Mixup/cutmix (`--optim.mixup_alpha`,
+`--optim.cutmix_alpha`) run inside the train step. `--guard.enabled` arms
+the `TrainGuard` (reliability/guard.py): the step skips a nonfinite update
+on the device, the guard observes each step one step late, rolls back to
+its last-known-good ring and fast-forwards the loader, and on the
+real-video route a `Quarantine` sidelines clips that keep failing to
+decode. `--tracking.with_tracking` logs through the trackers
+(trainer/tracking.py): the config at start, the step metrics every
+`tracking.log_every` steps one step late, the epoch metrics, `evaluate()`'s
+result. A `*_pretrain` model (VideoMAE) trains
 self-supervised (`make_pretrain_step`, `make_pretrain_eval_step`): no
 labels, float32 clips (`data.host_cast u8` is refused: the MAE target is
 computed from the raw clip), one eval view, and `val_recon_loss` in place
@@ -40,6 +49,7 @@ from pytorchvideo_accelerate_tpu_torch.config import TrainConfig
 from pytorchvideo_accelerate_tpu_torch.data.cache import CachedClipSource
 from pytorchvideo_accelerate_tpu_torch.data.device_prefetch import DevicePrefetcher
 from pytorchvideo_accelerate_tpu_torch.data.manifest import (
+    Quarantine,
     from_list,
     scan_directory,
 )
@@ -51,6 +61,7 @@ from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
 )
 from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
+from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard
 from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
     Checkpointer,
     export_inference,
@@ -63,6 +74,10 @@ from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
     make_pretrain_eval_step,
     make_pretrain_step,
     make_train_step,
+)
+from pytorchvideo_accelerate_tpu_torch.trainer.tracking import (
+    DeferredStepLogger,
+    TrackerHub,
 )
 from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
 
@@ -101,30 +116,28 @@ def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
     computed and that this slice of the port lacks; print one line for each
     telemetry or debug option and for a `model.pretrained` without a path."""
-    d, m, o = cfg.data, cfg.model, cfg.optim
+    d, m = cfg.data, cfg.model
     address, num_processes, process_id = _process_settings(cfg)
     refused = [
         (num_processes > 1 or bool(address) or process_id >= 0,
          f"a multi-process job (coordinator_address {address!r}, num_processes "
          f"{num_processes}, process_id {process_id}; flags or PVA_* env; "
          "Multi-GPU, ROADMAP.md A.5)"),
-        (cfg.guard.enabled, "guard.enabled (reliability/guard.py, guard_skip)"),
         (d.dataplane_workers > 0, "data.dataplane_workers (the dataplane)"),
         (any(v > 1 for v in (cfg.mesh.data, cfg.mesh.model, cfg.mesh.fsdp,
                              cfg.mesh.tensor, cfg.mesh.context,
                              cfg.parallel.pipeline_stages)),
          "a mesh or pipeline of more than one device (multi-GPU)"),
         (bool(m.pretrained_path), "model.pretrained_path (the hub converter)"),
-        (o.mixup_alpha > 0 or o.cutmix_alpha > 0, "mixup/cutmix"),
     ]
     for bad, what in refused:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to PyTorch yet (see the port queue in "
                 "ROADMAP.md)")
-    if cfg.obs.enabled or cfg.tracking.with_tracking:
-        _say("obs.* telemetry and tracking.with_tracking are not ported yet "
-             "(ROADMAP.md); training runs without them")
+    if cfg.obs.enabled:
+        _say("obs.* telemetry is not ported yet (ROADMAP.md); training runs "
+             "without it")
     for on, flag in ((cfg.debug_nans, "debug_nans"),
                      (cfg.debug_asserts, "debug_asserts"),
                      (cfg.profile, "profile")):
@@ -160,6 +173,7 @@ class Trainer:
         self.checkpointing_steps = _parse_checkpointing_steps(
             cfg.checkpoint.checkpointing_steps)
         torch.manual_seed(cfg.seed)
+        self.quarantine: Optional[Quarantine] = None
         self._build_data()
         self._build_model_and_steps()
         self.checkpointer: Optional[Checkpointer] = None
@@ -170,6 +184,22 @@ class Trainer:
                 cfg.checkpoint.resume_from_checkpoint, ckpt_dir)
             self.checkpointer = Checkpointer(
                 resume_dir or ckpt_dir, max_to_keep=cfg.checkpoint.max_to_keep)
+        # None when disarmed: the step loop then does one `is None` check
+        self.train_guard: Optional[TrainGuard] = None
+        if cfg.guard.enabled:
+            self.train_guard = TrainGuard(
+                cfg.guard, output_dir=cfg.checkpoint.output_dir,
+                config_dict=cfg.to_dict(), seed=cfg.seed)
+            self.train_guard.quarantine = self.quarantine
+        self.trackers: Optional[TrackerHub] = None
+        if cfg.tracking.with_tracking:
+            # the reference's run name (run.py:229)
+            run_name = (str(cfg.tracking.logging_dir)
+                        .replace(".", "").replace("/", "").replace("\\", ""))
+            self.trackers = TrackerHub(cfg.tracking.trackers,
+                                       cfg.tracking.logging_dir,
+                                       retries=cfg.reliability.tracker_retries)
+            self.trackers.start(run_name, cfg.to_dict())
 
     # --- construction -----------------------------------------------------
 
@@ -268,11 +298,15 @@ class Trainer:
         else:
             train_manifest = scan_directory(os.path.join(d.data_dir, "train"))
             val_manifest = scan_directory(os.path.join(d.data_dir, "val"))
+        if cfg.guard.enabled and cfg.guard.quarantine_budget > 0:
+            self.quarantine = Quarantine(
+                os.path.join(cfg.checkpoint.output_dir, "quarantine.json"),
+                budget=cfg.guard.quarantine_budget)
         retry_kw = dict(decode_retries=cfg.reliability.decode_retries,
                         retry_base_delay_s=cfg.reliability.retry_base_delay_s)
         self.train_source = VideoClipSource(
             train_manifest, train_tf, cfg.clip_duration, training=True,
-            seed=cfg.seed, **retry_kw)
+            seed=cfg.seed, quarantine=self.quarantine, **retry_kw)
         self.val_source = VideoClipSource(
             val_manifest, val_tf, cfg.clip_duration, training=False,
             seed=cfg.seed, num_clips=eval_clips, **retry_kw)
@@ -298,7 +332,8 @@ class Trainer:
             self.train_step = make_pretrain_step(
                 self.model, optimizer,
                 accum_steps=cfg.optim.gradient_accumulation_steps,
-                ema_decay=cfg.optim.ema_decay, seed=cfg.seed)
+                ema_decay=cfg.optim.ema_decay, seed=cfg.seed,
+                guard_skip=cfg.guard.enabled)
             self.eval_step = make_pretrain_eval_step(self.model)
             return
         self.train_step = make_train_step(
@@ -306,7 +341,10 @@ class Trainer:
             accum_steps=cfg.optim.gradient_accumulation_steps,
             label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize,
-            ema_decay=cfg.optim.ema_decay, dropout_seed=cfg.seed)
+            ema_decay=cfg.optim.ema_decay, dropout_seed=cfg.seed,
+            mixup_alpha=cfg.optim.mixup_alpha,
+            cutmix_alpha=cfg.optim.cutmix_alpha,
+            guard_skip=cfg.guard.enabled)
         self.eval_step = make_eval_step(
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
@@ -340,6 +378,11 @@ class Trainer:
             step=self.state.step, params=self.state.eval_params())
 
     def close(self) -> None:
+        """Release the loaders and finish the trackers (fit(), evaluate()
+        and an export-only run all end here)."""
+        if self.trackers is not None:
+            self.trackers.finish()
+            self.trackers = None
         self.train_loader.close()
         self.val_loader.close()
 
@@ -370,21 +413,35 @@ class Trainer:
             acc, acc5, loss = self._run_eval(epoch=0)
             if self.is_pretraining:
                 print(f"evaluate: val_recon_loss={loss:.4f}")
-                return {"val_recon_loss": loss}
-            print(f"evaluate: val_acc={acc:.4f} val_acc5={acc5:.4f}")
-            return {"val_accuracy": acc, "val_accuracy_top5": acc5,
-                    "val_loss": loss}
+                result = {"val_recon_loss": loss}
+            else:
+                print(f"evaluate: val_acc={acc:.4f} val_acc5={acc5:.4f}")
+                result = {"val_accuracy": acc, "val_accuracy_top5": acc5,
+                          "val_loss": loss}
+            if self.trackers is not None:
+                self.trackers.log(result, step=self.state.step)
+            return result
         finally:
             self.close()
 
-    def _log(self, pending: Optional[tuple]) -> None:
-        """Print a deferred step's metrics; its step has retired behind the
-        one just launched, so the read does not stall the card."""
-        if pending is not None:
-            gstep, m = pending
-            print(f"step {gstep}: loss={m['loss'].item():.4f} "
-                  f"lr={m['lr']:.6g} grad_norm={m['grad_norm'].item():.4f}",
-                  flush=True)
+    @staticmethod
+    def _print_step(values: Dict[str, float], gstep: int) -> None:
+        print(f"step {gstep}: loss={values['train_loss_step']:.4f} "
+              f"lr={values['lr']:.6g} grad_norm={values['grad_norm']:.4f}",
+              flush=True)
+
+    def _guard_rollback(self, action) -> None:
+        """Carry out a rollback verdict: the last-known-good state loaded
+        into the live model and optimizer, the loader moved just past the
+        anomalous batch (replaying it would diverge the same way)."""
+        _, step = self.train_guard.restore(self.state, action)
+        self.train_loader.state = LoaderState.from_dict(action.resume_position)
+        print(f"guard: rolled back to last-known-good step {step} "
+              f"({action.reason}); loader fast-forwarded to epoch "
+              f"{self.train_loader.state.epoch} position "
+              f"{self.train_loader.state.position}"
+              + (f"; replay bundle: {action.bundle_path}"
+                 if action.bundle_path else ""), flush=True)
 
     def fit(self) -> dict:
         cfg = self.cfg
@@ -394,28 +451,57 @@ class Trainer:
         last_train_loss = float("nan")
         last_perf: Dict[str, float] = {}
         epoch_train_times = []
+        # step metrics are read one step late: after the next dispatch
+        deferred = DeferredStepLogger(self.trackers, on_flush=self._print_step)
+        tguard = self.train_guard
         try:
-            for epoch in range(starting_epoch, cfg.optim.num_epochs):
+            # a rollback re-enters this epoch, or an earlier one, from the
+            # loader position it set
+            epoch = starting_epoch
+            while epoch < cfg.optim.num_epochs:
                 epoch_loss = MeanLoss()
                 t_epoch = time.time()
                 steps_done = 0
-                deferred = None
+                rolled_back = False
                 self.train_prefetch.pop_wait()
                 for i, batch in enumerate(self.train_prefetch.epoch(epoch)):
                     metrics = self.train_step(self.state, batch)
                     gstep += 1
                     steps_done += 1
-                    self._log(deferred)
-                    deferred = ((gstep, metrics)
-                                if gstep % cfg.tracking.log_every == 0 else None)
+                    deferred.flush()
+                    if tguard is not None:
+                        # observes the previous step; a rollback abandons
+                        # the one just dispatched
+                        action = tguard.step(gstep, metrics, batch,
+                                             self.train_loader.state,
+                                             self.state)
+                        if action is not None:
+                            self._guard_rollback(action)
+                            rolled_back = True
+                            break
                     epoch_loss.update(metrics["loss"])
+                    if gstep % cfg.tracking.log_every == 0:
+                        deferred.defer({"train_loss_step": metrics["loss"],
+                                        "lr": metrics["lr"],
+                                        "grad_norm": metrics["grad_norm"]},
+                                       step=gstep)
                     if (isinstance(self.checkpointing_steps, int)
                             and gstep % self.checkpointing_steps == 0):
                         self._save("step", epoch)
                     if 0 <= cfg.data.limit_train_batches <= i + 1:
                         break
+                deferred.flush()
+                if tguard is not None and not rolled_back:
+                    # the epoch's last step is still pending in the guard
+                    action = tguard.flush(self.state, self.train_loader.state)
+                    if action is not None:
+                        self._guard_rollback(action)
+                        rolled_back = True
+                if rolled_back:
+                    gstep = self.state.step
+                    epoch = self.train_loader.state.epoch
+                    continue
                 last_train_loss = epoch_loss.mean()  # the epoch's one sync
-                self._log(deferred)
                 t_train = time.time() - t_epoch
                 epoch_train_times.append(t_train)
                 wait_s = self.train_prefetch.pop_wait()
@@ -435,8 +521,21 @@ class Trainer:
                         "input_wait_s": wait_s,
                         "input_wait_frac": min(wait_s / t_train, 1.0),
                     }
+                    if tguard is not None:
+                        last_perf.update(tguard.perf_keys())
+                if self.trackers is not None:
+                    epoch_metrics = {"train_loss_epoch": last_train_loss,
+                                     "epoch": epoch}
+                    if self.is_pretraining:
+                        epoch_metrics["val_recon_loss"] = last_val_loss
+                    else:
+                        epoch_metrics["accuracy"] = last_val_acc
+                        epoch_metrics["accuracy_top5"] = last_val_acc5
+                    epoch_metrics.update(last_perf)
+                    self.trackers.log(epoch_metrics, step=epoch)
                 if self.checkpointing_steps == "epoch":
                     self._save("epoch", epoch)
+                epoch += 1
             self._save("final", cfg.optim.num_epochs - 1)
         finally:
             self.close()

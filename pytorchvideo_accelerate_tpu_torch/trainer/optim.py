@@ -9,7 +9,9 @@
   `torch.optim.SGD(momentum, weight_decay, dampening=0)` with its lr set from
   the schedule before each `step()`.
 - adamw: `torch.optim.AdamW` with optax's defaults (b1 0.9, b2 0.999, eps
-  1e-8).
+  1e-8), `capturable` whenever the params are on the card: its step counts
+  then live beside the params, where the guard's skip can select them
+  without a host round trip, and every run takes the same update path.
 - `grad_clip_norm > 0`: optax `clip_by_global_norm` before the optimizer.
 - `freeze_backbone`: optax `multi_transform` gives the frozen params a zero
   update, no weight decay and no state, and the clip inside the trained
@@ -83,7 +85,18 @@ class Optimizer:
         return self.opt.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
+        # torch takes the saved groups' `capturable`: put back the live one
+        # (a checkpoint written on the CPU resumed on the card, or back).
+        capturable = [g.get("capturable") for g in self.opt.param_groups]
         self.opt.load_state_dict(state)
+        for group, cap in zip(self.opt.param_groups, capturable):
+            if cap is None or group.get("capturable") == cap:
+                continue
+            group["capturable"] = cap
+            for p in group["params"]:
+                st = self.opt.state.get(p, {})
+                if torch.is_tensor(st.get("step")):
+                    st["step"] = st["step"].to(p.device if cap else "cpu")
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -113,7 +126,8 @@ def build_optimizer(
                               dampening=0.0, weight_decay=cfg.weight_decay)
     elif cfg.optimizer == "adamw":
         opt = torch.optim.AdamW(trained, lr=cfg.lr, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=cfg.weight_decay)
+                                eps=1e-8, weight_decay=cfg.weight_decay,
+                                capturable=any(p.is_cuda for p in trained))
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return Optimizer(opt, build_lr_schedule(cfg, total_steps),

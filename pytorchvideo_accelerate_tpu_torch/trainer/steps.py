@@ -9,6 +9,13 @@ update, the EMA. Eval metrics are masked sums (`loss_sum`, `correct`,
 VideoMAE pretraining has its own pair (`make_pretrain_step`,
 `make_pretrain_eval_step`) over the same update step.
 
+Mixup and cutmix (`mixup_alpha`, `cutmix_alpha`) mix each clip with its
+pair in the flipped batch through one per-pixel weight; the few scalars of
+a micro-step's draw come from the host (`mix_draw`), the weight is built on
+the device. `guard_skip` (reliability/guard.py TrainGuard) discards a step
+whose loss or gradient norm is not finite: every state leaf keeps its old
+value through `torch.where`, without a host round trip.
+
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
 (1.0 = real sample, 0.0 = padding). With gradient accumulation G > 1 every
@@ -17,8 +24,10 @@ leaf carries a leading (G, B, ...) micro-step axis.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
@@ -114,19 +123,87 @@ def _mask_of(batch: dict) -> torch.Tensor:
     return mask
 
 
+def _optimizer_tensors(optimizer) -> dict:
+    """{(param index, state key): tensor} over the torch optimizer's state
+    (SGD momentum buffers; AdamW moments and step counts)."""
+    out = {}
+    for i, p in enumerate(optimizer.trained):
+        for key, v in optimizer.opt.state.get(p, {}).items():
+            if torch.is_tensor(v):
+                out[i, key] = v
+    return out
+
+
+class _Snapshot:
+    """The step's state leaves, copied before it into one flat buffer per
+    (dtype, device) and put back after it where `ok` is false: a foreach
+    copy in, then a foreach copy out into a second flat buffer, one select
+    of the two and a foreach copy back. The buffers are allocated again only
+    when the leaves' shapes change (the first update creates the
+    optimizer's state)."""
+
+    def __init__(self):
+        self._shapes = None
+        self._groups = []
+
+    def take(self, leaves: List[torch.Tensor]) -> None:
+        shapes = [(t.dtype, t.device, t.shape) for t in leaves]
+        if shapes != self._shapes:
+            self._shapes, self._groups = shapes, []
+            by_kind = {}
+            for i, t in enumerate(leaves):
+                by_kind.setdefault((t.dtype, t.device), []).append(i)
+            for (dtype, device), idx in by_kind.items():
+                sizes = [leaves[i].numel() for i in idx]
+                flat = [torch.empty(sum(sizes), dtype=dtype, device=device)
+                        for _ in range(2)]
+                views = [[v.view(leaves[i].shape)
+                          for v, i in zip(f.split(sizes), idx)] for f in flat]
+                self._groups.append((idx, flat, views))
+        for idx, _, (old, _) in self._groups:
+            torch._foreach_copy_(old, [leaves[i] for i in idx])
+
+    def restore(self, ok: torch.Tensor, leaves: List[torch.Tensor]) -> None:
+        """leaves <- where(ok, leaves, snapshot): a select, not an ok * new
+        + (1 - ok) * old blend, since 0 * NaN is NaN."""
+        for idx, (old, new), (_, new_views) in self._groups:
+            live = [leaves[i] for i in idx]
+            torch._foreach_copy_(new_views, live)
+            torch.where(ok, new, old, out=new)
+            torch._foreach_copy_(live, new_views)
+
+
 def _make_update_step(model, optimizer, forward_loss: Callable,
                       accum_steps: int, ema_decay: float,
-                      dropout_seed: Optional[int], with_accuracy: bool) -> Callable:
+                      dropout_seed: Optional[int], with_accuracy: bool,
+                      guard_skip: bool = False) -> Callable:
     """The optimizer step shared by the supervised and the MAE objective:
     `forward_loss(micro_batch, step, micro) -> (loss, correct, count)` per
     micro-batch in order, backward each, the summed grads divided by
     `accum_steps`, then the update (clip inside `optimizer.step`) and the
     EMA. Every `SeededDropout` of the model (head dropout, drop path) is
     reseeded at every step from (dropout_seed, step), each module on a
-    stream of its own."""
+    stream of its own.
+
+    `guard_skip`: when the loss or the gradient norm is not finite, the
+    step keeps every old leaf (parameters, the BN running averages, which
+    the forward updates and so are snapshot before the first micro-batch,
+    the optimizer's state, the EMA) and advances only `state.step`; the
+    metrics gain `skipped`, a device scalar (1.0 = skipped). The decision
+    stays on the device (`_Snapshot`). Optimizer state that the skipped
+    step created (the first step's momentum) is reset to zeros, which the
+    next update treats exactly as absent state. Off, none of this runs."""
     named = dict(model.named_parameters())
     params = [p for p in named.values() if p.requires_grad]
     dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
+    buffers = [b for b in model.buffers() if b.is_floating_point()]
+    snapshot = _Snapshot() if guard_skip else None
+
+    def leaves(state, opt_keys):
+        opt = _optimizer_tensors(optimizer)
+        ema = list(state.ema.values()) if state.ema is not None else []
+        return ([p.detach() for p in params] + buffers
+                + [opt[k] for k in opt_keys] + ema)
 
     def step(state, batch: dict) -> dict:
         model.train()
@@ -136,6 +213,11 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
                 d.reseed((base + i * 0x9E3779B97F4A7C15) % 2 ** 63)
         for p in params:
             p.grad = None
+        if guard_skip:
+            # before the first micro-batch: the forward moves the BN
+            # running averages
+            opt_keys = list(_optimizer_tensors(optimizer))
+            snapshot.take(leaves(state, opt_keys))
         losses, corrects, counts = [], [], []
         for i in range(accum_steps):
             mb = batch if accum_steps == 1 else {k: v[i] for k, v in batch.items()}
@@ -148,6 +230,7 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
         if accum_steps > 1:
             torch._foreach_div_(grads, float(accum_steps))
         grad_norm = global_norm(grads)
+        loss = torch.stack(losses).mean()
         lr = optimizer.schedule(state.step)
         optimizer.step(state.step)
         if ema_decay > 0 and state.ema is not None:
@@ -155,9 +238,16 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
             live = [named[k].detach() for k in state.ema]
             torch._foreach_mul_(ema, ema_decay)
             torch._foreach_add_(ema, live, alpha=1.0 - ema_decay)
+        out = {"loss": loss, "grad_norm": grad_norm, "lr": lr}
+        if guard_skip:
+            ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
+            with torch.no_grad():
+                snapshot.restore(ok, leaves(state, opt_keys))
+                for k, v in _optimizer_tensors(optimizer).items():
+                    if k not in opt_keys:  # created by this update
+                        v.copy_(torch.where(ok, v, torch.zeros_like(v)))
+            out["skipped"] = 1.0 - ok.float()
         state.step += 1
-        out = {"loss": torch.stack(losses).mean(), "grad_norm": grad_norm,
-               "lr": lr}
         if with_accuracy:
             correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
             out["accuracy"] = correct / torch.clamp_min(count, 1.0)
@@ -166,10 +256,89 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     return step
 
 
+@dataclass(frozen=True)
+class MixDraw:
+    """The host scalars of one micro-step's mix: cutmix or mixup, its
+    lambda, and the cutmix box centre as fractions of H and W in [0, 1)."""
+
+    use_cutmix: bool
+    lam: float
+    cy: float = 0.5
+    cx: float = 0.5
+
+
+def mix_draw(seed: int, step: int, micro: int, mixup_alpha: float,
+             cutmix_alpha: float) -> MixDraw:
+    """The draw of micro-step `micro` of optimizer step `step`, from numpy
+    streams keyed by (seed, step, micro) (the host draws, so a seed gives
+    one mix on every device and the card is never synced). Both alphas on:
+    a fair coin picks cutmix per micro-batch; lambda ~ Beta(a, a) of the
+    mode picked, from one stream whichever it is (the JAX package draws
+    both lambdas from one key); the box centre uniform."""
+    key = (seed, 0x313C, step, micro)
+    coin = np.random.default_rng(key + (0,)).random() < 0.5
+    use_cutmix = cutmix_alpha > 0 and (mixup_alpha <= 0 or bool(coin))
+    alpha = cutmix_alpha if use_cutmix else mixup_alpha
+    lam = float(np.random.default_rng(key + (1,)).beta(alpha, alpha))
+    cy, cx = np.random.default_rng(key + (2,)).random(2)
+    return MixDraw(use_cutmix, lam, float(cy), float(cx))
+
+
+def mix_weight(draw: MixDraw, hh: int, ww: int, device) -> torch.Tensor:
+    """The per-pixel weight w (H, W) of the clip against its flipped pair,
+    in f32 on `device`: lambda everywhere (mixup), or 1 with a box of zeros
+    (cutmix) of half-sizes sqrt(1 - lam) * H / 2 and sqrt(1 - lam) * W / 2
+    around the drawn centre, clipped only by the grid. The box's edges are
+    the JAX package's f32 formula, on the host: the device gets scalars,
+    never a copy."""
+    if not draw.use_cutmix:
+        return torch.full((hh, ww), draw.lam, dtype=torch.float32, device=device)
+    f32 = np.float32
+    side = np.sqrt(f32(1.0) - f32(draw.lam))
+    rh, rw = side * f32(hh), side * f32(ww)
+    cy, cx = f32(draw.cy) * f32(hh), f32(draw.cx) * f32(ww)
+    y0, y1 = float(cy - rh / f32(2)), float(cy + rh / f32(2))
+    x0, x1 = float(cx - rw / f32(2)), float(cx + rw / f32(2))
+    ih = torch.arange(hh, dtype=torch.float32, device=device)[:, None]
+    iw = torch.arange(ww, dtype=torch.float32, device=device)[None, :]
+    inside = (ih >= y0) & (ih < y1) & (iw >= x0) & (iw < x1)
+    return 1.0 - inside.to(torch.float32)
+
+
+def mix_batch(batch: dict, w_hw: torch.Tensor) -> dict:
+    """Every clip pathway (video, or slow and fast) mixed with its flipped
+    batch, out = w * x + (1 - w) * x[::-1] in f32, cast back; the labels
+    stay (the loss pairs them with the flipped ones)."""
+    w = w_hw[None, None, :, :, None]  # (1, 1, H, W, 1) against NDHWC
+    out = dict(batch)
+    for k in ("video", "slow", "fast"):
+        if k in out:
+            x = out[k]
+            x32 = f32_island(x)
+            out[k] = (w * x32 + (1.0 - w) * x32.flip(0)).to(x.dtype)
+    return out
+
+
+def mixed_loss(logits, labels, lam: torch.Tensor, mask,
+               label_smoothing: float):
+    """The loss of a batch mixed with its flipped self, lam * CE(y) + (1 -
+    lam) * CE(y[::-1]) (the mask flipped with the labels), and the hit
+    count of the dominant label: `(loss, correct, count)`. `lam` is the
+    device scalar mean(w)."""
+    loss_a, correct_a, count = _loss_and_metrics(
+        logits, labels, mask, label_smoothing)
+    loss_b, correct_b, _ = _loss_and_metrics(
+        logits, labels.flip(0), mask.flip(0), label_smoothing)
+    loss = lam * loss_a + (1.0 - lam) * loss_b
+    return loss, torch.where(lam >= 0.5, correct_a, correct_b), count
+
+
 def make_train_step(model, optimizer, accum_steps: int = 1,
                     label_smoothing: float = 0.0, device_normalize=None,
                     ema_decay: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> Callable:
+                    dropout_seed: Optional[int] = None,
+                    mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0,
+                    guard_skip: bool = False) -> Callable:
     """Build `step(state, batch) -> metrics`. One call is one optimizer
     step: forward + backward per micro-batch in order (the BN running
     averages thread through them), the summed grads divided by
@@ -178,16 +347,43 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     clipping), "accuracy" (device scalars) and "lr" (the schedule at the
     step before the update, a float). `dropout_seed`: every `SeededDropout`
     of the model (each head's dropout) is reseeded from (seed, step) at
-    every step."""
+    every step; it also seeds the mix draws.
+
+    `mixup_alpha > 0` / `cutmix_alpha > 0` (the MViT and SlowFast K400
+    recipes' augmentation, the JAX package's semantics): after the device
+    normalize, each micro-batch is mixed with its flipped self through
+    `mix_weight(mix_draw(seed, step, micro, ...))`; the loss is lam_eff *
+    CE(y) + (1 - lam_eff) * CE(y[::-1]) with lam_eff = mean(w), and the
+    accuracy counts the dominant label. `guard_skip`: see
+    `_make_update_step`."""
+    mixing = mixup_alpha > 0 or cutmix_alpha > 0
+    seed = dropout_seed or 0
 
     def forward_loss(batch: dict, step: int, micro: int):
         batch = device_normalize_batch(batch, device_normalize)
+        if not mixing:
+            logits = model(model_inputs(batch))
+            return _loss_and_metrics(logits, batch["label"], _mask_of(batch),
+                                     label_smoothing)
+        if batch.get("mask") is not None:
+            raise ValueError(
+                "mixup/cutmix with an explicit batch mask is "
+                "unsupported: padded rows would mix into real clips "
+                "(the train loader is drop_last, so this can't arise "
+                "through Trainer)")
+        clip = next(batch[k] for k in ("video", "slow", "fast") if k in batch)
+        w_hw = mix_weight(mix_draw(seed, step, micro, mixup_alpha,
+                                   cutmix_alpha),
+                          clip.shape[-3], clip.shape[-2], clip.device)
+        batch = mix_batch(batch, w_hw)
         logits = model(model_inputs(batch))
-        return _loss_and_metrics(logits, batch["label"], _mask_of(batch),
-                                 label_smoothing)
+        # all-ones mask: no explicit mask gets here
+        return mixed_loss(logits, batch["label"], w_hw.mean(),
+                          _mask_of(batch), label_smoothing)
 
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
-                             ema_decay, dropout_seed, with_accuracy=True)
+                             ema_decay, dropout_seed, with_accuracy=True,
+                             guard_skip=guard_skip)
 
 
 def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
@@ -198,12 +394,14 @@ def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
 
 
 def make_pretrain_step(model, optimizer, accum_steps: int = 1,
-                       ema_decay: float = 0.0, seed: int = 0) -> Callable:
+                       ema_decay: float = 0.0, seed: int = 0,
+                       guard_skip: bool = False) -> Callable:
     """Build the VideoMAE self-supervised step `step(state, batch) ->
     metrics` (JAX `make_pretrain_step`): no labels, the model returns its
     own reconstruction loss under a tube mask drawn from
-    `mask_generator(seed, step, micro)`; the same accumulation, clip and
-    EMA as `make_train_step`. `metrics`: "loss", "grad_norm", "lr"."""
+    `mask_generator(seed, step, micro)`; the same accumulation, clip, EMA
+    and `guard_skip` as `make_train_step`. `metrics`: "loss", "grad_norm",
+    "lr" (and "skipped" under `guard_skip`)."""
 
     def forward_loss(batch: dict, step: int, micro: int):
         out = model(batch["video"], generator=mask_generator(seed, step, micro))
@@ -211,7 +409,8 @@ def make_pretrain_step(model, optimizer, accum_steps: int = 1,
         return out["loss"], zero, zero
 
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
-                             ema_decay, seed, with_accuracy=False)
+                             ema_decay, seed, with_accuracy=False,
+                             guard_skip=guard_skip)
 
 
 def make_pretrain_eval_step(model) -> Callable:

@@ -429,6 +429,61 @@ def test_tiny3d_train_micro_step_kernels_match_plain(cuda):
     assert not any(np_.values())
 
 
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+def test_mixed_guarded_step_syncs_nothing_and_skips_bitwise(cuda, optimizer):
+    """A tiny3d train step through the kernels with mixup + cutmix and the
+    guard's skip armed (AdamW capturable on the card) runs under
+    `set_sync_debug_mode("error")`: no host round trip. A NaN batch then
+    leaves the parameters, the BN running averages, the optimizer's state
+    and the EMA bitwise as they were, and reports `skipped` 1."""
+    from pytorchvideo_accelerate_tpu_torch.config import ModelConfig, OptimConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.reliability.guard import poison_batch
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import make_train_step
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    model = create_model(ModelConfig(name="tiny3d", num_classes=5,
+                                     fused_kernels="auto", dropout_rate=0.0),
+                         "bf16", seed=1).to(cuda)
+    opt = build_optimizer(OptimConfig(optimizer=optimizer, lr=0.01),
+                          8, model.named_parameters())
+    state = TrainState.create(model, opt, ema_decay=0.9)
+    step = make_train_step(model, opt, accum_steps=2, ema_decay=0.9,
+                           dropout_seed=0, mixup_alpha=0.8, cutmix_alpha=1.0,
+                           guard_skip=True)
+    rng = np.random.default_rng(4)
+
+    def batch():
+        x = rng.standard_normal((2, 4, 8, 64, 64, 3), np.float32)
+        return {"video": torch.from_numpy(x).to(cuda),
+                "label": torch.from_numpy(rng.integers(0, 5, (2, 4))).to(cuda)}
+
+    def leaves():
+        out = {f"m.{k}": v.clone() for k, v in model.state_dict().items()}
+        out.update({f"ema.{k}": v.clone() for k, v in state.ema.items()})
+        for i, p in enumerate(opt.trained):
+            out.update({f"opt.{i}.{k}": v.clone()
+                        for k, v in opt.opt.state[p].items()})
+        return out
+
+    step(state, batch())  # makes the optimizer's state
+    clean, poisoned = batch(), poison_batch(batch())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = step(state, clean)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert m["skipped"].item() == 0.0 and torch.isfinite(m["loss"]).item()
+    before = leaves()
+    m = step(state, poisoned)
+    assert m["skipped"].item() == 1.0 and state.step == 3
+    after = leaves()
+    assert sorted(after) == sorted(before)
+    assert [k for k in before if not torch.equal(after[k], before[k])] == []
+
+
 def test_float32_training_raises_on_the_card(cuda):
     """The kernels are bf16-only in the backward too: an f32 training step
     with the fused lowering raises TypeError before any launch."""

@@ -24,6 +24,7 @@ autograd Functions (`ops/fused.py`) with the plain versions inside, so
 these tests go through the port's own backward.
 """
 
+import copy
 import functools
 import os
 
@@ -328,6 +329,37 @@ def test_adamw_clip_and_freeze_backbone_step_matches_jax():
     for k, v in tstate.model.state_dict().items():
         if not k.startswith("head.") and "running" not in k:
             np.testing.assert_array_equal(v.numpy(), seeded[k])
+
+
+def test_adamw_state_from_the_card_resumes_on_the_cpu():
+    """On the card AdamW is `capturable` (its step counts beside the
+    params). A state saved there loads into a CPU optimizer as a plain
+    AdamW, its counts on the host, and steps exactly as the optimizer it
+    was saved from."""
+    def adamw():
+        tm = _torch_model("tiny3d", "auto")
+        return tm, toptim.build_optimizer(OptimConfig(optimizer="adamw"), 4,
+                                          tm.named_parameters())
+
+    def update(tm, opt, step):
+        for p in tm.parameters():
+            p.grad = torch.full_like(p, 0.01 * (step + 1))
+        opt.step(step)
+
+    tm, opt = adamw()
+    update(tm, opt, 0)
+    saved = copy.deepcopy(opt.state_dict())  # as a checkpoint holds it
+    for group in saved["param_groups"]:
+        group["capturable"] = True  # as the card writes it
+    tm2, opt2 = adamw()
+    tm2.load_state_dict(tm.state_dict())
+    opt2.load_state_dict(saved)
+    assert not opt2.opt.param_groups[0]["capturable"]
+    assert all(not st["step"].is_cuda for st in opt2.opt.state.values())
+    update(tm, opt, 1)
+    update(tm2, opt2, 1)
+    for a, b in zip(tm.parameters(), tm2.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_ema_step_matches_jax():
@@ -636,14 +668,23 @@ def test_trainer_without_cpu_flag_needs_cuda():
 
 
 @pytest.mark.parametrize("extra", [
-    ["--guard.enabled"], ["--data.dataplane_workers", "2"],
+    ["--data.dataplane_workers", "2"],
     ["--mesh.data", "2"], ["--model.pretrained_path", "w.npz"],
-    ["--optim.mixup_alpha", "0.2"],
-    ["--model.name", "videomae_t_pretrain", "--model.remat"],
     ["--data.transport", "process"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(parse_cli(_RUN + extra))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--guard.enabled"], ["--optim.mixup_alpha", "0.2"],
+    ["--model.name", "videomae_t_pretrain", "--model.remat"]])
+def test_ported_training_options_train(extra, tmp_path):
+    """The guard, mixup and remat train one step on the CPU."""
+    res = trun.main(_TRANSFORMER_RUN + extra + [
+        "--num_epochs", "1", "--data.limit_train_batches", "1",
+        "--output_dir", str(tmp_path / "run")])
+    assert res["steps"] == 1 and np.isfinite(res["train_loss"])
 
 
 @pytest.mark.parametrize("extra", [

@@ -473,11 +473,27 @@ def test_transform_errors_propagate(tree):
     assert not ts._failed and not js._failed
 
 
-def test_quarantine_is_refused(tree):
-    tt, _ = _transforms(True, "float32")
-    with pytest.raises(NotImplementedError, match="quarantine"):
-        tpipe.VideoClipSource(tman.scan_directory(str(tree / "val")), tt,
-                              CLIP_S, True, quarantine=object())
+def test_quarantine_is_refused(tree, tmp_path, monkeypatch):
+    """A quarantined clip is refused by the source: one sidecar, read by
+    both packages' `Quarantine`, excludes the same manifest index, get() of
+    it never decodes the file and substitutes the same clip as the JAX
+    source."""
+    bad = tman.scan_directory(str(tree / "val")).entries[1].path
+    sidecar = str(tmp_path / "quarantine.json")
+    tman.Quarantine(sidecar, budget=1).record(bad, IOError("corrupt"))
+    t_seen = _recording(monkeypatch, tdecode)
+    j_seen = _recording(monkeypatch, jdecode)
+    tt, jt = _transforms(True, "float32")
+    ts = tpipe.VideoClipSource(tman.scan_directory(str(tree / "val")), tt,
+                               CLIP_S, True,
+                               quarantine=tman.Quarantine(sidecar, budget=1))
+    js = jpipe.VideoClipSource(jman.scan_directory(str(tree / "val")), jt,
+                               CLIP_S, True,
+                               quarantine=jman.Quarantine(sidecar, budget=1))
+    assert ts.quarantined_indices() == js.quarantined_indices() == {1}
+    _same_sample(ts.get(1, 0), js.get(1, 0))
+    bad_rel = os.path.basename(os.path.dirname(bad)) + "/" + os.path.basename(bad)
+    assert t_seen == j_seen and len(t_seen) == 1 and bad_rel not in t_seen
 
 
 def test_loader_batches_of_video_source_equal(tree):
