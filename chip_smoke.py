@@ -2,8 +2,10 @@
 """Chip smoke of the PyTorch port: serve and train full-width SlowFast-R50,
 serve and train full-width X3D-M, serve CSN-R101, serve and train MViT-B,
 serve VideoMAE-B and pretrain it (MAE), serve R(2+1)D-50 and train it
-from a frame cache of real-format clips, and train SlowFast-R50 with
-mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, on one
+from a frame cache of real-format clips, train SlowFast-R50 with
+mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, serve
+SlowFast-R50 with the server's defaults and SlowFast-R50 and MViT-B with
+int8 weights, and preempt and resume a SlowFast-R50 training run, on one
 GPU.
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
@@ -166,7 +168,9 @@ Drives the port only (no JAX), one JSON line per phase:
             and without `--model.remat`; per run ms, peak memory and the
             launches of one micro-step (under remat 2 x 16 flash forwards,
             2 x 4 `depthwise3d_s1`, 16 dq and 16 dk/dv); the loss bitwise
-            equal, the gradients bitwise or within 1e-2
+            equal, the gradients bitwise or within 1e-2; then the same pair
+            with every drop path at rate 0, its loss and gradient gap
+            reported (`drop_path0`)
 32. real_video_route  with cv2 on this machine: 4 mp4s written with cv2,
             cached by `build_cache`, a clip read back through `FrameCache`
             byte-equal to `decode_span`; then a list manifest with one
@@ -176,6 +180,34 @@ Drives the port only (no JAX), one JSON line per phase:
             Without cv2: `Trainer` on a `--data_dir` tree raises
             `NoVideoDecoderError` naming the cache route. The phase says
             which case ran
+33. edf_serve  phase 3's SlowFast-R50 artifact through `build_server` with
+            no `--serve.scheduler` flag (the EDF scheduler): 8 batch-class
+            requests at once, 4 realtime ones in turn, then a realtime one
+            whose `deadline_ms` is half the measured bucket-1 service time:
+            logits against the plain path, that one request shed (503 +
+            Retry-After, counted in /stats and /metrics) and no other,
+            /metrics counts and the latency histogram's count equal to the
+            requests answered, 41 pointwise and 51 conv launches per forward,
+            POST /drain then /healthz 503; client and server p50/p99 per
+            class, launches per batch, bucket fill
+34. int8_serve  int8 artifacts of SlowFast-R50 and MViT-B baked by the
+            port's `export_inference`, each served by `build_server`: the
+            fp forward's launches (rows 1 and 2; rows 4 and 5), the logits
+            against the plain path on the same int8 weights (as serve),
+            top-1 agreement with the fp artifact's kernel path >= 0.75 (the
+            JAX package's gate; its absolute 5e-2 on the logits reported,
+            `INT8_ATOL`) and the largest logit difference within 5e-2 * (1 +
+            the largest |fp logit|) (`INT8_REL`), an on-the-fly quantized
+            engine bitwise the baked one; resident weight bytes, a bucket-8
+            forward's peak memory and its ms, int8 against fp
+35. preempt_train  `run.main` in a child process on SlowFast-R50 (32
+            frames at 256^2, B=4, 6 steps, a checkpoint every 3): unbroken;
+            then SIGTERM once its log shows step 3: exit 0, `preempted`, a
+            "preempt" checkpoint of the step it finished (off a
+            checkpointing boundary) at its loader position, the
+            emergency record; `--resume_from_checkpoint auto` ends at the unbroken
+            run's step count, losses within 5e-2 * (1 + |loss|), launches of
+            the two children adding up to the unbroken run's
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -186,9 +218,11 @@ main-path phase that runs the kernel: serve, train, x3d_serve,
 x3d_depthwise_impl, x3d_train, mvit_serve and mvit_train; the GEMM
 kernels' entries carry the same sums and launches for R(2+1)D-50, from
 r2plus1d_serve and r2plus1d_train, under "r2plus1d_r50"; the rows on
-this slice's paths carry "train_features": the launches of features_train
+slice 10's paths carry "train_features": the launches of features_train
 (rows 1-2b, with their SlowFast-R50 sums) or of one remat_train
-micro-step (rows 4, 4b, 5, 6, 7)), the nvidia-smi line, and as the last
+micro-step (rows 4, 4b, 5, 6, 7); rows 1, 1b, 2, 2b, 4 and 5 carry
+"edf_serve", "int8_serve" and "preempt_train" sub-entries with those
+phases' launches), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
@@ -221,6 +255,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -304,14 +339,16 @@ FEATURES_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=80, ckpt_every=0
                             "--tracking.trackers", "jsonl",
                             "--tracking.log_every", "1"])
 POISONED_TAKES = (3, 4)  # the train loader's 3rd and 4th batches
-# fit()'s step time with tracking on and off: Trainers of one epoch of 12
+# fit()'s step time with tracking on and off: Trainers of one epoch of 6
 # plain steps each, in turns on, off, off, on (the first interval of each
-# dropped: 20 per setting)
-TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=192, ckpt_every=0)
+# dropped: 10 per setting; 12 steps and 20 intervals before the smoke
+# grew the slice-11 phases)
+TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=96, ckpt_every=0)
 TRACKING_ORDER = ("on", "off", "off", "on")
 # the armed guard's and mixing's cost: optimizer steps timed in rounds of
-# plain, mixed, mixed + armed guard (the order turned each round)
-ARMED_ROUNDS = 24
+# plain, mixed, mixed + armed guard (the order turned each round; 24 rounds
+# before the slice-11 phases)
+ARMED_ROUNDS = 8
 # hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
 # per-block remat: B=4 micro-steps with and without --model.remat
 REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
@@ -364,8 +401,17 @@ LINE = {"fused_pw_bn_act": ("slowfast_r50", "serve", "train"),
         "flash_attention": ("mvit_b", "mvit_serve", "mvit_train")}
 
 
+# the artifacts `make_artifact` wrote, by model: (path, request clips)
+ARTIFACTS = {}
+
+
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - T_START, 1),
+                      **fields}), flush=True)
 
 
 def check(cond: bool, message: str) -> None:
@@ -401,7 +447,7 @@ def _profiled(torch, fn, reps: int):
     return kev
 
 
-def device_events(torch, fn, reps: int, attempts: int = 4):
+def device_events(torch, fn, reps: int, attempts: int = 2):
     """The device-side events of `reps` calls of `fn` after one warm-up
     call, from a profile that is known to be complete. On the card a
     profile can come back with some or all of its device events missing:
@@ -667,6 +713,7 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
     plant_head(torch, calib, clips, norm)
     export_inference(art, calib, cfg, meta={"num_classes": classes(name),
                                             "model": name})
+    ARTIFACTS[name] = (art, clips)
     del calib
     state, _ = load_inference(art)
     n_params = int(sum(v.size for k, v in state.items()
@@ -675,7 +722,8 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
 
 
 def make_engine(torch, name: str, state, norm, fused: str, impl: str = "conv",
-                bucket: int = BUCKET, attention: str = "dense"):
+                bucket: int = BUCKET, attention: str = "dense",
+                quantization: str = "off"):
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
     from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
@@ -684,7 +732,8 @@ def make_engine(torch, name: str, state, norm, fused: str, impl: str = "conv",
     return InferenceEngine(
         create_model(cfg.model, "bf16", data_cfg=cfg.data),
         state, num_classes=classes(name), max_batch_size=bucket,
-        device_normalize=norm, input_dtype="uint8", model_name=name)
+        device_normalize=norm, input_dtype="uint8", model_name=name,
+        quantization=quantization)
 
 
 def expected_forward_launches(name: str) -> dict:
@@ -1967,6 +2016,13 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     emit("remat_train", nvidia_smi=smi, **remat_train_phase(torch, launches))
     t_real = time.perf_counter()
     emit("real_video_route", **real_video_route(torch, work))
+    t_slice11 = time.perf_counter()
+    # 33-35. this slice's paths: the serving defaults on SlowFast-R50 and
+    # MViT-B, the preemption grace path, counters zeroed just before each
+    emit("edf_serve", nvidia_smi=smi,
+         **edf_serve_phase(torch, art, clips, plain_logits, launches))
+    emit("int8_serve", nvidia_smi=smi, **int8_serve_phase(torch, work, launches))
+    emit("preempt_train", nvidia_smi=smi, **preempt_train_phase(torch, work, launches))
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -1998,11 +2054,17 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             if phase == "features_train":
                 sub.update(line_sums(rows, kname, "slowfast_r50"))
             kernels[-1]["train_features"] = sub
+        for phase, knames in SLICE11_LINE.items():
+            if kname in knames:
+                n = launches[phase].get(kname, 0)
+                check(n > 0, f"{kname} was not launched on {phase}")
+                kernels[-1][phase] = {"launches": n}
     emit("seconds", slowfast=slowfast_s,
          attention=t_r2plus1d - t_attention,
          r2plus1d=t_features - t_r2plus1d,
          features=t_real - t_features,
-         real_video=time.perf_counter() - t_real,
+         real_video=t_slice11 - t_real,
+         serving_defaults_and_preemption=time.perf_counter() - t_slice11,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -2023,6 +2085,16 @@ FEATURES_LINE = {
     **{k: "remat_train" for k in ("depthwise3d_s1", "depthwise3d_s1.bwd_dx",
                                   "flash_attention", "flash_attention.bwd_dq",
                                   "flash_attention.bwd_dkv")}}
+
+
+# the kernel rows on slice 11's paths, by the phase whose launches each
+# sub-entry reports
+SLICE11_LINE = {
+    "edf_serve": ("fused_pw_bn_act", "fused_conv_bn_act"),
+    "int8_serve": ("fused_pw_bn_act", "fused_conv_bn_act", "depthwise3d_s1",
+                   "flash_attention"),
+    "preempt_train": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                      "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")}
 
 
 def line_sums(rows, kname: str, model: str) -> dict:
@@ -3061,6 +3133,7 @@ def remat_train_phase(torch, launches: dict) -> dict:
                 launches["remat_train"] = counts
             del model, fn
             free_cuda(torch)
+        out["drop_path0"] = remat_without_drop_path(torch, batch)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     check("remat" in out, "the remat micro-step did not run")
@@ -3078,6 +3151,33 @@ def remat_train_phase(torch, launches: dict) -> dict:
     free_cuda(torch)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def remat_without_drop_path(torch, batch) -> dict:
+    """One micro-step of `remat_train`'s model with and without remat, every
+    drop path at rate 0 (no generator to rewind in the recompute): the loss
+    and gradient gap that remains is the recompute's own, not the drop-path
+    masks'. Reported, not held: it tells the two suspects of remat's
+    gradient gap apart."""
+    from pytorchvideo_accelerate_tpu_torch.models.common import DropPath
+
+    runs = {}
+    for label, extra in (("remat", ["--model.remat"]), ("no_remat", [])):
+        spec = dict(REMAT_TRAIN, argv=REMAT_TRAIN["argv"] + extra)
+        model, _, fn = micro_step_fn(torch, "off", batch, spec)
+        for m in model.modules():
+            if isinstance(m, DropPath):
+                m.rate = 0.0
+        loss = fn()
+        torch.cuda.synchronize()
+        runs[label] = (loss.item(), torch.cat(
+            [p.grad.float().flatten() for p in model.parameters()]))
+        del model, fn, loss
+        free_cuda(torch)
+    (lr_, gr), (ln_, gn) = runs["remat"], runs["no_remat"]
+    check(np.isfinite(lr_) and np.isfinite(ln_), f"drop path 0 losses {lr_} {ln_}")
+    return {"loss_remat": lr_, "loss_no_remat": ln_, "loss_bitwise": lr_ == ln_,
+            "grad_bitwise": bool(torch.equal(gr, gn)), "grad_rel_err": rel_err(gr, gn)}
 
 
 def largest_batch(torch, spec: dict) -> int:
@@ -3219,6 +3319,434 @@ def quarantine_route(torch, work: str, root: str) -> dict:
             "sidecar": sidecar, "asked": asked,
             "opened_corrupt_in_epochs": sorted({e for e, n in seen
                                                 if n == "corrupt.mp4"})}
+
+
+# --- slice 11: the serving defaults (EDF scheduler, int8, /metrics,
+# /drain) and the preemption grace path --------------------------------------
+# run.py preempted by SIGTERM on full-width SlowFast-R50 at the reference
+# geometry: 6 steps of B=4, a checkpoint every 3 steps, one epoch. SGD at
+# lr 0.01: at 0.1 the seeded run diverges (a CPU rehearsal at 8x64^2: loss
+# 7.0 -> 107.6 in 3 steps), and a diverging run amplifies the last-bit
+# differences between two runs of cuDNN's wgrad beyond any loss tolerance.
+# The log of step n prints after step n + 1 is dispatched, just before that
+# step's checkpoint and the guard's poll: a SIGTERM sent on it stops the run
+# at step n + 1 when that step saves (the save outlasts the signal's
+# delivery), else at n + 2. With checkpoints every 2 steps every stop lands
+# on a boundary, where the grace path finds the step on disk and saves
+# nothing; every 3, a signal at step 3's line stops at 4 or 5, off the
+# boundary, so the `preempt` save itself runs
+PREEMPT_TRAIN = dict(SLOWFAST_TRAIN, batch=4, accum=1, epochs=1, videos=24,
+                     ckpt_every=3, lr=TRANSFORMER_LR)
+PREEMPT_AT_LINE = 3  # SIGTERM once the child's log shows this step
+# the gate of the JAX package's int8 serving (tests/test_zquant.py): top-1
+# agreement with fp serving, held; its absolute logit bound, reported. It
+# was set on a tiny trained net whose logits are O(0.1); at the planted
+# logits here (|logit| up to 6) int8's rounding alone, in weights
+# byte-equal to the JAX package's, moves full-width logits further (CPU
+# runs at reduced geometry: 0.052-0.070; the card: 0.106 for SlowFast-R50)
+INT8_ATOL, INT8_TOP1 = 5e-2, 0.75
+# what is held instead of the absolute bound: the largest int8 logit
+# difference from fp within INT8_REL * (1 + the largest |fp logit|), a bound
+# that scales with the logits as int8's rounding error does (an H100 80GB:
+# 0.106 at |fp| 6.0 and 0.056 at 10.3, against bounds of 0.35 and 0.57)
+INT8_REL = 5e-2
+# a child process running run.main, as `python -m ...run` does, that prints
+# its result and launch counts last
+TRAIN_CHILD = (
+    "import json, sys\n"
+    "from pytorchvideo_accelerate_tpu_torch import run\n"
+    "from pytorchvideo_accelerate_tpu_torch.ops import fused\n"
+    "result = run.main(sys.argv[1:])\n"
+    "print('CHILD_RESULT ' + json.dumps({'result': result, "
+    "'launches': dict(fused.LAUNCHES)}, default=str), flush=True)\n")
+
+
+def http(url: str, body: bytes = None, timeout: float = 600.0):
+    """(status, headers, body bytes, client ms) of a GET (no body) or POST,
+    error statuses included."""
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, headers, data = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        status, headers, data = e.code, e.headers, e.read()
+    return status, headers, data, (time.perf_counter() - t0) * 1e3
+
+
+def with_keys(body: bytes, **keys) -> bytes:
+    """A JSON object body with `keys` added in front (the clip lists stay
+    as they were serialised once)."""
+    if not keys:
+        return body
+    return json.dumps(keys)[:-1].encode() + b"," + body[1:]
+
+
+def metric_value(text: str, series: str) -> float:
+    """The value of `series` (name and labels) in Prometheus text."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    raise KeyError(series)
+
+
+def quantiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99)),
+            "n": len(xs)} if len(xs) else {"n": 0}
+
+
+def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dict:
+    """Phase 33. The SlowFast-R50 artifact of phase 3 served by
+    `build_server` with no `--serve.scheduler` flag (the EDF scheduler):
+    8 batch-class requests sent concurrently (the 5 request clips and 3 of
+    them again), 4 realtime requests one at a time, then one realtime
+    request whose `deadline_ms` is half the scheduler's measured service
+    time of bucket 1. Checks: every answered request's logits against the
+    plain path (5e-2 * (1 + |plain|), top-1 on decisive rows); the
+    short-deadline request answers 503 + Retry-After and is the one shed in
+    /stats and /metrics; /metrics counts and the latency histogram's count
+    equal the requests answered; 41 pointwise and 51 conv launches per
+    forward (counters zeroed just before the server is built, the warm-up
+    forwards included); POST /drain turns /healthz to 503."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
+
+    bodies = [json.dumps({k: v.tolist() for k, v in c.items()},
+                         separators=(",", ":")).encode() for c in clips]
+    order = [i % len(clips) for i in range(BUCKET)]
+    free_cuda(torch)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    # the batch class coalesces for up to max_wait_ms: long enough for the 8
+    # concurrent requests' JSON to parse, and their deadline beyond it
+    server = build_server(parse_cli([
+        "--serve.checkpoint", art, "--serve.port", "0",
+        "--serve.max_wait_ms", "20000", "--serve.batch_deadline_ms", "60000"]))
+    check(isinstance(server.batcher, Scheduler),
+          f"default front is {type(server.batcher).__name__}, not the Scheduler")
+    server.start()
+    try:
+        build_s = time.perf_counter() - t0
+        host, port = server.address
+        base = f"http://{host}:{port}"
+        with ThreadPoolExecutor(max_workers=BUCKET) as pool:
+            batch_resp = list(pool.map(
+                lambda i: http(base + "/predict", with_keys(bodies[i], priority="batch")),
+                order))
+        rt_resp = [http(base + "/predict", with_keys(bodies[i], priority="realtime"))
+                   for i in range(4)]
+        svc_ms = server.batcher._estimate_s(1) * 1e3
+        deadline_ms = max(svc_ms / 2, 1.0)
+        shed = http(base + "/predict", with_keys(bodies[4], priority="realtime",
+                                                 deadline_ms=deadline_ms))
+        stats = json.loads(http(base + "/stats")[2])
+        metrics = http(base + "/metrics")[2].decode()
+        drain_code, _, drain_body, _ = http(base + "/drain", b"{}")
+        health_code = http(base + "/healthz")[0]
+    finally:
+        server.close()
+    counts = dict(fused.LAUNCHES)
+    answered = batch_resp + rt_resp
+    check(all(r[0] == 200 for r in answered),
+          f"edf_serve HTTP codes {[r[0] for r in answered]}")
+    payloads = [json.loads(r[2]) for r in answered]
+    served = np.stack([np.asarray(p["logits"], np.float32) for p in payloads])
+    want = plain_logits[order + list(range(4))]
+    held = hold_logits(served, want, "edf_serve")
+    check(shed[0] == 503 and int(shed[1]["Retry-After"]) >= 1,
+          f"short-deadline request answered {shed[0]}")
+    n = len(answered)
+    check(stats["shed"] == 1.0 and stats["requests"] == n,
+          f"/stats shed {stats['shed']}, requests {stats['requests']} (answered {n})")
+    check(metric_value(metrics, 'pva_serving_shed_total{state="deadline"}') == 1.0
+          and metric_value(metrics, "pva_serving_requests_total") == n
+          and metric_value(metrics, "pva_serving_request_latency_seconds_count") == n,
+          "/metrics counts differ from the requests answered and shed")
+    check(drain_code == 200 and json.loads(drain_body)["draining"]
+          and health_code == 503, f"/drain {drain_code}, then /healthz {health_code}")
+    forwards = len(server.engine.buckets) + int(stats["batches"])
+    check_launches(counts, expected_forward_launches("slowfast_r50"), forwards,
+                   "edf_serve")
+    launches["edf_serve"] = counts
+    server_ms = [p["latency_ms"] for p in payloads]
+    return dict(
+        model="slowfast_r50", server_build_s=build_s, buckets=list(server.engine.buckets),
+        requests={"batch": len(batch_resp), "realtime": len(rt_resp), "shed": 1},
+        batch_http=[r[0] for r in batch_resp], realtime_http=[r[0] for r in rt_resp],
+        shed_http=shed[0], shed_retry_after=shed[1]["Retry-After"],
+        shed_error=json.loads(shed[2])["error"],
+        bucket1_service_ms_ewma=svc_ms, shed_deadline_ms=deadline_ms,
+        client_ms={"batch": quantiles([r[3] for r in batch_resp]),
+                   "realtime": quantiles([r[3] for r in rt_resp])},
+        server_ms={"batch": quantiles(server_ms[:len(batch_resp)]),
+                   "realtime": quantiles(server_ms[len(batch_resp):])},
+        forwards=forwards, scheduler_batches=stats["batches"],
+        bucket_fill=stats["batch_fill_ratio"], launches=counts,
+        launches_per_forward={k: v / forwards for k, v in counts.items() if v},
+        stats=stats, drain_http=drain_code, healthz_after_drain=health_code, **held)
+
+
+def resident_bytes(model) -> int:
+    """Bytes of a module's parameters and buffers on the card."""
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers())
+               if t.is_cuda)
+
+
+def forward_peak_gb(torch, engine, batch) -> float:
+    """Device memory a bucket forward adds at its peak over what is live."""
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.predict(batch)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - live) / 1e9
+
+
+def int8_serve_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 34. int8 artifacts of SlowFast-R50 (phase 3's) and MViT-B
+    (`attention pallas, depthwise_impl pallas`, phase 18's), baked with the
+    port's `export_inference(quantization="int8")`, each served by
+    `build_server` (EDF): one /predict, then bucket-8 forwards of the
+    request clips on the server's engine. Checks per model: the launches
+    (counters zeroed just before the server is built) are the fp forward's
+    per forward (rows 1 and 2, or rows 4 and 5); the int8 logits against
+    the plain path on the same int8 weights (`fused_kernels xla`, or
+    `attention dense`) to the serving tolerance, 5e-2 * (1 + |plain|), with
+    top-1 on decisive rows; against the fp artifact's kernel path, top-1
+    agreement >= 0.75 (the JAX package's gate) and the largest logit
+    difference within `INT8_REL` * (1 + the largest |fp logit|), reported
+    beside the JAX gate's absolute 5e-2; an engine that quantizes
+    the fp artifact on the fly gives bitwise the baked engine's logits.
+    Reports resident weight bytes, the forward's peak memory and forward
+    ms, int8 against fp (in turns fp, int8, int8, fp)."""
+    from pytorchvideo_accelerate_tpu_torch.config import config_from_dict, parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
+    from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
+        export_inference,
+        load_inference,
+    )
+
+    out, total = {}, {}
+    for name in ("slowfast_r50", "mvit_b"):
+        t0 = time.perf_counter()
+        art, clips = ARTIFACTS[name]
+        batch = bucket_batch(clips, BUCKET)
+        state, meta = load_inference(art)
+        cfg = config_from_dict(meta["config"])
+        model = create_model(cfg.model, cfg.mixed_precision, data_cfg=cfg.data)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        q_art = export_inference(os.path.join(work, f"{name}_int8_artifact"), model,
+                                 cfg, meta={"num_classes": classes(name), "model": name},
+                                 quantization="int8")
+        del model, state
+        free_cuda(torch)
+        per_forward = expected_forward_launches(name)
+        fused.reset_launch_counts()
+        server = build_server(parse_cli(["--serve.checkpoint", q_art,
+                                         "--serve.port", "0"]))
+        server.start()
+        try:
+            host, port = server.address
+            body = json.dumps({k: v.tolist() for k, v in clips[0].items()},
+                              separators=(",", ":")).encode()
+            code, _, data, _ = http(f"http://{host}:{port}/predict", body)
+            stats = json.loads(http(f"http://{host}:{port}/stats")[2])
+        finally:
+            server.close()
+        q_engine = server.engine
+        check(code == 200 and q_engine.quantization == "int8",
+              f"{name} int8 /predict {code}, engine {q_engine.quantization}")
+        q_logits = q_engine.predict(batch)
+        counts = dict(fused.LAUNCHES)
+        forwards = len(q_engine.buckets) + int(stats["batches"]) + 1
+        check_launches(counts, per_forward, forwards, f"{name} int8_serve")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        fp = InferenceEngine.from_artifact(art)
+        fused.reset_launch_counts()
+        fp_logits = fp.predict(batch)
+        check_launches(dict(fused.LAUNCHES), per_forward, 1, f"{name} fp forward")
+        fly = InferenceEngine.from_artifact(art, quantization="int8")
+        fly_logits = fly.predict(batch)
+        check(np.array_equal(fly_logits, q_logits),
+              f"{name}: on-the-fly int8 logits differ from the baked artifact's: "
+              f"max {np.abs(fly_logits - q_logits).max()}")
+        del fly
+        free_cuda(torch)
+        n = len(clips)
+        plain = make_engine(torch, name, load_inference(art)[0], (cfg.data.mean, cfg.data.std),
+                            "off" if name == "mvit_b" else "xla", quantization="int8")
+        held = hold_logits(q_logits[:n], plain.predict(batch)[:n], f"{name} int8")
+        del plain
+        free_cuda(torch)
+        q, f = q_logits[:n], fp_logits[:n]
+        err = np.abs(q - f)
+        agree = float((q.argmax(1) == f.argmax(1)).mean())
+        check(agree >= INT8_TOP1, f"{name}: int8 top-1 agreement {agree}")
+        rel_bound = INT8_REL * (1.0 + float(np.abs(f).max()))
+        check(err.max() <= rel_bound,
+              f"{name}: int8 logits {err.max()} from fp, bound {rel_bound}")
+        ms = {"fp": [], "int8": []}
+        for label in ("fp", "int8", "int8", "fp"):
+            ms[label] += forward_ms(torch, fp if label == "fp" else q_engine, batch)
+        out[name] = dict(
+            int8_artifact=q_art, launches=counts, forwards=forwards,
+            launches_per_forward={k: v / forwards for k, v in counts.items() if v},
+            int8_vs_plain_int8=held,
+            int8_max_abs_err=float(err.max()), int8_top1_agreement=agree,
+            int8_gate={"top1": INT8_TOP1, "atol": INT8_ATOL,
+                       "atol_held": bool(err.max() <= INT8_ATOL),
+                       "rel": INT8_REL, "rel_bound": rel_bound},
+            fp_logit_absmax=float(np.abs(f).max()),
+            on_the_fly_bitwise=True,
+            resident_weight_bytes={"int8": resident_bytes(q_engine.model),
+                                   "fp": resident_bytes(fp.model)},
+            forward_peak_gb={"int8": forward_peak_gb(torch, q_engine, batch),
+                             "fp": forward_peak_gb(torch, fp, batch)},
+            forward_ms=ms, seconds=time.perf_counter() - t0)
+        del fp, q_engine, server
+        free_cuda(torch)
+    launches["int8_serve"] = total
+    return out
+
+
+def read_child(proc, on_line=None, timeout_s: float = 600.0):
+    """The child's output lines (read until it exits), the step losses it
+    printed and its final CHILD_RESULT record; `on_line(line)` sees each
+    line as it comes."""
+    import threading
+
+    lines, losses, record = [], {}, None
+    timer = threading.Timer(timeout_s, proc.kill)  # a hung child ends here
+    timer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if on_line is not None:
+                on_line(line)
+            if line.startswith("step ") and ": loss=" in line:
+                step = int(line.split()[1].rstrip(":"))
+                losses[step] = float(line.split("loss=")[1].split()[0])
+            elif line.startswith("CHILD_RESULT "):
+                record = json.loads(line[len("CHILD_RESULT "):])
+        proc.wait()
+    finally:
+        timer.cancel()
+    return lines, losses, record
+
+
+def train_child(argv):
+    return subprocess.Popen([sys.executable, "-u", "-c", TRAIN_CHILD, *argv],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def preempt_train_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 35. `run.main` in a child process on full-width SlowFast-R50
+    (32 frames at 256^2, B=4, 6 steps, a checkpoint every 3): unbroken
+    once; then again, with SIGTERM sent once its log shows step 3, and
+    resumed with `--resume_from_checkpoint auto`. The preempted child exits
+    0 with `preempted: true`, stops off a checkpointing boundary (see
+    `PREEMPT_TRAIN`), leaves a checkpoint of kind "preempt" at the step it
+    finished and the loader position of that step, and an
+    `emergency_checkpoint.json` naming the step; the resumed child
+    ends at the unbroken run's step count, each step's loss within 5e-2 *
+    (1 + |loss|) of the unbroken run's (cuDNN's strided wgrad is not
+    bitwise across runs), and the launches of the two children add up to
+    the unbroken run's, each exact. Reports the seconds from SIGTERM to
+    exit and the emergency save's."""
+    import signal
+
+    spec = PREEMPT_TRAIN
+    per_forward = expected_forward_launches(spec["name"])
+    want = expected_train_launches(spec, per_forward)
+    free_cuda(torch)
+
+    def run_child(out, extra=(), on_line=None):
+        proc = train_child(train_argv(out, spec=spec) + list(extra))
+        lines, losses, record = read_child(proc, lambda ln: on_line(proc, ln)
+                                           if on_line else None)
+        return proc, lines, losses, record
+
+    t0 = time.perf_counter()
+    proc, lines, base_losses, base = run_child(os.path.join(work, "unbroken"))
+    check(proc.returncode == 0 and base is not None,
+          f"unbroken run rc {proc.returncode}: {lines[-20:]}")
+    check(base["result"]["steps"] == want["steps"] and sorted(base_losses)
+          == list(range(1, want["steps"] + 1)),
+          f"unbroken run steps {base['result']['steps']}, losses {base_losses}")
+    check(all(base["launches"][k] == want[k] for k in SOURCES),
+          f"unbroken launches {base['launches']}, expected {want}")
+    unbroken_s = time.perf_counter() - t0
+
+    out = os.path.join(work, "preempted")
+    sent = {}
+
+    def on_line(p, line):
+        if not sent and line.startswith(f"step {PREEMPT_AT_LINE}:"):
+            sent["t"] = time.perf_counter()
+            p.send_signal(signal.SIGTERM)
+
+    proc, lines, first, rec = run_child(out, on_line=on_line)
+    exit_s = time.perf_counter() - sent.get("t", time.perf_counter())
+    check("t" in sent, f"the child's log never showed step {PREEMPT_AT_LINE}")
+    check(proc.returncode == 0 and rec is not None and rec["result"]["preempted"],
+          f"preempted run rc {proc.returncode}: {lines[-20:]}")
+    with open(os.path.join(out, "emergency_checkpoint.json")) as f:
+        emergency = json.load(f)
+    k = rec["result"]["steps"]
+    check(emergency["step"] == k and emergency["reason"] == "SIGTERM"
+          and 0 < k < want["steps"],
+          f"emergency record {emergency}, preempted at step {k}")
+    with open(os.path.join(out, "checkpoints", str(k), "extra.json")) as f:
+        extra = json.load(f)
+    check(k % spec["ckpt_every"] != 0 and extra["kind"] == "preempt"
+          and extra["data_state"] == {"epoch": 0, "position": k},
+          f"checkpoint of step {k}: {extra['kind']} at {extra['data_state']}")
+    check(sorted(first) == list(range(1, k + 1)), f"preempted run's steps {sorted(first)}")
+    saved = [ln for ln in lines if ln.startswith("preempted (SIGTERM)")]
+    check(len(saved) == 1, f"no grace-path line in {lines[-10:]}")
+    save_s = float(saved[0].split(" in ")[1].split()[0])
+    pre = {kk: per_forward.get(kk.split(".")[0], 0) * k for kk in SOURCES}
+    check(all(rec["launches"][kk] == pre[kk] for kk in SOURCES),
+          f"preempted launches {rec['launches']}, expected {pre}")
+
+    t1 = time.perf_counter()
+    proc, lines, rest, res = run_child(out, ["--resume_from_checkpoint", "auto"])
+    resume_s = time.perf_counter() - t1
+    check(proc.returncode == 0 and res is not None and not res["result"]["preempted"]
+          and res["result"]["steps"] == base["result"]["steps"],
+          f"resumed run rc {proc.returncode}: {lines[-20:]}")
+    check(sorted(rest) == list(range(k + 1, want["steps"] + 1)),
+          f"resumed run's steps {sorted(rest)} after step {k}")
+    check(all(rec["launches"][kk] + res["launches"][kk] == want[kk] for kk in SOURCES),
+          f"launches {rec['launches']} + {res['launches']}, unbroken {want}")
+    losses = {**first, **rest}
+    diffs = {s: abs(losses[s] - base_losses[s]) for s in base_losses}
+    check(all(diffs[s] <= 5e-2 * (1 + abs(base_losses[s])) for s in diffs),
+          f"losses {losses} against the unbroken run's {base_losses}")
+    launches["preempt_train"] = {kk: rec["launches"][kk] + res["launches"][kk]
+                                 for kk in SOURCES}
+    return dict(
+        model=spec["name"], batch=spec["batch"], steps=want["steps"],
+        checkpointing_steps=spec["ckpt_every"], sigterm_after_log_line=PREEMPT_AT_LINE,
+        preempted_at_step=k, checkpoint_kind=extra["kind"],
+        loader_state=extra["data_state"], emergency_record=emergency,
+        sigterm_to_exit_s=exit_s, emergency_save_s=save_s,
+        resume_s=resume_s, unbroken_s=unbroken_s,
+        losses_unbroken=[base_losses[s] for s in sorted(base_losses)],
+        losses_preempted_resumed=[losses[s] for s in sorted(losses)],
+        loss_max_abs_diff=max(diffs.values()),
+        launches={"preempted": rec["launches"], "resumed": res["launches"],
+                  "unbroken": base["launches"]})
 
 
 if __name__ == "__main__":

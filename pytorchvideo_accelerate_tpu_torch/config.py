@@ -5,9 +5,8 @@ The dataclass tree, flags, defaults, `parse_cli`, `config_from_dict` and
 `meta.json["config"]` and a launch command parse the same way in both
 packages (tests/test_torch_config.py holds them together). The port keeps
 a copy instead of importing it: it imports nothing of the JAX package.
-Fields of subsystems not ported yet parse and are unused, except the
-serving ones whose effect the port lacks (scheduler edf, streaming,
-quantization): `build_server` refuses those (see ROADMAP.md).
+Fields of subsystems not ported yet parse and are unused, except
+`serve.streaming`, which `build_server` refuses (see ROADMAP.md).
 
 Replaces the reference's two-tier config system (SURVEY.md §5 "Config / flag
 system"): ``accelerate config`` YAML + env vars for infrastructure, and Python

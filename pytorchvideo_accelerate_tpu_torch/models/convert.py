@@ -17,6 +17,12 @@ pretraining, (1, 1, dec_dim)) are free parameters of the model itself, so
 at the top level their key is the bare name. The transformer trees carry
 no batch_stats.
 
+An int8 weight (serving/quantize.py) is the marker dict {"q8": int8,
+"q8_scale": f32 (out,)} in both layouts: the flax kernel's leaves
+`params/<path>/kernel/q8` and `.../q8_scale` (the JAX package's int8
+artifact), the port's `<path>.weight` holding the same dict with the int8
+array in the port's layout.
+
 A JAX training state crosses too (`train_state_from_jax` and its inverse
 `jax_train_state_from_port`): params and batch_stats as above, the optax
 SGD momentum trace as each parameter's `momentum_buffer` (laid out like its
@@ -30,6 +36,12 @@ from __future__ import annotations
 from typing import Dict, Mapping
 
 import numpy as np
+
+from pytorchvideo_accelerate_tpu_torch.serving.quantize import (
+    Q_KEY,
+    SCALE_KEY,
+    is_quant_leaf,
+)
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _STATS_INV = {v: k for k, v in _STATS.items()}
@@ -65,11 +77,14 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
     """JAX variable tree (nested, or flat "params/..." keys as in an
     inference artifact's weights.npz) -> the port's state_dict as numpy."""
     out = {}
+    quant: Dict[str, dict] = {}  # kernel stem -> its q8 / q8_scale leaves
     for key, arr in flatten_tree(tree).items():
         arr = np.asarray(arr)
         coll, *path, leaf = key.split("/")
         stem = ".".join(path)
-        if coll == "batch_stats":
+        if coll == "params" and leaf in (Q_KEY, SCALE_KEY) and path[-1:] == ["kernel"]:
+            quant.setdefault(".".join(path[:-1]), {})[leaf] = arr
+        elif coll == "batch_stats":
             if leaf not in _STATS:
                 raise KeyError(f"unmapped batch_stats leaf {key!r}")
             out[f"{stem}.{_STATS[leaf]}"] = arr
@@ -78,6 +93,9 @@ def state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
             out[name] = v
         else:
             raise KeyError(f"unknown collection in {key!r}")
+    for stem, leaves in quant.items():
+        name, q = _param_leaf_to_port(stem, "kernel", leaves[Q_KEY])
+        out[name] = {Q_KEY: q, SCALE_KEY: leaves[SCALE_KEY]}
     return out
 
 
@@ -86,19 +104,21 @@ def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
     arrays) -> nested {"params": ..., "batch_stats": ...} numpy tree."""
     flat = {}
     for key, v in state_dict.items():
-        arr = (v.detach().cpu().numpy() if hasattr(v, "detach")
-               else np.asarray(v))
         *stem, leaf = key.split(".")
         path = "/".join(stem)
+        if is_quant_leaf(v):
+            flat[f"params/{path}/kernel/{Q_KEY}"] = _kernel_layout(
+                np.asarray(v[Q_KEY]))
+            flat[f"params/{path}/kernel/{SCALE_KEY}"] = np.asarray(v[SCALE_KEY])
+            continue
+        arr = (v.detach().cpu().numpy() if hasattr(v, "detach")
+               else np.asarray(v))
         if leaf in _FREE:
             flat["/".join(["params"] + stem + [leaf])] = arr
         elif leaf in _STATS_INV:
             flat[f"batch_stats/{path}/{_STATS_INV[leaf]}"] = arr
-        elif leaf == "weight" and arr.ndim == 5:        # OIDHW -> DHWIO
-            flat[f"params/{path}/kernel"] = np.ascontiguousarray(
-                arr.transpose(2, 3, 4, 1, 0))
-        elif leaf == "weight" and arr.ndim == 2:
-            flat[f"params/{path}/kernel"] = np.ascontiguousarray(arr.T)
+        elif leaf == "weight" and arr.ndim in (2, 5):
+            flat[f"params/{path}/kernel"] = _kernel_layout(arr)
         elif leaf == "weight" and arr.ndim == 1:
             flat[f"params/{path}/scale"] = arr
         elif leaf == "bias":
@@ -106,6 +126,14 @@ def jax_tree_from_state_dict(state_dict: Mapping) -> dict:
         else:
             raise KeyError(f"unmapped state_dict key {key!r}")
     return unflatten_tree(flat)
+
+
+def _kernel_layout(arr: np.ndarray) -> np.ndarray:
+    """A port conv or Linear weight in the flax kernel layout: OIDHW ->
+    DHWIO, (out, in) -> (in, out)."""
+    if arr.ndim == 5:
+        return np.ascontiguousarray(arr.transpose(2, 3, 4, 1, 0))
+    return np.ascontiguousarray(arr.T)
 
 
 def _param_leaf_to_port(path: str, leaf: str, arr: np.ndarray):

@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from pytorchvideo_accelerate_tpu_torch.config import ReliabilityConfig
 from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
 
 logger = logging.getLogger(__name__)
@@ -187,7 +188,8 @@ class TrainGuard:
     step before it; `flush()` observes the last one at the epoch's end."""
 
     def __init__(self, cfg, output_dir: str,
-                 config_dict: Optional[dict] = None, seed: int = 0):
+                 config_dict: Optional[dict] = None, seed: int = 0,
+                 reliability: Optional[ReliabilityConfig] = None):
         policy = getattr(cfg, "policy", "both")
         if policy not in ("nonfinite", "spike", "both"):
             raise ValueError(
@@ -197,6 +199,7 @@ class TrainGuard:
         self.output_dir = output_dir
         self.config_dict = config_dict or {}
         self.seed = int(seed)
+        self.reliability = reliability  # the LKG saves' retry policy
         self.detectors: Dict[str, SpikeDetector] = {
             name: SpikeDetector(alpha=cfg.ewma_alpha, zscore=cfg.spike_zscore,
                                 warmup=cfg.warmup_steps)
@@ -223,7 +226,8 @@ class TrainGuard:
     def _checkpointer(self) -> Checkpointer:
         if self._ckpt is None:
             self._ckpt = Checkpointer(self.lkg_dir,
-                                      max_to_keep=max(self.cfg.lkg_keep, 1))
+                                      max_to_keep=max(self.cfg.lkg_keep, 1),
+                                      reliability=self.reliability)
         return self._ckpt
 
     def ring_steps(self) -> List[int]:

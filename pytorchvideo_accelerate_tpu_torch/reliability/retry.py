@@ -1,7 +1,7 @@
 """One retry primitive: jittered exponential backoff with a hard deadline
 (the port's copy of the JAX package's `reliability/retry.py` `retry_call`,
 without its telemetry counters, its fault-plan jitter (here ordinary
-`random`) and its per-call delay cap and retry hook)."""
+`random`) and its retry hook)."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import random
 import time
 from typing import Callable, Tuple, Type
 
-MAX_DELAY_S = 2.0  # the cap of one backoff sleep
+MAX_DELAY_S = 2.0  # the default cap of one backoff sleep
 
 
 def retry_call(
@@ -18,6 +18,7 @@ def retry_call(
     attempts: int = 3,
     retry_on: Tuple[Type[BaseException], ...] = (OSError,),
     base_delay_s: float = 0.05,
+    max_delay_s: float = MAX_DELAY_S,
     deadline_s: float = 30.0,
     sleep: Callable[[float], None] = time.sleep,
 ):
@@ -25,7 +26,7 @@ def retry_call(
 
     - `attempts` is the TOTAL call budget (1 = no retries).
     - Backoff: `base_delay_s * 2^(attempt-1) * jitter(0.5..1.5)`, capped at
-      `MAX_DELAY_S`.
+      `max_delay_s`.
     - `deadline_s` bounds elapsed wall time across the whole call: when the
       next sleep would cross it, the last error re-raises at once.
     - Non-retryable exceptions propagate untouched on the first throw."""
@@ -39,7 +40,7 @@ def retry_call(
             if attempt >= attempts:
                 raise
             delay = min(base_delay_s * 2 ** (attempt - 1)
-                        * (0.5 + random.random()), MAX_DELAY_S)
+                        * (0.5 + random.random()), max_delay_s)
             if time.monotonic() - t0 + delay > deadline_s:
                 raise
             sleep(delay)

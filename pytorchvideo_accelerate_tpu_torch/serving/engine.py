@@ -13,24 +13,47 @@ The forward is `device_normalize_batch` -> `multiview_logits` over the
 eval weights, the op sequence of the eval step, so serving top-1 matches
 evaluation.
 
+Quantization (`quantization="int8"`, serving/quantize.py): the engine
+holds int8 weights with f32 per-output-channel scales, and each quantized
+module dequantizes its weight when it runs (`q * scale` in f32, one
+downcast to the compute dtype), so no full-precision copy of the model
+stays resident and the weight reaches the same kernels. `from_artifact`
+resolves the mode as the JAX engine does: an explicit argument, then the
+artifact's baked `meta.quantization`, then its embedded
+`serve.quantization`; a baked int8 artifact always serves int8.
+
 Device: the engine runs on the CUDA card unless the caller passes
 `device="cpu"`; on a host without CUDA it raises instead of falling back.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from pytorchvideo_accelerate_tpu_torch.precision import f32_island
+from pytorchvideo_accelerate_tpu_torch.precision import (
+    f32_island,
+    policy_compute_dtype,
+)
+from pytorchvideo_accelerate_tpu_torch.serving.quantize import (
+    QUANT_MODES,
+    is_quant_leaf,
+    quant_bytes,
+    quantize_module,
+    quantize_tree,
+    quantized_leaf_count,
+)
 from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
     device_normalize_batch,
     model_inputs,
     multiview_logits,
 )
+
+logger = logging.getLogger("pva_tpu_torch")
 
 # the batch-dict clip leaves (batcher.py and server.py import this one)
 CLIP_KEYS = ("video", "slow", "fast")
@@ -82,18 +105,53 @@ class InferenceEngine:
     `predict` takes a host batch dict (clip leaves (B, T, H, W, C) or
     (B, V, T, H, W, C), optional "mask") and returns f32 logits
     (B, num_classes) for every row, padded ones included; the batcher never
-    resolves a padded row into a response."""
+    resolves a padded row into a response. `quantization="int8"` quantizes
+    a full-precision `state_dict` (or the model's own weights) on the fly;
+    a `state_dict` that already holds quant leaves (an int8 artifact) is
+    used as it is. `compute_dtype` is the dtype the weights dequantize to
+    (default bf16)."""
 
     def __init__(self, model: torch.nn.Module,
                  state_dict: Optional[Dict[str, Any]] = None, *,
                  num_classes: int, max_batch_size: int = 8,
                  device_normalize=None, input_dtype: str = "float32",
-                 model_name: str = "", stats=None, device=None):
+                 model_name: str = "", stats=None, device=None,
+                 quantization: str = "off",
+                 compute_dtype: Optional[torch.dtype] = None):
+        if quantization not in QUANT_MODES:
+            raise ValueError(
+                f"serve.quantization must be one of {QUANT_MODES}, got "
+                f"{quantization!r}")
         self.device = resolve_device(device)
+        self.quantization = quantization
+        if state_dict is None and quantization == "int8":
+            state_dict = model.state_dict()
+        qstate: Dict[str, Any] = {}
         if state_dict is not None:
-            model.load_state_dict(
-                {k: torch.as_tensor(np.asarray(v)) for k, v in state_dict.items()},
-                strict=True)
+            if quantization == "int8" and not quantized_leaf_count(state_dict):
+                # on the fly: the arithmetic of a baked artifact
+                state_dict, n = quantize_tree(state_dict)
+                logger.info("engine: quantized %d weight leaves to int8 (%s)",
+                            n, quant_bytes(state_dict))
+            qstate = {k: v for k, v in state_dict.items() if is_quant_leaf(v)}
+            if qstate and quantization != "int8":
+                raise ValueError(
+                    "state_dict holds int8 weights; serve it with "
+                    "quantization='int8'")
+            missing, unexpected = model.load_state_dict(
+                {k: torch.as_tensor(np.asarray(v))
+                 for k, v in state_dict.items() if k not in qstate},
+                strict=False)
+            if unexpected or set(missing) != set(qstate):
+                raise RuntimeError(
+                    f"state_dict does not match the model: missing "
+                    f"{sorted(set(missing) - set(qstate))}, unexpected "
+                    f"{sorted(unexpected)}")
+        if qstate:
+            # before the move: only int8 weights and scales reach the card
+            quantize_module(model, qstate,
+                            compute_dtype if compute_dtype is not None
+                            else torch.bfloat16)
         # pin the weights on the device once; every forward reuses them
         self.model = model.eval().to(self.device)
         self.num_classes = int(num_classes)
@@ -111,10 +169,12 @@ class InferenceEngine:
     @classmethod
     def from_artifact(cls, path: str, device=None, *,
                       max_batch_size: Optional[int] = None,
-                      stats=None) -> "InferenceEngine":
+                      stats=None,
+                      quantization: Optional[str] = None) -> "InferenceEngine":
         """Restore an `export_inference` artifact (either package's) into a
         ready engine: rebuild the model from the artifact's config, load its
-        weights, pin them on `device`."""
+        weights, pin them on `device`. `quantization`: an explicit mode,
+        else the artifact's baked one, else its `serve.quantization`."""
         from pytorchvideo_accelerate_tpu_torch.config import (
             TrainConfig,
             config_from_dict,
@@ -128,10 +188,14 @@ class InferenceEngine:
         state_dict, meta = load_inference(path)
         cfg = (config_from_dict(meta["config"]) if meta.get("config")
                else TrainConfig())
-        if cfg.serve.quantization != "off":
-            raise NotImplementedError(
-                f"serve.quantization {cfg.serve.quantization!r}: "
-                "serving/quantize.py is not ported yet (ROADMAP.md)")
+        art_q = meta.get("quantization") or "off"
+        eff_q = (quantization if quantization is not None
+                 else (art_q if art_q != "off" else cfg.serve.quantization))
+        if art_q == "int8" and eff_q == "off":
+            logger.warning(
+                "artifact %s is baked int8; the fp weights no longer "
+                "exist: serving int8 despite quantization='off'", path)
+            eff_q = "int8"
         num_classes = int(meta.get("num_classes") or cfg.model.num_classes)
         if not num_classes:
             raise ValueError(
@@ -148,7 +212,8 @@ class InferenceEngine:
             device_normalize=(cfg.data.mean, cfg.data.std) if u8 else None,
             input_dtype="uint8" if u8 else "float32",
             model_name=meta.get("model") or cfg.model.name,
-            stats=stats, device=device)
+            stats=stats, device=device, quantization=eff_q,
+            compute_dtype=policy_compute_dtype(cfg.mixed_precision))
         engine.artifact_config = cfg
         return engine
 

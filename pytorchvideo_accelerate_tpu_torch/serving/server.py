@@ -5,19 +5,34 @@ Endpoints:
   POST /predict  — body {"video": nested-list clip} (or {"slow":…,"fast":…}
                    for SlowFast), clip shaped (T,H,W,C) or (V,T,H,W,C);
                    responds {"logits": […], "top1": k, "latency_ms": x}.
+                   The body may carry "priority" ("realtime" | "batch")
+                   and "deadline_ms" for the default scheduler.
   GET  /healthz  — liveness + model identity (load balancers poll this).
-  GET  /stats    — ServingStats.snapshot().
-/stream, /profile, /drain, /metrics and /history answer 404 until their
-slices of the port land (ROADMAP.md).
+  GET  /stats    — ServingStats.snapshot(): p50/p95/p99 latency, queue
+                   depth, batch fill, throughput, rejections by cause, sheds.
+  GET  /metrics  — Prometheus text exposition of the registry the /stats
+                   counters read (obs/registry.py): request, batch,
+                   rejection and shed counters, the latency histogram
+                   (buckets from --serve.latency_buckets_ms), queue depth
+                   and uptime gauges.
+  POST /drain    — controller-initiated drain: admission flips to DRAINING
+                   (/healthz 503, new work sheds, queued work flushes); the
+                   process keeps serving its queue and is reaped apart.
+/stream, /profile and /history answer 404 until their slices of the port
+land (ROADMAP.md).
 
-Handler threads only parse JSON and block on a batcher future; all device
-work is serialised behind the MicroBatcher's flush thread. Error mapping:
-bad request -> 400, shed or queue full -> 503 + Retry-After, request budget
-exceeded -> 504 + Retry-After. SIGTERM on the CLI path drains: stop
-admitting, flush in-flight futures, exit 0.
+Handler threads only parse JSON and block on a future; all device work is
+serialised behind one flush thread: the continuous-batching
+`fleet/scheduler.Scheduler` by default (deadlines, priority classes, EDF
+launches, shed before a deadline miss), or the MicroBatcher with
+`--serve.scheduler micro`. `--serve.quantization int8` (or an int8
+artifact) serves int8 weights (serving/quantize.py). Error mapping: bad
+request -> 400, shed or queue full -> 503 + Retry-After (a deadline shed
+too), request budget exceeded -> 504 + Retry-After. SIGTERM on the CLI path
+drains: stop admitting, flush in-flight futures, exit 0.
 
     python -m pytorchvideo_accelerate_tpu_torch.serving.server \\
-        --serve.checkpoint ART --serve.scheduler micro [--cpu]
+        --serve.checkpoint ART [--serve.quantization int8] [--cpu]
 """
 
 from __future__ import annotations
@@ -33,6 +48,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
 from pytorchvideo_accelerate_tpu_torch.serving.admission import (
     DRAINING,
     AdmissionController,
@@ -45,6 +61,7 @@ from pytorchvideo_accelerate_tpu_torch.serving.engine import (
     CLIP_KEYS,
     InferenceEngine,
 )
+from pytorchvideo_accelerate_tpu_torch.serving.quantize import QUANT_MODES
 from pytorchvideo_accelerate_tpu_torch.serving.stats import ServingStats
 
 logger = logging.getLogger("pva_tpu_torch")
@@ -99,11 +116,30 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(503 if state == DRAINING else 200, health)
         elif self.path == "/stats":
             self._reply(200, srv.stats.snapshot())
+        elif self.path == "/metrics":
+            body = srv.stats.registry.render().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):  # noqa: N802 - stdlib API
         srv: "InferenceServer" = self.server.owner
+        if self.path == "/drain":
+            # flip admission to DRAINING without tearing the server down;
+            # reading the (empty) body keeps the keep-alive stream clean
+            length = int(self.headers.get("Content-Length", 0))
+            if length:
+                self.rfile.read(length)
+            srv.admission.start_draining()
+            self._reply(200, {"draining": True,
+                              "status": srv.admission.state(),
+                              "queue_depth": srv.batcher.queue_depth()})
+            return
         if self.path != "/predict":
             self._reply(404, {"error": f"no route {self.path}"})
             return
@@ -112,7 +148,7 @@ class _Handler(BaseHTTPRequestHandler):
         admitted, retry_after = srv.admission.admit(srv.batcher.queue_depth())
         if not admitted:
             state = srv.admission.state()
-            srv.stats.observe_shed()
+            srv.stats.observe_shed(state)
             self.close_connection = True
             self._reject(503, f"load shed (service {state}); retry later",
                          retry_after)
@@ -126,12 +162,19 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError(
                     "body needs 'video' (or 'slow'+'fast') nested lists")
             srv.check_geometry(clip)
+            # per-request scheduling hints, only for a front that reads them
+            kwargs = {}
+            if getattr(srv.batcher, "supports_priority", False):
+                if "priority" in body:
+                    kwargs["priority"] = str(body["priority"])
+                if "deadline_ms" in body:
+                    kwargs["deadline_ms"] = float(body["deadline_ms"])
         except (ValueError, TypeError, KeyError) as e:
             srv.stats.observe_rejected("400")
             self._reply(400, {"error": f"bad request: {e}"})
             return
         try:
-            future = srv.batcher.submit(clip)
+            future = srv.batcher.submit(clip, **kwargs)
         except QueueFullError as e:
             # the batcher already counted this one (cause "503")
             self._reject(503, str(e), e.retry_after_s)
@@ -155,6 +198,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._reject(504, f"request exceeded {srv.request_timeout_s}s "
                          "budget", srv.admission.retry_after_s)
             return
+        except QueueFullError as e:
+            # shed after admission (the scheduler's shed before a deadline
+            # miss resolves the future with ShedError): 503 + Retry-After
+            self._reject(503, str(e), e.retry_after_s)
+            return
         except Exception as e:  # noqa: BLE001 - batch failure surfaced per-request
             srv.stats.observe_error()
             self._reply(500, {"error": f"inference failed: {e}"})
@@ -167,9 +215,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class InferenceServer:
-    """ThreadingHTTPServer wrapper owning engine + batcher + stats."""
+    """ThreadingHTTPServer wrapper owning engine + front (Scheduler or
+    MicroBatcher) + stats."""
 
-    def __init__(self, engine: InferenceEngine, batcher: MicroBatcher,
+    def __init__(self, engine: InferenceEngine, batcher,
                  stats: ServingStats, host: str = "127.0.0.1", port: int = 0,
                  request_timeout_s: float = 30.0,
                  expected_spec: Optional[dict] = None,
@@ -181,7 +230,10 @@ class InferenceServer:
         self.request_timeout_s = request_timeout_s
         self.drain_grace_s = drain_grace_s
         if admission is None:  # direct construction (tests, embedding)
-            admission = AdmissionController(max_queue=batcher._q.maxsize)
+            q = getattr(batcher, "_q", None)
+            admission = AdmissionController(
+                max_queue=getattr(batcher, "max_queue", 0)
+                or getattr(q, "maxsize", 0) or 256)
         if admission.queue_depth_fn is None:
             admission.queue_depth_fn = batcher.queue_depth
         self.admission = admission
@@ -275,35 +327,52 @@ def build_server(cfg) -> InferenceServer:
         raise SystemExit(
             "serving needs --serve.checkpoint pointing at an "
             "export_inference artifact")
-    if s.scheduler == "edf":
-        raise SystemExit(
-            "--serve.scheduler edf (the default) needs fleet/scheduler.py, "
-            "which the PyTorch port does not have yet (ROADMAP.md port "
-            "queue: scheduler, quantize, metrics); run with "
-            "--serve.scheduler micro")
-    if s.scheduler != "micro":
+    if s.scheduler not in ("edf", "micro"):
         raise SystemExit(
             f"unknown --serve.scheduler {s.scheduler!r} (edf | micro)")
     if s.streaming:
         raise SystemExit("--serve.streaming is not ported yet (ROADMAP.md)")
-    if s.quantization != "off":
+    if s.quantization not in QUANT_MODES:
         raise SystemExit(
-            f"--serve.quantization {s.quantization!r}: serving/quantize.py "
-            "is not ported yet (ROADMAP.md)")
-    stats = ServingStats(window=s.stats_window)
+            f"unknown --serve.quantization {s.quantization!r} "
+            f"({' | '.join(QUANT_MODES)})")
+    latency_buckets = None
+    if s.latency_buckets_ms:
+        try:
+            latency_buckets = sorted(
+                float(b) / 1e3 for b in s.latency_buckets_ms.split(",") if b)
+        except ValueError:
+            raise SystemExit(
+                f"--serve.latency_buckets_ms {s.latency_buckets_ms!r}: "
+                "expected comma-separated millisecond bounds, e.g. "
+                "'5,10,25,50,100,250,1000'")
+    stats = ServingStats(window=s.stats_window,
+                         latency_buckets=latency_buckets)
     engine = InferenceEngine.from_artifact(
         s.checkpoint, device="cpu" if cfg.cpu else None,
-        max_batch_size=s.max_batch_size, stats=stats)
-    # run every bucket once for the training run's clip geometry, so the
-    # first requests pay no first-call cost; the same spec then 400-guards
-    # /predict against off-geometry requests
+        max_batch_size=s.max_batch_size, stats=stats,
+        quantization=s.quantization if s.quantization != "off" else None)
+    # run every bucket once for the training run's clip geometry before
+    # the front takes a request: the first requests pay no first-call cost,
+    # and the scheduler's service-time EWMA starts from warm launches (a
+    # cold one would shed realtime requests for nothing); the same spec
+    # then 400-guards /predict against off-geometry requests
     spec = model_input_spec(engine.artifact_config.model,
                             engine.artifact_config.data)
     engine.warmup({k: np.zeros(shape[1:], engine.input_dtype)
                    for k, shape in spec.items()})
-    batcher = MicroBatcher(engine, max_wait_ms=s.max_wait_ms,
-                           max_queue=s.max_queue, stats=stats,
-                           retry_after_s=s.retry_after_s)
+    if s.scheduler == "edf":
+        # serve.max_wait_ms is the batch class's coalescing dial; the
+        # realtime class is work-conserving
+        batcher = Scheduler(
+            engine, max_queue=s.max_queue, stats=stats,
+            realtime_deadline_ms=s.realtime_deadline_ms,
+            batch_deadline_ms=s.batch_deadline_ms,
+            batch_max_wait_ms=s.max_wait_ms, retry_after_s=s.retry_after_s)
+    else:
+        batcher = MicroBatcher(engine, max_wait_ms=s.max_wait_ms,
+                               max_queue=s.max_queue, stats=stats,
+                               retry_after_s=s.retry_after_s)
     stats.queue_depth_fn = batcher.queue_depth
     admission = AdmissionController(
         max_queue=s.max_queue, shed_frac=s.shed_queue_frac,
@@ -317,7 +386,7 @@ def build_server(cfg) -> InferenceServer:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    """`--serve.checkpoint PATH --serve.scheduler micro [--serve.port N]`."""
+    """`--serve.checkpoint PATH [--serve.port N] [--cpu]`."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
 
     logging.basicConfig(level=logging.INFO)

@@ -9,7 +9,8 @@ epochs: train steps (gradient accumulation inside the step), checkpoints
 every `checkpointing_steps` optimizer steps or every epoch plus a final
 one, an eval pass at each epoch end, and returns the JAX trainer's result
 keys with its throughput numbers (`clips_per_sec`, `steps_per_sec`,
-`input_wait_frac`). `evaluate()`, `export_inference()` and `_maybe_resume()`
+`input_wait_frac`) and `preempted`. `evaluate()`, `export_inference()` and
+`_maybe_resume()`
 serve `run.py`'s `--eval_only`, `--export_inference` and
 `--resume_from_checkpoint`. Mixup/cutmix (`--optim.mixup_alpha`,
 `--optim.cutmix_alpha`) run inside the train step. `--guard.enabled` arms
@@ -24,7 +25,15 @@ result. A `*_pretrain` model (VideoMAE) trains
 self-supervised (`make_pretrain_step`, `make_pretrain_eval_step`): no
 labels, float32 clips (`data.host_cast u8` is refused: the MAE target is
 computed from the raw clip), one eval view, and `val_recon_loss` in place
-of the accuracies.
+of the accuracies. With `reliability.graceful_shutdown` (the default) the
+process-default `PreemptionGuard` (reliability/preemption.py) holds
+SIGTERM and SIGINT during `fit()`: the step loop polls it after each
+optimizer step, and on a request it flushes the pending step log, saves a
+checkpoint of kind "preempt" at the consumed loader position, writes
+`<output_dir>/emergency_checkpoint.json`, skips eval and the final save and
+returns `preempted: True` (run.py then exits 0); `--resume_from_checkpoint
+auto` continues from that step. Checkpoint writes retry on OSError
+(`reliability.ckpt_retries` attempts).
 
 It runs on the CUDA card unless the config asks for the CPU (`--cpu`); on a
 host without CUDA it raises. Real videos need cv2 to decode; where it is
@@ -62,6 +71,10 @@ from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
 from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
 from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard
+from pytorchvideo_accelerate_tpu_torch.reliability.preemption import (
+    get_guard,
+    record_emergency,
+)
 from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
     Checkpointer,
     export_inference,
@@ -182,14 +195,14 @@ class Trainer:
             ckpt_dir = os.path.join(cfg.checkpoint.output_dir, "checkpoints")
             resume_dir = resolve_resume_path(
                 cfg.checkpoint.resume_from_checkpoint, ckpt_dir)
-            self.checkpointer = Checkpointer(
-                resume_dir or ckpt_dir, max_to_keep=cfg.checkpoint.max_to_keep)
+            self.checkpointer = self._make_checkpointer(resume_dir or ckpt_dir)
         # None when disarmed: the step loop then does one `is None` check
         self.train_guard: Optional[TrainGuard] = None
         if cfg.guard.enabled:
             self.train_guard = TrainGuard(
                 cfg.guard, output_dir=cfg.checkpoint.output_dir,
-                config_dict=cfg.to_dict(), seed=cfg.seed)
+                config_dict=cfg.to_dict(), seed=cfg.seed,
+                reliability=cfg.reliability)
             self.train_guard.quarantine = self.quarantine
         self.trackers: Optional[TrackerHub] = None
         if cfg.tracking.with_tracking:
@@ -370,12 +383,14 @@ class Trainer:
         return data_state.epoch
 
     def export_inference(self, path: str) -> str:
-        """Write the (EMA-resolved) serving artifact of the current state."""
+        """Write the (EMA-resolved) serving artifact of the current state;
+        with `--serve.quantization int8` it is baked int8."""
         return export_inference(
             path, self.model, config=self.cfg,
             meta={"num_classes": self.num_classes,
                   "model": self.cfg.model.name},
-            step=self.state.step, params=self.state.eval_params())
+            step=self.state.step, params=self.state.eval_params(),
+            quantization=self.cfg.serve.quantization)
 
     def close(self) -> None:
         """Release the loaders and finish the trackers (fit(), evaluate()
@@ -385,6 +400,31 @@ class Trainer:
             self.trackers = None
         self.train_loader.close()
         self.val_loader.close()
+
+    def _make_checkpointer(self, directory: str) -> Checkpointer:
+        return Checkpointer(directory, max_to_keep=self.cfg.checkpoint.max_to_keep,
+                            reliability=self.cfg.reliability)
+
+    def _emergency_save(self, epoch: int, reason: str = "") -> None:
+        """The preemption grace path's save: a checkpoint of kind
+        "preempt" at the consumed loader position (unless this very step is
+        already on disk, from a `checkpointing_steps` boundary) and the
+        emergency record. A run without checkpointing gets a checkpointer
+        here: a preempted run must resume with `resume=auto`."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        if self.checkpointer is None:
+            self.checkpointer = self._make_checkpointer(
+                os.path.join(cfg.checkpoint.output_dir, "checkpoints"))
+        step = self.state.step
+        if self.checkpointer.latest_step() != step:
+            self._save("preempt", epoch)
+        record_emergency(cfg.checkpoint.output_dir, step=step, epoch=epoch,
+                         checkpoint_dir=self.checkpointer.directory,
+                         reason=reason)
+        print(f"preempted ({reason or 'requested'}): emergency checkpoint at "
+              f"step {step} in {time.perf_counter() - t0:.3f} s; resume with "
+              "--resume_from_checkpoint auto", flush=True)
 
     def _save(self, kind: str, epoch: int) -> None:
         if self.checkpointer is None:
@@ -454,6 +494,11 @@ class Trainer:
         # step metrics are read one step late: after the next dispatch
         deferred = DeferredStepLogger(self.trackers, on_flush=self._print_step)
         tguard = self.train_guard
+        # SIGTERM/SIGINT set an Event; the loop reads it once per step
+        guard = get_guard() if cfg.reliability.graceful_shutdown else None
+        if guard is not None:
+            guard.install()
+        preempted = False
         try:
             # a rollback re-enters this epoch, or an earlier one, from the
             # loader position it set
@@ -488,8 +533,18 @@ class Trainer:
                     if (isinstance(self.checkpointing_steps, int)
                             and gstep % self.checkpointing_steps == 0):
                         self._save("step", epoch)
+                    if guard is not None and guard.requested:
+                        # the step above is dispatched: leaving here never
+                        # abandons an optimizer update
+                        preempted = True
+                        break
                     if 0 <= cfg.data.limit_train_batches <= i + 1:
                         break
+                if preempted:
+                    # no eval, no further epochs
+                    deferred.flush()
+                    self._emergency_save(epoch, reason=guard.reason)
+                    break
                 deferred.flush()
                 if tguard is not None and not rolled_back:
                     # the epoch's last step is still pending in the guard
@@ -536,13 +591,16 @@ class Trainer:
                 if self.checkpointing_steps == "epoch":
                     self._save("epoch", epoch)
                 epoch += 1
-            self._save("final", cfg.optim.num_epochs - 1)
+            if not preempted:
+                self._save("final", cfg.optim.num_epochs - 1)
         finally:
+            if guard is not None:
+                guard.uninstall()  # the handlers from before fit()
             self.close()
         result = {"train_loss": last_train_loss, "steps": self.state.step,
                   "epoch_train_times": epoch_train_times,
                   "flops_per_step": None, "analytic_flops_per_step": None,
-                  "preempted": False, **last_perf}
+                  "preempted": preempted, **last_perf}
         if self.is_pretraining:
             result["val_recon_loss"] = last_val_loss
         else:

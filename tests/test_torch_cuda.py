@@ -38,7 +38,12 @@ autograd Functions. A tiny3d and a
 tiny X3D training micro-step through the kernels against the plain
 lowering (`xla`, TF32 off): loss within 5e-2 * (1 + |loss|), the whole
 gradient within 5e-2 relative (every layer rounds to bf16 in another
-summation order).
+summation order). An int8 tiny3d engine (baked, or quantized on the fly:
+bitwise the same logits) holds int8 weights on the card and launches the
+fp engine's kernels, launch for launch, keeping its top-1; `build_server`
+with no scheduler flag serves through the EDF scheduler on the card, sheds
+a request whose deadline is half the measured service time, counts both
+in /metrics and drains.
 """
 
 import numpy as np
@@ -627,3 +632,94 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda):
     q, k, v, _ = _flash_inputs(1, 32, 32, 1, 128, 6, cuda)
     with pytest.raises(ValueError, match="last dim"):
         flash_attention.flash_attention(q[..., ::2], k[..., ::2], v[..., ::2])
+
+
+def _tiny3d_artifact(tmp_path, quantization="off", frames=8, crop=64):
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import export_inference
+
+    cfg = parse_cli(["--model.name", "tiny3d", "--model.num_classes", "5",
+                     "--num_frames", str(frames), "--data.crop_size", str(crop),
+                     "--model.fused_kernels", "auto", "--serve.max_batch_size", "4"])
+    model = create_model(cfg.model, "bf16", seed=2)
+    with torch.no_grad():  # logits O(1): the head's init draw is 0.01
+        model.head.proj.weight.mul_(100.0)
+    return export_inference(str(tmp_path / f"tiny3d_{quantization}_{frames}x{crop}"),
+                            model, cfg,
+                            meta={"num_classes": 5, "model": "tiny3d"},
+                            quantization=quantization)
+
+
+def test_int8_forward_makes_the_fp_launches(cuda, tmp_path):
+    """An int8 engine (baked or quantized on the fly) holds int8 weights on
+    the card, reaches the same kernels as the fp engine, launch for launch,
+    and keeps its top-1 (the JAX package's gate: agreement >= 0.75)."""
+    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
+
+    fp_art = _tiny3d_artifact(tmp_path)
+    q_art = _tiny3d_artifact(tmp_path, "int8")
+    rng = np.random.default_rng(4)
+    batch = {"video": rng.standard_normal((4, 8, 64, 64, 3)).astype(np.float32)}
+    out = {}
+    for label, art, q in (("fp", fp_art, None), ("baked", q_art, None),
+                          ("fly", fp_art, "int8")):
+        eng = InferenceEngine.from_artifact(art, quantization=q)
+        before = dict(fused.LAUNCHES)
+        logits = eng.predict(batch)
+        torch.cuda.synchronize()
+        launched = {k: fused.LAUNCHES[k] - before[k] for k in before}
+        dtypes = {p.dtype for p in eng.model.parameters()}
+        out[label] = (logits, launched, dtypes)
+    (lf, nf, df), (lb, nb, db), (lq, nq, dq) = out["fp"], out["baked"], out["fly"]
+    assert nf == nb == nq and nf["fused_pw_bn_act"] > 0 and nf["fused_conv_bn_act"] > 0
+    assert torch.int8 not in df and torch.int8 in db and db == dq
+    np.testing.assert_array_equal(lb, lq)
+    assert np.isfinite(lb).all()
+    assert float((lf.argmax(1) == lb.argmax(1)).mean()) >= 0.75
+
+
+def test_default_server_serves_sheds_and_drains_on_the_card(cuda, tmp_path):
+    """`build_server` with no `--serve.scheduler` flag (EDF) on the card:
+    a realtime request answers, one whose deadline is under the measured
+    service time is shed with 503, /metrics counts both, /drain turns
+    /healthz to 503."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
+    from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
+
+    # 16 x 112^2: a bucket-1 forward of milliseconds, so half of it is a
+    # deadline above the 1 ms floor
+    art = _tiny3d_artifact(tmp_path, "int8", frames=16, crop=112)
+    srv = build_server(parse_cli(["--serve.checkpoint", art, "--serve.port", "0"]))
+    assert isinstance(srv.batcher, Scheduler) and srv.engine.device.type == "cuda"
+    srv.start()
+
+    def call(path, body=None):
+        host, port = srv.address
+        req = urllib.request.Request(f"http://{host}:{port}{path}",
+                                     data=None if body is None else json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    try:
+        clip = np.random.default_rng(5).standard_normal((16, 112, 112, 3)).round(3)
+        body = {"video": clip.tolist()}
+        code, data = call("/predict", dict(body, priority="realtime"))
+        assert code == 200 and np.isfinite(json.loads(data)["logits"]).all()
+        svc_ms = srv.batcher._estimate_s(1) * 1e3
+        assert svc_ms > 2.0, svc_ms
+        assert call("/predict", dict(body, deadline_ms=svc_ms / 2))[0] == 503
+        text = call("/metrics")[1].decode()
+        assert 'pva_serving_shed_total{state="deadline"} 1' in text
+        assert "pva_serving_requests_total 1" in text
+        assert call("/drain", {})[0] == 200 and call("/healthz")[0] == 503
+    finally:
+        srv.close()

@@ -5,7 +5,9 @@
 - `build_server(--cpu ...)` on a slowfast_t artifact answers /predict over
   HTTP with the JAX engine's logits (atol 1e-4).
 - Entry points default to the CUDA card and raise on this CUDA-less host;
-  the `edf` scheduler, quantization and the unported routes are refused.
+  streaming, unknown schedulers and quantization modes, and the unported
+  routes are refused (the default scheduler, int8, /metrics and /drain:
+  tests/test_torch_metrics.py, tests/test_torch_quantize.py).
 """
 
 import json
@@ -164,14 +166,14 @@ def test_healthz_and_stats(server):
     assert {"p50_ms", "p99_ms", "batch_fill_ratio", "rejected_400"} <= set(stats)
 
 
-@pytest.mark.parametrize("path", ["/metrics", "/history"])
+@pytest.mark.parametrize("path", ["/history", "/profile"])
 def test_unported_get_routes_are_404(server, path):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(_url(server, path))
     assert e.value.code == 404
 
 
-@pytest.mark.parametrize("path", ["/stream", "/drain", "/profile"])
+@pytest.mark.parametrize("path", ["/stream", "/history", "/profile"])
 def test_unported_post_routes_are_404(server, path):
     assert _post(server, path, {})[0] == 404
 
@@ -196,9 +198,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(jax_side):
                                      "--serve.scheduler", "micro"]))
 
 
-@pytest.mark.parametrize("extra", [[], ["--serve.streaming"],
-                                   ["--serve.scheduler", "micro",
-                                    "--serve.quantization", "int8"]])
+@pytest.mark.parametrize("extra", [["--serve.scheduler", "fifo"],
+                                   ["--serve.streaming"],
+                                   ["--serve.quantization", "int4"]])
 def test_unported_serving_options_refused(jax_side, extra):
     with pytest.raises(SystemExit):
         build_server(tcfg.parse_cli(["--serve.checkpoint", jax_side[0],
@@ -206,11 +208,17 @@ def test_unported_serving_options_refused(jax_side, extra):
 
 
 def test_int8_artifact_raises(tmp_path, jax_side):
+    """int8 artifacts load now (tests/test_torch_quantize.py); one whose
+    weights are missing raises at the weights, an unknown mode at its meta."""
     art = tmp_path / "q"
     art.mkdir()
     (art / "meta.json").write_text(json.dumps(
         {"format": tckpt.INFERENCE_FORMAT, "quantization": "int8"}))
-    with pytest.raises(NotImplementedError, match="quantize"):
+    with pytest.raises(FileNotFoundError, match="weights.npz"):
+        tckpt.load_inference(str(art))
+    (art / "meta.json").write_text(json.dumps(
+        {"format": tckpt.INFERENCE_FORMAT, "quantization": "int4"}))
+    with pytest.raises(ValueError, match="int4"):
         tckpt.load_inference(str(art))
 
 
