@@ -5,8 +5,9 @@ serve VideoMAE-B and pretrain it (MAE), serve R(2+1)D-50 and train it
 from a frame cache of real-format clips, train SlowFast-R50 with
 mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, serve
 SlowFast-R50 with the server's defaults and SlowFast-R50 and MViT-B with
-int8 weights, and preempt and resume a SlowFast-R50 training run, on one
-GPU.
+int8 weights, preempt and resume a SlowFast-R50 training run, and train
+SlowFast-R50 data-parallel across processes, on one GPU (and across two
+cards, where the machine has them).
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
@@ -208,6 +209,23 @@ Drives the port only (no JAX), one JSON line per phase:
             emergency record; `--resume_from_checkpoint auto` ends at the unbroken
             run's step count, losses within 5e-2 * (1 + |loss|), launches of
             the two children adding up to the unbroken run's
+36. dp_train  data parallelism across processes on full-width SlowFast-R50
+            (32 frames at 256^2, a global batch of 8 clips, 6 steps, lr
+            0.01, mixing off), each arm `run.main`'s Trainer in child
+            processes: (a) one process, no group; (b) a one-rank NCCL group
+            (the data-parallel path at world 1); (c) two ranks of 4 clips
+            sharing the card over gloo; (d) two ranks over NCCL on two
+            cards through `launch.py`, run only when the machine has two
+            cards (else one line says why). Exact launches of rows 1-2b on
+            every rank, the ranks' parameters and BN running averages
+            bitwise equal after every step, the last checkpoint restoring
+            bitwise on every rank, losses within 5e-2 * (1 + |loss|) of
+            (a)'s, (b)'s first step within 1e-2 * (1 + |loss|), (c)'s
+            all-reduced gradient the ranks' mean bitwise and its head
+            gradient within 5e-2 of (a)'s; then (c) with SIGTERM to rank 1
+            alone: both ranks stop at one step off a checkpoint boundary,
+            exit 0, one "preempt" checkpoint. Step ms (synchronised), the
+            all-reduces a micro-step and their bytes, peak memory per rank
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -222,7 +240,8 @@ slice 10's paths carry "train_features": the launches of features_train
 (rows 1-2b, with their SlowFast-R50 sums) or of one remat_train
 micro-step (rows 4, 4b, 5, 6, 7); rows 1, 1b, 2, 2b, 4 and 5 carry
 "edf_serve", "int8_serve" and "preempt_train" sub-entries with those
-phases' launches), the nvidia-smi line, and as the last
+phases' launches, and rows 1, 1b, 2, 2b a "dp_train" one with the
+launches of one rank of dp_train's arm (c)), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
@@ -340,15 +359,15 @@ FEATURES_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=80, ckpt_every=0
                             "--tracking.log_every", "1"])
 POISONED_TAKES = (3, 4)  # the train loader's 3rd and 4th batches
 # fit()'s step time with tracking on and off: Trainers of one epoch of 6
-# plain steps each, in turns on, off, off, on (the first interval of each
-# dropped: 10 per setting; 12 steps and 20 intervals before the smoke
-# grew the slice-11 phases)
+# plain steps each, in turns on, off (the first interval of each dropped:
+# 5 per setting; turns on, off, off, on before the smoke grew the
+# data-parallel phase, and 12 steps before the slice-11 phases)
 TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=96, ckpt_every=0)
-TRACKING_ORDER = ("on", "off", "off", "on")
+TRACKING_ORDER = ("on", "off")
 # the armed guard's and mixing's cost: optimizer steps timed in rounds of
-# plain, mixed, mixed + armed guard (the order turned each round; 24 rounds
-# before the slice-11 phases)
-ARMED_ROUNDS = 8
+# plain, mixed, mixed + armed guard (the order turned each round; 8 rounds
+# before the data-parallel phase, 24 before the slice-11 phases)
+ARMED_ROUNDS = 6
 # hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
 # per-block remat: B=4 micro-steps with and without --model.remat
 REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
@@ -447,7 +466,7 @@ def _profiled(torch, fn, reps: int):
     return kev
 
 
-def device_events(torch, fn, reps: int, attempts: int = 2):
+def device_events(torch, fn, reps: int, attempts: int = 1):
     """The device-side events of `reps` calls of `fn` after one warm-up
     call, from a profile that is known to be complete. On the card a
     profile can come back with some or all of its device events missing:
@@ -456,7 +475,8 @@ def device_events(torch, fn, reps: int, attempts: int = 2):
     So a profile of one call counts the kernels a call launches, and the
     profile of `reps` calls is kept only if it holds `reps` times as many,
     to within 1% (exactly, below 100 kernels); otherwise both are taken
-    again after a garbage collection, and after `attempts`
+    again after a garbage collection, and after `attempts` (one since the
+    smoke grew the data-parallel phase, two before)
     `IncompleteProfile` is raised. The 1% admits what a call really varies
     by: a bucket-8 SlowFast-R50 forward launched 1323 or 1324 kernels (an
     elementwise kernel more or less) on the H100, while a lost call or a
@@ -2023,6 +2043,10 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          **edf_serve_phase(torch, art, clips, plain_logits, launches))
     emit("int8_serve", nvidia_smi=smi, **int8_serve_phase(torch, work, launches))
     emit("preempt_train", nvidia_smi=smi, **preempt_train_phase(torch, work, launches))
+    t_slice12 = time.perf_counter()
+    # 36. this slice's path: data-parallel training, counters zeroed in
+    # each rank just before fit()
+    emit("dp_train", nvidia_smi=smi, **dp_train_phase(torch, work, launches))
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -2054,7 +2078,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             if phase == "features_train":
                 sub.update(line_sums(rows, kname, "slowfast_r50"))
             kernels[-1]["train_features"] = sub
-        for phase, knames in SLICE11_LINE.items():
+        for phase, knames in {**SLICE11_LINE, **DP_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2064,7 +2088,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          r2plus1d=t_features - t_r2plus1d,
          features=t_real - t_features,
          real_video=t_slice11 - t_real,
-         serving_defaults_and_preemption=time.perf_counter() - t_slice11,
+         serving_defaults_and_preemption=t_slice12 - t_slice11,
+         data_parallel=time.perf_counter() - t_slice12,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -2095,6 +2120,11 @@ SLICE11_LINE = {
                    "flash_attention"),
     "preempt_train": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
                       "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")}
+
+
+# the kernel rows on slice 12's path: one rank of dp_train's arm (c)
+DP_LINE = {"dp_train": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                        "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")}
 
 
 def line_sums(rows, kname: str, model: str) -> dict:
@@ -2504,7 +2534,7 @@ def mae_micro_step(torch, attention: str, x, seed: int = 0):
     return model, fn
 
 
-def micro_step_times(torch, fn, reps: int = 3) -> dict:
+def micro_step_times(torch, fn, reps: int = 2) -> dict:
     """Host-clock ms of `reps` synchronised `fn()` calls after one warm-up
     call, the peak device memory over them, and the memory live before
     them (held by the caller: weights, the batch, what earlier phases
@@ -3747,6 +3777,393 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
         loss_max_abs_diff=max(diffs.values()),
         launches={"preempted": rec["launches"], "resumed": res["launches"],
                   "unbroken": base["launches"]})
+
+
+# --- dp_train: data parallelism across processes (slice 12) -----------------
+
+# SlowFast-R50 at full width (32x256^2, bf16, 700 classes), synthetic
+# clips, SGD at lr 0.01, mixing off: a global batch of 8 clips a step in
+# every arm, 6 steps (48 videos), a checkpoint every 4 steps, eval of 12
+# val clips. The head's dropout is off: a rank keeps its rows of the
+# global batch's mask, but its rows hold other clips than the same rows
+# of one process's batch (the loader deals clip i to rank i % world), so
+# with dropout on the arms would train on other masks. The preempted run's SIGTERM goes to rank 1 once rank 0's log
+# shows step 1: the ranks stop together at step 2 or 3, off the boundary
+DP_TRAIN = dict(SLOWFAST_TRAIN, batch=8, accum=1, epochs=1, videos=48,
+                ckpt_every=4, lr=TRANSFORMER_LR, argv=["--model.dropout_rate", "0"])
+DP_SIGTERM_AFTER_LINE = 1
+DP_CHILD_TIMEOUT_S = 300.0
+# a child of the dp_train phase: `mode` none (no group), nccl1 (a one-rank
+# NCCL group the child makes itself), gloo (two ranks on one card, joined
+# by `initialize_distributed(backend="gloo")`) or env (the launcher's PVA_*
+# env: NCCL, one card a rank); it prints its record last
+DP_CHILD = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.dp_child(sys.argv[2:])\n")
+
+
+def dp_state_hash(model) -> str:
+    """sha256 of the parameters and floating buffers, bytes on the host."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in list(model.parameters()) + [b for b in model.buffers()
+                                         if b.is_floating_point()]:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_fit(torch, argv, dump_dir: str) -> dict:
+    """`run.main`'s fit() of `argv` through a Trainer whose step is timed
+    (synchronised around each optimizer step), counted (every
+    `torch.distributed.all_reduce` inside a step, and its bytes) and
+    fingerprinted (`dp_state_hash` after each step); the first step's
+    gradient (this rank's before the all-reduce, and after it) goes to
+    `dump_dir`. After fit(), every rank restores the last checkpoint and
+    fingerprints it again. The launch counters are zeroed after the
+    Trainer is built, just before fit()."""
+    import torch.distributed as dist
+
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+    from pytorchvideo_accelerate_tpu_torch.trainer import steps as steps_mod
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    trainer = Trainer(parse_cli(argv))
+    rank = pdist.process_index()
+    params = list(trainer.model.parameters())
+    rec = {"step_ms": [], "losses": [], "hashes": [], "allreduce_calls": [],
+           "allreduce_bytes": []}
+    in_step = {"on": False, "calls": 0, "bytes": 0}
+    all_reduce = dist.all_reduce
+
+    def counting(tensor, *a, **kw):
+        if in_step["on"]:
+            in_step["calls"] += 1
+            in_step["bytes"] += tensor.numel() * tensor.element_size()
+        return all_reduce(tensor, *a, **kw)
+
+    dist.all_reduce = counting
+    mean_ = steps_mod.all_reduce_mean_
+
+    def spying_mean(tensors):
+        if len(rec["step_ms"]) == 0 and "local" not in rec:
+            rec["local"] = True  # the first call of the first step: the gradient
+            torch.save(torch.cat([t.float().flatten() for t in tensors]).cpu(),
+                       os.path.join(dump_dir, f"grad_local_rank{rank}.pt"))
+        mean_(tensors)
+
+    steps_mod.all_reduce_mean_ = spying_mean
+    step = trainer.train_step
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        in_step.update(on=True, calls=0, bytes=0)
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        in_step["on"] = False
+        rec["allreduce_calls"].append(in_step["calls"])
+        rec["allreduce_bytes"].append(in_step["bytes"])
+        rec["losses"].append(float(m["loss"]))
+        if len(rec["step_ms"]) == 1:
+            torch.save(torch.cat([p.grad.float().flatten() for p in params]).cpu(),
+                       os.path.join(dump_dir, f"grad_rank{rank}.pt"))
+            rec["head_grad"] = trainer.model.head.proj.weight.grad.float().cpu()
+            torch.save(rec.pop("head_grad"),
+                       os.path.join(dump_dir, f"head_grad_rank{rank}.pt"))
+        rec["hashes"].append(dp_state_hash(trainer.model))
+        return m
+
+    trainer.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        steps_mod.all_reduce_mean_ = mean_
+        dist.all_reduce = all_reduce
+    rec["fit_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(fused.LAUNCHES)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["result"] = result
+    rec["rank"], rec["world"] = rank, pdist.process_count()
+    if not result["preempted"]:
+        live = dp_state_hash(trainer.model)
+        latest = trainer.checkpointer.latest_step()
+        trainer.checkpointer.restore(trainer.state, step=latest)
+        rec["restored_step"] = latest
+        rec["restore_bitwise"] = dp_state_hash(trainer.model) == live
+    return rec
+
+
+def dp_child(args) -> None:
+    """A dp_train child: `mode rank world address dump_dir run-args...`."""
+    import torch
+
+    mode, rank, world, address, dump_dir, *argv = args
+    rank, world = int(rank), int(world)
+    from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+
+    if mode == "nccl1":
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"tcp://{address}", world_size=1, rank=0)
+    elif mode == "gloo":
+        pdist.initialize_distributed(address, world, rank, backend="gloo",
+                                     timeout_s=DP_CHILD_TIMEOUT_S)
+    rec = dp_fit(torch, argv, dump_dir)
+    print("CHILD_RESULT " + json.dumps(rec, default=str), flush=True)
+
+
+def dp_spawn(mode: str, rank: int, world: int, address: str, dump_dir: str,
+             argv, env=None):
+    root = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-u", "-c", DP_CHILD, root, mode, str(rank), str(world),
+         address, dump_dir, *argv],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, **(env or {})})
+
+
+def dp_group(mode: str, world: int, out: str, batch: int, on_line=None) -> list:
+    """Run `world` ranks of `mode` on the same global batch (`batch` a
+    rank); returns each rank's (proc, lines, losses, record), rank order.
+    `on_line(procs, line)` sees rank 0's lines as they come."""
+    import threading
+
+    from pytorchvideo_accelerate_tpu_torch.launch import find_free_port
+
+    os.makedirs(out, exist_ok=True)
+    address = f"127.0.0.1:{find_free_port()}"
+    argv = train_argv(out, spec=dict(DP_TRAIN, batch=batch))
+    procs = [dp_spawn(mode, r, world, address, out, argv) for r in range(world)]
+    got = [None] * world
+
+    def read(r):
+        cb = (lambda ln: on_line(procs, ln)) if (on_line and r == 0) else None
+        got[r] = (procs[r],) + read_child(procs[r], cb, timeout_s=DP_CHILD_TIMEOUT_S)
+
+    threads = [threading.Thread(target=read, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r, (proc, lines, _, record) in enumerate(got):
+        check(proc.returncode == 0 and record is not None,
+              f"dp_train {mode} rank {r} rc {proc.returncode}: {lines[-25:]}")
+    return got
+
+
+def dp_expected(world: int) -> dict:
+    """Each rank's launches of one DP_TRAIN fit() at `world` ranks of
+    8 / world clips: 6 micro-steps, and ceil((12 val clips // world) /
+    (8 / world)) = 2 eval forwards at world 1 and 2 alike."""
+    per_forward = expected_forward_launches("slowfast_r50")
+    b = DP_TRAIN["batch"] // world
+    micro = DP_TRAIN["videos"] // DP_TRAIN["batch"]
+    evals = -(-(max(DP_TRAIN["videos"] // 4, 4) // world) // b)
+    return {k: per_forward.get(k.split(".")[0], 0) * (micro if is_backward(k)
+                                                        else micro + evals)
+            for k in SOURCES}
+
+
+def dp_arm_fields(torch, recs, want: dict, ref=None) -> dict:
+    """The checks every arm holds (exact launches on every rank, ranks
+    bitwise equal after every step, the restore bitwise, the losses of
+    the global batch against the reference's) and its report."""
+    for rec in recs:
+        check(all(rec["launches"].get(k, 0) == n for k, n in want.items()),
+              f"rank {rec['rank']} launches {rec['launches']}, expected {want}")
+        check(rec["restore_bitwise"], f"rank {rec['rank']}: the restore of step "
+              f"{rec['restored_step']} is not bitwise the live state")
+    check(all(r["hashes"] == recs[0]["hashes"] for r in recs),
+          "the ranks' parameters and BN running averages differ after a step")
+    check(all(r["losses"] == recs[0]["losses"] for r in recs),
+          "the ranks report different global losses")
+    out = {"world": recs[0]["world"], "batch_per_rank": DP_TRAIN["batch"] // recs[0]["world"],
+           "steps": len(recs[0]["losses"]), "losses": recs[0]["losses"],
+           "step_ms": spread(recs[0]["step_ms"][1:]),
+           "step_ms_all": recs[0]["step_ms"],
+           "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in recs],
+           "clips_per_sec": recs[0]["result"].get("clips_per_sec"),
+           "clips_per_sec_per_card": recs[0]["result"].get("clips_per_sec_per_card"),
+           "fit_s": recs[0]["fit_s"], "launches_per_rank": recs[0]["launches"],
+           "restore_bitwise": True, "ranks_bitwise_every_step": True}
+    calls = recs[0]["allreduce_calls"]
+    if calls and calls[0]:
+        out["allreduces_per_micro_step"] = calls[0] / DP_TRAIN["accum"]
+        out["allreduce_bytes_per_micro_step"] = recs[0]["allreduce_bytes"][0] / DP_TRAIN["accum"]
+    if ref is not None:
+        diffs = [abs(a - b) for a, b in zip(recs[0]["losses"], ref["losses"])]
+        check(len(diffs) == len(ref["losses"])
+              and all(d <= LOGIT_TOL * (1 + abs(b)) for d, b in zip(diffs, ref["losses"])),
+              f"losses {recs[0]['losses']} against one process's {ref['losses']}")
+        out["loss_max_abs_diff_vs_one_process"] = max(diffs)
+        out["step_ms_ratio_vs_one_process"] = (out["step_ms"]["median"]
+                                               / spread(ref["step_ms"][1:])["median"])
+    return out
+
+
+def dp_train_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 36. Data-parallel training of full-width SlowFast-R50 through
+    `run.main`'s Trainer, the same global batch of 8 clips a step in every
+    arm: (a) one process, no group; (b) a one-rank NCCL group (the
+    data-parallel path: sync BatchNorm, the gradient all-reduce, rank-0
+    checkpoints and the agreement collectives, at world 1); (c) two ranks
+    of 4 clips sharing the card over gloo; (d) two ranks over NCCL on two
+    cards through `launch.py`, when the machine has them. Held: exact
+    launches of rows 1-2b on every rank; the ranks' parameters and BN
+    running averages bitwise equal after every step; the last checkpoint
+    restoring bitwise on every rank; the losses within 5e-2 * (1 + |loss|)
+    of (a)'s; (b)'s first step, whose forward is (a)'s (same batch, same
+    kernels, the one-rank all-reduces copies), within 1e-2 * (1 + |loss|);
+    (c)'s all-reduced first gradient bitwise the mean of the ranks' own,
+    and its head gradient within 5e-2 of (a)'s (the whole bf16 gradient at
+    init is chaotic under the two arms' different rounding, as in
+    train_parity: reported, not held). Then (c) again with SIGTERM to rank
+    1 alone: both ranks stop at one step off the checkpoint boundary, exit
+    0, and leave one "preempt" checkpoint (its reason "peer" in rank 0's
+    emergency record). Reports the optimizer-step ms
+    (steps 2-6, synchronised), the all-reduces a micro-step and their
+    bytes, peak memory per rank."""
+    import signal
+
+    t0 = time.perf_counter()
+    free_cuda(torch)
+    out = {"model": "slowfast_r50", "global_batch": DP_TRAIN["batch"],
+           "steps": DP_TRAIN["videos"] // DP_TRAIN["batch"], "lr": DP_TRAIN["lr"]}
+    arms = {}
+    # (a) and (b) run as children too: the smoke's own process never joins
+    # a group, so the phases after this one run as before
+    for name, mode, world in (("a_one_process", "none", 1), ("b_nccl_one_rank", "nccl1", 1),
+                              ("c_gloo_two_ranks", "gloo", 2)):
+        d = os.path.join(work, f"dp_{name}")
+        got = dp_group(mode, world, d, DP_TRAIN["batch"] // world)
+        arms[name] = (d, [g[3] for g in got])
+        free_cuda(torch)
+    ref = arms["a_one_process"][1][0]
+    for name, (d, recs) in arms.items():
+        world = recs[0]["world"]
+        out[name] = dp_arm_fields(torch, recs, dp_expected(world),
+                                  None if name == "a_one_process" else ref)
+    b = arms["b_nccl_one_rank"][1][0]
+    check(abs(b["losses"][0] - ref["losses"][0]) <= 1e-2 * (1 + abs(ref["losses"][0])),
+          f"(b) first-step loss {b['losses'][0]} against (a)'s {ref['losses'][0]}")
+    out["b_nccl_one_rank"]["first_loss_abs_diff"] = abs(b["losses"][0] - ref["losses"][0])
+    # (c)'s first gradient: the all-reduce, then against (a)
+    dc, da = arms["c_gloo_two_ranks"][0], arms["a_one_process"][0]
+    local = [torch.load(os.path.join(dc, f"grad_local_rank{r}.pt")) for r in range(2)]
+    reduced = torch.load(os.path.join(dc, "grad_rank0.pt"))
+    check(torch.equal(reduced, (local[0] + local[1]) / 2),
+          "(c) the all-reduced gradient is not the ranks' mean")
+    g_a = torch.load(os.path.join(da, "grad_rank0.pt"))
+    h_c = torch.load(os.path.join(dc, "head_grad_rank0.pt"))
+    h_a = torch.load(os.path.join(da, "head_grad_rank0.pt"))
+    out["c_gloo_two_ranks"].update(
+        gradient_elements=reduced.numel(), gradient_bytes=4 * reduced.numel(),
+        allreduced_gradient_is_rank_mean=True,
+        head_grad_rel_err_vs_one_process=rel_err(h_c, h_a),
+        grad_rel_err_vs_one_process_end_to_end=rel_err(reduced, g_a),
+        grad_rel_err_between_ranks_local=rel_err(local[0], local[1]))
+    check(out["c_gloo_two_ranks"]["head_grad_rel_err_vs_one_process"] <= LOGIT_TOL,
+          f"(c) head gradient against (a): {out['c_gloo_two_ranks']}")
+    del local, reduced, g_a
+
+    # (c) preempted: SIGTERM to rank 1 alone
+    d = os.path.join(work, "dp_c_preempted")
+    sent = {}
+
+    def on_line(procs, line):
+        if not sent and line.startswith(f"step {DP_SIGTERM_AFTER_LINE}:"):
+            sent["t"] = time.perf_counter()
+            procs[1].send_signal(signal.SIGTERM)
+
+    got = dp_group("gloo", 2, d, DP_TRAIN["batch"] // 2, on_line=on_line)
+    exit_s = time.perf_counter() - sent.get("t", time.perf_counter())
+    check("t" in sent, f"rank 0's log never showed step {DP_SIGTERM_AFTER_LINE}")
+    recs = [g[3] for g in got]
+    k = recs[0]["result"]["steps"]
+    check(all(r["result"]["preempted"] and r["result"]["steps"] == k for r in recs),
+          f"preempted ranks: {[r['result'] for r in recs]}")
+    check(all(r["hashes"] == recs[0]["hashes"] for r in recs),
+          "preempted ranks differ after a step")
+    ckpts = sorted(int(s) for s in os.listdir(os.path.join(d, "checkpoints")) if s.isdigit())
+    with open(os.path.join(d, "checkpoints", str(k), "extra.json")) as f:
+        extra = json.load(f)
+    with open(os.path.join(d, "emergency_checkpoint.json")) as f:
+        emergency = json.load(f)
+    check(0 < k < out["steps"] and k % DP_TRAIN["ckpt_every"] != 0
+          and ckpts == [k] and extra["kind"] == "preempt"
+          and extra["data_state"] == {"epoch": 0, "position": k}
+          and emergency["step"] == k,
+          f"preempted at step {k}: checkpoints {ckpts}, {extra}, {emergency}")
+    want = dp_expected(2)
+    per_forward = expected_forward_launches("slowfast_r50")
+    pre = {kk: per_forward.get(kk.split(".")[0], 0) * k for kk in SOURCES}
+    check(all(r["launches"].get(kk, 0) == pre[kk] for r in recs for kk in SOURCES),
+          f"preempted launches {[r['launches'] for r in recs]}, expected {pre}")
+    out["c_preempted"] = dict(
+        sigterm_to="rank 1", after_rank0_log_line=DP_SIGTERM_AFTER_LINE,
+        stopped_at_step=k, checkpoints=ckpts, checkpoint_kind=extra["kind"],
+        emergency_reason=emergency["reason"], sigterm_to_exit_s=exit_s,
+        launches_per_rank=recs[0]["launches"])
+
+    # (d) NCCL across two cards, through the launcher
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out["d_nccl_two_cards"] = dp_launched_arm(torch, work, ref)
+    else:
+        emit("dp_train_d", run=False,
+             why=f"NCCL across cards needs two cards; this machine has {n_cards} "
+                 "(NCCL refuses two ranks on one card)")
+    launches["dp_train"] = arms["c_gloo_two_ranks"][1][1]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def dp_launched_arm(torch, work: str, ref: dict) -> dict:
+    """(d): `launch.py --num_processes 2` of a dp child per card over NCCL
+    (the launcher's PVA_* env), held as (c)."""
+    import threading
+
+    d = os.path.join(work, "dp_d_nccl_two_cards")
+    os.makedirs(d, exist_ok=True)
+    script = os.path.join(d, "dp_launched.py")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(script, "w") as f:
+        f.write("import os, sys\n"
+                f"sys.path.insert(0, {root!r})\n"
+                "import chip_smoke\n"
+                "chip_smoke.dp_child(['env', os.environ['PVA_PROCESS_ID'], "
+                "os.environ['PVA_NUM_PROCESSES'], '', sys.argv[1]] + sys.argv[2:])\n")
+    argv = train_argv(d, spec=dict(DP_TRAIN, batch=DP_TRAIN["batch"] // 2))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "pytorchvideo_accelerate_tpu_torch.launch",
+         "--num_processes", "2", "--timeout", str(DP_CHILD_TIMEOUT_S), "--",
+         script, d, *argv], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, records = [], []
+    timer = threading.Timer(DP_CHILD_TIMEOUT_S + 30, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            body = line.split("] ", 1)[1] if line.startswith("[rank ") else line
+            if body.startswith("CHILD_RESULT "):
+                records.append(json.loads(body[len("CHILD_RESULT "):]))
+        proc.wait()
+    finally:
+        timer.cancel()
+    check(proc.returncode == 0 and len(records) == 2,
+          f"(d) launch rc {proc.returncode}: {lines[-25:]}")
+    records.sort(key=lambda r: r["rank"])
+    return dp_arm_fields(torch, records, dp_expected(2), ref)
 
 
 if __name__ == "__main__":

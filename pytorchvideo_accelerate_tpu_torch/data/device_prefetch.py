@@ -22,6 +22,8 @@ Contracts (the JAX package's):
   (`pop_wait()` drains it), the trainer's `input_wait_frac`.
 
 `depth=0` places each batch inline and synchronously (the A/B baseline).
+Under data parallelism `device` is the rank's own card (`cuda:<index>`),
+and every copy, stream and event lands there.
 """
 
 from __future__ import annotations
@@ -70,7 +72,9 @@ class DevicePrefetcher:
             return {k: v.to(self.device) for k, v in tensors.items()}, None
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._stream):
+        # the producer thread's current card is not the trainer's: a rank's
+        # batches go to its own card
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
             placed = {k: v.pin_memory().to(self.device, non_blocking=True)
                       for k, v in tensors.items()}
             event = torch.cuda.Event()

@@ -296,13 +296,25 @@ class LoaderState:
 
 
 class ClipLoader:
-    """Batches a ClipSource on one host (one card). Yields batch dicts
-    shaped (B, ...), or (accum, B, ...) when `accum_steps > 1`."""
+    """Batches a ClipSource for one process (one card) of a data-parallel
+    job. Yields batch dicts shaped (B_local, ...), or (accum, B_local, ...)
+    when `accum_steps > 1`: `global_batch_size` is the whole job's batch,
+    B_local = global_batch_size / process_count this process's share.
+    Process i takes every process_count-th clip of the epoch's order from
+    the i-th, and every process yields `len(source) // process_count`
+    clips' worth of batches (the JAX package's geometry: the same batch
+    count on every rank, so no rank waits in a collective for a batch its
+    peer never has)."""
 
     def __init__(self, source: ClipSource, global_batch_size: int,
                  accum_steps: int = 1, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 42, num_workers: int = 8,
+                 process_index: int = 0, process_count: int = 1,
                  prefetch_batches: int = 2, transport: str = "thread"):
+        if global_batch_size % process_count:
+            raise ValueError(
+                f"global_batch_size {global_batch_size} not divisible by "
+                f"process_count {process_count}")
         if transport == "process":
             raise NotImplementedError(
                 "data.transport process (forked workers + native shm ring) "
@@ -312,6 +324,9 @@ class ClipLoader:
                 f"transport must be auto|thread|process, got {transport!r}")
         self.source = source
         self.global_batch_size = global_batch_size
+        self.local_batch_size = global_batch_size // process_count
+        self.process_index = process_index
+        self.process_count = process_count
         self.accum_steps = max(accum_steps, 1)
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -328,6 +343,7 @@ class ClipLoader:
         if self.shuffle:
             rng = np.random.default_rng((self.seed, 0xDA7A, epoch))
             rng.shuffle(idx)
+        idx = idx[self.process_index::self.process_count]
         # a sidelined clip never reaches the decode pool, and the epoch's
         # geometry (batch count, loader positions) stays the same
         quarantined = getattr(self.source, "quarantined_indices", None)
@@ -340,11 +356,12 @@ class ClipLoader:
 
     @property
     def samples_per_yield(self) -> int:
-        return self.global_batch_size * self.accum_steps
+        return self.local_batch_size * self.accum_steps
 
     def steps_per_epoch(self) -> int:
-        """Optimizer steps per epoch (one per yielded super-batch)."""
-        n = len(self.source)
+        """Optimizer steps per epoch (one per yielded super-batch), the same
+        on every process."""
+        n = len(self.source) // self.process_count
         if self.drop_last:
             return n // self.samples_per_yield
         return -(-n // self.samples_per_yield)

@@ -38,6 +38,12 @@ from pytorchvideo_accelerate_tpu_torch.ops.fused import (
     apply_act,
     fused_conv3d_bn_act,
 )
+from pytorchvideo_accelerate_tpu_torch.parallel.collectives import all_reduce_sum
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    is_distributed,
+    process_count,
+    process_index,
+)
 from pytorchvideo_accelerate_tpu_torch.precision import end_island, f32_island
 
 # the fused-kernel lowering knob threaded from ModelConfig.fused_kernels:
@@ -107,12 +113,26 @@ class BNAffine(nn.Module):
 def batch_norm_stats(raw32: torch.Tensor, dims=None):
     """Per-channel batch (mean, var) of f32 `raw32`, the fast-variance form
     flax's nn.BatchNorm uses: E[x^2] - E[x]^2 clamped at 0 (biased). `dims`
-    defaults to every axis but the last (NDHWC)."""
+    defaults to every axis but the last (NDHWC).
+
+    With a process group up (data-parallel training) E[x] and E[x^2] are
+    averaged over the ranks before the variance: every rank holds an equal
+    share of the global batch, so these are the global batch's moments, the
+    statistics the JAX package's BatchNorm takes over its sharded batch.
+    One all-reduce of 2C floats per call, and one more in the backward."""
     if dims is None:
         dims = tuple(range(raw32.dim() - 1))
     mean = raw32.mean(dim=dims)
-    var = torch.clamp_min((raw32 * raw32).mean(dim=dims) - mean * mean, 0.0)
+    mean_sq = (raw32 * raw32).mean(dim=dims)
+    if is_distributed():
+        mean, mean_sq = _all_reduce_stats(torch.cat([mean, mean_sq])).chunk(2)
+    var = torch.clamp_min(mean_sq - mean * mean, 0.0)
     return mean, var
+
+
+def _all_reduce_stats(moments: torch.Tensor) -> torch.Tensor:
+    """The ranks' mean of the stacked per-channel moments, differentiable."""
+    return all_reduce_sum(moments) / process_count()
 
 
 def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
@@ -126,12 +146,32 @@ def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
     return end_island(apply_act(raw32 * mul + add, act), dtype)
 
 
+def batch_rand(shape, generator: torch.Generator, device=None) -> torch.Tensor:
+    """Uniform draws of `shape` (batch first) from `generator`: with a
+    process group up, this rank's rows of the draws of the whole global
+    batch (every rank draws them all from the same stream), so a clip's
+    draw depends on its row of the global batch, not on its rank."""
+    world = process_count()
+    if world == 1:
+        return torch.rand(shape, generator=generator, device=device)
+    b, rank = shape[0], process_index()
+    full = torch.rand((world * b,) + tuple(shape[1:]), generator=generator,
+                      device=device)
+    return full[rank * b:(rank + 1) * b]
+
+
 class SeededDropout(nn.Module):
     """Dropout in train mode with flax's semantics (keep with probability
     1 - rate, scale the kept values by 1 / (1 - rate)), its mask drawn from
     an explicit generator per device seeded by `reseed` (the trainer reseeds
     every head's dropout from (seed, step) each optimizer step, as the JAX
-    package derives its dropout key). Identity in eval mode or at rate 0."""
+    package derives its dropout key). Identity in eval mode or at rate 0.
+
+    With a process group up, every rank draws the mask of the whole global
+    batch from the same stream and keeps its own rows (`batch_rand`): the
+    JAX package's mask over the global batch from one key. No two ranks
+    share a mask for different clips, and a run's masks do not depend on
+    how many ranks share its batch."""
 
     def __init__(self, rate: float = 0.5):
         super().__init__()
@@ -154,8 +194,7 @@ class SeededDropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self._generator(x.device),
-                          device=x.device) < keep
+        mask = batch_rand(x.shape, self._generator(x.device), x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -170,8 +209,7 @@ class DropPath(SeededDropout):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=self._generator(x.device),
-                          device=x.device) < keep
+        mask = batch_rand(shape, self._generator(x.device), x.device) < keep
         return x * mask.to(x.dtype) / keep
 
 

@@ -41,6 +41,7 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
     Dense,
     LayerNorm,
     SeededDropout,
+    batch_rand,
     check_remat_block,
     remat_call,
 )
@@ -202,10 +203,12 @@ def tube_mask_indices(generator: torch.Generator, batch: int, t: int, h: int,
     """One spatial mask shared across time: (keep_idx (B, n_vis), masked_idx
     (B, n_masked)) int64 indices into the t-major (t*h*w) token axis, n_vis
     = t * round(h*w*(1 - ratio)). The uniform noise is drawn on the CPU from
-    `generator`, so a seed gives the same mask on every device."""
+    `generator`, so a seed gives the same mask on every device; under data
+    parallelism each rank takes its rows of the global batch's noise
+    (`batch_rand`)."""
     spatial = h * w
     n_vis = max(1, int(round(spatial * (1.0 - mask_ratio))))
-    noise = torch.rand((batch, spatial), generator=generator)
+    noise = batch_rand((batch, spatial), generator)
     order = torch.argsort(noise, dim=1)
     toff = (torch.arange(t) * spatial)[None, :, None]
 

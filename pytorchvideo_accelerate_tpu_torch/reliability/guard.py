@@ -23,6 +23,12 @@ replay bundles).
    f32, and a timestamp-free `meta.json`), byte for byte what the JAX
    package writes for the same batch.
 
+In a data-parallel job every rank runs the guard on the same global
+metrics (the step all-reduces them), so every rank reaches the same
+verdicts; rank 0 writes the LKG ring and the replay bundles (its share of
+the batch), and a rollback restores the same file on every rank after a
+barrier (`Checkpointer`).
+
 Disarmed (`guard.enabled=false`, the default) nothing here is built and
 the step carries no skip. The JAX guard's obs-registry counters are not
 ported (the obs slice, ROADMAP.md): the counts are attributes here, and
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.config import ReliabilityConfig
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import is_main_process
 from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
 
 logger = logging.getLogger(__name__)
@@ -367,6 +374,8 @@ class TrainGuard:
     # --- evidence ----------------------------------------------------------
 
     def _dump_bundle(self, stash: _Stash, verdict: dict) -> str:
+        if not is_main_process():
+            return ""  # one bundle a job: rank 0's share of the batch
         path = os.path.join(self.output_dir, REPLAY_DIRNAME,
                             f"step_{stash.step}")
         meta = {

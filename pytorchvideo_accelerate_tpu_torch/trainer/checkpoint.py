@@ -28,6 +28,10 @@ written into a temporary directory and renamed into place with
 `os.replace`; a save that fails with OSError is tried again from a clean
 temporary directory, `retries` attempts in all
 (`reliability.ckpt_retries`), the guard's last-known-good ring included.
+In a data-parallel job (`parallel/`) every rank holds the same state:
+rank 0 writes and prunes, then every rank meets at a barrier, so no rank
+reads or lists the directory before the write has landed; a restore
+starts with a barrier too, and every rank then loads the same file.
 A JAX orbax checkpoint is not read by the port (orbax is a JAX
 dependency); carry weights across with an inference artifact, or a JAX
 TrainState with `models/convert.py`.
@@ -48,6 +52,10 @@ from pytorchvideo_accelerate_tpu_torch.models.convert import (
     flatten_tree,
     jax_tree_from_state_dict,
     state_dict_from_jax,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    is_main_process,
+    sync_global_devices,
 )
 from pytorchvideo_accelerate_tpu_torch.reliability.atomic import (
     atomic_write,
@@ -159,7 +167,13 @@ class Checkpointer:
 
     def save(self, step: int, state, extra: Optional[dict] = None) -> None:
         """Write `state` (a TrainState) at `step`; a step already on disk is
-        left as it is. An OSError retries the whole write."""
+        left as it is. An OSError retries the whole write. Rank 0 writes;
+        every rank returns after the write, at a barrier."""
+        if is_main_process():
+            self._write(step, state, extra)
+        sync_global_devices("checkpoint_save")
+
+    def _write(self, step: int, state, extra: Optional[dict]) -> None:
         step = int(step)
         final = os.path.join(self.directory, str(step))
 
@@ -189,8 +203,10 @@ class Checkpointer:
 
     def delete(self, step: int) -> None:
         """Remove checkpoint `step` (a guard ring revisiting a step index
-        after a rollback replaces it)."""
-        shutil.rmtree(os.path.join(self.directory, str(int(step))),
+        after a rollback replaces it); rank 0 only, the save after it
+        fences."""
+        if is_main_process():
+            shutil.rmtree(os.path.join(self.directory, str(int(step))),
                       ignore_errors=True)
 
     def restore(self, state, step: Optional[int] = None) -> Tuple[dict, int]:
@@ -201,6 +217,7 @@ class Checkpointer:
             if step is None:
                 raise FileNotFoundError(
                     f"no checkpoint found in {self.directory}")
+        sync_global_devices("checkpoint_restore")
         d = os.path.join(self.directory, str(int(step)))
         device = next(state.model.parameters()).device
         saved = torch.load(os.path.join(d, _STATE_FILE), map_location=device,

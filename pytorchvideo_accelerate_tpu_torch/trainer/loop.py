@@ -40,10 +40,23 @@ host without CUDA it raises. Real videos need cv2 to decode; where it is
 missing the real-video branch raises `NoVideoDecoderError`, which names
 the frame-cache route (build the cache where cv2 is, train with
 `--data.cache_dir`). Options whose effect this slice lacks raise
-NotImplementedError naming their ROADMAP item, a multi-process job (flags
-or the launcher's PVA_* env) among them; telemetry and debug options
+NotImplementedError naming their ROADMAP item; telemetry and debug options
 (`obs.*`, `debug_nans`, `debug_asserts`, `profile`) and a
 `model.pretrained` without a path print one line each and train on.
+
+Data parallelism (`parallel/`, one process per card, started by
+`launch.py`): the Trainer joins the process group that the config or the
+launcher's `PVA_*` env names (`initialize_distributed`), trains on card
+`rank % card count`, and takes the data-parallel path whenever a group is
+up, world size 1 included: each rank loads its 1/world share of every
+global batch (`--batch_size` is per card), the step keeps the global view
+(trainer/steps.py), rank 0's parameters are broadcast after init and after
+every restore, the resume step is rank 0's, rank 0 alone writes
+checkpoints, trackers and logs, a preemption seen by one rank stops every
+rank at the same step (one scalar all-reduce a step), eval sums are added
+across ranks, and `--debug_desync` compares the parameters' norm across
+ranks at each epoch's end. `mesh.data` must be -1 or the world size.
+Without a group it runs as a single process, launch for launch as before.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.config import TrainConfig
@@ -70,6 +84,24 @@ from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
 )
 from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
+from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
+    broadcast_,
+    host_broadcast,
+    host_reduce_sum,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    any_process,
+    check_desync,
+    initialize_distributed,
+    is_distributed,
+    is_main_process,
+    local_device_index,
+    main_print,
+    process_count,
+    process_index,
+    sync_global_devices,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.mesh import resolve_train_mesh_shape
 from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard
 from pytorchvideo_accelerate_tpu_torch.reliability.preemption import (
     get_guard,
@@ -81,7 +113,7 @@ from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
     resolve_resume_path,
 )
 from pytorchvideo_accelerate_tpu_torch.trainer.metrics import MeanLoss, SumMetrics
-from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer, global_norm
 from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
     make_eval_step,
     make_pretrain_eval_step,
@@ -107,47 +139,33 @@ def _parse_checkpointing_steps(value: str):
         f"checkpointing_steps must be a number or 'epoch', got {value!r}")
 
 
-def _process_settings(cfg: TrainConfig):
-    """(coordinator address, number of processes, process id) as the JAX
-    package's `parallel/distributed.py` resolves them: the config first,
-    then the launcher's PVA_COORDINATOR_ADDRESS, PVA_NUM_PROCESSES and
-    PVA_PROCESS_ID."""
-    address = cfg.coordinator_address or os.environ.get(
-        "PVA_COORDINATOR_ADDRESS", "")
-    num = cfg.num_processes or int(os.environ.get("PVA_NUM_PROCESSES", "0"))
-    pid, env_pid = cfg.process_id, os.environ.get("PVA_PROCESS_ID", "")
-    if pid < 0 and env_pid:
-        pid = int(env_pid)
-    return address, num, pid
-
-
 def _say(line: str) -> None:
-    print(f"pytorchvideo_accelerate_tpu_torch: {line}", flush=True)
+    main_print(f"pytorchvideo_accelerate_tpu_torch: {line}", flush=True)
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
     computed and that this slice of the port lacks; print one line for each
     telemetry or debug option and for a `model.pretrained` without a path."""
-    d, m = cfg.data, cfg.model
-    address, num_processes, process_id = _process_settings(cfg)
+    d, m, mesh = cfg.data, cfg.model, cfg.mesh
     refused = [
-        (num_processes > 1 or bool(address) or process_id >= 0,
-         f"a multi-process job (coordinator_address {address!r}, num_processes "
-         f"{num_processes}, process_id {process_id}; flags or PVA_* env; "
-         "Multi-GPU, ROADMAP.md A.5)"),
-        (d.dataplane_workers > 0, "data.dataplane_workers (the dataplane)"),
-        (any(v > 1 for v in (cfg.mesh.data, cfg.mesh.model, cfg.mesh.fsdp,
-                             cfg.mesh.tensor, cfg.mesh.context,
-                             cfg.parallel.pipeline_stages)),
-         "a mesh or pipeline of more than one device (multi-GPU)"),
-        (bool(m.pretrained_path), "model.pretrained_path (the hub converter)"),
+        (mesh.model > 1, f"mesh.model={mesh.model} (the model axis: tensor "
+                         "parallelism; Multi-GPU, ROADMAP.md A.1)"),
+        (any(v > 1 for v in (mesh.fsdp, mesh.tensor, mesh.context)),
+         f"the legacy mesh axes (fsdp={mesh.fsdp}, tensor={mesh.tensor}, "
+         f"context={mesh.context}; FSDP and the library mesh; Multi-GPU, "
+         "ROADMAP.md A.1)"),
+        (cfg.parallel.pipeline_stages > 1,
+         f"parallel.pipeline_stages={cfg.parallel.pipeline_stages} "
+         "(parallel/pipeline.py; Multi-GPU, ROADMAP.md A.1)"),
+        (d.dataplane_workers > 0,
+         "data.dataplane_workers (the dataplane, ROADMAP.md A.4)"),
+        (bool(m.pretrained_path),
+         "model.pretrained_path (the hub converter, ROADMAP.md A.4)"),
     ]
     for bad, what in refused:
         if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (see the port queue in "
-                "ROADMAP.md)")
+            raise NotImplementedError(f"{what} is not ported to PyTorch yet")
     if cfg.obs.enabled:
         _say("obs.* telemetry is not ported yet (ROADMAP.md); training runs "
              "without it")
@@ -164,12 +182,18 @@ def refuse_unported(cfg: TrainConfig) -> None:
 
 
 def resolve_train_device(cfg: TrainConfig) -> torch.device:
+    """The CPU with `--cpu`; else the card, this rank's own (made current)
+    when a process group is up."""
     if cfg.cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the PyTorch port trains on the GPU unless asked "
             "for the CPU (--cpu)")
+    if is_distributed():
+        device = torch.device("cuda", local_device_index())
+        torch.cuda.set_device(device)
+        return device
     return torch.device("cuda")
 
 
@@ -177,12 +201,23 @@ class Trainer:
     """Builds the whole stack from a TrainConfig and runs fit()."""
 
     def __init__(self, cfg: TrainConfig):
-        refuse_unported(cfg)
         self.cfg = cfg
         # self-supervised objective (VideoMAE): no labels, the model
         # computes its own loss
         self.is_pretraining = cfg.model.name.endswith("_pretrain")
+        resolve_train_device(cfg)  # no card and no --cpu: raise before joining
+        initialize_distributed(cfg.coordinator_address, cfg.num_processes,
+                               cfg.process_id, cpu=cfg.cpu)
+        # after joining: every rank refuses alike, and rank 0 alone prints
+        refuse_unported(cfg)
+        self.distributed = is_distributed()
+        self.rank, self.world = process_index(), process_count()
+        self.mesh_shape = resolve_train_mesh_shape(cfg.mesh, self.world)
         self.device = resolve_train_device(cfg)
+        if self.distributed:
+            main_print(f"mesh: (data, model) = {self.mesh_shape} over "
+                       f"{self.world} process(es), one {self.device.type} "
+                       "device each", flush=True)
         self.checkpointing_steps = _parse_checkpointing_steps(
             cfg.checkpoint.checkpointing_steps)
         torch.manual_seed(cfg.seed)
@@ -205,7 +240,7 @@ class Trainer:
                 reliability=cfg.reliability)
             self.train_guard.quarantine = self.quarantine
         self.trackers: Optional[TrackerHub] = None
-        if cfg.tracking.with_tracking:
+        if cfg.tracking.with_tracking and is_main_process():
             # the reference's run name (run.py:229)
             run_name = (str(cfg.tracking.logging_dir)
                         .replace(".", "").replace("/", "").replace("\\", ""))
@@ -247,19 +282,22 @@ class Trainer:
         eval_spatial = 1 if self.is_pretraining else d.eval_num_spatial_crops
         if self.is_pretraining and (d.eval_num_clips > 1
                                     or d.eval_num_spatial_crops > 1):
-            print("multi-view eval options ignored for self-supervised "
-                  "pretraining", flush=True)
+            main_print("multi-view eval options ignored for self-supervised "
+                       "pretraining", flush=True)
         val_tf = make_transform(training=False, num_spatial_crops=eval_spatial,
                                 **common)
         self._build_sources(train_tf, val_tf, eval_clips)
+        # the batch size is per card (a data shard), as in the JAX package
+        global_batch = d.batch_size * self.mesh_shape[0]
         loader_kw = dict(seed=cfg.seed, num_workers=d.num_workers,
+                         process_index=self.rank, process_count=self.world,
                          prefetch_batches=d.prefetch_batches,
                          transport=d.transport)
         self.train_loader = ClipLoader(
-            self.train_source, d.batch_size,
+            self.train_source, global_batch,
             accum_steps=cfg.optim.gradient_accumulation_steps,
             shuffle=True, drop_last=True, **loader_kw)
-        self.val_loader = ClipLoader(self.val_source, d.batch_size,
+        self.val_loader = ClipLoader(self.val_source, global_batch,
                                      shuffle=False, drop_last=False,
                                      **loader_kw)
         self.train_prefetch = DevicePrefetcher(
@@ -312,8 +350,12 @@ class Trainer:
             train_manifest = scan_directory(os.path.join(d.data_dir, "train"))
             val_manifest = scan_directory(os.path.join(d.data_dir, "val"))
         if cfg.guard.enabled and cfg.guard.quarantine_budget > 0:
+            # each rank decodes its own clips: a sidecar each, so that no
+            # rank's write replaces another's
+            sidecar = ("quarantine.json" if self.rank == 0
+                       else f"quarantine.rank{self.rank}.json")
             self.quarantine = Quarantine(
-                os.path.join(cfg.checkpoint.output_dir, "quarantine.json"),
+                os.path.join(cfg.checkpoint.output_dir, sidecar),
                 budget=cfg.guard.quarantine_budget)
         retry_kw = dict(decode_retries=cfg.reliability.decode_retries,
                         retry_base_delay_s=cfg.reliability.retry_base_delay_s)
@@ -331,6 +373,7 @@ class Trainer:
             cfg.model.num_classes = self.num_classes
         self.model = create_model(cfg.model, cfg.mixed_precision,
                                   seed=cfg.seed, data_cfg=cfg.data).to(self.device)
+        self._replicate()
         steps_per_epoch = self.train_loader.steps_per_epoch()
         self.total_steps = max(steps_per_epoch * cfg.optim.num_epochs, 1)
         optimizer = build_optimizer(
@@ -362,35 +405,52 @@ class Trainer:
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
 
+    def _replicate(self) -> None:
+        """Rank 0's parameters and floating buffers (the BN running
+        averages) on every rank: one broadcast per dtype, after init and
+        after a restore (a no-op without a group)."""
+        if self.distributed:
+            broadcast_([p.data for p in self.model.parameters()]
+                       + [b for b in self.model.buffers() if b.is_floating_point()])
+
     # --- resume / export --------------------------------------------------
 
     def _maybe_resume(self) -> int:
         """Restore the latest checkpoint and the data position; returns the
-        starting epoch."""
+        starting epoch. Under data parallelism rank 0's latest step is
+        every rank's (a directory scan could race a landing checkpoint)."""
         if not (self.cfg.checkpoint.resume_from_checkpoint and self.checkpointer):
             return 0
         latest = self.checkpointer.latest_step()
+        if self.distributed:
+            latest = int(host_broadcast(-1 if latest is None else latest))
+            latest = None if latest < 0 else latest
         if latest is None:
             if self.cfg.checkpoint.resume_from_checkpoint == "auto":
-                print("resume=auto: no checkpoint found, starting fresh")
+                main_print("resume=auto: no checkpoint found, starting fresh")
                 return 0
             raise FileNotFoundError(
                 f"no checkpoint to resume in {self.checkpointer.directory}")
         extra, step = self.checkpointer.restore(self.state, step=latest)
-        print(f"resumed from checkpoint step {step}")
+        self._replicate()
+        main_print(f"resumed from checkpoint step {step}")
         data_state = LoaderState.from_dict(extra.get("data_state"))
         self.train_loader.state = data_state
         return data_state.epoch
 
     def export_inference(self, path: str) -> str:
         """Write the (EMA-resolved) serving artifact of the current state;
-        with `--serve.quantization int8` it is baked int8."""
-        return export_inference(
-            path, self.model, config=self.cfg,
-            meta={"num_classes": self.num_classes,
-                  "model": self.cfg.model.name},
-            step=self.state.step, params=self.state.eval_params(),
-            quantization=self.cfg.serve.quantization)
+        with `--serve.quantization int8` it is baked int8. Rank 0 writes;
+        every rank returns once it has."""
+        if is_main_process():
+            export_inference(
+                path, self.model, config=self.cfg,
+                meta={"num_classes": self.num_classes,
+                      "model": self.cfg.model.name},
+                step=self.state.step, params=self.state.eval_params(),
+                quantization=self.cfg.serve.quantization)
+        sync_global_devices("export_inference")
+        return path
 
     def close(self) -> None:
         """Release the loaders and finish the trackers (fit(), evaluate()
@@ -417,14 +477,17 @@ class Trainer:
             self.checkpointer = self._make_checkpointer(
                 os.path.join(cfg.checkpoint.output_dir, "checkpoints"))
         step = self.state.step
+        # every rank stops at this step, and every earlier save ended at a
+        # barrier: all ranks read the same directory here
         if self.checkpointer.latest_step() != step:
             self._save("preempt", epoch)
-        record_emergency(cfg.checkpoint.output_dir, step=step, epoch=epoch,
-                         checkpoint_dir=self.checkpointer.directory,
-                         reason=reason)
-        print(f"preempted ({reason or 'requested'}): emergency checkpoint at "
-              f"step {step} in {time.perf_counter() - t0:.3f} s; resume with "
-              "--resume_from_checkpoint auto", flush=True)
+        if is_main_process():
+            record_emergency(cfg.checkpoint.output_dir, step=step, epoch=epoch,
+                             checkpoint_dir=self.checkpointer.directory,
+                             reason=reason)
+        main_print(f"preempted ({reason or 'requested'}): emergency checkpoint "
+                   f"at step {step} in {time.perf_counter() - t0:.3f} s; resume "
+                   "with --resume_from_checkpoint auto", flush=True)
 
     def _save(self, kind: str, epoch: int) -> None:
         if self.checkpointer is None:
@@ -437,12 +500,20 @@ class Trainer:
     # --- eval / fit -------------------------------------------------------
 
     def _run_eval(self, epoch: int) -> tuple:
-        """One pass over the val loader; (top1, top5, mean loss)."""
+        """One pass over the val loader; (top1, top5, mean loss). Under data
+        parallelism each rank scores its share (every rank the same number
+        of batches) and the four sums are added across ranks once."""
         val = SumMetrics()
         for i, batch in enumerate(self.val_prefetch.epoch(epoch, from_start=True)):
             val.update(self.eval_step(self.state, batch))
             if 0 <= self.cfg.data.limit_val_batches <= i + 1:
                 break
+        if self.distributed:
+            val.accuracy()  # drains the pending device sums
+            keys = ("loss_sum", "correct", "correct5", "count")
+            sums = host_reduce_sum(np.array([getattr(val, k) for k in keys]))
+            for k, v in zip(keys, sums.tolist()):
+                setattr(val, k, v)
         return val.accuracy(), val.accuracy_top5(), val.mean_loss()
 
     def evaluate(self) -> dict:
@@ -452,10 +523,10 @@ class Trainer:
             self._maybe_resume()
             acc, acc5, loss = self._run_eval(epoch=0)
             if self.is_pretraining:
-                print(f"evaluate: val_recon_loss={loss:.4f}")
+                main_print(f"evaluate: val_recon_loss={loss:.4f}")
                 result = {"val_recon_loss": loss}
             else:
-                print(f"evaluate: val_acc={acc:.4f} val_acc5={acc5:.4f}")
+                main_print(f"evaluate: val_acc={acc:.4f} val_acc5={acc5:.4f}")
                 result = {"val_accuracy": acc, "val_accuracy_top5": acc5,
                           "val_loss": loss}
             if self.trackers is not None:
@@ -466,7 +537,7 @@ class Trainer:
 
     @staticmethod
     def _print_step(values: Dict[str, float], gstep: int) -> None:
-        print(f"step {gstep}: loss={values['train_loss_step']:.4f} "
+        main_print(f"step {gstep}: loss={values['train_loss_step']:.4f} "
               f"lr={values['lr']:.6g} grad_norm={values['grad_norm']:.4f}",
               flush=True)
 
@@ -475,8 +546,9 @@ class Trainer:
         into the live model and optimizer, the loader moved just past the
         anomalous batch (replaying it would diverge the same way)."""
         _, step = self.train_guard.restore(self.state, action)
+        self._replicate()
         self.train_loader.state = LoaderState.from_dict(action.resume_position)
-        print(f"guard: rolled back to last-known-good step {step} "
+        main_print(f"guard: rolled back to last-known-good step {step} "
               f"({action.reason}); loader fast-forwarded to epoch "
               f"{self.train_loader.state.epoch} position "
               f"{self.train_loader.state.position}"
@@ -533,7 +605,8 @@ class Trainer:
                     if (isinstance(self.checkpointing_steps, int)
                             and gstep % self.checkpointing_steps == 0):
                         self._save("step", epoch)
-                    if guard is not None and guard.requested:
+                    # a signal seen by any rank stops every rank here
+                    if any_process(guard is not None and guard.requested):
                         # the step above is dispatched: leaving here never
                         # abandons an optimizer update
                         preempted = True
@@ -543,7 +616,7 @@ class Trainer:
                 if preempted:
                     # no eval, no further epochs
                     deferred.flush()
-                    self._emergency_save(epoch, reason=guard.reason)
+                    self._emergency_save(epoch, reason=guard.reason or "peer")
                     break
                 deferred.flush()
                 if tguard is not None and not rolled_back:
@@ -565,17 +638,21 @@ class Trainer:
                            if self.is_pretraining else
                            f"val_acc={last_val_acc:.4f} "
                            f"val_acc5={last_val_acc5:.4f}")
-                print(f"epoch {epoch}: {val_str} "
-                      f"train_loss={last_train_loss:.4f} "
-                      f"({time.time() - t_epoch:.1f}s)", flush=True)
+                main_print(f"epoch {epoch}: {val_str} "
+                           f"train_loss={last_train_loss:.4f} "
+                           f"({time.time() - t_epoch:.1f}s)", flush=True)
                 if t_train > 0 and steps_done > 0:
                     sps = steps_done / t_train
+                    # clips of the global batch: every rank's share
+                    cps = sps * self.train_loader.samples_per_yield * self.world
                     last_perf = {
                         "steps_per_sec": sps,
-                        "clips_per_sec": sps * self.train_loader.samples_per_yield,
+                        "clips_per_sec": cps,
                         "input_wait_s": wait_s,
                         "input_wait_frac": min(wait_s / t_train, 1.0),
                     }
+                    if self.distributed:
+                        last_perf["clips_per_sec_per_card"] = cps / self.world
                     if tguard is not None:
                         last_perf.update(tguard.perf_keys())
                 if self.trackers is not None:
@@ -588,6 +665,10 @@ class Trainer:
                         epoch_metrics["accuracy_top5"] = last_val_acc5
                     epoch_metrics.update(last_perf)
                     self.trackers.log(epoch_metrics, step=epoch)
+                if cfg.debug_desync:
+                    check_desync(float(global_norm(
+                        [p.detach() for p in self.model.parameters()])),
+                        name=f"params@epoch{epoch}")
                 if self.checkpointing_steps == "epoch":
                     self._save("epoch", epoch)
                 epoch += 1

@@ -16,6 +16,16 @@ the device. `guard_skip` (reliability/guard.py TrainGuard) discards a step
 whose loss or gradient norm is not finite: every state leaf keeps its old
 value through `torch.where`, without a host round trip.
 
+With a process group up (data parallelism, `parallel/`), each rank runs the
+step on its share of the global batch and the step keeps the JAX step's
+global view: the BatchNorm statistics are the global batch's
+(models/common.py), the gradient is averaged over the ranks by one
+all-reduce per optimizer step before its norm, the clip and the update,
+the reported loss and accuracy are the global batch's (so the guard's skip
+is decided alike on every rank), mixing pairs each clip with its partner
+in the flipped global batch, and each rank's dropout mask is its rows of
+the global batch's (models/common.py `batch_rand`).
+
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
 (1.0 = real sample, 0.0 = padding). With gradient accumulation G > 1 every
@@ -33,6 +43,15 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from pytorchvideo_accelerate_tpu_torch.models.common import SeededDropout
+from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
+    all_reduce_mean_,
+    exchange,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    is_distributed,
+    process_count,
+    process_index,
+)
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import global_norm
 
@@ -192,12 +211,19 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     metrics gain `skipped`, a device scalar (1.0 = skipped). The decision
     stays on the device (`_Snapshot`). Optimizer state that the skipped
     step created (the first step's momentum) is reset to zeros, which the
-    next update treats exactly as absent state. Off, none of this runs."""
+    next update treats exactly as absent state. Off, none of this runs.
+
+    With a process group up, the averaged gradient is averaged again over
+    the ranks (one flat all-reduce), and the loss, the hit count and the
+    count are the ranks' mean, sum and sum (one small all-reduce), all
+    before anything reads them; a nonfinite value on one rank is then
+    nonfinite on every rank, which skips the step everywhere."""
     named = dict(model.named_parameters())
     params = [p for p in named.values() if p.requires_grad]
     dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
     buffers = [b for b in model.buffers() if b.is_floating_point()]
     snapshot = _Snapshot() if guard_skip else None
+    distributed = is_distributed()
 
     def leaves(state, opt_keys):
         opt = _optimizer_tensors(optimizer)
@@ -229,8 +255,21 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
         grads = [p.grad for p in params if p.grad is not None]
         if accum_steps > 1:
             torch._foreach_div_(grads, float(accum_steps))
-        grad_norm = global_norm(grads)
         loss = torch.stack(losses).mean()
+        if with_accuracy:
+            correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
+        if distributed:
+            all_reduce_mean_(grads)
+            # [loss, correct, count]: their means over the ranks, then
+            # the sums scaled back
+            sums = torch.stack([loss, correct.float(), count.float()]
+                               if with_accuracy else [loss])
+            all_reduce_mean_([sums])
+            loss = sums[0]
+            if with_accuracy:
+                world = float(process_count())
+                correct, count = sums[1] * world, sums[2] * world
+        grad_norm = global_norm(grads)
         lr = optimizer.schedule(state.step)
         optimizer.step(state.step)
         if ema_decay > 0 and state.ema is not None:
@@ -249,7 +288,6 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
             out["skipped"] = 1.0 - ok.float()
         state.step += 1
         if with_accuracy:
-            correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
             out["accuracy"] = correct / torch.clamp_min(count, 1.0)
         return out
 
@@ -305,17 +343,26 @@ def mix_weight(draw: MixDraw, hh: int, ww: int, device) -> torch.Tensor:
     return 1.0 - inside.to(torch.float32)
 
 
+def flip_global(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of the global batch flipped, x_global[::-1] (the
+    JAX step flips the whole batch, pairing row i with row G - 1 - i): rank
+    r's partners are rank (world - 1 - r)'s rows, reversed. `x.flip(0)`
+    with one process."""
+    return exchange(x, process_count() - 1 - process_index()).flip(0)
+
+
 def mix_batch(batch: dict, w_hw: torch.Tensor) -> dict:
     """Every clip pathway (video, or slow and fast) mixed with its flipped
-    batch, out = w * x + (1 - w) * x[::-1] in f32, cast back; the labels
-    stay (the loss pairs them with the flipped ones)."""
+    batch, out = w * x + (1 - w) * x[::-1] in f32, cast back (the global
+    batch's flip under data parallelism, `flip_global`); the labels stay
+    (the loss pairs them with the flipped ones)."""
     w = w_hw[None, None, :, :, None]  # (1, 1, H, W, 1) against NDHWC
     out = dict(batch)
     for k in ("video", "slow", "fast"):
         if k in out:
             x = out[k]
             x32 = f32_island(x)
-            out[k] = (w * x32 + (1.0 - w) * x32.flip(0)).to(x.dtype)
+            out[k] = (w * x32 + (1.0 - w) * flip_global(x32)).to(x.dtype)
     return out
 
 
@@ -328,7 +375,7 @@ def mixed_loss(logits, labels, lam: torch.Tensor, mask,
     loss_a, correct_a, count = _loss_and_metrics(
         logits, labels, mask, label_smoothing)
     loss_b, correct_b, _ = _loss_and_metrics(
-        logits, labels.flip(0), mask.flip(0), label_smoothing)
+        logits, flip_global(labels), flip_global(mask), label_smoothing)
     loss = lam * loss_a + (1.0 - lam) * loss_b
     return loss, torch.where(lam >= 0.5, correct_a, correct_b), count
 

@@ -43,7 +43,11 @@ bitwise the same logits) holds int8 weights on the card and launches the
 fp engine's kernels, launch for launch, keeping its top-1; `build_server`
 with no scheduler flag serves through the EDF scheduler on the card, sheds
 a request whose deadline is half the measured service time, counts both
-in /metrics and drains.
+in /metrics and drains. Two spawned ranks over gloo share the card for a
+tiny3d data-parallel step through the kernels (`tests/_torch_dp_worker.py`,
+which imports no JAX either): bitwise equal to each other, every fused
+site launched forward and dx on each, the global loss within 5e-2 * (1 +
+|loss|) of one process on the whole batch.
 """
 
 import numpy as np
@@ -723,3 +727,30 @@ def test_default_server_serves_sheds_and_drains_on_the_card(cuda, tmp_path):
         assert call("/drain", {})[0] == 200 and call("/healthz")[0] == 503
     finally:
         srv.close()
+
+
+def test_two_ranks_over_gloo_share_the_card(cuda, tmp_path):
+    """Data parallelism on one card: two spawned ranks over gloo (CUDA
+    tensors through the host), each a tiny3d step on half of a B=8 batch
+    through the kernels, against one process on the whole batch. The ranks
+    end bitwise equal, each launched every fused site's kernel forward and
+    dx, and the global loss is within 5e-2 * (1 + |loss|) of one process's
+    (sync BatchNorm over 4 + 4 clips against 8: bf16 rounding in another
+    order)."""
+    from _torch_dp_worker import _tiny3d_card_step, run_group
+
+    rng = np.random.default_rng(5)
+    np.savez(tmp_path / "cuda.npz",
+             x=rng.standard_normal((8, 8, 64, 64, 3)).astype(np.float32),
+             labels=rng.integers(0, 5, 8))
+    one = _tiny3d_card_step(str(tmp_path / "cuda.npz"), 0, 1)
+    r0, r1 = run_group("cuda_step", tmp_path, timeout_s=300)
+    assert abs(r0["loss"] - one["loss"]) <= 5e-2 * (1 + abs(one["loss"]))
+    assert r0["loss"] == r1["loss"]
+    for k in r0["state"]:
+        np.testing.assert_array_equal(r0["state"][k], r1["state"][k], err_msg=k)
+    for out in (r0, r1):
+        n = out["launches"]
+        assert n["fused_pw_bn_act"] == n["fused_pw_bn_act.bwd_dx"] > 0
+        assert n["fused_conv_bn_act"] == n["fused_conv_bn_act.bwd_dx"] > 0
+

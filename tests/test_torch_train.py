@@ -669,7 +669,7 @@ def test_trainer_without_cpu_flag_needs_cuda():
 
 @pytest.mark.parametrize("extra", [
     ["--data.dataplane_workers", "2"],
-    ["--mesh.data", "2"], ["--model.pretrained_path", "w.npz"],
+    ["--mesh.model", "2"], ["--model.pretrained_path", "w.npz"],
     ["--data.transport", "process"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -705,22 +705,32 @@ def test_real_data_routes_raise_what_jax_raises(extra, tmp_path):
     assert str(got.value) == str(want.value) and "/nonexistent" in str(got.value)
 
 
-@pytest.mark.parametrize("extra,env", [
-    (["--num_processes", "2"], {}),
-    (["--coordinator_address", "localhost:1234"], {}),
-    (["--process_id", "0"], {}),
-    ([], {"PVA_COORDINATOR_ADDRESS": "localhost:1234"}),
-    ([], {"PVA_NUM_PROCESSES": "2"}),
-    ([], {"PVA_PROCESS_ID": "1"})])
-def test_multi_process_jobs_raise(extra, env, monkeypatch):
-    """A job of several processes, set by flag or by the launcher's PVA_*
-    env, is refused naming the multi-GPU item, not trained as independent
-    replicas that share one output_dir."""
+@pytest.mark.parametrize("extra,env,match", [
+    (["--num_processes", "2"], {}, "needs a coordinator address"),
+    (["--coordinator_address", "localhost:1234", "--num_processes", "2"], {},
+     r"process_id must be in \[0, 2\)"),
+    (["--process_id", "2", "--num_processes", "2",
+      "--coordinator_address", "localhost:1234"], {},
+     r"process_id must be in \[0, 2\)"),
+    ([], {"PVA_COORDINATOR_ADDRESS": "localhost:1234", "PVA_NUM_PROCESSES": "2"},
+     r"process_id must be in \[0, 2\)"),
+    ([], {"PVA_NUM_PROCESSES": "2"}, "needs a coordinator address"),
+    (["--mesh.data", "2"], {"PVA_PROCESS_ID": "1"},
+     r"train mesh shape \(2,1\) needs 2 devices, have 1")],
+    ids=[f"extra{i}-env{i}" for i in range(6)])
+def test_multi_process_jobs_raise(extra, env, match, monkeypatch):
+    """Multi-process jobs are ported (tests/test_torch_distributed.py,
+    tests/test_torch_dp_train.py); one whose settings cannot form its group
+    raises before training, never trains as a lone process: a process
+    count without a coordinator to meet at, a process id outside [0, N)
+    (the JAX package's check and message), or a data axis that is not the
+    world size (the JAX package's `resolve_train_mesh_shape` message; a
+    lone PVA_PROCESS_ID names no job)."""
     for key in ("PVA_COORDINATOR_ADDRESS", "PVA_NUM_PROCESSES", "PVA_PROCESS_ID"):
         monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(ValueError, match=match):
         Trainer(parse_cli(_RUN + extra))
 
 
