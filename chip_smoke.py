@@ -5,8 +5,10 @@ serve VideoMAE-B and pretrain it (MAE), serve R(2+1)D-50 and train it
 from a frame cache of real-format clips, train SlowFast-R50 with
 mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, serve
 SlowFast-R50 with the server's defaults and SlowFast-R50 and MViT-B with
-int8 weights, preempt and resume a SlowFast-R50 training run, and train
-SlowFast-R50 data-parallel across processes, on one GPU (and across two
+int8 weights, preempt and resume a SlowFast-R50 training run, train
+SlowFast-R50 data-parallel across processes, and fine-tune SlowFast-R50,
+MViT-B 32x3, X3D-S and VideoMAE-B from full-width hub-layout checkpoints
+(and VideoMAE-B from its own MAE pretraining), on one GPU (and across two
 cards, where the machine has them).
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
@@ -226,6 +228,34 @@ Drives the port only (no JAX), one JSON line per phase:
             alone: both ranks stop at one step off a checkpoint boundary,
             exit 0, one "preempt" checkpoint. Step ms (synchronised), the
             all-reduces a micro-step and their bytes, peak memory per rank
+37. hub_finetune  the reference's recipe: a full-width `slowfast_r50`
+            checkpoint in the hub layout (every key and shape of
+            tests/hub_manifests.py, seeded values, a K400 head, a
+            `model_state` wrapper) written as `.pth`, converted by the CLI
+            (`models/convert.py main`) to `.npz`, then 3 steps of B=8 x 4
+            (32 frames at 256^2, 700 classes) through `run.main` with
+            `--model.pretrained --model.pretrained_path X.npz
+            --freeze_backbone`: every backbone tensor loaded and only the
+            head's `proj` kernel and bias mismatched; the state after init
+            the file's bitwise; after the steps every frozen parameter
+            bitwise unchanged and the head moved; launches exact (rows 1,
+            1b, 2, 2b); the `.pth` loaded directly bitwise the `.npz`
+            route; the same fine-tune without `--freeze_backbone`; write,
+            convert and load seconds, step ms, peak memory of each
+38. hub_interp_finetune  a full-width hub `mvit_b` (16x4: an (8, 56, 56)
+            position grid) into `mvit_b_32x3` (a (16, 56, 56) grid) under
+            `--model.remat`, 2 steps of B=4: the report's interpolated
+            `pos_embed` within 1e-6 of the plain resize of the file's table
+            on the card, only the head mismatched, every other leaf bitwise;
+            launches exact (rows 4, 4b, 5, 6, 7)
+39. hub_x3d  a full-width hub `x3d_s` fine-tuned as X3D-S (13 frames at
+            160^2), 2 steps of B=8: only `proj` mismatched, the rest bitwise;
+            launches exact (rows 1, 1b, 3, 3b)
+40. mae_handoff  VideoMAE-B MAE pretraining, 2 steps with a checkpoint;
+            `pva-torch-convert CKPT_DIR out.npz` (the final state bitwise,
+            no optimizer state); the VideoMAE-B classifier 2 steps with
+            `--model.pretrained`: every encoder leaf loaded bitwise the
+            export, the head and fc_norm fresh; launches exact (rows 5-7)
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -241,7 +271,10 @@ slice 10's paths carry "train_features": the launches of features_train
 micro-step (rows 4, 4b, 5, 6, 7); rows 1, 1b, 2, 2b, 4 and 5 carry
 "edf_serve", "int8_serve" and "preempt_train" sub-entries with those
 phases' launches, and rows 1, 1b, 2, 2b a "dp_train" one with the
-launches of one rank of dp_train's arm (c)), the nvidia-smi line, and as the last
+launches of one rank of dp_train's arm (c); every row carries the
+launches of the fine-tuning phases that run it: "hub_finetune" on rows
+1-2b, "hub_x3d" on rows 1, 1b, 3, 3b, "hub_interp_finetune" on rows 4-7,
+"mae_handoff" on rows 5-7), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
@@ -311,7 +344,7 @@ CSN_BUCKET = 4
 GEOMETRY = {"slowfast_r50": (FRAMES, CROP), "x3d_m": (16, 224),
             "csn_r101": (32, 224), "mvit_b": (16, 224), "videomae_b": (16, 224),
             "videomae_b_pretrain": (16, 224), "r2plus1d_r50": (16, 224),
-            "mvit_b_32x3": (32, 224)}
+            "mvit_b_32x3": (32, 224), "x3d_s": (13, 160)}
 # head classes of each model's seeded artifact and training run (the hub
 # head of R(2+1)D-50 is Kinetics-400); NUM_CLASSES otherwise
 CLASSES = {"r2plus1d_r50": 400}
@@ -375,6 +408,10 @@ REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
 DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
+# calls per class breakdown (a forward or a micro-step; 3 forwards and 2
+# micro-steps before the smoke grew the fine-tuning phases, cut to keep the
+# whole smoke inside its time limit)
+PROFILE_REPS = 1
 # main-path sites reported by name: module path -> label
 NAMED_SITES = {
     "slow_res2.block1.conv_c": "slow res2 conv_c 64->256",
@@ -1283,7 +1320,7 @@ KERNEL_CLASSES = (  # (class, substrings of the device kernel's name)
 )
 
 
-def profile_forward(torch, engine, batch, reps: int = 3) -> dict:
+def profile_forward(torch, engine, batch, reps: int = PROFILE_REPS) -> dict:
     """Device time by kernel class over `reps` forwards of `batch`
     (torch.profiler), and the device's busy share between the first kernel
     start and the last kernel end."""
@@ -1841,7 +1878,7 @@ def train_timing_phase(torch, spec: dict = SLOWFAST_TRAIN,
         out[f"micro_step_ms_{key}"] = timed["micro_step_ms"]
         out[f"peak_mem_gb_{key}"] = timed["peak_mem_gb"]
         if mode == "auto":
-            out["profile"] = profile_of(torch, fn, 2, "micro_step")
+            out["profile"] = profile_of(torch, fn, PROFILE_REPS, "micro_step")
             out["site_grads_not_contiguous"], out["site_grads"] = \
                 count_strided_grads(fn)
         del model, fn
@@ -2047,6 +2084,14 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     # 36. this slice's path: data-parallel training, counters zeroed in
     # each rank just before fit()
     emit("dp_train", nvidia_smi=smi, **dp_train_phase(torch, work, launches))
+    t_slice13 = time.perf_counter()
+    # 37-40. this slice's paths: fine-tuning from full-width hub-layout
+    # checkpoints and the MAE handoff, counters zeroed just before each fit()
+    emit("hub_finetune", nvidia_smi=smi, **hub_finetune_phase(torch, work, launches))
+    emit("hub_interp_finetune", nvidia_smi=smi,
+         **hub_interp_finetune_phase(torch, work, launches))
+    emit("hub_x3d", nvidia_smi=smi, **hub_x3d_phase(torch, work, launches))
+    emit("mae_handoff", nvidia_smi=smi, **mae_handoff_phase(torch, work, launches))
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -2078,7 +2123,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             if phase == "features_train":
                 sub.update(line_sums(rows, kname, "slowfast_r50"))
             kernels[-1]["train_features"] = sub
-        for phase, knames in {**SLICE11_LINE, **DP_LINE}.items():
+        for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2089,7 +2134,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          features=t_real - t_features,
          real_video=t_slice11 - t_real,
          serving_defaults_and_preemption=t_slice12 - t_slice11,
-         data_parallel=time.perf_counter() - t_slice12,
+         data_parallel=t_slice13 - t_slice12,
+         finetune=time.perf_counter() - t_slice13,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -2125,6 +2171,20 @@ SLICE11_LINE = {
 # the kernel rows on slice 12's path: one rank of dp_train's arm (c)
 DP_LINE = {"dp_train": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
                         "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")}
+
+
+# the kernel rows on slice 13's paths, by the fine-tuning phase whose
+# launches each sub-entry reports
+FINETUNE_LINE = {
+    "hub_finetune": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                     "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx"),
+    "hub_interp_finetune": ("depthwise3d_s1", "depthwise3d_s1.bwd_dx",
+                            "flash_attention", "flash_attention.bwd_dq",
+                            "flash_attention.bwd_dkv"),
+    "hub_x3d": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                "fused_dw_bn_act", "fused_dw_bn_act.bwd_dx"),
+    "mae_handoff": ("flash_attention", "flash_attention.bwd_dq",
+                    "flash_attention.bwd_dkv")}
 
 
 def line_sums(rows, kname: str, model: str) -> dict:
@@ -2677,7 +2737,7 @@ def attention_phases(torch, work: str, launches: dict):
         model, _, fn = micro_step_fn(torch, "off", batch, spec)
         timing[label] = micro_step_times(torch, fn)
         if label == "flash":
-            timing["profile"] = profile_of(torch, fn, 2, "micro_step")
+            timing["profile"] = profile_of(torch, fn, PROFILE_REPS, "micro_step")
         del model, fn
         free_cuda(torch)
     emit("mvit_train_timing", batch=MVIT_TRAIN["batch"],
@@ -4164,6 +4224,379 @@ def dp_launched_arm(torch, work: str, ref: dict) -> dict:
           f"(d) launch rc {proc.returncode}: {lines[-25:]}")
     records.sort(key=lambda r: r["rank"])
     return dp_arm_fields(torch, records, dp_expected(2), ref)
+
+
+# --- slice 13: fine-tuning from pretrained weights ------------------------------
+
+# full-width checkpoints in the hub layout (every key and shape of the real
+# one: tests/hub_manifests.py), values from a numpy seed; each converted by
+# the CLI and fine-tuned through run.py with `--model.pretrained`. SlowFast-R50
+# at train_phase's shape, 3 steps of B=8 x 4 (24 val clips); hub
+# mvit_base_16x4 (T=8) into mvit_b_32x3 (T=16) under remat as remat_train
+# runs it, 2 steps of B=4; X3D-S (13 frames at 160^2), 2 steps of B=8;
+# VideoMAE-B pretrained 2 steps with a checkpoint at the end, exported, then
+# fine-tuned 2 steps
+HUB_FINETUNE = dict(SLOWFAST_TRAIN, accum=4, epochs=1, videos=96, ckpt_every=0)
+HUB_INTERP = dict(REMAT_TRAIN, epochs=1, videos=8, ckpt_every=0,
+                  argv=REMAT_TRAIN["argv"] + ["--model.remat"])
+HUB_X3D = dict(X3D_TRAIN, name="x3d_s", epochs=1, videos=16, ckpt_every=0)
+MAE_PRETRAIN = dict(MAE_TRAIN, ckpt_every=2)
+MAE_FINETUNE = dict(VIDEOMAE_TRAIN, ckpt_every=0)
+# the loaded position table against the plain resize of the file's on the
+# card: f32 trilinear weights of the same 8 taps in another order
+POS_TOL = 1e-6
+
+
+def hub_state_dict(torch, name: str, rng) -> dict:
+    """A full-width hub checkpoint of `name` (a key of tests/hub_manifests.py
+    MANIFESTS) as float32 tensors: conv and linear weights He-normal (fan-in:
+    every dimension but the first), a residual branch's last BN scale
+    (`norm_c`) x RESIDUAL_BN_SCALE and a transformer block's `attn.proj` /
+    `mlp.fc2` x RESIDUAL_PROJ_SCALE (as the seeded serving weights), norm
+    scales in [0.5, 1], BN running variances in [0.5, 1.5], every other
+    tensor (biases, running means, position tables) 0.02 normal;
+    `num_batches_tracked` 0."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from hub_manifests import MANIFESTS
+
+    sd = {}
+    for key, shape in MANIFESTS[name]().items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros((), dtype=torch.int64)
+            continue
+        if key.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif key.endswith("weight") and len(shape) >= 2:
+            v = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+            if key.endswith(("attn.proj.weight", "mlp.fc2.weight")):
+                v *= RESIDUAL_PROJ_SCALE
+        elif key.endswith("weight"):
+            v = rng.uniform(0.5, 1.0, shape)
+            if key.endswith("norm_c.weight"):
+                v *= RESIDUAL_BN_SCALE
+        else:
+            v = rng.standard_normal(shape) * 0.02
+        sd[key] = torch.from_numpy(v.astype(np.float32))
+    return sd
+
+
+def write_hub_checkpoint(torch, name: str, d: str, seed: int,
+                         wrap: bool = False) -> dict:
+    """`hub_state_dict(name)` saved as `<d>/<name>.pth` (under a
+    `model_state` key with `wrap`, as pytorchvideo's own checkpoints hold
+    it), then converted by the CLI into `<d>/<name>.npz`. Returns the paths,
+    the seconds of each, the converted tensors by port key and their count
+    (MViT's joint position table replaces its three separable ones)."""
+    from pytorchvideo_accelerate_tpu_torch.models import convert
+
+    os.makedirs(d, exist_ok=True)
+    pth, npz = os.path.join(d, f"{name}.pth"), os.path.join(d, f"{name}.npz")
+    t0 = time.perf_counter()
+    sd = hub_state_dict(torch, name, np.random.default_rng(seed))
+    torch.save({"model_state": sd} if wrap else sd, pth)
+    t1 = time.perf_counter()
+    convert.main([pth, npz])
+    t2 = time.perf_counter()
+    tree = convert.load_converted(npz)
+    n = len(convert.flatten_tree(tree))
+    return {"pth": pth, "npz": npz, "write_s": t1 - t0, "convert_s": t2 - t1,
+            "file_mb": os.path.getsize(pth) / 1e6, "tensors": n,
+            "file": {k: torch.from_numpy(v)
+                     for k, v in convert.state_dict_from_jax(tree).items()}}
+
+
+def host_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def finetune_fit(torch, argv, pretrain: bool = False) -> dict:
+    """`run.main(argv)`, the launch counters zeroed and the peak memory reset
+    just before it, both read just after. `loop.load_pretrained` is wrapped
+    to keep its report and time it; the train step to copy the model's state
+    to the host before the first step (the state after init) and to time
+    each step (synchronised before and after). Returns those, the final
+    state and the parameter names."""
+    from pytorchvideo_accelerate_tpu_torch import run as trun
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.trainer import loop
+
+    step_name = "make_pretrain_step" if pretrain else "make_train_step"
+    real_load, real_make = loop.load_pretrained, getattr(loop, step_name)
+    seen = {"report": None, "load_s": None, "init": None, "step_ms": [],
+            "losses": []}
+
+    def load(path, model, family=""):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = real_load(path, model, family)
+        torch.cuda.synchronize()
+        seen["load_s"] = time.perf_counter() - t0
+        seen["report"] = report
+        return report
+
+    def make(model, optimizer, **kw):
+        step = real_make(model, optimizer, **kw)
+        seen["model"] = model
+
+        def timed(state, batch):
+            if seen["init"] is None:
+                seen["init"] = host_state(model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            seen["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            seen["losses"].append(m["loss"].item())
+            return m
+        return timed
+
+    loop.load_pretrained = load
+    setattr(loop, step_name, make)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = trun.main(argv)
+    finally:
+        loop.load_pretrained = real_load
+        setattr(loop, step_name, real_make)
+    seen["fit_s"] = time.perf_counter() - t0
+    seen["launches"] = dict(fused.LAUNCHES)
+    seen["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    model = seen.pop("model")
+    seen["final"] = host_state(model)
+    seen["params"] = [n for n, _ in model.named_parameters()]
+    del model
+    free_cuda(torch)
+    check(all(np.isfinite(v) for v in seen["losses"]),
+          f"non-finite fine-tuning loss {seen['losses']}")
+    check(result["steps"] == len(seen["losses"]),
+          f"steps {result['steps']}, timed {len(seen['losses'])}")
+    seen["result"] = result
+    return seen
+
+
+def fit_fields(run: dict) -> dict:
+    """What a phase reports of one `finetune_fit`."""
+    ms = run["step_ms"]
+    return {"fit_s": run["fit_s"], "load_s": run["load_s"], "step_ms": ms,
+            "step_ms_median_after_first": float(np.median(ms[1:] or ms)),
+            "losses": run["losses"], "peak_mem_gb": run["peak_mem_gb"],
+            "launches": {k: v for k, v in run["launches"].items() if v},
+            "report_counts": {k: len(v) for k, v in (run["report"] or {}).items()}}
+
+
+def bitwise_mismatches(torch, got: dict, want: dict, keys) -> list:
+    """The keys of `keys` at which two state dicts differ (bitwise)."""
+    return unequal_leaves(torch, {k: got[k] for k in keys},
+                          {k: want[k] for k in keys})
+
+
+def hub_finetune_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 37. The reference's recipe: a full-width `slowfast_r50` hub
+    checkpoint (K400 head, `model_state` wrapper) converted by the CLI,
+    then 3 optimizer steps of SlowFast-R50 on 700-class clips at
+    train_phase's shape with `--model.pretrained --model.pretrained_path
+    X.npz --freeze_backbone`. Held: every backbone tensor loaded, the head's
+    `proj` kernel and bias mismatched (kept fresh), nothing else; the state
+    after init the file's tensors bitwise; after the steps every frozen
+    parameter bitwise unchanged and every head parameter moved; launches
+    exact (rows 1, 1b, 2, 2b; counters zeroed just before fit()); the `.pth`
+    loaded directly into a fresh model bitwise the `.npz` route. Then the
+    same fine-tune without `--freeze_backbone`, for its step time."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models import convert, create_model
+
+    t0 = time.perf_counter()
+    d = os.path.join(work, "hub_finetune")
+    hub = write_hub_checkpoint(torch, "slowfast_r50", d, SEED + 130, wrap=True)
+    spec = HUB_FINETUNE
+    argv = train_argv(os.path.join(d, "frozen"), spec=spec) + [
+        "--model.pretrained", "--model.pretrained_path", hub["npz"],
+        "--freeze_backbone"]
+    frozen = finetune_fit(torch, argv)
+    report, init, final = frozen["report"], frozen["init"], frozen["final"]
+    head = ["params/head/proj/bias", "params/head/proj/kernel"]
+    check(sorted(report["mismatched"]) == head and report["kept"] == []
+          and report["interpolated"] == []
+          and len(report["loaded"]) == hub["tensors"] - len(head),
+          f"report {({k: v[:4] for k, v in report.items()})}")
+    check(sorted(hub["file"]) == sorted(init), "the file's keys are not the model's")
+    body = [k for k in hub["file"] if not k.startswith("head.")]
+    bad = bitwise_mismatches(torch, init, hub["file"], body)
+    check(not bad, f"state after init differs from the file at {bad[:4]}")
+    moved = [n for n in frozen["params"] if not n.startswith("head.")
+             and not torch.equal(final[n], init[n])]
+    still = [n for n in frozen["params"] if n.startswith("head.")
+             and torch.equal(final[n], init[n])]
+    check(not moved and not still, f"frozen moved {moved[:4]}, head still {still}")
+    want = expected_train_launches(spec, expected_forward_launches("slowfast_r50"))
+    check(all(frozen["launches"][k] == want[k] for k in SOURCES),
+          f"launches {frozen['launches']}, expected {want}")
+    launches["hub_finetune"] = frozen["launches"]
+
+    unfrozen = finetune_fit(torch, argv[:-1])  # without --freeze_backbone
+    check(all(unfrozen["launches"][k] == want[k] for k in SOURCES),
+          f"unfrozen launches {unfrozen['launches']}, expected {want}")
+
+    cfg = parse_cli(argv)
+    model = create_model(cfg.model, cfg.mixed_precision, seed=cfg.seed,
+                         data_cfg=cfg.data).cuda()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    direct = convert.load_pretrained(hub["pth"], model, "slowfast_r50")
+    torch.cuda.synchronize()
+    pth_load_s = time.perf_counter() - t1
+    check(direct == report, "the .pth load reports otherwise than the .npz load")
+    bad = bitwise_mismatches(torch, host_state(model), init, init)
+    check(not bad, f".pth load differs from the .npz load at {bad[:4]}")
+    del model
+    free_cuda(torch)
+    return {"checkpoint": "slowfast_r50 (tests/hub_manifests.py), K400 head",
+            "file_mb": hub["file_mb"], "tensors": hub["tensors"],
+            "write_s": hub["write_s"], "convert_s": hub["convert_s"],
+            "pth_load_s": pth_load_s, "mismatched": report["mismatched"],
+            "frozen": fit_fields(frozen), "unfrozen": fit_fields(unfrozen),
+            "expected_launches": want, "frozen_bitwise": True,
+            "pth_equals_npz_bitwise": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def hub_interp_finetune_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 38. A full-width hub `mvit_b` (16x4: a (8, 56, 56) position
+    grid) converted by the CLI and fine-tuned as `mvit_b_32x3` (32 frames,
+    a (16, 56, 56) grid) under `--model.remat`, `attention pallas,
+    depthwise_impl pallas`, 2 steps of B=4. Held: the report interpolates
+    `pos_embed` (8, 56, 56) -> (16, 56, 56), mismatches only the head; the
+    loaded table within POS_TOL of the plain resize (`F.interpolate`,
+    trilinear, align_corners False) of the file's table on the card; every
+    other leaf the file's bitwise; launches exact (rows 4, 4b, 5, 6, 7,
+    forwards twice a micro-step under remat)."""
+    import torch.nn.functional as F
+
+    t0 = time.perf_counter()
+    d = os.path.join(work, "hub_interp_finetune")
+    hub = write_hub_checkpoint(torch, "mvit_b", d, SEED + 131)
+    spec = HUB_INTERP
+    argv = train_argv(os.path.join(d, "run"), spec=spec) + [
+        "--model.pretrained", "--model.pretrained_path", hub["npz"]]
+    run = finetune_fit(torch, argv)
+    report, init = run["report"], run["init"]
+    check(sorted(hub["file"]) == sorted(init), "the file's keys are not the model's")
+    frames = GEOMETRY[spec["name"]][0]
+    grid = tuple(init["pos_embed"].shape[1:4])
+    check(grid == (frames // 2, 56, 56), f"pos_embed grid {grid}")
+    check(report["interpolated"] == [f"params/pos_embed (8, 56, 56)->{grid}"]
+          and sorted(report["mismatched"]) == ["params/head/bias", "params/head/kernel"]
+          and report["kept"] == [],
+          f"report {({k: v[:4] for k, v in report.items()})}")
+    table = hub["file"]["pos_embed"].cuda()
+    plain = F.interpolate(table.permute(0, 4, 1, 2, 3), size=grid,
+                          mode="trilinear", align_corners=False).permute(0, 2, 3, 4, 1)
+    pos_err = (init["pos_embed"].cuda() - plain).abs().max().item()
+    check(pos_err <= POS_TOL, f"pos_embed {pos_err} from the plain resize")
+    body = [k for k in hub["file"] if not k.startswith("head.") and k != "pos_embed"]
+    bad = bitwise_mismatches(torch, init, hub["file"], body)
+    check(not bad, f"state after init differs from the file at {bad[:4]}")
+    per_forward = expected_mvit_launches()
+    want = expected_train_launches(spec, per_forward)
+    for k in SOURCES:  # under remat each forward kernel runs again in the backward
+        if not is_backward(k):
+            want[k] += per_forward.get(k, 0) * want["micro_steps"]
+    check(all(run["launches"][k] == want[k] for k in SOURCES),
+          f"launches {run['launches']}, expected {want}")
+    launches["hub_interp_finetune"] = run["launches"]
+    return {"checkpoint": "mvit_b 16x4 (tests/hub_manifests.py) into mvit_b_32x3",
+            "file_mb": hub["file_mb"], "tensors": hub["tensors"],
+            "write_s": hub["write_s"], "convert_s": hub["convert_s"],
+            "interpolated": report["interpolated"],
+            "pos_embed_max_abs_err": pos_err, "pos_tol": POS_TOL,
+            "run": fit_fields(run), "expected_launches": want,
+            "seconds": time.perf_counter() - t0}
+
+
+def hub_x3d_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 39. A full-width hub `x3d_s` checkpoint converted by the CLI
+    and fine-tuned as X3D-S (13 frames at 160^2, bf16), 2 steps of B=8.
+    Held: only the head's `proj` mismatched, every other leaf the file's
+    bitwise; launches exact (rows 1, 1b, 3, 3b)."""
+    t0 = time.perf_counter()
+    d = os.path.join(work, "hub_x3d")
+    hub = write_hub_checkpoint(torch, "x3d_s", d, SEED + 132)
+    spec = HUB_X3D
+    argv = train_argv(os.path.join(d, "run"), spec=spec) + [
+        "--model.pretrained", "--model.pretrained_path", hub["npz"]]
+    run = finetune_fit(torch, argv)
+    report, init = run["report"], run["init"]
+    check(sorted(report["mismatched"]) == ["params/proj/bias", "params/proj/kernel"]
+          and report["kept"] == [] and report["interpolated"] == [],
+          f"report {({k: v[:4] for k, v in report.items()})}")
+    check(sorted(hub["file"]) == sorted(init), "the file's keys are not the model's")
+    body = [k for k in hub["file"] if not k.startswith("proj.")]
+    bad = bitwise_mismatches(torch, init, hub["file"], body)
+    check(not bad, f"state after init differs from the file at {bad[:4]}")
+    want = expected_train_launches(spec, expected_forward_launches("x3d_m"))
+    check(all(run["launches"][k] == want[k] for k in SOURCES),
+          f"launches {run['launches']}, expected {want}")
+    launches["hub_x3d"] = run["launches"]
+    return {"checkpoint": "x3d_s (tests/hub_manifests.py), K400 head",
+            "file_mb": hub["file_mb"], "tensors": hub["tensors"],
+            "write_s": hub["write_s"], "convert_s": hub["convert_s"],
+            "run": fit_fields(run), "expected_launches": want,
+            "seconds": time.perf_counter() - t0}
+
+
+def mae_handoff_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 40. BASELINE config 5's handoff: VideoMAE-B MAE pretraining
+    (B=8, 16 frames at 224^2) for 2 steps with a checkpoint at the end;
+    `pva-torch-convert CKPT_DIR out.npz`; then the VideoMAE-B classifier 2
+    steps with `--model.pretrained`. Held: the export is the pretraining
+    run's final model state bitwise (params and BN statistics, no optimizer
+    state); every encoder leaf of the classifier loaded, bitwise the
+    exported one; nothing mismatched; the rest (the head, fc_norm) kept
+    fresh; launches exact in both runs (rows 5, 6, 7)."""
+    from pytorchvideo_accelerate_tpu_torch.models import convert
+
+    t0 = time.perf_counter()
+    d = os.path.join(work, "mae_handoff")
+    pre = finetune_fit(torch, train_argv(os.path.join(d, "pre"), spec=MAE_PRETRAIN),
+                       pretrain=True)
+    want_pre = expected_train_launches(
+        MAE_PRETRAIN, expected_forward_launches("videomae_b_pretrain"))
+    check(all(pre["launches"][k] == want_pre[k] for k in SOURCES),
+          f"pretrain launches {pre['launches']}, expected {want_pre}")
+    npz = os.path.join(d, "mae.npz")
+    t1 = time.perf_counter()
+    convert.main([os.path.join(d, "pre", "checkpoints"), npz])
+    export_s = time.perf_counter() - t1
+    exported = {k: torch.from_numpy(v) for k, v in
+                convert.state_dict_from_jax(convert.load_converted(npz)).items()}
+    check(sorted(exported) == sorted(pre["final"]), "the export's keys are not "
+          "the pretraining model's")
+    bad = bitwise_mismatches(torch, exported, pre["final"], exported)
+    check(not bad, f"export differs from the final state at {bad[:4]}")
+
+    argv = train_argv(os.path.join(d, "ft"), spec=MAE_FINETUNE) + [
+        "--model.pretrained", "--model.pretrained_path", npz]
+    ft = finetune_fit(torch, argv)
+    report, init = ft["report"], ft["init"]
+    encoder = [k for k in init if k.startswith("encoder.")]
+    check(len(report["loaded"]) == len(encoder) and report["mismatched"] == []
+          and report["interpolated"] == [] and "params/head/kernel" in report["kept"]
+          and all(p.startswith("params/encoder/") for p in report["loaded"])
+          and not any(p.startswith("params/encoder/") for p in report["kept"]),
+          f"report {({k: v[:4] for k, v in report.items()})}")
+    bad = bitwise_mismatches(torch, init, exported, encoder)
+    check(not bad, f"encoder after init differs from the export at {bad[:4]}")
+    want = expected_train_launches(MAE_FINETUNE, expected_forward_launches("videomae_b"))
+    check(all(ft["launches"][k] == want[k] for k in SOURCES),
+          f"fine-tune launches {ft['launches']}, expected {want}")
+    launches["mae_handoff"] = ft["launches"]
+    return {"export_s": export_s, "export_mb": os.path.getsize(npz) / 1e6,
+            "exported_tensors": len(exported), "kept": report["kept"],
+            "pretrain": fit_fields(pre), "finetune": fit_fields(ft),
+            "expected_launches": want, "seconds": time.perf_counter() - t0}
 
 
 if __name__ == "__main__":

@@ -41,8 +41,17 @@ missing the real-video branch raises `NoVideoDecoderError`, which names
 the frame-cache route (build the cache where cv2 is, train with
 `--data.cache_dir`). Options whose effect this slice lacks raise
 NotImplementedError naming their ROADMAP item; telemetry and debug options
-(`obs.*`, `debug_nans`, `debug_asserts`, `profile`) and a
-`model.pretrained` without a path print one line each and train on.
+(`obs.*`, `debug_nans`, `debug_asserts`, `profile`), a `model.pretrained`
+without a path and a `model.pretrained_path` without `model.pretrained`
+print one line each and train on.
+
+Fine-tuning: with `--model.pretrained --model.pretrained_path P` the fresh
+model loads the converted weights of P (models/convert.py
+`load_pretrained`: an `.npz` artifact, or a torch-hub / safetensors file
+converted on the fly) before the optimizer, the EMA copy and the
+broadcast of rank 0's parameters are made, so all three start from the
+loaded weights; a head of another class count keeps its fresh init, and
+`--model.freeze_backbone` trains the head alone.
 
 Data parallelism (`parallel/`, one process per card, started by
 `launch.py`): the Trainer joins the process group that the config or the
@@ -61,6 +70,7 @@ Without a group it runs as a single process, launch for launch as before.
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 from typing import Dict, Optional
@@ -84,6 +94,7 @@ from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
 )
 from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
+from pytorchvideo_accelerate_tpu_torch.models.convert import load_pretrained
 from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
     broadcast_,
     host_broadcast,
@@ -126,6 +137,8 @@ from pytorchvideo_accelerate_tpu_torch.trainer.tracking import (
 )
 from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
 
+logger = logging.getLogger(__name__)
+
 
 def _parse_checkpointing_steps(value: str):
     """"" -> None, "epoch" -> "epoch", digits -> int ("0" -> None)."""
@@ -146,7 +159,8 @@ def _say(line: str) -> None:
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
     computed and that this slice of the port lacks; print one line for each
-    telemetry or debug option and for a `model.pretrained` without a path."""
+    telemetry or debug option, for a `model.pretrained` without a path and
+    for a `model.pretrained_path` without `model.pretrained`."""
     d, m, mesh = cfg.data, cfg.model, cfg.mesh
     refused = [
         (mesh.model > 1, f"mesh.model={mesh.model} (the model axis: tensor "
@@ -160,8 +174,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
          "(parallel/pipeline.py; Multi-GPU, ROADMAP.md A.1)"),
         (d.dataplane_workers > 0,
          "data.dataplane_workers (the dataplane, ROADMAP.md A.4)"),
-        (bool(m.pretrained_path),
-         "model.pretrained_path (the hub converter, ROADMAP.md A.4)"),
     ]
     for bad, what in refused:
         if bad:
@@ -179,6 +191,10 @@ def refuse_unported(cfg: TrainConfig) -> None:
         _say("--model.pretrained set but --model.pretrained_path empty: "
              "training from scratch. Convert a checkpoint first and pass "
              "its path.")
+    if m.pretrained_path and not m.pretrained:
+        _say("--model.pretrained_path set without --model.pretrained: the "
+             "path is ignored and training starts from the model's init. "
+             "Pass both to load it.")
 
 
 def resolve_train_device(cfg: TrainConfig) -> torch.device:
@@ -373,6 +389,9 @@ class Trainer:
             cfg.model.num_classes = self.num_classes
         self.model = create_model(cfg.model, cfg.mixed_precision,
                                   seed=cfg.seed, data_cfg=cfg.data).to(self.device)
+        self.pretrained_report: Optional[dict] = None
+        if cfg.model.pretrained and cfg.model.pretrained_path:
+            self._load_pretrained()
         self._replicate()
         steps_per_epoch = self.train_loader.steps_per_epoch()
         self.total_steps = max(steps_per_epoch * cfg.optim.num_epochs, 1)
@@ -404,6 +423,36 @@ class Trainer:
         self.eval_step = make_eval_step(
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
+
+    def _load_pretrained(self) -> None:
+        """Merge `--model.pretrained_path` into the fresh model and print
+        the JAX Trainer's report lines. Every rank reads the file;
+        `_replicate()` then makes rank 0's copy every rank's."""
+        report = load_pretrained(self.cfg.model.pretrained_path, self.model,
+                                 self.cfg.model.name)
+        self.pretrained_report = report
+        main_print(f"pretrained: loaded {len(report['loaded'])} tensors, "
+                   f"kept {len(report['kept'])} fresh", flush=True)
+        if report["interpolated"]:
+            main_print("pretrained: pos-embed grid interpolated to this run's "
+                       "geometry: " + ", ".join(report["interpolated"]),
+                       flush=True)
+        mism = report["mismatched"]
+        # the head by family: .../head/... (ResNets, SlowFast, MViT,
+        # VideoMAE) or X3D's top-level proj; exact anchors, so an MViT
+        # block's attn/proj is no head
+        nonhead = [p for p in mism if "/head/" not in p
+                   and p not in ("params/proj/kernel", "params/proj/bias")]
+        if mism:
+            main_print(f"pretrained: {len(mism)} shape-mismatched leaves kept "
+                       "fresh (expected for a swapped head): "
+                       + ", ".join(mism[:4]) + ("..." if len(mism) > 4 else ""),
+                       flush=True)
+        if nonhead and is_main_process():
+            logger.warning(
+                "pretrained artifact has %d NON-head shape mismatches (stale "
+                "artifact from an older layout? regenerate it with "
+                "models/convert.py): %s", len(nonhead), ", ".join(nonhead[:8]))
 
     def _replicate(self) -> None:
         """Rank 0's parameters and floating buffers (the BN running
@@ -518,7 +567,15 @@ class Trainer:
 
     def evaluate(self) -> dict:
         """The validation loop once, without training (scores a resumed
-        checkpoint)."""
+        checkpoint or converted weights: `--resume_from_checkpoint` or
+        `--model.pretrained_path` decide the weights)."""
+        if not (self.cfg.checkpoint.resume_from_checkpoint
+                or (self.cfg.model.pretrained and self.cfg.model.pretrained_path)):
+            if is_main_process():
+                logger.warning(
+                    "evaluate() without --resume_from_checkpoint or "
+                    "--model.pretrained_path: scoring freshly-initialized "
+                    "random weights — the result is meaningless.")
         try:
             self._maybe_resume()
             acc, acc5, loss = self._run_eval(epoch=0)

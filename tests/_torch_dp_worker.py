@@ -284,6 +284,22 @@ def trainer(rank, world, d):
     return out
 
 
+def pretrained(rank, world, d):
+    """A tiny3d Trainer loading DIR/hub.pth with `--model.pretrained`, each
+    rank seeded apart (so their fresh heads differ before the broadcast):
+    its state after init and its load report."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    t = Trainer(parse_cli(_argv(d, "pretrained", [
+        "--seed", str(rank), "--model.pretrained",
+        "--model.pretrained_path", os.path.join(d, "hub.pth")])))
+    out = {"state": {k: v.numpy().copy() for k, v in t.model.state_dict().items()},
+           "report": t.pretrained_report}
+    t.close()
+    return out
+
+
 def run_group(scenario: str, d, world: int = 2, env=None,
               timeout_s: float = 150.0) -> list:
     """Start `world` spawned ranks of `scenario` over directory `d`; fail
@@ -313,7 +329,8 @@ def run_group(scenario: str, d, world: int = 2, env=None,
 
 
 SCENARIOS = {"collectives": collectives, "env": env, "train_step": train_step,
-             "mix": mix, "trainer": trainer, "cuda_step": cuda_step}
+             "mix": mix, "trainer": trainer, "cuda_step": cuda_step,
+             "pretrained": pretrained}
 
 
 def main() -> None:

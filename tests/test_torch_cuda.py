@@ -754,3 +754,34 @@ def test_two_ranks_over_gloo_share_the_card(cuda, tmp_path):
         assert n["fused_pw_bn_act"] == n["fused_pw_bn_act.bwd_dx"] > 0
         assert n["fused_conv_bn_act"] == n["fused_conv_bn_act.bwd_dx"] > 0
 
+
+
+def test_hub_pth_load_equals_npz_load_on_the_card(cuda, tmp_path):
+    """Fine-tuning's two routes into a model on the card: a hub-layout
+    `.pth` converted on the fly and its `pva-torch-convert` artifact give
+    one state, bitwise the source's (the transposes cancel)."""
+    from pytorchvideo_accelerate_tpu_torch import models
+    from pytorchvideo_accelerate_tpu_torch.config import ModelConfig
+    from pytorchvideo_accelerate_tpu_torch.models import convert
+
+    cfg = ModelConfig(name="slowfast_t", num_classes=5)
+    src = models.create_model(cfg, "bf16", seed=3)
+    tree = convert.jax_tree_from_state_dict(src.state_dict())
+    hub = {}
+    for coll in ("params", "batch_stats"):
+        for key, arr in convert.flatten_tree(tree[coll]).items():
+            path = tuple(key.split("/"))
+            hub[convert.torch_key_for(coll, path, "slowfast_r50")] = torch.from_numpy(
+                convert.export_tensor(path, arr))
+    pth, npz = str(tmp_path / "hub.pth"), str(tmp_path / "hub.npz")
+    torch.save({"model_state": hub}, pth)
+    convert.main([pth, npz])
+    direct = models.create_model(cfg, "bf16", seed=0).to(cuda)
+    via_npz = models.create_model(cfg, "bf16", seed=1).to(cuda)
+    report = convert.load_pretrained(pth, direct)
+    assert convert.load_pretrained(npz, via_npz) == report
+    assert report["kept"] == report["mismatched"] == report["interpolated"] == []
+    want = src.state_dict()
+    for k, v in direct.state_dict().items():
+        assert v.is_cuda and torch.equal(v, via_npz.state_dict()[k]), k
+        assert torch.equal(v.cpu(), want[k]), k

@@ -669,8 +669,7 @@ def test_trainer_without_cpu_flag_needs_cuda():
 
 @pytest.mark.parametrize("extra", [
     ["--data.dataplane_workers", "2"],
-    ["--mesh.model", "2"], ["--model.pretrained_path", "w.npz"],
-    ["--data.transport", "process"]])
+    ["--mesh.model", "2"], ["--data.transport", "process"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(parse_cli(_RUN + extra))
