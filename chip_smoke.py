@@ -2092,6 +2092,11 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          **hub_interp_finetune_phase(torch, work, launches))
     emit("hub_x3d", nvidia_smi=smi, **hub_x3d_phase(torch, work, launches))
     emit("mae_handoff", nvidia_smi=smi, **mae_handoff_phase(torch, work, launches))
+    t_slice14 = time.perf_counter()
+    # 41. the model axis (tensor and context parallel)
+    # on MViT-B and VideoMAE-B, counters zeroed in each rank just before fit()
+    emit("model_axis_train", nvidia_smi=smi,
+         **model_axis_train_phase(torch, work, launches))
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -2123,7 +2128,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             if phase == "features_train":
                 sub.update(line_sums(rows, kname, "slowfast_r50"))
             kernels[-1]["train_features"] = sub
-        for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE}.items():
+        for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
+                              **MODEL_AXIS_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2135,7 +2141,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          real_video=t_slice11 - t_real,
          serving_defaults_and_preemption=t_slice12 - t_slice11,
          data_parallel=t_slice13 - t_slice12,
-         finetune=time.perf_counter() - t_slice13,
+         finetune=t_slice14 - t_slice13,
+         model_axis=time.perf_counter() - t_slice14,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -4598,6 +4605,537 @@ def mae_handoff_phase(torch, work: str, launches: dict) -> dict:
             "pretrain": fit_fields(pre), "finetune": fit_fields(ft),
             "expected_launches": want, "seconds": time.perf_counter() - t0}
 
+
+
+# --- the model axis of the train mesh ---------------------------------------
+
+# full-width MViT-B 16x4 and VideoMAE-B (16 frames at 224^2, 1568 tokens), a
+# global batch of 4 a step, 3 steps and one eval forward, bf16, dropout and
+# drop path 0, a checkpoint at the last step; each arm two ranks sharing the
+# card over gloo at (data, model) = (1, 2), against one process on the same
+# global batch
+MA_TRAIN = dict(X3D_TRAIN, batch=4, videos=12, ckpt_every=3, lr=TRANSFORMER_LR)
+MA_DROP = ["--model.dropout_rate", "0"]
+MA_ARMS = {  # arm: (model, attention, extra flags)
+    "a_mvit_tp": ("mvit_b", "pallas", ["--model.depthwise_impl", "pallas"]),
+    "b_videomae_tp": ("videomae_b", "pallas", []),
+    "c_videomae_ulysses": ("videomae_b", "ulysses", []),
+    "d_videomae_ring": ("videomae_b", "ring", []),
+}
+MA_REFS = {"mvit_b": MA_ARMS["a_mvit_tp"], "videomae_b": MA_ARMS["b_videomae_tp"]}
+MA_GRAD_TOL = 5e-2  # relative 2-norm of the gathered first-step gradient
+MA_CHILD = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.ma_child(sys.argv[2:])\n")
+# the kernel rows on the model axis's path: one rank of model_axis_train's arm (a)
+MODEL_AXIS_LINE = {"model_axis_train": ("depthwise3d_s1", "depthwise3d_s1.bwd_dx",
+                                        "flash_attention", "flash_attention.bwd_dq",
+                                        "flash_attention.bwd_dkv")}
+
+
+def ma_argv(out: str, name: str, attention: str, extra, model: int) -> list:
+    """run.py's argv of one arm: `MA_TRAIN` at `name`'s geometry, bf16,
+    head dropout 0, `--mesh.model model` (MViT-B's drop path, which has no
+    flag, is set to 0 by `ma_fit`)."""
+    spec = dict(MA_TRAIN, name=name, argv=["--model.attention", attention,
+                                           *extra, *MA_DROP])
+    return train_argv(out, spec=spec) + ["--mesh.model", str(model)]
+
+
+def state_hash(tree) -> str:
+    """sha256 over the tensors of a nested state (sorted keys), bytes on
+    the host."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif torch.is_tensor(x):
+            h.update(x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+_COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                "all_to_all_single", "batch_isend_irecv")
+
+
+def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
+    """One arm's `run.main`-style fit of `argv` in this process (a rank, or
+    the one-process reference): MViT's drop path set to 0; the counters
+    zeroed just before fit(); each optimizer step synchronised and timed,
+    its collectives counted with their bytes, and this rank's replicated
+    leaves hashed after it; the first step's gradient, gathered over the
+    model group, written by rank 0 (a flat f32 vector in sorted-name
+    order). After fit(): the launches, the ring blocks, peak memory, the
+    parameters this rank holds, and the hash of the gathered state (a
+    collective). `keep`: return (record, trainer), the trainer kept for a
+    restore."""
+    import torch.distributed as dist
+
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.models.common import DropPath
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+    from pytorchvideo_accelerate_tpu_torch.parallel import ring_attention
+    from pytorchvideo_accelerate_tpu_torch.parallel.sharding import gather_state_dict
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    os.makedirs(dump_dir, exist_ok=True)
+    trainer = Trainer(parse_cli(argv))
+    for m in trainer.model.modules():
+        if isinstance(m, DropPath):
+            m.rate = 0.0
+    model, plan = trainer.model, trainer.model_axis.plan
+    rank = pdist.process_index()
+    replicated = [p for n, p in model.named_parameters() if n not in plan]
+    rec = {"step_ms": [], "losses": [], "rep_hashes": [], "collectives": []}
+    count = {"on": False}
+    real = {n: getattr(dist, n) for n in _COLLECTIVES}
+
+    def counting(name):
+        def call(*a, **kw):
+            if count["on"]:
+                t = a[0] if a else None
+                nbytes = 0
+                if name == "batch_isend_irecv":
+                    nbytes = sum(op.tensor.numel() * op.tensor.element_size()
+                                 for op in t)
+                elif torch.is_tensor(t):
+                    nbytes = t.numel() * t.element_size()
+                count[name] = count.get(name, 0) + 1
+                count[name + "_bytes"] = count.get(name + "_bytes", 0) + nbytes
+            return real[name](*a, **kw)
+        return call
+
+    for n in _COLLECTIVES:
+        setattr(dist, n, counting(n))
+    step = trainer.train_step
+
+    def timed(state, batch):
+        torch.cuda.synchronize()
+        for k in list(count):
+            if k != "on":
+                del count[k]
+        count["on"] = True
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        count["on"] = False
+        rec["collectives"].append({k: v for k, v in count.items() if k != "on"})
+        rec["losses"].append(float(m["loss"]))
+        rec["rep_hashes"].append(state_hash([p.data for p in replicated]))
+        if len(rec["step_ms"]) == 1:
+            grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()},
+                                      plan, pdist.model_group())
+            if rank == 0:
+                torch.save(torch.cat([grads[k].float().flatten() for k in sorted(grads)]).cpu(),
+                           os.path.join(dump_dir, "grad.pt"))
+        return m
+
+    trainer.train_step = timed
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fused.reset_launch_counts()
+    ring_attention.RING_BLOCKS[0] = 0
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+    finally:
+        for n in _COLLECTIVES:
+            setattr(dist, n, real[n])
+    rec["fit_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(fused.LAUNCHES)
+    rec["ring_blocks"] = ring_attention.RING_BLOCKS[0]
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["params_this_rank"] = sum(p.numel() for p in model.parameters())
+    rec["mode"] = trainer.model_axis.mode
+    rec["rank"], rec["world"] = rank, pdist.process_count()
+    rec["result"] = result
+    rec["checkpoint"] = os.path.join(trainer.checkpointer.directory,
+                                     str(trainer.checkpointer.latest_step()))
+    rec["gathered_state_hash"] = state_hash(trainer.state.state_dict())
+    if keep:
+        return rec, trainer
+    del trainer, model, replicated
+    free_cuda(torch)
+    return rec
+
+
+def ma_child(args) -> None:
+    """A model_axis_train child: `mode rank world address dump_dir arms`,
+    `arms` a JSON list of [tag, argv]; each arm's fit in turn, one record
+    line each (gloo: two ranks on one card; env: the launcher's PVA_* env
+    over NCCL, one card a rank)."""
+    import torch
+
+    mode, rank, world, address, dump_dir, arms = args
+    rank, world = int(rank), int(world)
+    # as the smoke's own process (the one-process references) runs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+
+    if mode == "gloo":
+        pdist.initialize_distributed(address, world, rank, backend="gloo",
+                                     timeout_s=DP_CHILD_TIMEOUT_S)
+    for tag, argv in json.loads(arms):
+        rec = ma_fit(torch, argv, os.path.join(dump_dir, tag))
+        print("CHILD_RESULT " + json.dumps({"tag": tag, **rec}, default=str), flush=True)
+
+
+def ma_group(mode: str, world: int, out: str, arms) -> list:
+    """`world` ranks of `mode` running `arms` ([(tag, argv)]) in turn;
+    returns {tag: [each rank's record]}."""
+    import threading
+
+    from pytorchvideo_accelerate_tpu_torch.launch import find_free_port
+
+    os.makedirs(out, exist_ok=True)
+    address = f"127.0.0.1:{find_free_port()}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-c", MA_CHILD, root, mode, str(r), str(world),
+         address, out, json.dumps(arms)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    got = [None] * world
+
+    def read(r):
+        lines, records = [], []
+        timer = threading.Timer(DP_CHILD_TIMEOUT_S * len(arms), procs[r].kill)
+        timer.start()
+        try:
+            for line in procs[r].stdout:
+                lines.append(line.rstrip("\n"))
+                if line.startswith("CHILD_RESULT "):
+                    records.append(json.loads(line[len("CHILD_RESULT "):]))
+            procs[r].wait()
+        finally:
+            timer.cancel()
+        got[r] = (lines, records)
+
+    threads = [threading.Thread(target=read, args=(r,)) for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r, (lines, records) in enumerate(got):
+        check(procs[r].returncode == 0 and len(records) == len(arms),
+              f"model_axis_train {mode} rank {r} rc {procs[r].returncode}: {lines[-25:]}")
+    return {tag: [got[r][1][i] for r in range(world)]
+            for i, (tag, _) in enumerate(arms)}
+
+
+def ma_restore_hash(torch, trainer, ckpt: str) -> tuple:
+    """The hash of one process's state (`trainer`'s, the one-process
+    reference's) after `Checkpointer.restore` of the step directory `ckpt`,
+    and the seconds the restore took."""
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    Checkpointer(os.path.dirname(ckpt)).restore(trainer.state,
+                                                step=int(os.path.basename(ckpt)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return state_hash(trainer.state.state_dict()), seconds
+
+
+def ma_expected(name: str, attention: str) -> dict:
+    """Each rank's launches of one arm's fit(): its model's kernels per
+    forward (a ring arm's attention launches none) over 3 micro-steps and
+    1 eval forward, backward rows over the micro-steps; and the ring's
+    online-softmax blocks (2 a ring attention call at cp 2)."""
+    per_forward = expected_forward_launches(name)
+    if attention == "ring":
+        per_forward = {k: v for k, v in per_forward.items() if k != "flash_attention"}
+    want = expected_train_launches(dict(MA_TRAIN, name=name), per_forward)
+    forwards = want["micro_steps"] + want["eval_forwards"]
+    blocks = 2 * VIT_DEPTH * forwards if attention == "ring" else 0
+    return {**{k: want[k] for k in SOURCES}, "ring_blocks": blocks}
+
+
+def model_axis_train_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 41. The train mesh's model axis on full-width MViT-B 16x4 and
+    VideoMAE-B through `run.main`'s Trainer: the one-process references of
+    both (in this process, which joins no group), then the four arms (a) MViT-B tensor-parallel, (b)
+    VideoMAE-B tensor-parallel, (c) VideoMAE-B Ulysses, (d) VideoMAE-B
+    ring, each two ranks at (1, 2) sharing the card over gloo (one child
+    group running them in turn), every run on the same global batch of 4
+    clips a step, 3 steps. Held per arm: the losses within 5e-2 * (1 +
+    |loss|) of one process's; the first step's gathered gradient (the same
+    weights and clips) within 5e-2 relative 2-norm of one process's; the
+    replicated leaves bitwise equal across the ranks after every step;
+    exact launches a rank (rows 4-7 for (a), 5-7 for (b) and (c), none for
+    (d), whose ring blocks are counted); the checkpoint written at (1, 2)
+    restored in one process bitwise the gathered state. (e) runs (a) over
+    NCCL on two cards where the machine has them, and ring and Ulysses
+    there over NCCL against one card (`ma_nccl_cp`). Reports step ms against
+    one process, peak memory and parameters a rank, and the collectives a
+    micro-step with their bytes."""
+    t0 = time.perf_counter()
+    free_cuda(torch)
+    d = os.path.join(work, "model_axis")
+    refs, ref_trainers = {}, {}
+    for name, (_, att, extra) in MA_REFS.items():
+        rec, ref_trainers[name] = ma_fit(
+            torch, ma_argv(os.path.join(d, "one", name), name, att, extra, 1),
+            os.path.join(d, "one", name), keep=True)
+        refs[name] = [rec]
+    free_cuda(torch)
+    arms = ma_group("gloo", 2, os.path.join(d, "two"), [
+        (tag, ma_argv(os.path.join(d, "two", tag), name, att, extra, 2))
+        for tag, (name, att, extra) in MA_ARMS.items()])
+    free_cuda(torch)
+    out = {"global_batch": MA_TRAIN["batch"], "steps": 3, "mesh": [1, 2],
+           "transport": "gloo, two ranks on one card"}
+    for name, (ref,) in refs.items():
+        want = ma_expected(name, "pallas")
+        got = {**{k: ref["launches"].get(k, 0) for k in SOURCES},
+               "ring_blocks": ref["ring_blocks"]}
+        check(got == want, f"one-process {name} launches {got}, expected {want}")
+    for tag, (name, att, _) in MA_ARMS.items():
+        recs, ref = arms[tag], refs[name][0]
+        want = ma_expected(name, att)
+        for rec in recs:
+            got = {**{k: rec["launches"].get(k, 0) for k in SOURCES},
+                   "ring_blocks": rec["ring_blocks"]}
+            check(got == want, f"{tag} rank {rec['rank']} launches {got}, expected {want}")
+        check(recs[0]["rep_hashes"] == recs[1]["rep_hashes"],
+              f"{tag}: the ranks' replicated leaves differ after a step")
+        check(recs[0]["losses"] == recs[1]["losses"], f"{tag}: the ranks' losses differ")
+        diffs = [abs(a - b) for a, b in zip(recs[0]["losses"], ref["losses"])]
+        check(len(diffs) == 3 and all(x <= LOGIT_TOL * (1 + abs(b))
+                                      for x, b in zip(diffs, ref["losses"])),
+              f"{tag} losses {recs[0]['losses']} against one process's {ref['losses']}")
+        g = torch.load(os.path.join(d, "two", tag, "grad.pt"))
+        g_ref = torch.load(os.path.join(d, "one", name, "grad.pt"))
+        grad_err = rel_err(g, g_ref)
+        check(grad_err <= MA_GRAD_TOL, f"{tag} first-step gradient rel err {grad_err}")
+        restored, restore_s = ma_restore_hash(torch, ref_trainers[name],
+                                              recs[0]["checkpoint"])
+        check(restored == recs[0]["gathered_state_hash"] == recs[1]["gathered_state_hash"],
+              f"{tag}: the (1, 2) checkpoint restored in one process is not the "
+              "gathered state")
+        step_ms = spread(recs[0]["step_ms"][1:])
+        coll = recs[0]["collectives"][-1]
+        out[tag] = {
+            "model": name, "attention": att, "mode": recs[0]["mode"],
+            "losses": recs[0]["losses"], "losses_one_process": ref["losses"],
+            "loss_max_abs_diff_vs_one_process": max(diffs),
+            "grad_rel_err_vs_one_process": grad_err,
+            "replicated_bitwise_every_step": True, "restore_bitwise": True,
+            "restore_s": restore_s,
+            "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
+            "ring_blocks_per_rank": recs[0]["ring_blocks"],
+            "step_ms": step_ms, "step_ms_all": recs[0]["step_ms"],
+            "step_ms_one_process": spread(ref["step_ms"][1:]),
+            "step_ms_ratio_vs_one_process": (step_ms["median"]
+                                             / spread(ref["step_ms"][1:])["median"]),
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in recs],
+            "peak_mem_gb_one_process": ref["peak_mem_gb"],
+            "params_per_rank": recs[0]["params_this_rank"],
+            "params_one_process": ref["params_this_rank"],
+            "collectives_per_micro_step": coll,
+            "fit_s": recs[0]["fit_s"]}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        out["e_mvit_tp_nccl_two_cards"] = ma_launched_arm(torch, d, refs["mvit_b"][0])
+        out["e_nccl_context_parallel"] = ma_nccl_cp(os.path.join(d, "cp"))
+    else:
+        emit("model_axis_train_e", run=False,
+             why=f"NCCL across cards needs two cards; this machine has {n_cards} "
+                 "(NCCL refuses two ranks on one card)")
+    del ref_trainers
+    free_cuda(torch)
+    launches["model_axis_train"] = arms["a_mvit_tp"][0]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def ma_launched_arm(torch, d: str, ref: dict) -> dict:
+    """(e): arm (a) through `launch.py --num_processes 2`, one card a rank
+    over NCCL (the launcher's PVA_* env), held as (a)."""
+    import threading
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(d, "nccl")
+    os.makedirs(out, exist_ok=True)
+    name, att, extra = MA_ARMS["a_mvit_tp"]
+    argv = ma_argv(os.path.join(out, "e"), name, att, extra, 2)
+    script = os.path.join(out, "ma_launched.py")
+    with open(script, "w") as f:
+        f.write("import json, os, sys\n"
+                f"sys.path.insert(0, {root!r})\n"
+                "import chip_smoke\n"
+                "chip_smoke.ma_child(['env', os.environ['PVA_PROCESS_ID'], "
+                "os.environ['PVA_NUM_PROCESSES'], '', sys.argv[1], sys.argv[2]])\n")
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "pytorchvideo_accelerate_tpu_torch.launch",
+         "--num_processes", "2", "--timeout", str(DP_CHILD_TIMEOUT_S), "--",
+         script, out, json.dumps([["e", argv]])], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines, records = [], []
+    timer = threading.Timer(DP_CHILD_TIMEOUT_S + 30, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            body = line.split("] ", 1)[1] if line.startswith("[rank ") else line
+            if body.startswith("CHILD_RESULT "):
+                records.append(json.loads(body[len("CHILD_RESULT "):]))
+        proc.wait()
+    finally:
+        timer.cancel()
+    check(proc.returncode == 0 and len(records) == 2,
+          f"(e) launch rc {proc.returncode}: {lines[-25:]}")
+    records.sort(key=lambda r: r["rank"])
+    want = ma_expected(name, att)
+    for rec in records:
+        got = {**{k: rec["launches"].get(k, 0) for k in SOURCES},
+               "ring_blocks": rec["ring_blocks"]}
+        check(got == want, f"(e) rank {rec['rank']} launches {got}, expected {want}")
+    check(records[0]["rep_hashes"] == records[1]["rep_hashes"],
+          "(e) the ranks' replicated leaves differ after a step")
+    diffs = [abs(a - b) for a, b in zip(records[0]["losses"], ref["losses"])]
+    check(all(x <= LOGIT_TOL * (1 + abs(b)) for x, b in zip(diffs, ref["losses"])),
+          f"(e) losses {records[0]['losses']} against one process's {ref['losses']}")
+    return {"losses": records[0]["losses"], "loss_max_abs_diff_vs_one_process": max(diffs),
+            "step_ms": spread(records[0]["step_ms"][1:]),
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in records],
+            "collectives_per_micro_step": records[0]["collectives"][-1]}
+
+
+# the ring and Ulysses shapes (e) holds over NCCL: VideoMAE-B's attention
+# (B=2, 1568 tokens, 12 heads of 64) and a ragged MViT-like pair (Nq 391,
+# Nk 97, 8 heads of 96)
+MA_CP_SHAPES = {"videomae": (2, 1568, 1568, 12, 64), "ragged": (2, 391, 97, 8, 96)}
+MA_CP_CHILD = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.ma_cp_child()\n")
+
+
+def ma_cp_child() -> None:
+    """One rank of (e)'s context-parallel check, joined by the launcher's
+    PVA_* env (NCCL, one card a rank): ring in f32 against `dense_attention`
+    and Ulysses in bf16 (the flash kernels on each rank's heads) against one
+    card's `flash_attention`, outputs and the gradients of q, k, v, on the
+    seeded `MA_CP_SHAPES`; then `gather_list` of one tensor a rank. Rank 0
+    prints its record."""
+    import torch
+
+    from pytorchvideo_accelerate_tpu_torch.ops.attention import dense_attention
+    from pytorchvideo_accelerate_tpu_torch.ops.flash_attention import flash_attention
+    from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+    from pytorchvideo_accelerate_tpu_torch.parallel import ring_attention as ring
+    from pytorchvideo_accelerate_tpu_torch.parallel.collectives import gather_list
+    from pytorchvideo_accelerate_tpu_torch.parallel.ulysses import ulysses_attention
+
+    pdist.initialize_distributed(timeout_s=DP_CHILD_TIMEOUT_S)
+    world = pdist.process_count()
+    pdist.initialize_mesh(world)
+    group = pdist.model_group()
+    dev = torch.device("cuda", pdist.local_device_index())
+    out = {"world": world, "backend": torch.distributed.get_backend(group)}
+
+    def run(fn, q, k, v, ct):
+        q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(q, k, v)
+        (o.float() * ct).sum().backward()
+        return o.detach().float(), [t.grad.float() for t in (q, k, v)]
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    rng = np.random.default_rng(SEED)
+    for tag, (b, nq, nk, h, d) in MA_CP_SHAPES.items():
+        def mk(n):
+            return torch.from_numpy(rng.standard_normal((b, n, h, d), np.float32)).to(dev)
+
+        q, k, v, ct = mk(nq), mk(nk), mk(nk), mk(nq)
+        for name, local, ref, dtype in (
+                ("ring", ring.ring_attention, dense_attention, torch.float32),
+                ("ulysses", ulysses_attention, flash_attention, torch.bfloat16)):
+            args = [t.to(dtype) for t in (q, k, v)]
+            want_o, want_g = run(ref, *args, ct)
+            got_o, got_g = run(lambda *a: ring.cp_attention(*a, local, group), *args, ct)
+            out[f"{tag}/{name}"] = {"out": err(got_o, want_o),
+                                    "grads": [err(g, w) for g, w in zip(got_g, want_g)],
+                                    "scale": float(want_o.abs().max())}
+    x = torch.full((3, 5), float(pdist.process_index()), device=dev)
+    out["gather"] = [float(t.mean()) for t in gather_list(x, group)]
+    if pdist.is_main_process():
+        print("CHILD_RESULT " + json.dumps(out), flush=True)
+
+
+def ma_nccl_cp(d: str) -> dict:
+    """(e)'s context-parallel check: `ma_cp_child` on two cards through
+    `launch.py`. Held: ring within 1e-5 of dense in f32 (gradients 1e-4);
+    Ulysses within 1e-2 * (1 + max |out|) of one card's flash attention in
+    bf16; the gather in rank order."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(d, "ma_cp.py")
+    os.makedirs(d, exist_ok=True)
+    with open(script, "w") as f:
+        f.write(MA_CP_CHILD)
+    proc = subprocess.run(
+        [sys.executable, "-u", "-m", "pytorchvideo_accelerate_tpu_torch.launch",
+         "--num_processes", "2", "--timeout", str(DP_CHILD_TIMEOUT_S), "--",
+         script, root], cwd=root, capture_output=True, text=True,
+        timeout=DP_CHILD_TIMEOUT_S + 30)
+    lines = (proc.stdout + proc.stderr).splitlines()
+    rec = next((json.loads(ln[len("CHILD_RESULT "):]) for ln in lines
+                if ln.startswith("CHILD_RESULT ")), None)
+    check(proc.returncode == 0 and rec is not None,
+          f"(e) context-parallel check rc {proc.returncode}: {lines[-25:]}")
+    for tag in MA_CP_SHAPES:
+        r, u = rec[f"{tag}/ring"], rec[f"{tag}/ulysses"]
+        check(r["out"] <= 1e-5 and max(r["grads"]) <= 1e-4, f"(e) ring {tag}: {r}")
+        tol = KERNEL_TOL * (1 + u["scale"])
+        check(u["out"] <= tol and max(u["grads"]) <= tol, f"(e) ulysses {tag}: {u}")
+    check(rec["gather"] == [0.0, 1.0], f"(e) gather {rec['gather']}")
+    return rec
+
+
+def model_axis_e_main() -> int:
+    """Arm (e) alone, for a machine of two or more cards: the kernels'
+    build, the one-process MViT-B reference, (a) over NCCL through the
+    launcher, the NCCL ring / Ulysses check; one JSON line."""
+    import torch
+
+    from pytorchvideo_accelerate_tpu_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()
+    _build.build()
+    with tempfile.TemporaryDirectory(prefix="pva_model_axis_e_") as w:
+        name, att, extra = MA_ARMS["a_mvit_tp"]
+        ref = ma_fit(torch, ma_argv(os.path.join(w, "one"), name, att, extra, 1),
+                     os.path.join(w, "one"))
+        out = {"nvidia_smi": smi, "cards": torch.cuda.device_count(),
+               "one_process_step_ms": spread(ref["step_ms"][1:]),
+               "e_mvit_tp_nccl_two_cards": ma_launched_arm(torch, w, ref),
+               "e_nccl_context_parallel": ma_nccl_cp(os.path.join(w, "cp"))}
+    print(json.dumps(out, default=str), flush=True)
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,8 +9,10 @@ x3d_xs, x3d_s, x3d_m, x3d_l, csn_r101, r2plus1d_r50, mvit_b, mvit_b_32x3,
 mvit_t, videomae_b, videomae_b_pretrain, videomae_t and videomae_t_pretrain,
 every name of the JAX package's registry. `--model.remat` checkpoints
 every block of the transformer families (MViT, VideoMAE), as the JAX
-package does; their options that need several devices (`--model.attention
-ring|ulysses`) raise NotImplementedError (ROADMAP.md).
+package does. `model_axis` (a `parallel/tensor_parallel.ModelAxis`) lays
+the model out on the train mesh's model axis: every rank builds the
+full-width model from the seed, then keeps its shards
+(`apply_model_axis`), so the init equals one process's slice for slice.
 MViT's `pos_embed` is sized by the clip geometry, `data_cfg` (num_frames,
 crop_size; `DataConfig()` when none is given). Each classifier class carries
 `backbone_param_filter(path)` (True for the backbone, `path` the
@@ -174,11 +176,14 @@ def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
-                 seed: int = 0, data_cfg: DataConfig = None) -> nn.Module:
+                 seed: int = 0, data_cfg: DataConfig = None,
+                 model_axis=None) -> nn.Module:
     """Build the module for `cfg.name`, initialised by `init_like_jax` from
     a generator seeded with `seed`. `mixed_precision` "bf16"/"fp16" computes
     in bf16 with f32 parameters, else f32. `data_cfg` gives the clip
-    geometry that sizes MViT's `pos_embed` (default `DataConfig()`)."""
+    geometry that sizes MViT's `pos_embed` (default `DataConfig()`).
+    `model_axis` (a `parallel/tensor_parallel.ModelAxis`): cut the model
+    to that rank's shards after the init."""
     if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {available_models()}")
@@ -191,6 +196,13 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
     model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision),
                                 data_cfg or DataConfig())
     init_like_jax(model, torch.Generator().manual_seed(seed))
+    if model_axis is not None:
+        # here, not at the top: tensor_parallel builds on models/common.py
+        from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+            apply_model_axis,
+        )
+
+        apply_model_axis(model, model_axis)
     return model
 
 

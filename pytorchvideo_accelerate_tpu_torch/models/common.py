@@ -40,9 +40,10 @@ from pytorchvideo_accelerate_tpu_torch.ops.fused import (
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.collectives import all_reduce_sum
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    data_count,
+    data_group,
+    data_index,
     is_distributed,
-    process_count,
-    process_index,
 )
 from pytorchvideo_accelerate_tpu_torch.precision import end_island, f32_island
 
@@ -116,9 +117,10 @@ def batch_norm_stats(raw32: torch.Tensor, dims=None):
     defaults to every axis but the last (NDHWC).
 
     With a process group up (data-parallel training) E[x] and E[x^2] are
-    averaged over the ranks before the variance: every rank holds an equal
-    share of the global batch, so these are the global batch's moments, the
-    statistics the JAX package's BatchNorm takes over its sharded batch.
+    averaged over the data group before the variance: every data slice
+    holds an equal share of the global batch, so these are the global
+    batch's moments, the statistics the JAX package's BatchNorm takes over
+    its sharded batch (the ranks of one model group hold the same slice).
     One all-reduce of 2C floats per call, and one more in the backward."""
     if dims is None:
         dims = tuple(range(raw32.dim() - 1))
@@ -131,8 +133,9 @@ def batch_norm_stats(raw32: torch.Tensor, dims=None):
 
 
 def _all_reduce_stats(moments: torch.Tensor) -> torch.Tensor:
-    """The ranks' mean of the stacked per-channel moments, differentiable."""
-    return all_reduce_sum(moments) / process_count()
+    """The data group's mean of the stacked per-channel moments,
+    differentiable."""
+    return all_reduce_sum(moments, group=data_group()) / data_count()
 
 
 def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
@@ -148,13 +151,14 @@ def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
 
 def batch_rand(shape, generator: torch.Generator, device=None) -> torch.Tensor:
     """Uniform draws of `shape` (batch first) from `generator`: with a
-    process group up, this rank's rows of the draws of the whole global
-    batch (every rank draws them all from the same stream), so a clip's
-    draw depends on its row of the global batch, not on its rank."""
-    world = process_count()
+    process group up, this data slice's rows of the draws of the whole
+    global batch (every rank draws them all from the same stream), so a
+    clip's draw depends on its row of the global batch, not on its rank,
+    and the ranks of one model group draw alike (one JAX key)."""
+    world = data_count()
     if world == 1:
         return torch.rand(shape, generator=generator, device=device)
-    b, rank = shape[0], process_index()
+    b, rank = shape[0], data_index()
     full = torch.rand((world * b,) + tuple(shape[1:]), generator=generator,
                       device=device)
     return full[rank * b:(rank + 1) * b]

@@ -23,9 +23,15 @@ flax names, so a state_dict key is the flax path (`block0.attn.qkv.weight`,
 `block14.attn.pool_k.pool.weight`, `pos_embed`).
 
 `remat` checkpoints every block (`models/common.py remat_call`, the JAX
-package's `nn.remat(MViTBlock)`). Not ported: the pipelined block stack
-(`pipeline`), block-boundary sharding (`shard_mesh`), context-parallel
-meshes and the streaming stem seam (`from_stem`).
+package's `nn.remat(MViTBlock)`). On the model axis
+(`parallel/tensor_parallel.py apply_model_axis`) an attention whose heads
+divide it runs its local heads (`split_heads`): `qkv` column-parallel and
+head-aligned, the pools on the local heads' channels of their shared
+weights, `proj` row-parallel; `mlp_fc1` / `mlp_fc2` split as a
+column / row pair and `skip_proj` stays replicated. `--model.attention
+ring|ulysses` splits the attention's tokens over the same axis instead.
+Not ported: the pipelined block stack (`pipeline`), block-boundary
+sharding (`shard_mesh`) and the streaming stem seam (`from_stem`).
 
 Input: (B, T, H, W, 3) NDHWC, normalized frames.
 """
@@ -71,10 +77,12 @@ class PoolHeads(nn.Module):
                                         impl=depthwise_impl, dtype=dtype)
             self.norm = LayerNorm(head_dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels: slice = None) -> torch.Tensor:
+        """`channels`: the slice of the pool's channels that x holds (a
+        split attention's local heads)."""
         if not self.active:
             return x
-        x = self.pool(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        x = self.pool(x.permute(0, 4, 1, 2, 3), channels).permute(0, 2, 3, 4, 1)
         shape = x.shape
         x = self.norm(x.reshape(*shape[:-1], shape[-1] // self.head_dim,
                                 self.head_dim))
@@ -101,20 +109,35 @@ class MultiScaleAttention(nn.Module):
         self.pool_v = PoolHeads(dim, kv_stride, self.head_dim, always=True,
                                 depthwise_impl=depthwise_impl, dtype=dtype)
         self.proj = Dense(dim, dim, dtype)
+        self.local_heads, self.local_dim, self.channels = num_heads, dim, None
+
+    def split_heads(self, count: int, index: int) -> None:
+        """Run heads [index H / count, (index + 1) H / count) only (the
+        model axis's `qkv` and `proj` shards hold them)."""
+        self.local_heads = self.num_heads // count
+        self.local_dim = self.dim // count
+        self.channels = slice(index * self.local_dim, (index + 1) * self.local_dim)
+
+    def partial_pools(self):
+        """The pools whose shared weights this rank uses in part."""
+        if self.channels is None:
+            return []
+        return [n for n in ("pool_q", "pool_k", "pool_v")
+                if getattr(self, n).active]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = x.shape[0]
-        q, k, v = self.qkv(x).split(self.dim, dim=-1)
-        q, k, v = self.pool_q(q), self.pool_k(k), self.pool_v(v)
+        b, ch = x.shape[0], self.channels
+        q, k, v = self.qkv(x).split(self.local_dim, dim=-1)
+        q, k, v = self.pool_q(q, ch), self.pool_k(k, ch), self.pool_v(v, ch)
         grid = q.shape[1:4]
 
         def tokens(t):
-            return t.reshape(b, -1, self.num_heads, self.head_dim)
+            return t.reshape(b, -1, self.local_heads, self.head_dim)
 
         attn = dot_product_attention(tokens(q), tokens(k), tokens(v),
                                      backend=self.backend)
         # residual Q pooling (paper §3.1, the improved MViTv2 form)
-        attn = attn.reshape(b, *grid, self.dim) + q
+        attn = attn.reshape(b, *grid, self.local_dim) + q
         return self.proj(attn)
 
 

@@ -23,8 +23,14 @@ block0.qkv.weight`, `dec_block1.mlp_fc2.bias`, `mask_token`).
 
 `remat` checkpoints every ViTBlock, encoder and decoder
 (`models/common.py remat_call`, the JAX package's `nn.remat(ViTBlock)`).
-Not ported: the pipelined block stacks (`pipeline`), block-boundary
-sharding and context-parallel meshes.
+On the model axis (`parallel/tensor_parallel.py apply_model_axis`) a
+ViTBlock whose heads divide it runs its local heads (`split_heads`: `qkv`
+column-parallel and head-aligned, `proj` row-parallel) and every block's
+MLP splits as a column / row pair; the decoder's attention stays
+replicated (the JAX rules name no `dec_block*` `proj`). `--model.attention
+ring|ulysses` splits the attention's tokens over the same axis instead.
+Not ported: the pipelined block stacks (`pipeline`) and block-boundary
+sharding.
 """
 
 from __future__ import annotations
@@ -94,8 +100,16 @@ class ViTBlock(nn.Module):
         self.norm2 = LayerNorm(dim, dtype=dtype)
         self.mlp_fc1 = Dense(dim, int(dim * mlp_ratio), dtype)
         self.mlp_fc2 = Dense(int(dim * mlp_ratio), dim, dtype)
+        self.local_heads, self.local_dim = num_heads, dim
         if remat:
             check_remat_block(self)
+
+    def split_heads(self, count: int, index: int) -> None:
+        """Run this rank's 1/count of the heads (the model axis's `qkv` and
+        `proj` shards hold them; `index` places them there)."""
+        del index
+        self.local_heads = self.num_heads // count
+        self.local_dim = self.dim // count
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         if self.remat:
@@ -104,12 +118,12 @@ class ViTBlock(nn.Module):
 
     def _forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         b, n, _ = x.shape
-        shape = (b, n, self.num_heads, self.dim // self.num_heads)
-        q, k, v = self.qkv(self.norm1(x)).split(self.dim, dim=-1)
+        shape = (b, n, self.local_heads, self.dim // self.num_heads)
+        q, k, v = self.qkv(self.norm1(x)).split(self.local_dim, dim=-1)
         attn = dot_product_attention(q.reshape(shape), k.reshape(shape),
                                      v.reshape(shape), backend=self.backend,
                                      mask=mask)
-        x = x + self.proj(attn.reshape(b, n, self.dim))
+        x = x + self.proj(attn.reshape(b, n, self.local_dim))
         return x + self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
 
 

@@ -10,15 +10,19 @@ choice:
   port never calls `F.scaled_dot_product_attention`.
 - "pallas": `flash_attention` (ops/flash_attention.py), the hand kernels on
   the card; the name is kept so configs cross with the JAX package.
-- "ring" / "ulysses": context-parallel attention over several devices;
-  not ported (the multi-GPU item of ROADMAP.md), they raise.
+- "ring" / "ulysses": context-parallel attention over the train mesh's
+  model axis (`parallel/ring_attention.py`, `parallel/ulysses.py`, through
+  `cp_attention` over `distributed.model_group()`): the token axis split
+  over the model group's ranks inside attention, the full result on every
+  rank after it. Without a model axis they run on one rank (one ring
+  block; Ulysses's local flash attention).
 
 Shapes: q (B, Nq, H, D), k/v (B, Nk, H, D) -> (B, Nq, H, D).
 
 `mask`: optional bool broadcastable to (B, H, Nq, Nk), True = attend (the
 causal/windowed VideoMAE trunks, built by `temporal_band_mask`). Dense
-only: the flash kernels have no masked lowering and refuse a mask rather
-than drop it.
+only: the flash kernels and the context-parallel backends have no masked
+lowering and refuse a mask rather than drop it.
 """
 
 from __future__ import annotations
@@ -28,10 +32,15 @@ from typing import Optional
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.ops.flash_attention import flash_attention
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import model_group
+from pytorchvideo_accelerate_tpu_torch.parallel.ring_attention import (
+    cp_attention,
+    ring_attention,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.ulysses import ulysses_attention
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 
 ATTENTION_BACKENDS = ("dense", "pallas", "ring", "ulysses")
-_MULTI_DEVICE = ("ring", "ulysses")
 
 
 def dense_attention(q, k, v, scale: Optional[float] = None, mask=None):
@@ -64,12 +73,7 @@ def temporal_band_mask(t: int, hw: int, window: int, device=None):
 
 
 def check_backend(backend: str) -> None:
-    """Raise for a backend the port cannot run."""
-    if backend in _MULTI_DEVICE:
-        raise NotImplementedError(
-            f"attention backend {backend!r} (context-parallel, several "
-            "devices) is not ported to PyTorch yet (the multi-GPU item of "
-            "ROADMAP.md); use dense or pallas")
+    """Raise for an unknown backend."""
     if backend not in ATTENTION_BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected one "
                          f"of {ATTENTION_BACKENDS}")
@@ -84,4 +88,8 @@ def dot_product_attention(q, k, v, backend: str = "dense", mask=None):
             f"attention backend {backend!r} has no masked lowering; "
             "causal/windowed trunks need backend='dense' (model.attention)")
     check_backend(backend)
+    if backend == "ring":
+        return cp_attention(q, k, v, ring_attention, model_group())
+    if backend == "ulysses":
+        return cp_attention(q, k, v, ulysses_attention, model_group())
     return flash_attention(q, k, v)

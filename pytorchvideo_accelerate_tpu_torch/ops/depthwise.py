@@ -108,13 +108,16 @@ class DepthwiseConv3D(nn.Conv3d):
         self.impl = impl
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+    def forward(self, x: torch.Tensor, channels: slice = None) -> torch.Tensor:
+        """`channels`: run on that slice of the weight's channels only (x
+        holds just those), as a split MViT attention pools its heads."""
+        w = self.weight if channels is None else self.weight[channels]
+        x, w = x.to(self.dtype), w.to(self.dtype)
         s1_odd = (self.stride == (1, 1, 1)
                   and all(k % 2 for k in self.kernel_size))
         if self.impl == "conv" or (self.impl == "pallas" and not s1_odd):
             return F.conv3d(x, w, None, self.stride, self.padding, 1,
-                            self.groups)
+                            w.shape[0])
         xl, kl = x.permute(0, 2, 3, 4, 1), w.permute(2, 3, 4, 1, 0)
         if self.impl == "shift":
             y = depthwise_conv3d_shift(xl, kl, self.stride)

@@ -1,4 +1,5 @@
-"""Data parallelism across processes (the port's copy of what it has of the
-JAX package's `parallel/`: the process group, host collectives and the
-data axis of the train mesh; the model axis, ring and ulysses attention,
-FSDP and the pipeline are queued in ROADMAP.md)."""
+"""Parallelism across processes (the port's copy of what it has of the
+JAX package's `parallel/`: the process group, host collectives, the
+(data, model) train mesh, tensor parallelism and ring / Ulysses context
+parallelism over its model axis; FSDP, the pipeline and the hang check are
+queued in ROADMAP.md)."""

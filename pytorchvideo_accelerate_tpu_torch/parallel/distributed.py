@@ -9,6 +9,18 @@ them into one `torch.distributed` group over
 ranks on one card); a failing NCCL init fails the run, it never falls
 back. Each rank trains on card `rank % torch.cuda.device_count()`.
 
+The train mesh: after `initialize_distributed`, `initialize_mesh(model)`
+lays the ranks out on the (data, model) grid, rank r at (r // model,
+r % model) (the row-major order of the JAX package's device grid on the
+CPU), and makes one data group per model index (the ranks that hold the
+same shard of the model, over which gradients are averaged) and one model
+group per data index (the ranks that share a slice of the global batch,
+over which heads, MLP widths or tokens are split). `data_index()`,
+`data_count()`, `model_index()`, `model_count()`, `data_group()` and
+`model_group()` read it; at model 1 (or with no group) they are the
+rank, the world size, 0, 1, the default group and None, so a
+data-parallel job runs as before.
+
 Host-side agreement (barriers, the resume step, the preemption flag,
 desync fingerprints) runs over `host_group()`: the group itself under
 gloo, a gloo group beside it under NCCL, so that a host collective moves
@@ -32,6 +44,10 @@ import torch.distributed as dist
 
 _INITIALIZED = False
 _HOST_GROUP = None
+# the train mesh: model-axis size, this rank's data and model groups
+_MODEL_COUNT = 1
+_DATA_GROUP = None
+_MODEL_GROUP = None
 
 
 def initialize_distributed(coordinator_address: str = "",
@@ -91,6 +107,88 @@ def _destroy() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    reset_mesh()
+
+
+def mesh_ranks(data: int, model: int) -> tuple:
+    """(data groups, model groups) of a (data, model) grid as lists of
+    global ranks: data group m holds ranks m, model + m, 2 model + m, ...;
+    model group d holds ranks d * model ... d * model + model - 1."""
+    return ([[d * model + m for d in range(data)] for m in range(model)],
+            [[d * model + m for m in range(model)] for d in range(data)])
+
+
+def initialize_mesh(model: int) -> None:
+    """Lay the ranks out on the (world // model, model) train mesh and make
+    its groups (`dist.new_group`, every rank the same calls in the same
+    order, as torch requires). model 1 makes no group. Idempotent for the
+    same size; another size replaces the layout (after a `reset_mesh`)."""
+    global _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP
+    world = process_count()
+    if model < 1 or world % model:
+        raise ValueError(f"mesh.model={model} does not divide device count "
+                         f"{world}")
+    if model == _MODEL_COUNT and (model == 1 or _MODEL_GROUP is not None):
+        return
+    reset_mesh()
+    if model == 1:
+        return
+    rank = process_index()
+    data_groups, model_groups = mesh_ranks(world // model, model)
+    for ranks in data_groups:
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            _DATA_GROUP = g
+    for ranks in model_groups:
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            _MODEL_GROUP = g
+    _MODEL_COUNT = model
+
+
+def reset_mesh() -> None:
+    """Back to the data-parallel layout (model 1); the groups are left to
+    the process group's teardown."""
+    global _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP
+    _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP = 1, None, None
+
+
+def model_count() -> int:
+    """Ranks on the model axis (1 without a mesh)."""
+    return _MODEL_COUNT
+
+
+def model_index() -> int:
+    return process_index() % _MODEL_COUNT
+
+
+def data_count() -> int:
+    """Ranks on the data axis: the slices of every global batch."""
+    return process_count() // _MODEL_COUNT
+
+
+def data_index() -> int:
+    return process_index() // _MODEL_COUNT
+
+
+def data_group():
+    """This rank's data group: the default group at model 1."""
+    if _MODEL_COUNT == 1:
+        return dist.group.WORLD if is_distributed() else None
+    return _DATA_GROUP
+
+
+def model_group():
+    """This rank's model group; None at model 1."""
+    return _MODEL_GROUP
+
+
+def group_ranks(group) -> list:
+    """The global ranks of `group` in group-rank order (the world's for
+    the default group or None)."""
+    if group is None or group is dist.group.WORLD:
+        return list(range(process_count()))
+    return dist.get_process_group_ranks(group)
 
 
 def host_group():

@@ -1,11 +1,14 @@
-"""The train mesh's shape (counterpart of the data axis of the JAX package's
-`parallel/mesh.py`).
+"""The train mesh's shape (counterpart of the JAX package's
+`parallel/mesh.py` train mesh).
 
-The port runs one process per card, so its mesh is (data, model) = (world
-size, 1): each rank holds the whole model and a 1/world share of every
-global batch (the reference's DDP layout, the JAX trainer's default
-`mesh.data = -1`). A model axis above 1 and the legacy fsdp/tensor/context
-axes are refused by the trainer (`trainer/loop.py` `refuse_unported`).
+The port runs one process per card on the 2-D (data, model) mesh: rank r
+at (r // model, r % model) (`distributed.initialize_mesh`). `data` slices
+every global batch; `model` is spent per run as the JAX trainer spends it
+(`parallel/tensor_parallel.py layout`: tensor-parallel heads and MLP
+widths, context-parallel tokens, or replication; its `cp_axis` and
+`model_axis` are this one axis). The defaults (`model` 1, `data` -1) are
+the reference's DDP layout. The legacy fsdp/tensor/context axes are
+refused by the trainer (`trainer/loop.py` `refuse_unported`).
 """
 
 from __future__ import annotations
@@ -35,3 +38,14 @@ def resolve_train_mesh_shape(cfg: MeshConfig, n_devices: int) -> Tuple[int, int]
             f"{data * cfg.model} devices, have {n_devices}")
     return data, cfg.model
 
+
+
+def mesh_line(shape: Tuple[int, int], platform: str, mode: str) -> str:
+    """The JAX trainer's mesh line: `mesh: {'data': D, 'model': M} over N
+    <platform> devices, N process(es)`, and `; model axis (M): <mode>`
+    when M > 1."""
+    data, model = shape
+    n = data * model
+    return (f"mesh: {{'data': {data}, 'model': {model}}} over {n} {platform} "
+            f"devices, {n} process(es)"
+            + (f"; model axis ({model}): {mode}" if model > 1 else ""))

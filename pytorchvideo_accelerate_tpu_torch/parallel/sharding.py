@@ -1,0 +1,165 @@
+"""Which parameters the model axis splits, and the split itself (the port's
+copy of the tensor-parallel rules of the JAX package's
+`parallel/sharding.py`).
+
+`_TP_COLUMN`, `_TP_ROW`, `_TP_FAMILIES`, `family_uses_tp` and `tp_dim` are
+the JAX package's rules, run on the flax path and kernel layout that
+`models/convert.py` maps each of the port's keys to (`flax_names`): the
+column-parallel `qkv` / `mlp_fc1` shard their output features and bias,
+the row-parallel `proj` / `mlp_fc2` their input features, and every other
+leaf is replicated.
+
+`shard_plan` turns them into the port's layout, one entry per split key,
+`(torch dim, parts)`:
+
+- the dim is `tp_dim`'s flax dim through the converter's transpose (a
+  torch Linear weight is (out, in), a flax kernel (in, out));
+- `qkv` splits head-aligned (`parts` 3): rank m keeps heads [m H / tp,
+  (m + 1) H / tp) of each of q, k and v, where `tp_dim` would cut the 3 dim
+  output columns contiguously (GSPMD then reshards behind the scenes);
+  the block's `proj` keeps the matching input rows;
+- a block's attention splits only where its heads divide the model axis
+  and `tp_dim` names both its `qkv` and its `proj` (VideoMAE's decoder
+  `proj`, `dec_block*`, is not one of the projections `tp_dim` shards), and
+  an MLP only as the pair `mlp_fc1` / `mlp_fc2`; otherwise the pair stays
+  replicated, and every rank computes it alike.
+
+`shard_state_dict` cuts a full state dict to one rank's shards and
+`gather_state_dict` puts the shards of a model group back together, bit
+for bit: checkpoints always hold the full tree.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from pytorchvideo_accelerate_tpu_torch.models.convert import flax_key
+
+# --- the JAX package's rules ------------------------------------------------
+
+_TP_COLUMN = frozenset({"qkv", "mlp_fc1"})
+_TP_ROW = frozenset({"proj", "mlp_fc2"})
+
+# the families whose blocks carry the qkv/proj/mlp names the rules key on;
+# every conv family replicates over the model axis
+_TP_FAMILIES = ("mvit", "videomae")
+
+
+def family_uses_tp(model_name: str) -> bool:
+    """Does this model family spend the `model` axis on Megatron TP?"""
+    return model_name.startswith(_TP_FAMILIES)
+
+
+def tp_dim(names: tuple, shape: tuple, tensor_size: int) -> Optional[int]:
+    """Which dim (if any) of this flax param (path `names`, flax `shape`)
+    shards over the model axis of size `tensor_size`."""
+    if tensor_size <= 1 or len(names) < 2 or len(shape) < 1:
+        return None
+    module, leaf = names[-2], names[-1]
+    # "proj" is also the name of classifier heads and CubeEmbed's
+    # patchifying conv: only the attention out-projection inside a
+    # transformer block is row-parallel
+    if module == "proj" and not (
+        len(names) >= 3
+        and (names[-3] == "attn" or re.match(r"block\d+$", names[-3]))
+    ):
+        return None
+    if module in _TP_COLUMN:
+        if leaf == "kernel" and shape[-1] % tensor_size == 0:
+            return len(shape) - 1
+        if leaf == "bias" and shape[0] % tensor_size == 0:
+            return 0
+    if (module in _TP_ROW and leaf == "kernel" and len(shape) >= 2
+            and shape[0] % tensor_size == 0):
+        return 0
+    return None
+
+
+# --- the port's layout --------------------------------------------------------
+
+_PAIR = {"qkv": "proj", "proj": "qkv", "mlp_fc1": "mlp_fc2", "mlp_fc2": "mlp_fc1"}
+Plan = Dict[str, Tuple[int, int]]
+
+
+def flax_names(key: str, shape: tuple) -> Tuple[tuple, tuple]:
+    """(flax path under `params`, flax shape) of the port's state_dict key
+    `key` holding a tensor of `shape`."""
+    names = tuple(flax_key(key, len(shape)).split("/")[1:])
+    if names[-1] == "kernel" and len(shape) == 2:  # (out, in) -> (in, out)
+        return names, tuple(reversed(shape))
+    if names[-1] == "kernel" and len(shape) == 5:  # OIDHW -> DHWIO
+        return names, tuple(shape[i] for i in (2, 3, 4, 1, 0))
+    return names, tuple(shape)
+
+
+def _torch_dim(flax_dim: int, ndim: int) -> int:
+    """A Dense kernel's flax dim as the torch weight's (tp_dim names only
+    Dense kernels and biases)."""
+    return ndim - 1 - flax_dim if ndim == 2 else flax_dim
+
+
+def shard_plan(shapes: Mapping[str, tuple], count: int,
+               heads: Mapping[str, int]) -> Plan:
+    """{key: (torch dim, parts)} of the keys the model axis of size `count`
+    splits (see the module docstring). `shapes`: the full model's state_dict
+    shapes; `heads`: each attention module's key prefix (the parent of its
+    `qkv`) -> its head count."""
+    if count <= 1:
+        return {}
+    raw = {}
+    for key, shape in shapes.items():
+        if key.rsplit(".", 1)[-1] not in ("weight", "bias") or not shape:
+            continue
+        names, fshape = flax_names(key, tuple(shape))
+        d = tp_dim(names, fshape, count)
+        if d is not None:
+            raw[key] = _torch_dim(d, len(shape))
+    plan: Plan = {}
+    for key, dim in raw.items():
+        module = key.rsplit(".", 1)[0]
+        parent, _, name = module.rpartition(".")
+        prefix = f"{parent}." if parent else ""
+        if f"{prefix}{_PAIR[name]}.weight" not in raw or f"{module}.weight" not in raw:
+            continue
+        if name in ("qkv", "proj") and (parent not in heads or heads[parent] % count):
+            continue
+        plan[key] = (dim, 3 if name == "qkv" else 1)
+    return plan
+
+
+def shard_tensor(x: torch.Tensor, index: int, count: int, dim: int,
+                 parts: int) -> torch.Tensor:
+    """Rank `index`'s shard of the full `x`: its 1/count of each of `parts`
+    equal parts of dim `dim`, concatenated (a copy)."""
+    chunks = x.chunk(parts, dim=dim)
+    return torch.cat([c.chunk(count, dim=dim)[index] for c in chunks],
+                     dim=dim).clone()
+
+
+def join_shards(shards, dim: int, parts: int) -> torch.Tensor:
+    """Inverse of `shard_tensor` over every rank's shard, rank order."""
+    cut = [s.chunk(parts, dim=dim) for s in shards]
+    return torch.cat([c[p] for p in range(parts) for c in cut], dim=dim)
+
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor], model_index: int,
+                     model_count: int, plan: Plan) -> dict:
+    """The shards of rank `model_index` of `model_count` of a full state
+    dict: every key of `plan` cut, every other key as it is."""
+    return {k: (shard_tensor(v, model_index, model_count, *plan[k])
+                if k in plan else v) for k, v in sd.items()}
+
+
+def gather_state_dict(sd: Mapping[str, torch.Tensor], plan: Plan,
+                      group) -> dict:
+    """The full state dict from every rank's shards over the model group
+    `group` (a collective: every rank of the group calls it with its own
+    shards, the same keys in the same order); the keys outside `plan` as
+    this rank holds them."""
+    from pytorchvideo_accelerate_tpu_torch.parallel.collectives import gather_list
+
+    return {k: (join_shards(gather_list(v, group), *plan[k])
+                if k in plan else v) for k, v in sd.items()}

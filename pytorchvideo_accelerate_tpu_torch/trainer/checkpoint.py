@@ -31,7 +31,11 @@ temporary directory, `retries` attempts in all
 In a data-parallel job (`parallel/`) every rank holds the same state:
 rank 0 writes and prunes, then every rank meets at a barrier, so no rank
 reads or lists the directory before the write has landed; a restore
-starts with a barrier too, and every rank then loads the same file.
+starts with a barrier too, and every rank then loads the same file. On
+the model axis every rank first gathers the full state over its model
+group (`TrainState.state_dict`), so rank 0 writes the full tree, and a
+restore keeps each rank's shards of it: a checkpoint resumes at any
+(data, model) layout.
 A JAX orbax checkpoint is not read by the port (orbax is a JAX
 dependency); carry weights across with an inference artifact, or a JAX
 TrainState with `models/convert.py`.
@@ -80,18 +84,20 @@ def _write_json(path: str, obj) -> None:
 def export_inference(path: str, model, config=None,
                      meta: Optional[dict] = None, step: int = 0,
                      params: Optional[Dict[str, torch.Tensor]] = None,
-                     quantization: str = "off") -> str:
+                     quantization: str = "off",
+                     state: Optional[Dict[str, torch.Tensor]] = None) -> str:
     """Write `model`'s weights (parameters and BN running stats) as a
     serving artifact the JAX package's engine and the port's both load.
     `params` (the EMA copy, when training keeps one) replaces the model's
     parameters: the artifact is then EMA-resolved, the weights evaluation
     scores. `quantization="int8"` bakes the eligible weights as int8 with
-    per-output-channel scales."""
+    per-output-channel scales. `state` replaces `model.state_dict()` (the
+    full weights gathered from a split model)."""
     if quantization not in QUANT_MODES:
         raise ValueError(
             f"export quantization must be one of {QUANT_MODES}, got "
             f"{quantization!r}")
-    state = model.state_dict()
+    state = dict(model.state_dict() if state is None else state)
     if params is not None:
         state.update(params)
     if quantization == "int8":
@@ -167,13 +173,15 @@ class Checkpointer:
 
     def save(self, step: int, state, extra: Optional[dict] = None) -> None:
         """Write `state` (a TrainState) at `step`; a step already on disk is
-        left as it is. An OSError retries the whole write. Rank 0 writes;
-        every rank returns after the write, at a barrier."""
+        left as it is. An OSError retries the whole write. Every rank
+        takes the (gathered) state, rank 0 writes it; every rank returns
+        after the write, at a barrier."""
+        full = state.state_dict()
         if is_main_process():
-            self._write(step, state, extra)
+            self._write(step, full, extra)
         sync_global_devices("checkpoint_save")
 
-    def _write(self, step: int, state, extra: Optional[dict]) -> None:
+    def _write(self, step: int, full: dict, extra: Optional[dict]) -> None:
         step = int(step)
         final = os.path.join(self.directory, str(step))
 
@@ -186,7 +194,7 @@ class Checkpointer:
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
             try:
-                torch.save(state.state_dict(), os.path.join(tmp, _STATE_FILE))
+                torch.save(full, os.path.join(tmp, _STATE_FILE))
                 _write_json(os.path.join(tmp, _EXTRA_FILE), extra or {})
                 os.replace(tmp, final)
             finally:

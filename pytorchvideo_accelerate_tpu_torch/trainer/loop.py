@@ -64,8 +64,22 @@ every restore, the resume step is rank 0's, rank 0 alone writes
 checkpoints, trackers and logs, a preemption seen by one rank stops every
 rank at the same step (one scalar all-reduce a step), eval sums are added
 across ranks, and `--debug_desync` compares the parameters' norm across
-ranks at each epoch's end. `mesh.data` must be -1 or the world size.
-Without a group it runs as a single process, launch for launch as before.
+ranks at each epoch's end. Without a group it runs as a single process,
+launch for launch as before.
+
+The model axis (`--mesh.model M`, M dividing the world; `mesh.data` -1 or
+world / M): the ranks sit on the (world / M, M) train mesh, rank r at
+(r // M, r % M) (`distributed.initialize_mesh`), and the axis is spent as
+the JAX trainer spends it (`parallel/tensor_parallel.py layout`, printed on
+rank 0): MViT and VideoMAE split heads and MLP widths over it
+(tensor-parallel), `--model.attention ring|ulysses` splits the
+attention's tokens instead (context-parallel), the conv families
+replicate. Every rank builds the full-width model from the seed (and loads
+`--model.pretrained_path` into it), then keeps its shards; the ranks of a
+model group load the same batches (the loader is dealt by data index and
+count), eval sums are added over the data axis, and checkpoints and the
+exported artifact hold the full tree, gathered over the model group, so
+they resume and serve at any layout.
 """
 
 from __future__ import annotations
@@ -103,16 +117,32 @@ from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     any_process,
     check_desync,
+    data_count,
+    data_group,
+    data_index,
+    group_ranks,
     initialize_distributed,
+    initialize_mesh,
     is_distributed,
     is_main_process,
     local_device_index,
     main_print,
+    model_group,
+    model_index,
     process_count,
     process_index,
     sync_global_devices,
 )
-from pytorchvideo_accelerate_tpu_torch.parallel.mesh import resolve_train_mesh_shape
+from pytorchvideo_accelerate_tpu_torch.parallel.mesh import (
+    mesh_line,
+    resolve_train_mesh_shape,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.sharding import gather_state_dict
+from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+    apply_model_axis,
+    layout,
+    sharded_params,
+)
 from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard
 from pytorchvideo_accelerate_tpu_torch.reliability.preemption import (
     get_guard,
@@ -163,8 +193,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
     for a `model.pretrained_path` without `model.pretrained`."""
     d, m, mesh = cfg.data, cfg.model, cfg.mesh
     refused = [
-        (mesh.model > 1, f"mesh.model={mesh.model} (the model axis: tensor "
-                         "parallelism; Multi-GPU, ROADMAP.md A.1)"),
         (any(v > 1 for v in (mesh.fsdp, mesh.tensor, mesh.context)),
          f"the legacy mesh axes (fsdp={mesh.fsdp}, tensor={mesh.tensor}, "
          f"context={mesh.context}; FSDP and the library mesh; Multi-GPU, "
@@ -229,11 +257,14 @@ class Trainer:
         self.distributed = is_distributed()
         self.rank, self.world = process_index(), process_count()
         self.mesh_shape = resolve_train_mesh_shape(cfg.mesh, self.world)
-        self.device = resolve_train_device(cfg)
         if self.distributed:
-            main_print(f"mesh: (data, model) = {self.mesh_shape} over "
-                       f"{self.world} process(es), one {self.device.type} "
-                       "device each", flush=True)
+            initialize_mesh(self.mesh_shape[1])
+        self.device = resolve_train_device(cfg)
+        self.model_axis = layout(cfg.model.name, cfg.model.attention,
+                                 self.mesh_shape[1], model_index())
+        if self.distributed:
+            main_print(mesh_line(self.mesh_shape, self.device.type,
+                                 self.model_axis.mode), flush=True)
         self.checkpointing_steps = _parse_checkpointing_steps(
             cfg.checkpoint.checkpointing_steps)
         torch.manual_seed(cfg.seed)
@@ -305,8 +336,9 @@ class Trainer:
         self._build_sources(train_tf, val_tf, eval_clips)
         # the batch size is per card (a data shard), as in the JAX package
         global_batch = d.batch_size * self.mesh_shape[0]
+        # the ranks of a model group share a data slice: dealt by data index
         loader_kw = dict(seed=cfg.seed, num_workers=d.num_workers,
-                         process_index=self.rank, process_count=self.world,
+                         process_index=data_index(), process_count=data_count(),
                          prefetch_batches=d.prefetch_batches,
                          transport=d.transport)
         self.train_loader = ClipLoader(
@@ -387,11 +419,14 @@ class Trainer:
         cfg = self.cfg
         if not cfg.model.num_classes:
             cfg.model.num_classes = self.num_classes
+        # the full-width model on every rank (and the pretrained weights
+        # loaded into it), then this rank's shards of it
         self.model = create_model(cfg.model, cfg.mixed_precision,
-                                  seed=cfg.seed, data_cfg=cfg.data).to(self.device)
+                                  seed=cfg.seed, data_cfg=cfg.data)
         self.pretrained_report: Optional[dict] = None
         if cfg.model.pretrained and cfg.model.pretrained_path:
             self._load_pretrained()
+        self.model = apply_model_axis(self.model, self.model_axis).to(self.device)
         self._replicate()
         steps_per_epoch = self.train_loader.steps_per_epoch()
         self.total_steps = max(steps_per_epoch * cfg.optim.num_epochs, 1)
@@ -399,7 +434,8 @@ class Trainer:
             cfg.optim, self.total_steps, self.model.named_parameters(),
             backbone_filter=getattr(type(self.model), "backbone_param_filter",
                                     None),
-            freeze_backbone=cfg.model.freeze_backbone)
+            freeze_backbone=cfg.model.freeze_backbone,
+            sharded=sharded_params(self.model))
         self.lr_schedule = optimizer.schedule
         self.state = TrainState.create(self.model, optimizer,
                                        ema_decay=cfg.optim.ema_decay)
@@ -425,9 +461,10 @@ class Trainer:
             device_normalize=self._device_normalize)
 
     def _load_pretrained(self) -> None:
-        """Merge `--model.pretrained_path` into the fresh model and print
-        the JAX Trainer's report lines. Every rank reads the file;
-        `_replicate()` then makes rank 0's copy every rank's."""
+        """Merge `--model.pretrained_path` into the fresh full-width model
+        and print the JAX Trainer's report lines. Every rank reads the
+        file; `_replicate()` then makes rank 0's copy every rank's (the
+        first rank's of each data group, under a model axis)."""
         report = load_pretrained(self.cfg.model.pretrained_path, self.model,
                                  self.cfg.model.name)
         self.pretrained_report = report
@@ -455,12 +492,16 @@ class Trainer:
                 "models/convert.py): %s", len(nonhead), ", ".join(nonhead[:8]))
 
     def _replicate(self) -> None:
-        """Rank 0's parameters and floating buffers (the BN running
-        averages) on every rank: one broadcast per dtype, after init and
-        after a restore (a no-op without a group)."""
-        if self.distributed:
+        """The data group's first rank's parameters and floating buffers
+        (the BN running averages) on every rank of the group: one broadcast
+        per dtype, after init and after a restore (a no-op without a group
+        or with one data slice). At model 1 that is rank 0 to every rank;
+        on a model axis each shard comes from its data group's first rank."""
+        if self.distributed and data_count() > 1:
+            group = data_group()
             broadcast_([p.data for p in self.model.parameters()]
-                       + [b for b in self.model.buffers() if b.is_floating_point()])
+                       + [b for b in self.model.buffers() if b.is_floating_point()],
+                       src=group_ranks(group)[0], group=group)
 
     # --- resume / export --------------------------------------------------
 
@@ -491,13 +532,18 @@ class Trainer:
         """Write the (EMA-resolved) serving artifact of the current state;
         with `--serve.quantization int8` it is baked int8. Rank 0 writes;
         every rank returns once it has."""
+        plan, group = self.model_axis.plan, model_group()
+        full = gather_state_dict(self.model.state_dict(), plan, group)
+        ema = self.state.eval_params()
+        if ema is not None:
+            ema = gather_state_dict(ema, plan, group)
         if is_main_process():
             export_inference(
                 path, self.model, config=self.cfg,
                 meta={"num_classes": self.num_classes,
                       "model": self.cfg.model.name},
-                step=self.state.step, params=self.state.eval_params(),
-                quantization=self.cfg.serve.quantization)
+                step=self.state.step, params=ema,
+                quantization=self.cfg.serve.quantization, state=full)
         sync_global_devices("export_inference")
         return path
 
@@ -560,7 +606,10 @@ class Trainer:
         if self.distributed:
             val.accuracy()  # drains the pending device sums
             keys = ("loss_sum", "correct", "correct5", "count")
-            sums = host_reduce_sum(np.array([getattr(val, k) for k in keys]))
+            # the ranks of a model group score the same clips: one counts
+            mine = np.array([getattr(val, k) if model_index() == 0 else 0.0
+                             for k in keys])
+            sums = host_reduce_sum(mine)
             for k, v in zip(keys, sums.tolist()):
                 setattr(val, k, v)
         return val.accuracy(), val.accuracy_top5(), val.mean_loss()
@@ -700,8 +749,8 @@ class Trainer:
                            f"({time.time() - t_epoch:.1f}s)", flush=True)
                 if t_train > 0 and steps_done > 0:
                     sps = steps_done / t_train
-                    # clips of the global batch: every rank's share
-                    cps = sps * self.train_loader.samples_per_yield * self.world
+                    # clips of the global batch: every data slice's share
+                    cps = sps * self.train_loader.samples_per_yield * data_count()
                     last_perf = {
                         "steps_per_sec": sps,
                         "clips_per_sec": cps,
@@ -723,8 +772,11 @@ class Trainer:
                     epoch_metrics.update(last_perf)
                     self.trackers.log(epoch_metrics, step=epoch)
                 if cfg.debug_desync:
+                    sharded = set(sharded_params(self.model))
+                    named = list(self.model.named_parameters())
                     check_desync(float(global_norm(
-                        [p.detach() for p in self.model.parameters()])),
+                        [p.detach() for _, p in named],
+                        [n in sharded for n, _ in named])),
                         name=f"params@epoch{epoch}")
                 if self.checkpointing_steps == "epoch":
                     self._save("epoch", epoch)

@@ -17,16 +17,21 @@
   update, no weight decay and no state, and the clip inside the trained
   branch takes its norm over the trained params only. Here the frozen
   params are left out of the torch optimizer, which does all of that.
+- On the model axis (tensor parallelism) some params hold one rank's
+  shard (`sharded`): the global norm of the clip sums their squares over
+  the model group and counts each replicated param once, the norm of the
+  whole gradient that the JAX step takes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Collection, Iterable, List, Optional, Tuple
 
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.config import OptimConfig
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import model_group
 
 
 def build_lr_schedule(cfg: OptimConfig, total_steps: int) -> Callable[[int], float]:
@@ -61,11 +66,21 @@ class Optimizer:
 
     def __init__(self, opt: torch.optim.Optimizer,
                  schedule: Callable[[int], float], clip_norm: float,
-                 trained: List[torch.nn.Parameter]):
+                 trained: List[torch.nn.Parameter],
+                 sharded: Optional[List[bool]] = None):
         self.opt = opt
         self.schedule = schedule
         self.clip_norm = float(clip_norm)
         self.trained = trained
+        # per trained param: True where it holds a model-axis shard
+        self.sharded = sharded or [False] * len(trained)
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the trained params' gradients (the whole
+        gradient's, under the model axis)."""
+        pairs = [(p.grad, s) for p, s in zip(self.trained, self.sharded)
+                 if p.grad is not None]
+        return global_norm([g for g, _ in pairs], [s for _, s in pairs])
 
     def step(self, step: int) -> None:
         """Apply update number `step` (0-based) from the params' `.grad`."""
@@ -74,7 +89,7 @@ class Optimizer:
             group["lr"] = lr
         if self.clip_norm > 0:
             grads = [p.grad for p in self.trained if p.grad is not None]
-            norm = global_norm(grads)
+            norm = self.grad_norm()
             # optax: g if norm < max else g / norm * max
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)
@@ -99,13 +114,28 @@ class Optimizer:
                     st["step"] = st["step"].to(p.device if cap else "cpu")
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor],
+                sharded: Optional[List[bool]] = None) -> torch.Tensor:
     """sqrt of the sum of squares over every element, in f32 (optax
-    `global_norm`); a 0-d tensor on the tensors' device."""
+    `global_norm`); a 0-d tensor on the tensors' device. `sharded` marks
+    the tensors that hold a model-axis shard: with a model group up, their
+    squares are summed over it (one scalar all-reduce) and each other
+    tensor counts once."""
     if not tensors:
         return torch.zeros(())
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    group = model_group()
+    if group is None or not sharded or not any(sharded):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    flags = torch.tensor(sharded, device=sq.device)
+    part = torch.where(flags, sq, torch.zeros_like(sq)).sum()
+    from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
+        reduce_from_model,
+    )
+
+    return torch.sqrt(torch.where(flags, torch.zeros_like(sq), sq).sum()
+                      + reduce_from_model(part, group))
 
 
 def build_optimizer(
@@ -114,13 +144,16 @@ def build_optimizer(
     named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     backbone_filter: Optional[Callable] = None,
     freeze_backbone: bool = False,
+    sharded: Collection[str] = (),
 ) -> Optimizer:
     """SGD+momentum+wd+cosine by default; adamw for the transformer family.
     `backbone_filter(path) -> bool` (path = the param name split on ".")
-    marks backbone params; with `freeze_backbone` those are not trained."""
-    trained = [p for name, p in named_params
-               if not (freeze_backbone and backbone_filter is not None
-                       and backbone_filter(tuple(name.split("."))))]
+    marks backbone params; with `freeze_backbone` those are not trained.
+    `sharded`: the names of the params that hold a model-axis shard."""
+    named = [(name, p) for name, p in named_params
+             if not (freeze_backbone and backbone_filter is not None
+                     and backbone_filter(tuple(name.split("."))))]
+    trained = [p for _, p in named]
     if cfg.optimizer == "sgd":
         opt = torch.optim.SGD(trained, lr=cfg.lr, momentum=cfg.momentum,
                               dampening=0.0, weight_decay=cfg.weight_decay)
@@ -131,4 +164,5 @@ def build_optimizer(
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return Optimizer(opt, build_lr_schedule(cfg, total_steps),
-                     cfg.grad_clip_norm, trained)
+                     cfg.grad_clip_norm, trained,
+                     [name in sharded for name, _ in named])

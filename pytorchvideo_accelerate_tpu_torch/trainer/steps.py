@@ -26,6 +26,16 @@ is decided alike on every rank), mixing pairs each clip with its partner
 in the flipped global batch, and each rank's dropout mask is its rows of
 the global batch's (models/common.py `batch_rand`).
 
+On the model axis (`parallel/tensor_parallel.py`) "the ranks" above are
+the data group, the ranks that hold the same shards: a sharded gradient
+is averaged over the data group; a replicated one, equal on the ranks of
+a model group, over the whole world (the same mean, and one reduction
+leaves every rank the same bits even where a kernel's backward is not
+deterministic); the pools of a split MViT attention, which each rank
+uses in part, are summed over the model group as well (the world mean
+times the model count). The global norm sums the shards' squares over the
+model group (trainer/optim.py).
+
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
 (1.0 = real sample, 0.0 = padding). With gradient accumulation G > 1 every
@@ -48,9 +58,16 @@ from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
     exchange,
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    data_count,
+    data_group,
+    data_index,
+    group_ranks,
     is_distributed,
-    process_count,
-    process_index,
+    model_count,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+    partial_params,
+    sharded_params,
 )
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import global_norm
@@ -219,7 +236,9 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     before anything reads them; a nonfinite value on one rank is then
     nonfinite on every rank, which skips the step everywhere."""
     named = dict(model.named_parameters())
-    params = [p for p in named.values() if p.requires_grad]
+    names = [n for n, p in named.items() if p.requires_grad]
+    params = [named[n] for n in names]
+    sharded, partial = set(sharded_params(model)), set(partial_params(model))
     dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
     buffers = [b for b in model.buffers() if b.is_floating_point()]
     snapshot = _Snapshot() if guard_skip else None
@@ -252,24 +271,25 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
             losses.append(loss.detach())
             corrects.append(correct)
             counts.append(count)
-        grads = [p.grad for p in params if p.grad is not None]
+        live = [(n, p.grad) for n, p in zip(names, params) if p.grad is not None]
+        grads = [g for _, g in live]
         if accum_steps > 1:
             torch._foreach_div_(grads, float(accum_steps))
         loss = torch.stack(losses).mean()
         if with_accuracy:
             correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
         if distributed:
-            all_reduce_mean_(grads)
-            # [loss, correct, count]: their means over the ranks, then
-            # the sums scaled back
+            reduce_grads(live, sharded, partial)
+            # [loss, correct, count]: their means over the ranks (equal
+            # on the ranks of a model group), then the sums scaled back
             sums = torch.stack([loss, correct.float(), count.float()]
                                if with_accuracy else [loss])
             all_reduce_mean_([sums])
             loss = sums[0]
             if with_accuracy:
-                world = float(process_count())
-                correct, count = sums[1] * world, sums[2] * world
-        grad_norm = global_norm(grads)
+                slices = float(data_count())
+                correct, count = sums[1] * slices, sums[2] * slices
+        grad_norm = global_norm(grads, [n in sharded for n, _ in live])
         lr = optimizer.schedule(state.step)
         optimizer.step(state.step)
         if ema_decay > 0 and state.ema is not None:
@@ -292,6 +312,24 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
         return out
 
     return step
+
+
+def reduce_grads(live, sharded, partial) -> None:
+    """In place, the gradients `live` ([(name, grad)]) averaged as the step
+    needs (the module docstring): at model 1 one flat all-reduce of them
+    all over the world; on a model axis the replicated ones over the world
+    (the `partial` ones then times the model count) and the `sharded` ones
+    over the data group."""
+    if model_count() == 1:
+        all_reduce_mean_([g for _, g in live])
+        return
+    all_reduce_mean_([g for n, g in live if n not in sharded])
+    part = [g for n, g in live if n in partial]
+    if part:
+        torch._foreach_mul_(part, float(model_count()))
+    shards = [g for n, g in live if n in sharded]
+    if shards and data_count() > 1:
+        all_reduce_mean_(shards, group=data_group())
 
 
 @dataclass(frozen=True)
@@ -345,10 +383,14 @@ def mix_weight(draw: MixDraw, hh: int, ww: int, device) -> torch.Tensor:
 
 def flip_global(x: torch.Tensor) -> torch.Tensor:
     """This rank's rows of the global batch flipped, x_global[::-1] (the
-    JAX step flips the whole batch, pairing row i with row G - 1 - i): rank
-    r's partners are rank (world - 1 - r)'s rows, reversed. `x.flip(0)`
-    with one process."""
-    return exchange(x, process_count() - 1 - process_index()).flip(0)
+    JAX step flips the whole batch, pairing row i with row G - 1 - i): data
+    slice d's partners are slice (D - 1 - d)'s rows, reversed, from the
+    peer in this rank's data group. `x.flip(0)` with one process."""
+    if not is_distributed() or data_count() == 1:
+        return x.flip(0)
+    group = data_group()
+    peer = group_ranks(group)[data_count() - 1 - data_index()]
+    return exchange(x, peer, group).flip(0)
 
 
 def mix_batch(batch: dict, w_hw: torch.Tensor) -> dict:

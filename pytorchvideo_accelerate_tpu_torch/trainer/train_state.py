@@ -7,6 +7,13 @@ and BN running averages), the optimizer (its per-param state, e.g. SGD
 momentum buffers) and an optional EMA copy of the parameters
 (`--optim.ema_decay > 0`, made from the parameters at creation). The step
 functions update them in place.
+
+On the model axis (tensor parallelism, `parallel/tensor_parallel.py`) the
+model, the optimizer's per-param state and the EMA hold this rank's
+shards; `state_dict()` gathers the full tree over the model group (a
+collective: every rank calls it) and `load_state_dict()` takes a full tree
+and keeps this rank's shards, so a checkpoint is the same file at every
+layout and resumes at any other.
 """
 
 from __future__ import annotations
@@ -16,6 +23,12 @@ from typing import Dict, Optional
 
 import torch
 
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import model_group
+from pytorchvideo_accelerate_tpu_torch.parallel.sharding import (
+    gather_state_dict,
+    shard_state_dict,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import model_axis_of
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import Optimizer
 
 
@@ -45,20 +58,67 @@ class TrainState:
         model's own)."""
         return self.ema
 
+    def _opt_plan(self, flat: dict, plan: dict) -> dict:
+        """The plan entries of the optimizer state's flat keys ("<param
+        index>/<state key>"): each param-shaped tensor of a sharded param
+        takes its param's."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        by_index = {i: (plan[names[id(p)]], p.dim())
+                    for i, p in enumerate(self.optimizer.trained)
+                    if names.get(id(p)) in plan}
+        out = {}
+        for key, v in flat.items():
+            entry = by_index.get(int(key.split("/", 1)[0]))
+            if entry is not None and torch.is_tensor(v) and v.dim() == entry[1]:
+                out[key] = entry[0]
+        return out
+
+    def _map_opt(self, opt_sd: dict, plan: dict, fn) -> dict:
+        """`opt_sd` with `fn(flat state, its plan)` applied to its
+        per-param tensors."""
+        flat = {f"{i}/{k}": v for i, st in opt_sd["state"].items()
+                for k, v in st.items()}
+        flat = fn(flat, self._opt_plan(flat, plan))
+        state = {}
+        for key, v in flat.items():
+            i, k = key.split("/", 1)
+            state.setdefault(int(i), {})[k] = v
+        return {**opt_sd, "state": state}
+
     def state_dict(self) -> dict:
-        return {"step": int(self.step),
-                "model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "ema": self.ema}
+        """The full state (gathered over the model group when the model is
+        split: every rank of the group must call it)."""
+        model, opt, ema = (self.model.state_dict(), self.optimizer.state_dict(),
+                           self.ema)
+        plan = model_axis_of(self.model).plan
+        if plan:
+            group = model_group()
+            model = gather_state_dict(model, plan, group)
+            opt = self._map_opt(opt, plan,
+                                lambda flat, p: gather_state_dict(flat, p, group))
+            if ema is not None:
+                ema = gather_state_dict(ema, plan, group)
+        return {"step": int(self.step), "model": model, "optimizer": opt,
+                "ema": ema}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load a full state (this rank keeps its shards of it)."""
         if (state.get("ema") is None) != (self.ema is None):
             raise ValueError(
                 "checkpoint and run disagree on EMA (--optim.ema_decay): "
                 "toggling it across a resume changes the state")
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        model, opt, ema = state["model"], state["optimizer"], state.get("ema")
+        axis = model_axis_of(self.model)
+        if axis.plan:
+            def cut(sd, plan):
+                return shard_state_dict(sd, axis.index, axis.count, plan)
+
+            model = cut(model, axis.plan)
+            ema = None if ema is None else cut(ema, axis.plan)
+            opt = self._map_opt(opt, axis.plan, cut)
+        self.model.load_state_dict(model)
+        self.optimizer.load_state_dict(opt)
         if self.ema is not None:
-            for k, v in state["ema"].items():
+            for k, v in ema.items():
                 self.ema[k].copy_(v)
         self.step = int(state["step"])

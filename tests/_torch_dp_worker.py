@@ -199,6 +199,34 @@ def _tiny3d_card_step(spec_path, rank, world):
             "state": {k: v.float().cpu().numpy() for k, v in model.state_dict().items()}}
 
 
+def mvit_tp_forward(rank, world, d, model_count=None):
+    """Arm (a)'s forward on the card: full-width MViT-B 16x4 (bf16,
+    attention and depthwise pallas, seed 0, drop path and dropout off, eval
+    mode) cut for this rank at (1, world) (`model_count=1`: one process,
+    the whole model), over the clips of DIR/mvit.npz; its logits and the
+    launches."""
+    from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import layout
+
+    count = world if model_count is None else model_count
+    if count > 1:
+        pdist.initialize_mesh(count)
+    clips = torch.from_numpy(np.load(os.path.join(d, "mvit.npz"))["x"]).cuda()
+    axis = layout("mvit_b", "pallas", count, rank % count)
+    model = create_model(ModelConfig(name="mvit_b", num_classes=7, dropout_rate=0.0,
+                                     attention="pallas", depthwise_impl="pallas"),
+                         "bf16", seed=0, data_cfg=DataConfig(num_frames=16, crop_size=224),
+                         model_axis=axis).cuda().eval()
+    fused.reset_launch_counts()
+    with torch.no_grad():
+        logits = model(clips.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    return {"logits": logits.float().cpu().numpy(), "launches": dict(fused.LAUNCHES),
+            "params": sum(p.numel() for p in model.parameters()), "mode": axis.mode}
+
+
 # --- the Trainer: eval, resume, the guard's skip, preemption ------------------
 
 
@@ -211,6 +239,10 @@ def _argv(d, name, extra=()):
             "--output_dir", os.path.join(d, name), *extra]
 
 
+_LAST = [None]  # the last Trainer `_fit` built
+_GRAD_NORMS = []  # every step's grad_norm, in order
+
+
 def _fit(argv, on_step=None, wrap_epoch=None):
     """run.main's Trainer.fit() for `argv`, each step's (loss, skipped)
     recorded; `on_step(trainer, step)` runs after each step,
@@ -219,12 +251,14 @@ def _fit(argv, on_step=None, wrap_epoch=None):
     from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
 
     trainer = Trainer(parse_cli(argv))
+    _LAST[0] = trainer
     seen = []
     step_fn = trainer.train_step
 
     def step(state, batch):
         m = step_fn(state, batch)
         seen.append((state.step, float(m["loss"]), float(m.get("skipped", 0.0))))
+        _GRAD_NORMS.append(float(m["grad_norm"]))
         if on_step is not None:
             on_step(trainer, state.step)
         return m
@@ -300,6 +334,168 @@ def pretrained(rank, world, d):
     return out
 
 
+# --- the model axis: tensor and context parallelism ----------------------------
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def model_axis(rank, world, d):
+    """The cases of DIR/model_axis.json on the (world / model, model) mesh:
+    each a seeded twin (`w/` leaves of its spec, the flax layout) split
+    for this rank, its train-mode forward on this data slice, then one SGD
+    step; the gathered gradient and state, and this rank's replicated
+    leaves. A case with `control` runs with the row-parallel all-reduce
+    patched out."""
+    import json
+
+    from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig, OptimConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.models.convert import state_dict_from_jax
+    from pytorchvideo_accelerate_tpu_torch.parallel import tensor_parallel as tp
+    from pytorchvideo_accelerate_tpu_torch.parallel.sharding import gather_state_dict
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import make_train_step
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    with open(os.path.join(d, "model_axis.json")) as f:
+        spec_all = json.load(f)
+    pdist.initialize_mesh(spec_all["model"])
+    reduce = tp.reduce_from_model
+    out = {}
+    for case in spec_all["cases"]:
+        spec = np.load(os.path.join(d, case["spec"]))
+        flat = {k[2:]: spec[k] for k in spec.files if k.startswith("w/")}
+        model = create_model(
+            ModelConfig(name=case["name"], num_classes=int(spec["num_classes"]),
+                        dropout_rate=0.0, attention=case["attention"]), "fp32",
+            data_cfg=DataConfig(num_frames=spec["video"].shape[1],
+                                crop_size=spec["video"].shape[2]))
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                               state_dict_from_jax(flat).items()})
+        axis = tp.layout(case["name"], case["attention"], pdist.model_count(),
+                         pdist.model_index())
+        tp.apply_model_axis(model, axis)
+        if case.get("control"):
+            tp.reduce_from_model = lambda x, group: x
+        try:
+            opt = build_optimizer(OptimConfig(**spec_all["optim"]), 4,
+                                  model.named_parameters(),
+                                  sharded=tp.sharded_params(model))
+            state = TrainState.create(model, opt)
+            step = make_train_step(model, opt)
+            b = spec["video"].shape[0] // pdist.data_count()
+            rows = slice(pdist.data_index() * b, (pdist.data_index() + 1) * b)
+            batch = {"video": torch.from_numpy(spec["video"][rows].copy()),
+                     "label": torch.from_numpy(spec["label"][rows].copy())}
+            with torch.no_grad():
+                logits = model(batch["video"])
+            m = step(state, batch)
+        finally:
+            tp.reduce_from_model = reduce
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        full_g = gather_state_dict(grads, axis.plan, pdist.model_group())
+        full_s = state.state_dict()["model"]
+        out[case["tag"]] = {
+            "mode": axis.mode, "plan": sorted(axis.plan),
+            "logits": _np(logits), "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "accuracy": float(m["accuracy"]),
+            "grads": {k: _np(v) for k, v in full_g.items()},
+            "state": {k: _np(v) for k, v in full_s.items()},
+            "replicated": {k: _np(v) for k, v in model.state_dict().items()
+                           if k not in axis.plan},
+            "n_params": sum(p.numel() for p in model.parameters())}
+    return out
+
+
+def cp_attention(rank, world, d):
+    """Every case of DIR/cp.npz (q, k, v, a cotangent) through ring and
+    ulysses over a model axis of all `world` ranks: the output and the
+    gradients of q, k and v, and the ring blocks this rank ran."""
+    from pytorchvideo_accelerate_tpu_torch.parallel import ring_attention as tring
+    from pytorchvideo_accelerate_tpu_torch.parallel.ulysses import ulysses_attention
+
+    pdist.initialize_mesh(world)
+    spec = np.load(os.path.join(d, "cp.npz"))
+    out = {}
+    for tag in sorted({k.split("/")[0] for k in spec.files}):
+        for name, fn in (("ring", tring.ring_attention), ("ulysses", ulysses_attention)):
+            q, k, v = (torch.from_numpy(spec[f"{tag}/{x}"]).requires_grad_()
+                       for x in "qkv")
+            before = tring.RING_BLOCKS[0]
+            o = tring.cp_attention(q, k, v, fn, pdist.model_group())
+            (o * torch.from_numpy(spec[f"{tag}/ct"])).sum().backward()
+            out[f"{tag}/{name}"] = {"out": _np(o), "dq": _np(q.grad),
+                                    "dk": _np(k.grad), "dv": _np(v.grad),
+                                    "blocks": tring.RING_BLOCKS[0] - before}
+    return out
+
+
+def _ma_argv(d, name, extra=()):
+    return ["--cpu", "--synthetic", "--num_frames", "4", "--data.crop_size", "32",
+            "--data.min_short_side_scale", "32", "--data.max_short_side_scale", "40",
+            "--data.num_workers", "1", "--mixed_precision", "fp32",
+            "--data.synthetic_num_videos", "8", "--num_epochs", "1",
+            "--output_dir", os.path.join(d, name), *extra]
+
+
+def replicated(rank, world, d):
+    """slowfast_t at (1, world), the conv family replicated over the model
+    axis (world 1: one rank): the batches each rank was given, its losses
+    and its final state."""
+    from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import model_axis_of
+
+    seen_batches = []
+
+    def wrap(epoch_fn):
+        def epoch(*a, **kw):
+            for batch in epoch_fn(*a, **kw):
+                seen_batches.append({k: _np(v) for k, v in batch.items()})
+                yield batch
+        return epoch
+
+    argv = _ma_argv(d, f"replicated{world}", [
+        "--model.name", "slowfast_t", "--batch_size", "2", "--mesh.model", str(world),
+        "--model.dropout_rate", "0", "--optim.lr", "0.01"])
+    result, seen, state = _fit(argv, wrap_epoch=wrap)
+    return {"result": result, "seen": seen, "state": state, "batches": seen_batches,
+            "mode": model_axis_of(_LAST[0].model).mode}
+
+
+
+def ckpt(rank, world, d):
+    """mvit_t at (1, 2), tensor-parallel, adamw + EMA + the clip: a fit of 2
+    steps with a checkpoint each, an export; then a fresh Trainer restoring
+    the (1, 1) checkpoint under DIR/one (written by the test): its shards
+    and its gathered state."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    extra = ["--model.name", "mvit_t", "--batch_size", "2", "--mesh.model", "2",
+             "--model.dropout_rate", "0", "--optim.optimizer", "adamw",
+             "--optim.lr", "0.01", "--optim.ema_decay", "0.9",
+             "--optim.grad_clip_norm", "0.5", "--checkpointing_steps", "1"]
+    out = {}
+    result, seen, state = _fit(_ma_argv(d, "two", extra))
+    t = _LAST[0]
+    out["fit"] = {"result": result, "seen": seen,
+                  "grad_norms": list(_GRAD_NORMS),
+                  "full": t.state.state_dict()}
+    t.export_inference(os.path.join(d, "two_art"))
+    t2 = Trainer(parse_cli(_ma_argv(d, "one", extra + ["--resume_from_checkpoint", "auto"])))
+    t2._maybe_resume()
+    out["restored"] = {"shards": {k: v.clone() for k, v in t2.model.state_dict().items()},
+                       "full": t2.state.state_dict(),
+                       "opt_local": t2.state.optimizer.state_dict(),
+                       "ema_local": {k: v.clone() for k, v in t2.state.ema.items()},
+                       "plan": t2.model_axis.plan, "index": t2.model_axis.index}
+    t2.close()
+    return out
+
+
+
 def run_group(scenario: str, d, world: int = 2, env=None,
               timeout_s: float = 150.0) -> list:
     """Start `world` spawned ranks of `scenario` over directory `d`; fail
@@ -330,7 +526,9 @@ def run_group(scenario: str, d, world: int = 2, env=None,
 
 SCENARIOS = {"collectives": collectives, "env": env, "train_step": train_step,
              "mix": mix, "trainer": trainer, "cuda_step": cuda_step,
-             "pretrained": pretrained}
+             "pretrained": pretrained, "model_axis": model_axis,
+             "cp_attention": cp_attention, "replicated": replicated, "ckpt": ckpt,
+             "mvit_tp_forward": mvit_tp_forward}
 
 
 def main() -> None:

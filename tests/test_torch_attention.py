@@ -10,8 +10,9 @@ the JAX package's, on the CPU in float32.
   f32 the plain versions' casts do nothing, so the two sides differ by f32
   rounding (summation order and the running max of the online softmax).
 - The router: `dense` against the JAX `dense_attention`, with and without a
-  `temporal_band_mask`; `pallas` + mask, `ring`, `ulysses` and an unknown
-  backend raise.
+  `temporal_band_mask`; `pallas`, `ring` or `ulysses` with a mask, and an
+  unknown backend, raise (ring and ulysses themselves:
+  `tests/test_torch_model_axis.py`).
 """
 
 import numpy as np
@@ -134,9 +135,8 @@ def test_banded_time_mask_matches_jax():
 
 @pytest.mark.parametrize("backend,mask,err", [
     ("pallas", True, NotImplementedError),   # no masked lowering
-    ("ring", False, NotImplementedError),    # multi-GPU, not ported
-    ("ulysses", False, NotImplementedError),
     ("ring", True, NotImplementedError),
+    ("ulysses", True, NotImplementedError),
     ("nope", False, ValueError),
 ])
 def test_router_refuses(backend, mask, err):

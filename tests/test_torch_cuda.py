@@ -47,7 +47,11 @@ in /metrics and drains. Two spawned ranks over gloo share the card for a
 tiny3d data-parallel step through the kernels (`tests/_torch_dp_worker.py`,
 which imports no JAX either): bitwise equal to each other, every fused
 site launched forward and dx on each, the global loss within 5e-2 * (1 +
-|loss|) of one process on the whole batch.
+|loss|) of one process on the whole batch. The same two ranks run
+full-width MViT-B 16x4's forward tensor-parallel at (data, model) = (1, 2)
+(the smoke's model_axis_train arm (a)): their logits equal, within 5e-2 *
+(1 + |logit|) of one process's, each rank launching the flash and
+stride-1 depthwise kernels once per block and pool on its local heads.
 """
 
 import numpy as np
@@ -754,6 +758,25 @@ def test_two_ranks_over_gloo_share_the_card(cuda, tmp_path):
         assert n["fused_pw_bn_act"] == n["fused_pw_bn_act.bwd_dx"] > 0
         assert n["fused_conv_bn_act"] == n["fused_conv_bn_act.bwd_dx"] > 0
 
+
+
+def test_mvit_b_tensor_parallel_forward_over_gloo_on_the_card(cuda, tmp_path):
+    """Arm (a)'s forward: two ranks at (1, 2) over gloo on one card against
+    one process, full-width MViT-B 16x4 at B=1."""
+    from _torch_dp_worker import mvit_tp_forward, run_group
+
+    rng = np.random.default_rng(9)
+    np.savez(tmp_path / "mvit.npz",
+             x=rng.standard_normal((1, 16, 224, 224, 3)).astype(np.float32))
+    one = mvit_tp_forward(0, 1, str(tmp_path), model_count=1)
+    r0, r1 = run_group("mvit_tp_forward", tmp_path, timeout_s=300)
+    assert r0["mode"] == "tensor-parallel" and r0["params"] < one["params"]
+    np.testing.assert_array_equal(r0["logits"], r1["logits"])
+    excess = np.abs(r0["logits"] - one["logits"]) - 5e-2 * (1 + np.abs(one["logits"]))
+    assert excess.max() <= 0, excess.max()
+    for out in (r0, r1):
+        assert out["launches"]["flash_attention"] == one["launches"]["flash_attention"] == 16
+        assert out["launches"]["depthwise3d_s1"] == one["launches"]["depthwise3d_s1"] == 4
 
 
 def test_hub_pth_load_equals_npz_load_on_the_card(cuda, tmp_path):

@@ -115,7 +115,8 @@ def test_launch_trains_slowfast_t_data_parallel_on_the_cpu(tmp_path):
     log = proc.stdout + proc.stderr
     assert proc.returncode == 0, log[-4000:]
     assert "distributed: 2 processes over gloo" in log, log[-4000:]
-    assert "mesh: (data, model) = (2, 1) over 2 process(es)" in log
+    # the JAX trainer's mesh line; no model axis to name at model 1
+    assert "mesh: {'data': 2, 'model': 1} over 2 cpu devices, 2 process(es)\n" in log
     assert "epoch 0: val_acc=" in log
     # rank 0 alone logs; the other rank's lines carry its prefix
     assert "[rank 1] epoch 0" not in log

@@ -169,10 +169,8 @@ def test_model_input_spec_matches_jax(name):
 
 
 @pytest.mark.parametrize("name,err,extra", [
-    # MViT is ported; its context-parallel attention (several GPUs) is not
-    ("mvit_b", NotImplementedError, {"attention": "ring"}),
     ("no_such_net", ValueError, {})],
-    ids=["mvit_b-NotImplementedError", "no_such_net-ValueError"])
+    ids=["no_such_net-ValueError"])
 def test_unported_or_unknown_model_raises(name, err, extra):
     with pytest.raises(err):
         tmodels.create_model(ModelConfig(name=name, num_classes=3, **extra))
