@@ -8,8 +8,10 @@ SlowFast-R50 with the server's defaults and SlowFast-R50 and MViT-B with
 int8 weights, preempt and resume a SlowFast-R50 training run, train
 SlowFast-R50 data-parallel across processes, and fine-tune SlowFast-R50,
 MViT-B 32x3, X3D-S and VideoMAE-B from full-width hub-layout checkpoints
-(and VideoMAE-B from its own MAE pretraining), on one GPU (and across two
-cards, where the machine has them).
+(and VideoMAE-B from its own MAE pretraining), train MViT-B and VideoMAE-B
+tensor- and context-parallel, and train SlowFast-R50 fully sharded (fsdp)
+and VideoMAE-B tensor x context parallel on the library mesh, on one GPU
+(and across two cards, where the machine has them).
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
@@ -39,7 +41,7 @@ Drives the port only (no JAX), one JSON line per phase:
             kernel_sums: rows 1, 1b, 2, 2b summed over the forward's
             sites, with the host time of the wrappers' plan lookup
 5. serve    the port's HTTP server (`build_server`, micro scheduler) answers
-            5 /predict requests (4 concurrent, then 1); the launch counters,
+            5 /predict requests sent at once; the launch counters,
             zeroed just before, must show 41 pointwise and 51 conv launches
             per forward; logits must agree with the plain path
 6. timing   bucket-8 forward with the kernels, the plain path and unfused
@@ -185,7 +187,7 @@ Drives the port only (no JAX), one JSON line per phase:
             which case ran
 33. edf_serve  phase 3's SlowFast-R50 artifact through `build_server` with
             no `--serve.scheduler` flag (the EDF scheduler): 8 batch-class
-            requests at once, 4 realtime ones in turn, then a realtime one
+            requests at once, 2 realtime ones in turn, then a realtime one
             whose `deadline_ms` is half the measured bucket-1 service time:
             logits against the plain path, that one request shed (503 +
             Retry-After, counted in /stats and /metrics) and no other,
@@ -256,6 +258,18 @@ Drives the port only (no JAX), one JSON line per phase:
             no optimizer state); the VideoMAE-B classifier 2 steps with
             `--model.pretrained`: every encoder leaf loaded bitwise the
             export, the head and fc_norm fresh; launches exact (rows 5-7)
+41. model_axis_train  the (data, model) train mesh at (1, 2), two gloo
+            ranks on the card, against one process on a global batch of 4
+            (3 steps): MViT-B and VideoMAE-B tensor-parallel, VideoMAE-B
+            Ulysses and ring (`model_axis_train_phase`); (e) over NCCL on
+            two cards only where present
+42. library_mesh_train  the library mesh (data, fsdp, tensor, context):
+            (a) SlowFast-R50 at (1, 2, 1, 1) on dp_train's geometry, its
+            43 leaves of >= 2^16 elements held as fsdp chunks; (b)
+            VideoMAE-B at (1, 1, 2, 2) with Ulysses, 3 of its 12 heads a
+            rank over all 1568 tokens; gloo ranks sharing the card; (c) (a)
+            over NCCL on two cards only where present
+            (`library_mesh_train_phase`)
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -274,7 +288,9 @@ phases' launches, and rows 1, 1b, 2, 2b a "dp_train" one with the
 launches of one rank of dp_train's arm (c); every row carries the
 launches of the fine-tuning phases that run it: "hub_finetune" on rows
 1-2b, "hub_x3d" on rows 1, 1b, 3, 3b, "hub_interp_finetune" on rows 4-7,
-"mae_handoff" on rows 5-7), the nvidia-smi line, and as the last
+"mae_handoff" on rows 5-7; "model_axis_train" on rows 4-7 and
+"library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches),
+the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
 at once without CUDA.
@@ -391,16 +407,18 @@ FEATURES_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=80, ckpt_every=0
                             "--tracking.trackers", "jsonl",
                             "--tracking.log_every", "1"])
 POISONED_TAKES = (3, 4)  # the train loader's 3rd and 4th batches
-# fit()'s step time with tracking on and off: Trainers of one epoch of 6
+# fit()'s step time with tracking on and off: Trainers of one epoch of 4
 # plain steps each, in turns on, off (the first interval of each dropped:
-# 5 per setting; turns on, off, off, on before the smoke grew the
-# data-parallel phase, and 12 steps before the slice-11 phases)
-TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=96, ckpt_every=0)
+# 3 per setting; 6 steps before the library-mesh phase, turns on, off,
+# off, on before the data-parallel phase, and 12 steps before the
+# serving-defaults and preemption phases)
+TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=64, ckpt_every=0)
 TRACKING_ORDER = ("on", "off")
 # the armed guard's and mixing's cost: optimizer steps timed in rounds of
-# plain, mixed, mixed + armed guard (the order turned each round; 8 rounds
-# before the data-parallel phase, 24 before the slice-11 phases)
-ARMED_ROUNDS = 6
+# plain, mixed, mixed + armed guard (the order turned each round; 6 rounds
+# before the library-mesh phase, 8 before the data-parallel phase, 24
+# before the serving-defaults and preemption phases)
+ARMED_ROUNDS = 4
 # hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
 # per-block remat: B=4 micro-steps with and without --model.remat
 REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
@@ -459,6 +477,9 @@ LINE = {"fused_pw_bn_act": ("slowfast_r50", "serve", "train"),
 
 # the artifacts `make_artifact` wrote, by model: (path, request clips)
 ARTIFACTS = {}
+# what a later phase reuses of an earlier one: dp_train's one-process arm
+# and model_axis_train's one-process references (`library_mesh_train`)
+KEPT = {}
 
 
 T_START = time.perf_counter()
@@ -484,26 +505,49 @@ class IncompleteProfile(RuntimeError):
     pass
 
 
-def _profiled(torch, fn, reps: int):
+class DeviceEvent:
+    """One device-side event of a profile: its kernel (or copy) name and
+    its start and end, in microseconds."""
+
+    __slots__ = ("name", "start", "end")
+
+    def __init__(self, name: str, start: float, end: float):
+        self.name, self.start, self.end = name, start, end
+
+    @property
+    def us(self) -> float:
+        return self.end - self.start
+
+
+def _profiled(torch, fn, reps: int, cpu: bool = False):
     """The device-side events (kernels, copies) torch.profiler records over
-    `reps` calls of `fn`. The profile object is freed here: its table of
-    bound methods makes it a reference cycle, which would keep its trace
-    alive until the cyclic garbage collector runs."""
+    `reps` calls of `fn`. Only the CUDA activity is traced (`cpu`: the
+    host-side ops too, which spreads the device work over a longer span),
+    and the events are read from the profiler's raw results: the host-side
+    ops and the `FunctionEvent` table that `prof.events()` builds cost
+    several times the profiled work, for the same names and times. The
+    profile object is freed here: its table of bound methods makes it a
+    reference cycle, which would keep its trace alive until the cyclic
+    garbage collector runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kev = [DeviceEvent(e.name(), e.start_ns() / 1e3,
+                       (e.start_ns() + e.duration_ns()) / 1e3)
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
     prof.profiler.kineto_results = None
     prof.profiler = None
     prof.action_map = None
     return kev
 
 
-def device_events(torch, fn, reps: int, attempts: int = 1):
+def device_events(torch, fn, reps: int, attempts: int = 1, cpu: bool = False):
     """The device-side events of `reps` calls of `fn` after one warm-up
     call, from a profile that is known to be complete. On the card a
     profile can come back with some or all of its device events missing:
@@ -531,8 +575,8 @@ def device_events(torch, fn, reps: int, attempts: int = 1):
     torch.cuda.synchronize()
     seen = []
     for _ in range(attempts):
-        one = kernels(_profiled(torch, fn, 1))
-        kev = _profiled(torch, fn, reps)
+        one = kernels(_profiled(torch, fn, 1, cpu))
+        kev = _profiled(torch, fn, reps, cpu)
         many = kernels(kev)
         want = reps * sum(one.values())
         if want and abs(sum(many.values()) - want) <= want // 100:
@@ -1055,7 +1099,12 @@ def kernel_sums(rows) -> dict:
     return out
 
 
-def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = 20):
+# timed calls of each SlowFast-R50 GEMM kernel row (and its plain and
+# library versions): 20 before the library-mesh phase
+GEMM_REPS = 10
+
+
+def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = GEMM_REPS):
     """Hold each kernel against its plain version at every site shape of
     `model` and time kernel, plain and library versions there: the forward
     launch, and the backward's dx launch (the same kernel against the
@@ -1327,24 +1376,24 @@ def profile_forward(torch, engine, batch, reps: int = PROFILE_REPS) -> dict:
     return profile_of(torch, lambda: engine.predict(batch), reps, "forward")
 
 
-def profile_of(torch, fn, reps: int, unit: str) -> dict:
+def profile_of(torch, fn, reps: int, unit: str, cpu: bool = False) -> dict:
     """Device time by kernel class over `reps` calls of `fn`, per call, and
-    the device's busy share of the span the calls' device work covers."""
+    the device's busy share of the span the calls' device work covers
+    (`cpu`: traced with the host-side ops, `_profiled`)."""
     try:
-        kev = device_events(torch, fn, reps)
+        kev = device_events(torch, fn, reps, cpu=cpu)
     except IncompleteProfile as e:
         INCOMPLETE_PROFILES[0] += 1
         return {"complete": False, "reason": str(e)}
-    span_us = (max(e.time_range.end for e in kev)
-               - min(e.time_range.start for e in kev))
-    busy_us = sum(e.time_range.elapsed_us() for e in kev)
+    span_us = max(e.end for e in kev) - min(e.start for e in kev)
+    busy_us = sum(e.us for e in kev)
     classes: dict = {}
     names: dict = {}
     for e in kev:
         cls = next((c for c, keys in KERNEL_CLASSES
                     if any(k in e.name for k in keys)), "other")
-        classes[cls] = classes.get(cls, 0.0) + e.time_range.elapsed_us()
-        names[e.name] = names.get(e.name, 0.0) + e.time_range.elapsed_us()
+        classes[cls] = classes.get(cls, 0.0) + e.us
+        names[e.name] = names.get(e.name, 0.0) + e.us
     top = sorted(names.items(), key=lambda kv: -kv[1])[:12]
     return {
         "complete": True, "device_events": len(kev), "reps": reps,
@@ -1916,9 +1965,26 @@ def hold_logits(got, want, what: str) -> dict:
             "top1_margin": margin.tolist()}
 
 
+# the micro scheduler's wait for a bucket to fill in the serve phases: the
+# requests' JSON (~25 MB a SlowFast-R50 clip, ~8 MB at 16x224^2) parses in
+# the server one at a time, ~1-3.5 s each, so a batch takes what has
+# arrived by then (12 s, and 4 requests then 1, before the library-mesh
+# phase; every forward is counted, whatever the batches)
+SERVE_MAX_WAIT_MS = 2500
+_BODIES = {}  # id(clips) -> the JSON bodies of those request clips
+
+
+def request_bodies(clips) -> list:
+    """The /predict JSON body of each clip (encoded once per clip list)."""
+    if id(clips) not in _BODIES:
+        _BODIES[id(clips)] = [json.dumps({k: v.tolist() for k, v in c.items()},
+                                         separators=(",", ":")).encode() for c in clips]
+    return _BODIES[id(clips)]
+
+
 def serve_phase(torch, art: str, clips, plain_logits, name: str):
     """The port's HTTP server (`build_server`, micro scheduler) answers one
-    /predict per clip (4 concurrent, then the rest); the launch counters,
+    /predict per clip, all sent at once; the launch counters,
     zeroed just before the server is built, must match
     `expected_forward_launches(name)` per forward (the warm-up forward of
     each bucket included); the logits must agree with the plain path.
@@ -1927,21 +1993,19 @@ def serve_phase(torch, art: str, clips, plain_logits, name: str):
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
 
-    bodies = [json.dumps({k: v.tolist() for k, v in c.items()},
-                         separators=(",", ":")).encode() for c in clips]
+    bodies = request_bodies(clips)
     fused.reset_launch_counts()
     t0 = time.perf_counter()
     server = build_server(parse_cli([
         "--serve.checkpoint", art, "--serve.port", "0",
-        "--serve.scheduler", "micro", "--serve.max_wait_ms", "12000"]))
+        "--serve.scheduler", "micro", "--serve.max_wait_ms", str(SERVE_MAX_WAIT_MS)]))
     server.start()
     try:
         build_s = time.perf_counter() - t0
         host, port = server.address
         url = f"http://{host}:{port}/predict"
-        with ThreadPoolExecutor(max_workers=4) as pool:
-            first = list(pool.map(lambda b: post(url, b), bodies[:4]))
-        rest = [post(url, b) for b in bodies[4:]]
+        with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
+            responses = list(pool.map(lambda b: post(url, b), bodies))
         with urllib.request.urlopen(f"http://{host}:{port}/stats") as r:
             stats = json.loads(r.read())
         with urllib.request.urlopen(f"http://{host}:{port}/healthz") as r:
@@ -1949,7 +2013,6 @@ def serve_phase(torch, art: str, clips, plain_logits, name: str):
     finally:
         server.close()
     launches = dict(fused.LAUNCHES)
-    responses = first + rest
     check(all(code == 200 for code, _, _ in responses),
           f"HTTP codes {[code for code, _, _ in responses]}")
     forwards = len(server.engine.buckets) + int(stats["batches"])
@@ -2043,7 +2106,12 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          forward_ms_plain=forward_ms(torch, plain_engine, batch),
          forward_ms_unfused_cudnn=forward_ms(torch, off_engine, batch),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    emit("profile", bucket=BUCKET, **profile_forward(torch, server.engine, batch))
+    # the same forwards traced with the host-side ops as well, the busy
+    # share that tracing gives (reported beside, not held)
+    with_cpu = profile_of(torch, lambda: server.engine.predict(batch), PROFILE_REPS,
+                          "forward", cpu=True)
+    emit("profile", bucket=BUCKET, **profile_forward(torch, server.engine, batch),
+         device_busy_share_cpu_and_cuda_tracing=with_cpu.get("device_busy_share"))
     del server, plain_engine, off_engine
     free_cuda(torch)
 
@@ -2097,6 +2165,11 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     # on MViT-B and VideoMAE-B, counters zeroed in each rank just before fit()
     emit("model_axis_train", nvidia_smi=smi,
          **model_axis_train_phase(torch, work, launches))
+    t_slice15 = time.perf_counter()
+    # 42. the library mesh: fsdp on SlowFast-R50, tensor x context on
+    # VideoMAE-B, counters zeroed in each rank just before fit()
+    emit("library_mesh_train", nvidia_smi=smi,
+         **library_mesh_train_phase(torch, work, launches))
 
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
@@ -2129,7 +2202,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
                 sub.update(line_sums(rows, kname, "slowfast_r50"))
             kernels[-1]["train_features"] = sub
         for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
-                              **MODEL_AXIS_LINE}.items():
+                              **MODEL_AXIS_LINE, **LIBRARY_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2142,7 +2215,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          serving_defaults_and_preemption=t_slice12 - t_slice11,
          data_parallel=t_slice13 - t_slice12,
          finetune=t_slice14 - t_slice13,
-         model_axis=time.perf_counter() - t_slice14,
+         model_axis=t_slice15 - t_slice14,
+         library_mesh=time.perf_counter() - t_slice15,
          total=time.perf_counter() - t_start,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
@@ -3493,11 +3567,16 @@ def quantiles(xs) -> dict:
             "n": len(xs)} if len(xs) else {"n": 0}
 
 
+# realtime requests of edf_serve, one at a time (4 before the library-mesh
+# phase)
+EDF_REALTIME = 2
+
+
 def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dict:
     """Phase 33. The SlowFast-R50 artifact of phase 3 served by
     `build_server` with no `--serve.scheduler` flag (the EDF scheduler):
     8 batch-class requests sent concurrently (the 5 request clips and 3 of
-    them again), 4 realtime requests one at a time, then one realtime
+    them again), `EDF_REALTIME` realtime requests one at a time, then one realtime
     request whose `deadline_ms` is half the scheduler's measured service
     time of bucket 1. Checks: every answered request's logits against the
     plain path (5e-2 * (1 + |plain|), top-1 on decisive rows); the
@@ -3511,8 +3590,7 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
 
-    bodies = [json.dumps({k: v.tolist() for k, v in c.items()},
-                         separators=(",", ":")).encode() for c in clips]
+    bodies = request_bodies(clips)
     order = [i % len(clips) for i in range(BUCKET)]
     free_cuda(torch)
     fused.reset_launch_counts()
@@ -3534,7 +3612,7 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
                 lambda i: http(base + "/predict", with_keys(bodies[i], priority="batch")),
                 order))
         rt_resp = [http(base + "/predict", with_keys(bodies[i], priority="realtime"))
-                   for i in range(4)]
+                   for i in range(EDF_REALTIME)]
         svc_ms = server.batcher._estimate_s(1) * 1e3
         deadline_ms = max(svc_ms / 2, 1.0)
         shed = http(base + "/predict", with_keys(bodies[4], priority="realtime",
@@ -3551,7 +3629,7 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
           f"edf_serve HTTP codes {[r[0] for r in answered]}")
     payloads = [json.loads(r[2]) for r in answered]
     served = np.stack([np.asarray(p["logits"], np.float32) for p in payloads])
-    want = plain_logits[order + list(range(4))]
+    want = plain_logits[order + list(range(EDF_REALTIME))]
     held = hold_logits(served, want, "edf_serve")
     check(shed[0] == 503 and int(shed[1]["Retry-After"]) >= 1,
           f"short-deadline request answered {shed[0]}")
@@ -3651,9 +3729,8 @@ def int8_serve_phase(torch, work: str, launches: dict) -> dict:
         server.start()
         try:
             host, port = server.address
-            body = json.dumps({k: v.tolist() for k, v in clips[0].items()},
-                              separators=(",", ":")).encode()
-            code, _, data, _ = http(f"http://{host}:{port}/predict", body)
+            code, _, data, _ = http(f"http://{host}:{port}/predict",
+                                    request_bodies(clips)[0])
             stats = json.loads(http(f"http://{host}:{port}/stats")[2])
         finally:
             server.close()
@@ -3851,7 +3928,8 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
 # SlowFast-R50 at full width (32x256^2, bf16, 700 classes), synthetic
 # clips, SGD at lr 0.01, mixing off: a global batch of 8 clips a step in
 # every arm, 6 steps (48 videos), a checkpoint every 4 steps, eval of 12
-# val clips. The head's dropout is off: a rank keeps its rows of the
+# val clips (4 steps leave the preempted arm, which stopped at step 2 or 3,
+# one step from the run's end). The head's dropout is off: a rank keeps its rows of the
 # global batch's mask, but its rows hold other clips than the same rows
 # of one process's batch (the loader deals clip i to rank i % world), so
 # with dropout on the arms would train on other masks. The preempted run's SIGTERM goes to rank 1 once rank 0's log
@@ -3916,12 +3994,12 @@ def dp_fit(torch, argv, dump_dir: str) -> dict:
     dist.all_reduce = counting
     mean_ = steps_mod.all_reduce_mean_
 
-    def spying_mean(tensors):
+    def spying_mean(tensors, group=None):
         if len(rec["step_ms"]) == 0 and "local" not in rec:
             rec["local"] = True  # the first call of the first step: the gradient
             torch.save(torch.cat([t.float().flatten() for t in tensors]).cpu(),
                        os.path.join(dump_dir, f"grad_local_rank{rank}.pt"))
-        mean_(tensors)
+        mean_(tensors, group=group)
 
     steps_mod.all_reduce_mean_ = spying_mean
     step = trainer.train_step
@@ -4115,6 +4193,8 @@ def dp_train_phase(torch, work: str, launches: dict) -> dict:
         arms[name] = (d, [g[3] for g in got])
         free_cuda(torch)
     ref = arms["a_one_process"][1][0]
+    KEPT["dp_one_process"] = arms["a_one_process"]
+    KEPT["dp_two_ranks"] = arms["c_gloo_two_ranks"]
     for name, (d, recs) in arms.items():
         world = recs[0]["world"]
         out[name] = dp_arm_fields(torch, recs, dp_expected(world),
@@ -4175,11 +4255,18 @@ def dp_train_phase(torch, work: str, launches: dict) -> dict:
     pre = {kk: per_forward.get(kk.split(".")[0], 0) * k for kk in SOURCES}
     check(all(r["launches"].get(kk, 0) == pre[kk] for r in recs for kk in SOURCES),
           f"preempted launches {[r['launches'] for r in recs]}, expected {pre}")
+    # the same two-rank run again up to the SIGTERM: its first gradient and
+    # losses against (c)'s show what a rerun of one step varies by
+    c_losses = arms["c_gloo_two_ranks"][1][0]["losses"]
     out["c_preempted"] = dict(
         sigterm_to="rank 1", after_rank0_log_line=DP_SIGTERM_AFTER_LINE,
         stopped_at_step=k, checkpoints=ckpts, checkpoint_kind=extra["kind"],
         emergency_reason=emergency["reason"], sigterm_to_exit_s=exit_s,
-        launches_per_rank=recs[0]["launches"])
+        launches_per_rank=recs[0]["launches"],
+        grad_rel_err_vs_c=rel_err(torch.load(os.path.join(d, "grad_rank0.pt")),
+                                  torch.load(os.path.join(dc, "grad_rank0.pt"))),
+        losses=recs[0]["losses"], losses_equal_c=recs[0]["losses"] == c_losses[:k])
+    KEPT["dp_rerun"] = d
 
     # (d) NCCL across two cards, through the launcher
     n_cards = torch.cuda.device_count()
@@ -4669,7 +4756,7 @@ def state_hash(tree) -> str:
 
 
 _COLLECTIVES = ("all_reduce", "broadcast", "all_gather_into_tensor",
-                "all_to_all_single", "batch_isend_irecv")
+                "reduce_scatter_tensor", "all_to_all_single", "batch_isend_irecv")
 
 
 def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
@@ -4677,12 +4764,14 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     the one-process reference): MViT's drop path set to 0; the counters
     zeroed just before fit(); each optimizer step synchronised and timed,
     its collectives counted with their bytes, and this rank's replicated
-    leaves hashed after it; the first step's gradient, gathered over the
-    model group, written by rank 0 (a flat f32 vector in sorted-name
+    leaves (neither tensor- nor fsdp-sharded) and all its parameters
+    hashed after it; the first step's gradient, gathered over the fsdp and
+    tensor groups, written by rank 0 (a flat f32 vector in parameter
     order). After fit(): the launches, the ring blocks, peak memory, the
-    parameters this rank holds, and the hash of the gathered state (a
-    collective). `keep`: return (record, trainer), the trainer kept for a
-    restore."""
+    parameters, optimizer-state elements and state bytes (parameters,
+    optimizer state, EMA) this rank holds, its mesh coordinates, and the
+    hash of the gathered state (a collective). `keep`: return (record,
+    trainer), the trainer kept for a restore."""
     import torch.distributed as dist
 
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
@@ -4690,7 +4779,8 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
     from pytorchvideo_accelerate_tpu_torch.parallel import ring_attention
-    from pytorchvideo_accelerate_tpu_torch.parallel.sharding import gather_state_dict
+    from pytorchvideo_accelerate_tpu_torch.parallel.sharding import full_state_dict
+    from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import param_kinds
     from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
 
     os.makedirs(dump_dir, exist_ok=True)
@@ -4698,10 +4788,12 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     for m in trainer.model.modules():
         if isinstance(m, DropPath):
             m.rate = 0.0
-    model, plan = trainer.model, trainer.model_axis.plan
+    model, axis = trainer.model, trainer.model_axis
     rank = pdist.process_index()
-    replicated = [p for n, p in model.named_parameters() if n not in plan]
-    rec = {"step_ms": [], "losses": [], "rep_hashes": [], "collectives": []}
+    kinds = param_kinds(model)
+    replicated = [p for n, p in model.named_parameters() if not kinds[n]]
+    rec = {"step_ms": [], "losses": [], "rep_hashes": [], "local_hashes": [],
+           "collectives": []}
     count = {"on": False}
     real = {n: getattr(dist, n) for n in _COLLECTIVES}
 
@@ -4713,6 +4805,8 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
                 if name == "batch_isend_irecv":
                     nbytes = sum(op.tensor.numel() * op.tensor.element_size()
                                  for op in t)
+                elif name == "reduce_scatter_tensor":
+                    nbytes = a[1].numel() * a[1].element_size()
                 elif torch.is_tensor(t):
                     nbytes = t.numel() * t.element_size()
                 count[name] = count.get(name, 0) + 1
@@ -4738,12 +4832,16 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
         rec["collectives"].append({k: v for k, v in count.items() if k != "on"})
         rec["losses"].append(float(m["loss"]))
         rec["rep_hashes"].append(state_hash([p.data for p in replicated]))
+        rec["local_hashes"].append(state_hash([p.data for p in model.parameters()]))
         if len(rec["step_ms"]) == 1:
-            grads = gather_state_dict({n: p.grad for n, p in model.named_parameters()},
-                                      plan, pdist.model_group())
+            grads = full_state_dict({n: p.grad for n, p in model.named_parameters()},
+                                    axis)
             if rank == 0:
-                torch.save(torch.cat([grads[k].float().flatten() for k in sorted(grads)]).cpu(),
+                torch.save(torch.cat([g.float().flatten() for g in grads.values()]).cpu(),
                            os.path.join(dump_dir, "grad.pt"))
+                if "head.proj.weight" in grads:  # the ResNet families' head
+                    torch.save(grads["head.proj.weight"].float().cpu(),
+                               os.path.join(dump_dir, "head_grad.pt"))
         return m
 
     trainer.train_step = timed
@@ -4762,7 +4860,18 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     rec["ring_blocks"] = ring_attention.RING_BLOCKS[0]
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["params_this_rank"] = sum(p.numel() for p in model.parameters())
-    rec["mode"] = trainer.model_axis.mode
+    opt_state = [v for st in trainer.state.optimizer.opt.state.values()
+                 for v in st.values() if torch.is_tensor(v) and v.dim()]
+    ema = list(trainer.state.ema.values()) if trainer.state.ema else []
+    rec["opt_elements_this_rank"] = sum(v.numel() for v in opt_state)
+    rec["state_bytes_this_rank"] = {
+        "params": sum(p.numel() * p.element_size() for p in model.parameters()),
+        "optimizer": sum(v.numel() * v.element_size() for v in opt_state),
+        "ema": sum(v.numel() * v.element_size() for v in ema)}
+    rec["fsdp_leaves"] = len(axis.fsdp_plan)
+    rec["coords"] = (pdist.library_coords(rank, pdist.library_shape())
+                     if pdist.library_shape() else None)
+    rec["mode"] = axis.mode
     rec["rank"], rec["world"] = rank, pdist.process_count()
     rec["result"] = result
     rec["checkpoint"] = os.path.join(trainer.checkpointer.directory,
@@ -4959,6 +5068,9 @@ def model_axis_train_phase(torch, work: str, launches: dict) -> dict:
         emit("model_axis_train_e", run=False,
              why=f"NCCL across cards needs two cards; this machine has {n_cards} "
                  "(NCCL refuses two ranks on one card)")
+    # the VideoMAE-B reference serves library_mesh_train's arm (b)
+    KEPT["ma_refs"] = (refs, {"videomae_b": ref_trainers["videomae_b"]},
+                       os.path.join(d, "one", "videomae_b", "grad.pt"))
     del ref_trainers
     free_cuda(torch)
     launches["model_axis_train"] = arms["a_mvit_tp"][0]["launches"]
@@ -4969,13 +5081,41 @@ def model_axis_train_phase(torch, work: str, launches: dict) -> dict:
 def ma_launched_arm(torch, d: str, ref: dict) -> dict:
     """(e): arm (a) through `launch.py --num_processes 2`, one card a rank
     over NCCL (the launcher's PVA_* env), held as (a)."""
+    out = os.path.join(d, "nccl")
+    name, att, extra = MA_ARMS["a_mvit_tp"]
+    return launched_arm(torch, out, "e", ma_argv(os.path.join(out, "e"), name, att,
+                                                 extra, 2), ma_expected(name, att), ref)
+
+
+def launched_arm(torch, out: str, tag: str, argv, want: dict, ref: dict) -> dict:
+    """Arm `tag` (`ma_fit` of `argv`) through `launch.py --num_processes 2`,
+    one card a rank over NCCL (the launcher's PVA_* env): launches a rank
+    `want`, the replicated leaves bitwise across the ranks after every
+    step, the losses within 5e-2 * (1 + |loss|) of `ref`'s."""
+    records = launched_records(out, tag, argv)
+    for rec in records:
+        got = {**{k: rec["launches"].get(k, 0) for k in SOURCES},
+               "ring_blocks": rec["ring_blocks"]}
+        check(got == want, f"({tag}) rank {rec['rank']} launches {got}, expected {want}")
+    check(records[0]["rep_hashes"] == records[1]["rep_hashes"],
+          f"({tag}) the ranks' replicated leaves differ after a step")
+    diffs = [abs(a - b) for a, b in zip(records[0]["losses"], ref["losses"])]
+    check(all(x <= LOGIT_TOL * (1 + abs(b)) for x, b in zip(diffs, ref["losses"])),
+          f"({tag}) losses {records[0]['losses']} against one process's {ref['losses']}")
+    return {"losses": records[0]["losses"], "loss_max_abs_diff_vs_one_process": max(diffs),
+            "step_ms": spread(records[0]["step_ms"][1:]),
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in records],
+            "collectives_per_micro_step": records[0]["collectives"][-1]}
+
+
+def launched_records(out: str, tag: str, argv) -> list:
+    """`ma_fit` of `argv` through `launch.py --num_processes 2`, one card a
+    rank over NCCL, its dump under `out/tag`; the two ranks' records in
+    rank order."""
     import threading
 
     root = os.path.dirname(os.path.abspath(__file__))
-    out = os.path.join(d, "nccl")
     os.makedirs(out, exist_ok=True)
-    name, att, extra = MA_ARMS["a_mvit_tp"]
-    argv = ma_argv(os.path.join(out, "e"), name, att, extra, 2)
     script = os.path.join(out, "ma_launched.py")
     with open(script, "w") as f:
         f.write("import json, os, sys\n"
@@ -4986,7 +5126,7 @@ def ma_launched_arm(torch, d: str, ref: dict) -> dict:
     proc = subprocess.Popen(
         [sys.executable, "-u", "-m", "pytorchvideo_accelerate_tpu_torch.launch",
          "--num_processes", "2", "--timeout", str(DP_CHILD_TIMEOUT_S), "--",
-         script, out, json.dumps([["e", argv]])], cwd=root, stdout=subprocess.PIPE,
+         script, out, json.dumps([[tag, argv]])], cwd=root, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     lines, records = [], []
     timer = threading.Timer(DP_CHILD_TIMEOUT_S + 30, proc.kill)
@@ -5001,22 +5141,239 @@ def ma_launched_arm(torch, d: str, ref: dict) -> dict:
     finally:
         timer.cancel()
     check(proc.returncode == 0 and len(records) == 2,
-          f"(e) launch rc {proc.returncode}: {lines[-25:]}")
-    records.sort(key=lambda r: r["rank"])
-    want = ma_expected(name, att)
-    for rec in records:
-        got = {**{k: rec["launches"].get(k, 0) for k in SOURCES},
-               "ring_blocks": rec["ring_blocks"]}
-        check(got == want, f"(e) rank {rec['rank']} launches {got}, expected {want}")
-    check(records[0]["rep_hashes"] == records[1]["rep_hashes"],
-          "(e) the ranks' replicated leaves differ after a step")
-    diffs = [abs(a - b) for a, b in zip(records[0]["losses"], ref["losses"])]
-    check(all(x <= LOGIT_TOL * (1 + abs(b)) for x, b in zip(diffs, ref["losses"])),
-          f"(e) losses {records[0]['losses']} against one process's {ref['losses']}")
-    return {"losses": records[0]["losses"], "loss_max_abs_diff_vs_one_process": max(diffs),
-            "step_ms": spread(records[0]["step_ms"][1:]),
-            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in records],
-            "collectives_per_micro_step": records[0]["collectives"][-1]}
+          f"({tag}) launch rc {proc.returncode}: {lines[-25:]}")
+    return sorted(records, key=lambda r: r["rank"])
+
+
+# --- the library mesh: fsdp x tensor x context ----------------------------------
+
+# (a) SlowFast-R50 at (data, fsdp, tensor, context) = (1, 2, 1, 1) on
+# dp_train's geometry and argv (DP_TRAIN: a global batch of 8, 4 clips a
+# batch shard, 6 steps, head dropout 0), against dp_train's one-process arm
+# (the same run.py flags but the mesh's and the shard's batch: reused, not
+# run again); (b) VideoMAE-B at (1, 1, 2, 2) with `--model.attention
+# ulysses` (tensor parallelism splits the 12 heads 6 a tensor rank, Ulysses
+# gives each context rank 3 of those over all 1568 tokens) on
+# model_axis_train's geometry (MA_TRAIN: a global batch of 4, 3 steps),
+# against that phase's one-process VideoMAE-B; two and four gloo ranks
+# sharing the one card. (c) is (a) over NCCL, one card a rank
+LM_ARMS = {  # arm: its (data, fsdp, tensor, context)
+    "a_slowfast_fsdp": (1, 2, 1, 1),
+    "b_videomae_tp_ulysses": (1, 1, 2, 2),
+}
+# parameters a rank by the JAX package's `param_sharding` (fsdp 2 over
+# SlowFast-R50's 43 leaves of >= 2^16 elements; tensor 2 over VideoMAE-B's
+# qkv / proj / mlp), as tests/test_torch_library_mesh.py holds the rule;
+# SGD keeps one momentum element a parameter element
+LM_PARAMS_PER_RANK = {"a_slowfast_fsdp": 18_083_972, "b_videomae_tp_ulysses": 44_275_132}
+# the kernel rows on the library mesh's path: one rank of each arm
+LIBRARY_LINE = {
+    "library_mesh_train_a": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                             "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx"),
+    "library_mesh_train_b": ("flash_attention", "flash_attention.bwd_dq",
+                             "flash_attention.bwd_dkv")}
+
+
+def lm_argv(out: str, arm: str) -> list:
+    """run.py's argv of one library-mesh arm (the mesh's flags last)."""
+    mesh = [f for name, n in zip(("fsdp", "tensor", "context"), LM_ARMS[arm][1:])
+            if n > 1 for f in (f"--mesh.{name}", str(n))]
+    if arm.startswith("a_"):
+        spec = dict(DP_TRAIN, batch=DP_TRAIN["batch"] // 2)
+    else:
+        spec = dict(MA_TRAIN, name="videomae_b",
+                    argv=["--model.attention", "ulysses", *MA_DROP])
+    return train_argv(out, spec=spec) + mesh
+
+
+def lm_references(torch, d: str, arms=tuple(LM_ARMS)) -> dict:
+    """{arm: {"ref": the one-process record, "grad": the file of the first
+    gradient to hold against, "trainer": a one-process trainer for the
+    restore; SlowFast-R50's also "one_grad", "head" (one process's whole and
+    head gradients), "dp2" (dp_train's two-rank record) and "rerun" (the
+    first gradient of dp_train's preempted two-rank arm, a second run of
+    the same step, or None)}, for each of `arms`: dp_train's arms (a) and
+    (c) and model_axis_train's VideoMAE-B when those phases ran in this
+    process (else run here). SlowFast-R50's whole first gradient is held
+    against dp_train's two ranks (the same batch shards: one process's is
+    chaotic against it in bf16 at init, ~0.95 relative), its head's
+    against one process."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    refs = {}
+    if "a_slowfast_fsdp" in arms:
+        for key, arm, mode, world in (("dp_one_process", "dp_a_one_process", "none", 1),
+                                      ("dp_two_ranks", "dp_c_gloo_two_ranks", "gloo", 2)):
+            if key not in KEPT:
+                out = os.path.join(d, arm)
+                got = dp_group(mode, world, out, DP_TRAIN["batch"] // world)
+                KEPT[key] = (out, [g[3] for g in got])
+        dp_dir, (dp_rec,) = KEPT.pop("dp_one_process")
+        dp2_dir, dp2_recs = KEPT.pop("dp_two_ranks")
+        rerun = KEPT.pop("dp_rerun", None)
+        # the one-process SlowFast-R50 that restores arm (a)'s checkpoint
+        sf = Trainer(parse_cli(train_argv(os.path.join(d, "restore_a"),
+                                          spec=DP_TRAIN)))
+        refs["a_slowfast_fsdp"] = {
+            "ref": dp_rec, "grad": os.path.join(dp2_dir, "grad_rank0.pt"),
+            "trainer": sf, "one_grad": os.path.join(dp_dir, "grad_rank0.pt"),
+            "head": os.path.join(dp_dir, "head_grad_rank0.pt"), "dp2": dp2_recs[0],
+            "rerun": rerun and os.path.join(rerun, "grad_rank0.pt")}
+    if "b_videomae_tp_ulysses" in arms:
+        if "ma_refs" not in KEPT:
+            name, att, extra = MA_REFS["videomae_b"]
+            out = os.path.join(d, "one", name)
+            rec, trainer = ma_fit(torch, ma_argv(out, name, att, extra, 1), out, keep=True)
+            KEPT["ma_refs"] = ({name: [rec]}, {name: trainer}, os.path.join(out, "grad.pt"))
+        ma_refs, trainers, vm_grad = KEPT.pop("ma_refs")
+        refs["b_videomae_tp_ulysses"] = {
+            "ref": ma_refs["videomae_b"][0], "trainer": trainers["videomae_b"],
+            "grad": vm_grad}
+    return refs
+
+
+def lm_expected(arm: str) -> dict:
+    """Each rank's launches of one arm's fit(): (a) those of a dp_train
+    rank of 4 clips; (b) those of one process (every rank trains the whole
+    global batch, on its 3 heads)."""
+    if arm.startswith("a_"):
+        return {**dp_expected(2), "ring_blocks": 0}
+    return ma_expected("videomae_b", "ulysses")
+
+
+def lm_hold(torch, arm: str, recs: list, ref: dict, dump: str) -> dict:
+    """The checks of one library-mesh arm on its ranks' `ma_fit` records
+    (`recs`, rank order; their first gradients under `dump`) against its
+    references `ref` (`lm_references`), and its report (see
+    `library_mesh_train_phase`); arm (c) is held as (a)."""
+    base = "a_slowfast_fsdp" if arm.startswith("c_") else arm
+    one = ref["ref"]
+    want = lm_expected(base)
+    for rec in recs:
+        got_l = {**{k: rec["launches"].get(k, 0) for k in SOURCES},
+                 "ring_blocks": rec["ring_blocks"]}
+        check(got_l == want, f"{arm} rank {rec['rank']} launches {got_l}, "
+              f"expected {want}")
+        n = LM_PARAMS_PER_RANK[base]
+        check(rec["params_this_rank"] == n and rec["opt_elements_this_rank"] == n,
+              f"{arm} rank {rec['rank']}: {rec['params_this_rank']} parameters, "
+              f"{rec['opt_elements_this_rank']} optimizer elements, expected {n}")
+        check(sum(rec["state_bytes_this_rank"].values()) == 4 * 2 * n,
+              f"{arm} rank {rec['rank']} state bytes {rec['state_bytes_this_rank']}")
+    check(all(r["rep_hashes"] == recs[0]["rep_hashes"] for r in recs),
+          f"{arm}: the ranks' replicated leaves differ after a step")
+    for r in recs:
+        peers = [q for q in recs if q["coords"][1:3] == r["coords"][1:3]]
+        check(all(q["local_hashes"] == r["local_hashes"] for q in peers),
+              f"{arm}: ranks holding the same shards differ after a step")
+    check(all(r["losses"] == recs[0]["losses"] for r in recs),
+          f"{arm}: the ranks' losses differ")
+    steps = len(one["losses"])
+    diffs = [abs(a - b) for a, b in zip(recs[0]["losses"], one["losses"])]
+    check(len(recs[0]["losses"]) == steps
+          and all(x <= LOGIT_TOL * (1 + abs(b)) for x, b in zip(diffs, one["losses"])),
+          f"{arm} losses {recs[0]['losses']} against one process's {one['losses']}")
+    g = torch.load(os.path.join(dump, "grad.pt"))
+    grad_err = rel_err(g, torch.load(ref["grad"]))
+    check(grad_err <= MA_GRAD_TOL, f"{arm} first-step gradient rel err {grad_err}")
+    extra = {}
+    if "head" in ref:  # SlowFast-R50: the head against one process
+        dp2 = ref["dp2"]
+        h = torch.load(os.path.join(dump, "head_grad.pt"))
+        extra["head_grad_rel_err_vs_one_process"] = rel_err(h, torch.load(ref["head"]))
+        check(extra["head_grad_rel_err_vs_one_process"] <= MA_GRAD_TOL,
+              f"{arm} head gradient against one process: {extra}")
+        extra["grad_rel_err_vs_one_process_reported"] = rel_err(
+            g, torch.load(ref["one_grad"]))
+        # the witness: two runs of the same two-rank data-parallel step
+        extra["grad_rel_err_data_parallel_rerun"] = (
+            rel_err(torch.load(ref["rerun"]), torch.load(ref["grad"]))
+            if ref.get("rerun") else None)
+        extra["losses_data_parallel_two_ranks"] = dp2["losses"]
+        extra["losses_bitwise_data_parallel_two_ranks"] = recs[0]["losses"] == dp2["losses"]
+        extra["step_ms_ratio_vs_data_parallel_two_ranks"] = (
+            spread(recs[0]["step_ms"][1:])["median"] / spread(dp2["step_ms"][1:])["median"])
+    restored, restore_s = ma_restore_hash(torch, ref["trainer"], recs[0]["checkpoint"])
+    check(restored == recs[0]["gathered_state_hash"]
+          and all(r["gathered_state_hash"] == restored for r in recs),
+          f"{arm}: the checkpoint restored in one process is not the gathered state")
+    step_ms = spread(recs[0]["step_ms"][1:])
+    ref_ms = spread(one["step_ms"][1:])
+    return {
+        "mesh": dict(zip(("data", "fsdp", "tensor", "context"), LM_ARMS[base])),
+        "world": recs[0]["world"], "mode": recs[0]["mode"],
+        "fsdp_leaves": recs[0]["fsdp_leaves"],
+        "losses": recs[0]["losses"], "losses_one_process": one["losses"],
+        "loss_max_abs_diff_vs_one_process": max(diffs),
+        ("grad_rel_err_vs_data_parallel_two_ranks" if "head" in ref
+         else "grad_rel_err_vs_one_process"): grad_err, **extra,
+        "replicated_bitwise_every_step": True, "shard_copies_bitwise_every_step": True,
+        "restore_bitwise": True, "restore_s": restore_s,
+        "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
+        "params_per_rank": recs[0]["params_this_rank"],
+        "opt_elements_per_rank": recs[0]["opt_elements_this_rank"],
+        "state_bytes_per_rank": recs[0]["state_bytes_this_rank"],
+        "step_ms": step_ms, "step_ms_all": recs[0]["step_ms"],
+        "step_ms_one_process": ref_ms,
+        "step_ms_ratio_vs_one_process": step_ms["median"] / ref_ms["median"],
+        "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in recs],
+        "peak_mem_gb_one_process": one.get("peak_mem_gb"),
+        "collectives_per_micro_step": recs[0]["collectives"][-1],
+        "fit_s": recs[0]["fit_s"]}
+
+
+def lm_nccl_arm(torch, d: str, ref: dict) -> dict:
+    """(c): arm (a) through `launch.py --num_processes 2`, one card a rank
+    over NCCL, held by `lm_hold` as (a) is."""
+    out = os.path.join(d, "nccl")
+    recs = launched_records(out, "c", lm_argv(os.path.join(out, "run"), "a_slowfast_fsdp"))
+    return lm_hold(torch, "c_slowfast_fsdp_nccl_two_cards", recs, ref,
+                   os.path.join(out, "c"))
+
+
+def library_mesh_train_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 42. The library mesh through `run.main`'s Trainer: (a)
+    SlowFast-R50 fsdp 2, (b) VideoMAE-B tensor 2 x context 2 (Ulysses), as
+    `LM_ARMS` says, each a gloo group on the one card; (c) (a) over NCCL on
+    two cards where the machine has them. Held per arm (`lm_hold`): the
+    ranks' losses equal and within 5e-2 * (1 + |loss|) of one process's;
+    the first step's gradient gathered over fsdp and tensor within 5e-2
+    relative 2-norm of one process's; the replicated leaves bitwise equal
+    across the ranks, and every shard across the ranks that hold a copy of
+    it (equal fsdp and tensor coordinates), after every step; parameters
+    and optimizer-state elements a rank the JAX rule's
+    (`LM_PARAMS_PER_RANK`), and its state bytes 4 bytes each (no full copy
+    of a sharded leaf outlives a step); exact launches a rank; the
+    checkpoint the arm wrote restored in one process bitwise the gathered
+    state. Reports step ms against one process, peak memory a rank, the
+    state bytes a rank and the collectives a micro-step with their bytes."""
+    t0 = time.perf_counter()
+    free_cuda(torch)
+    d = os.path.join(work, "library_mesh")
+    refs = lm_references(torch, d)
+    out = {}
+    for arm, shape in LM_ARMS.items():
+        world = int(np.prod(shape))
+        free_cuda(torch)
+        got = ma_group("gloo", world, os.path.join(d, arm),
+                       [(arm, lm_argv(os.path.join(d, arm, "run"), arm))])
+        out[arm] = lm_hold(torch, arm, got[arm], refs[arm], os.path.join(d, arm, arm))
+        launches[f"library_mesh_train_{arm[0]}"] = got[arm][0]["launches"]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        free_cuda(torch)
+        out["c_slowfast_fsdp_nccl_two_cards"] = lm_nccl_arm(torch, d, refs["a_slowfast_fsdp"])
+    else:
+        emit("library_mesh_train_c", run=False,
+             why=f"NCCL across cards needs two cards; this machine has {n_cards} "
+                 "(NCCL refuses two ranks on one card)")
+    for ref in refs.values():
+        ref["trainer"].close()
+    del refs
+    free_cuda(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 # the ring and Ulysses shapes (e) holds over NCCL: VideoMAE-B's attention
@@ -5136,6 +5493,32 @@ def model_axis_e_main() -> int:
                "e_nccl_context_parallel": ma_nccl_cp(os.path.join(w, "cp"))}
     print(json.dumps(out, default=str), flush=True)
     return 0
+
+
+def library_mesh_c_main() -> int:
+    """Arm (c) of library_mesh_train alone, for a machine of two or more
+    cards: the kernels' build, arm (a)'s references (one process, and two
+    gloo ranks of plain data parallelism), (c) over NCCL through the
+    launcher; one JSON line."""
+    import torch
+
+    from pytorchvideo_accelerate_tpu_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()
+    _build.build()
+    with tempfile.TemporaryDirectory(prefix="pva_library_mesh_c_") as w:
+        refs = lm_references(torch, w, arms=("a_slowfast_fsdp",))
+        ref = refs["a_slowfast_fsdp"]
+        out = {"nvidia_smi": smi, "cards": torch.cuda.device_count(),
+               "c_slowfast_fsdp_nccl_two_cards": lm_nccl_arm(torch, w, ref)}
+        ref["trainer"].close()
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -40,9 +40,9 @@ from pytorchvideo_accelerate_tpu_torch.ops.fused import (
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.collectives import all_reduce_sum
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
-    data_count,
-    data_group,
-    data_index,
+    batch_count,
+    batch_group,
+    batch_index,
     is_distributed,
 )
 from pytorchvideo_accelerate_tpu_torch.precision import end_island, f32_island
@@ -117,10 +117,12 @@ def batch_norm_stats(raw32: torch.Tensor, dims=None):
     defaults to every axis but the last (NDHWC).
 
     With a process group up (data-parallel training) E[x] and E[x^2] are
-    averaged over the data group before the variance: every data slice
-    holds an equal share of the global batch, so these are the global
-    batch's moments, the statistics the JAX package's BatchNorm takes over
-    its sharded batch (the ranks of one model group hold the same slice).
+    averaged over the batch group (data x fsdp; the data group on the
+    (data, model) grid) before the variance: every batch shard holds an
+    equal share of the global batch, so these are the global batch's
+    moments, the statistics the JAX package's BatchNorm takes over its
+    sharded batch (the tensor and context ranks of one shard hold the same
+    slice).
     One all-reduce of 2C floats per call, and one more in the backward."""
     if dims is None:
         dims = tuple(range(raw32.dim() - 1))
@@ -133,9 +135,9 @@ def batch_norm_stats(raw32: torch.Tensor, dims=None):
 
 
 def _all_reduce_stats(moments: torch.Tensor) -> torch.Tensor:
-    """The data group's mean of the stacked per-channel moments,
+    """The batch group's mean of the stacked per-channel moments,
     differentiable."""
-    return all_reduce_sum(moments, group=data_group()) / data_count()
+    return all_reduce_sum(moments, group=batch_group()) / batch_count()
 
 
 def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
@@ -151,14 +153,15 @@ def fused_train_norm_act(raw: torch.Tensor, bn: BNAffine, act: str,
 
 def batch_rand(shape, generator: torch.Generator, device=None) -> torch.Tensor:
     """Uniform draws of `shape` (batch first) from `generator`: with a
-    process group up, this data slice's rows of the draws of the whole
+    process group up, this batch shard's rows of the draws of the whole
     global batch (every rank draws them all from the same stream), so a
     clip's draw depends on its row of the global batch, not on its rank,
-    and the ranks of one model group draw alike (one JAX key)."""
-    world = data_count()
+    and the ranks of one shard (its tensor and context ranks) draw alike
+    (one JAX key)."""
+    world = batch_count()
     if world == 1:
         return torch.rand(shape, generator=generator, device=device)
-    b, rank = shape[0], data_index()
+    b, rank = shape[0], batch_index()
     full = torch.rand((world * b,) + tuple(shape[1:]), generator=generator,
                       device=device)
     return full[rank * b:(rank + 1) * b]
@@ -261,14 +264,25 @@ def remat_call(block: nn.Module, fn: Callable, x: torch.Tensor, *args):
     (`torch.utils.checkpoint`, non-reentrant): only the block's inputs are
     kept, and the backward runs the forward again. The generators of the
     block's active `SeededDropout`s are rewound for that recompute, so it
-    draws the forward's masks. Without autograd, a plain call."""
+    draws the forward's masks, and the fsdp-sharded leaves that the block
+    itself gathers are gathered again (`parallel/fsdp.py regathered`).
+    Without autograd, a plain call."""
     if not torch.is_grad_enabled():
         return fn(x, *args)
+    # here, not at the top: parallel/fsdp.py builds on models/convert.py
+    from pytorchvideo_accelerate_tpu_torch.parallel.fsdp import regathered
+
     gens = [m._generator(x.device) for m in block.modules()
             if isinstance(m, SeededDropout) and m.training and m.rate > 0]
     states = _DropMaskStates(gens)
+
+    @contextlib.contextmanager
+    def recompute():
+        with regathered(block), states.recompute():
+            yield
+
     return checkpoint(fn, x, *args, use_reentrant=False,
-                      context_fn=lambda: (states.forward(), states.recompute()))
+                      context_fn=lambda: (states.forward(), recompute()))
 
 
 class LayerNorm(nn.Module):

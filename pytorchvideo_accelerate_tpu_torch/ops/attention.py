@@ -11,10 +11,12 @@ choice:
 - "pallas": `flash_attention` (ops/flash_attention.py), the hand kernels on
   the card; the name is kept so configs cross with the JAX package.
 - "ring" / "ulysses": context-parallel attention over the train mesh's
-  model axis (`parallel/ring_attention.py`, `parallel/ulysses.py`, through
-  `cp_attention` over `distributed.model_group()`): the token axis split
-  over the model group's ranks inside attention, the full result on every
-  rank after it. Without a model axis they run on one rank (one ring
+  model axis or the library mesh's context axis
+  (`parallel/ring_attention.py`, `parallel/ulysses.py`, through
+  `cp_attention` over `distributed.context_group()`): the token axis split
+  over the context group's ranks inside attention (on a rank's local
+  heads where tensor parallelism split them), the full result on every
+  rank after it. Without a context axis they run on one rank (one ring
   block; Ulysses's local flash attention).
 
 Shapes: q (B, Nq, H, D), k/v (B, Nk, H, D) -> (B, Nq, H, D).
@@ -32,7 +34,7 @@ from typing import Optional
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.ops.flash_attention import flash_attention
-from pytorchvideo_accelerate_tpu_torch.parallel.distributed import model_group
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import context_group
 from pytorchvideo_accelerate_tpu_torch.parallel.ring_attention import (
     cp_attention,
     ring_attention,
@@ -89,7 +91,7 @@ def dot_product_attention(q, k, v, backend: str = "dense", mask=None):
             "causal/windowed trunks need backend='dense' (model.attention)")
     check_backend(backend)
     if backend == "ring":
-        return cp_attention(q, k, v, ring_attention, model_group())
+        return cp_attention(q, k, v, ring_attention, context_group())
     if backend == "ulysses":
-        return cp_attention(q, k, v, ulysses_attention, model_group())
+        return cp_attention(q, k, v, ulysses_attention, context_group())
     return flash_attention(q, k, v)

@@ -28,12 +28,22 @@ and the all-gather back; each the other's backward), `ppermute_ring`
 other way) and `all_to_all` (its backward the inverse all-to-all). Sums
 run in float32 whatever the tensor's dtype.
 
+The fsdp axis's collectives (`parallel/fsdp.py`): `fsdp_gather` (the
+full leaf from every rank's contiguous chunk of one dim, all-gathered over
+the fsdp group; its backward is `reduce_scatter`, the gradient summed over
+the group and cut back to this rank's chunk) and `reduce_scatter` itself.
+Every collective here takes `group=` on any of the mesh's groups
+(`distributed.batch_group()`, `fsdp_group()`, `data_group()`,
+`tensor_group()`, `context_group()`).
+
 Transport. gloo carries only all-reduce and broadcast for CUDA tensors,
 so on a gloo group the gather, the permute and the all-to-all are built
 from one broadcast per rank of the group (the tensor as raw bytes, so
 any dtype crosses), as `exchange` is; CPU and CUDA tensors take that same
-code. On an NCCL group they are `all_gather_into_tensor`,
-`batch_isend_irecv` and `all_to_all_single`.
+code, and a reduce-scatter is the same broadcasts, then a local f32 sum in
+group-rank order and this rank's slice. On an NCCL group they are
+`all_gather_into_tensor`, `reduce_scatter_tensor`, `batch_isend_irecv` and
+`all_to_all_single`.
 """
 
 from __future__ import annotations
@@ -417,3 +427,46 @@ def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
     if not _active(group):
         return x
     return _AllToAll.apply(x, split_axis, concat_axis, group)
+
+
+# --- the fsdp axis ----------------------------------------------------------------
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's contiguous 1/n of dim `dim` of the sum of every rank's
+    `x` over `group` (same shape and dtype everywhere), summed in float32;
+    `x` itself without an active group."""
+    if not _active(group):
+        return x
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    if _nccl(group):
+        inp = torch.stack(x.to(torch.float32).chunk(n, dim=dim)).contiguous()
+        out = torch.empty_like(inp[0])
+        dist.reduce_scatter_tensor(out, inp, group=group)
+        return out.to(x.dtype)
+    total = None
+    for r in group_ranks(group):
+        part = _broadcast_raw(x, r, group).chunk(n, dim=dim)[i].to(torch.float32)
+        total = part if total is None else total + part
+    return total.to(x.dtype).contiguous()
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, dim, group):
+        ctx.args = (dim, group)
+        return _all_gather(shard.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, group = ctx.args
+        return reduce_scatter(grad.contiguous(), dim, group), None, None
+
+
+def fsdp_gather(shard: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The full leaf from every rank's chunk of dim `dim` (group-rank
+    order); its backward reduce-scatters the gradient (a sum: the step
+    divides by the fsdp count). The shard itself without an active group."""
+    if not _active(group):
+        return shard
+    return _FsdpGather.apply(shard, dim, group)

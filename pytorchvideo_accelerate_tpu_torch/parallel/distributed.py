@@ -21,6 +21,33 @@ over which heads, MLP widths or tokens are split). `data_index()`,
 rank, the world size, 0, 1, the default group and None, so a
 data-parallel job runs as before.
 
+The library mesh (`--mesh.fsdp/tensor/context`, the JAX package's
+`make_mesh`): `initialize_library_mesh(fsdp, tensor, context)` lays the
+ranks on the 4-axis (data, fsdp, tensor, context) grid, rank r at the
+row-major coordinates of r (`library_ranks`), and makes five kinds of
+group, each with its index and count:
+
+- batch: the ranks that share (tensor, context), i.e. data x fsdp: the
+  shards of every global batch (the loader's shard index
+  `data_index * fsdp + fsdp_index`), over which sync BatchNorm, the loss
+  and eval sum;
+- fsdp: the ranks that share (data, tensor, context), over which the
+  fsdp-sharded parameters are gathered and their gradients
+  reduce-scattered (`parallel/fsdp.py`);
+- data: the ranks that share (fsdp, tensor, context), over which the
+  fsdp shards' gradients are averaged;
+- tensor: the ranks that share (data, fsdp, context), over which
+  Megatron tensor parallelism splits heads and MLP widths;
+- context: the ranks that share (data, fsdp, tensor), over which ring or
+  Ulysses attention splits the tokens.
+
+On the (data, model) grid the same functions read that layout: the batch
+group is the data group, the fsdp group none, and the tensor and context
+groups are both the model group (a run spends the model axis on one of
+them). `model_count()` / `model_index()` on the library mesh are those of
+the tensor x context ranks that share a batch slice (`tensor * context`,
+`tensor_index * context + context_index`); it makes no group of them.
+
 Host-side agreement (barriers, the resume step, the preemption flag,
 desync fingerprints) runs over `host_group()`: the group itself under
 gloo, a gloo group beside it under NCCL, so that a host collective moves
@@ -35,8 +62,9 @@ from __future__ import annotations
 
 import atexit
 import datetime
+import itertools
 import os
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +76,10 @@ _HOST_GROUP = None
 _MODEL_COUNT = 1
 _DATA_GROUP = None
 _MODEL_GROUP = None
+# the library mesh: its (data, fsdp, tensor, context) shape and this rank's
+# group of each kind
+_LIBRARY: Optional[Tuple[int, int, int, int]] = None
+_GROUPS: Dict[str, object] = {}
 
 
 def initialize_distributed(coordinator_address: str = "",
@@ -128,7 +160,8 @@ def initialize_mesh(model: int) -> None:
     if model < 1 or world % model:
         raise ValueError(f"mesh.model={model} does not divide device count "
                          f"{world}")
-    if model == _MODEL_COUNT and (model == 1 or _MODEL_GROUP is not None):
+    if (_LIBRARY is None and model == _MODEL_COUNT
+            and (model == 1 or _MODEL_GROUP is not None)):
         return
     reset_mesh()
     if model == 1:
@@ -146,40 +179,191 @@ def initialize_mesh(model: int) -> None:
     _MODEL_COUNT = model
 
 
+def library_ranks(shape: Tuple[int, int, int, int]) -> Dict[str, List[List[int]]]:
+    """{kind: its groups as lists of global ranks} of the (data, fsdp,
+    tensor, context) grid `shape`, rank r at the row-major coordinates of
+    r; each kind (batch, fsdp, data, tensor, context) holds the ranks that
+    differ only on its own axes (batch: data and fsdp; each other kind: its
+    one axis)."""
+    varying = {"batch": (0, 1), "fsdp": (1,), "data": (0,), "tensor": (2,),
+               "context": (3,)}
+    coords = list(itertools.product(*(range(n) for n in shape)))
+    out = {}
+    for kind, axes in varying.items():
+        groups: Dict[tuple, List[int]] = {}
+        for rank, c in enumerate(coords):
+            key = tuple(v for i, v in enumerate(c) if i not in axes)
+            groups.setdefault(key, []).append(rank)
+        out[kind] = list(groups.values())
+    return out
+
+
+def library_coords(rank: int, shape: Tuple[int, int, int, int]) -> tuple:
+    """(data, fsdp, tensor, context) index of `rank` on the grid `shape`."""
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def initialize_library_mesh(fsdp: int, tensor: int, context: int) -> None:
+    """Lay the ranks out on the (world / (fsdp tensor context), fsdp,
+    tensor, context) library mesh and make its groups (`dist.new_group`,
+    every rank the same calls in the same order). A kind whose groups span
+    the world is the default group; one of single ranks still makes them
+    (a collective over it is its identity, never the default group's).
+    Idempotent for the same shape."""
+    global _LIBRARY, _GROUPS
+    world = process_count()
+    inner = fsdp * tensor * context
+    if min(fsdp, tensor, context) < 1 or world % inner:
+        raise ValueError(f"mesh axes fsdp*tensor*context={inner} does not "
+                         f"divide device count {world}")
+    shape = (world // inner, fsdp, tensor, context)
+    if shape == _LIBRARY:
+        return
+    reset_mesh()
+    rank = process_index()
+    groups = {}
+    for kind, lists in library_ranks(shape).items():
+        if len(lists[0]) == world:
+            groups[kind] = dist.group.WORLD
+            continue
+        for ranks in lists:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                groups[kind] = g
+    _LIBRARY, _GROUPS = shape, groups
+
+
+def library_shape() -> Optional[Tuple[int, int, int, int]]:
+    """The library mesh's (data, fsdp, tensor, context), None on the
+    (data, model) grid."""
+    return _LIBRARY
+
+
 def reset_mesh() -> None:
     """Back to the data-parallel layout (model 1); the groups are left to
     the process group's teardown."""
-    global _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP
+    global _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP, _LIBRARY, _GROUPS
     _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP = 1, None, None
+    _LIBRARY, _GROUPS = None, {}
+
+
+def _coord(axis: int) -> int:
+    return library_coords(process_index(), _LIBRARY)[axis]
 
 
 def model_count() -> int:
-    """Ranks on the model axis (1 without a mesh)."""
+    """Ranks on the model axis (1 without a mesh); on the library mesh the
+    tensor x context ranks that share a batch slice."""
+    if _LIBRARY is not None:
+        return _LIBRARY[2] * _LIBRARY[3]
     return _MODEL_COUNT
 
 
 def model_index() -> int:
+    if _LIBRARY is not None:
+        return _coord(2) * _LIBRARY[3] + _coord(3)
     return process_index() % _MODEL_COUNT
 
 
 def data_count() -> int:
-    """Ranks on the data axis: the slices of every global batch."""
+    """Ranks on the data axis: on the (data, model) grid the slices of
+    every global batch."""
+    if _LIBRARY is not None:
+        return _LIBRARY[0]
     return process_count() // _MODEL_COUNT
 
 
 def data_index() -> int:
+    if _LIBRARY is not None:
+        return _coord(0)
     return process_index() // _MODEL_COUNT
 
 
 def data_group():
     """This rank's data group: the default group at model 1."""
+    if _LIBRARY is not None:
+        return _GROUPS["data"]
     if _MODEL_COUNT == 1:
         return dist.group.WORLD if is_distributed() else None
     return _DATA_GROUP
 
 
 def model_group():
-    """This rank's model group; None at model 1."""
+    """This rank's model group; None at model 1 and on the library mesh
+    (whose tensor and context groups split it)."""
+    return _MODEL_GROUP
+
+
+def batch_count() -> int:
+    """The shards of every global batch: data x fsdp (the data count on
+    the (data, model) grid)."""
+    if _LIBRARY is not None:
+        return _LIBRARY[0] * _LIBRARY[1]
+    return data_count()
+
+
+def batch_index() -> int:
+    """This rank's batch shard, data_index * fsdp + fsdp_index."""
+    if _LIBRARY is not None:
+        return _coord(0) * _LIBRARY[1] + _coord(1)
+    return data_index()
+
+
+def batch_group():
+    """The ranks of the other batch shards of this rank's (tensor,
+    context): the data group on the (data, model) grid."""
+    if _LIBRARY is not None:
+        return _GROUPS["batch"]
+    return data_group()
+
+
+def fsdp_count() -> int:
+    return _LIBRARY[1] if _LIBRARY is not None else 1
+
+
+def fsdp_index() -> int:
+    return _coord(1) if _LIBRARY is not None else 0
+
+
+def fsdp_group():
+    """The ranks over which the fsdp shards are gathered; None off the
+    library mesh."""
+    return _GROUPS.get("fsdp")
+
+
+def tensor_count() -> int:
+    """Ranks Megatron tensor parallelism splits over: the model axis on
+    the (data, model) grid."""
+    return _LIBRARY[2] if _LIBRARY is not None else _MODEL_COUNT
+
+
+def tensor_index() -> int:
+    return _coord(2) if _LIBRARY is not None else model_index()
+
+
+def tensor_group():
+    if _LIBRARY is not None:
+        return _GROUPS["tensor"]
+    return _MODEL_GROUP
+
+
+def context_count() -> int:
+    """Ranks ring or Ulysses attention splits the tokens over: the model
+    axis on the (data, model) grid."""
+    return _LIBRARY[3] if _LIBRARY is not None else _MODEL_COUNT
+
+
+def context_index() -> int:
+    return _coord(3) if _LIBRARY is not None else model_index()
+
+
+def context_group():
+    if _LIBRARY is not None:
+        return _GROUPS["context"]
     return _MODEL_GROUP
 
 

@@ -1,6 +1,6 @@
-"""Which parameters the model axis splits, and the split itself (the port's
-copy of the tensor-parallel rules of the JAX package's
-`parallel/sharding.py`).
+"""Which parameters the model axis and the fsdp axis split, and the split
+itself (the port's copy of the tensor-parallel and fsdp rules of the JAX
+package's `parallel/sharding.py`).
 
 `_TP_COLUMN`, `_TP_ROW`, `_TP_FAMILIES`, `family_uses_tp` and `tp_dim` are
 the JAX package's rules, run on the flax path and kernel layout that
@@ -27,6 +27,18 @@ leaf is replicated.
 `shard_state_dict` cuts a full state dict to one rank's shards and
 `gather_state_dict` puts the shards of a model group back together, bit
 for bit: checkpoints always hold the full tree.
+
+The fsdp axis of the library mesh (`fsdp_spec`, `param_dims`: the JAX
+package's `fsdp_spec` and `param_sharding`): a leaf of at least `min_size`
+(2^16) elements shards its largest dim that the fsdp axis divides (a stable
+sort: the first of equal dims), and a leaf that `tp_dim` splits takes the
+largest other divisible dim. The rule runs on the flax shape of each leaf,
+as the JAX one does (a conv kernel's (T, H, W, I, O) with I == O picks I),
+and `_torch_dim` maps the chosen dim onto the torch tensor. `fsdp_plan`
+gives {key: torch dim} of a full model's state dict; a rank holds the
+contiguous `index`-th of `count` equal chunks of that dim (the block a
+JAX device at that fsdp index holds), cut after the tensor-parallel shard
+(`local_state_dict`), gathered before it (`full_state_dict`).
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from __future__ import annotations
 import re
 from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.models.convert import flax_key
@@ -95,10 +108,72 @@ def flax_names(key: str, shape: tuple) -> Tuple[tuple, tuple]:
     return names, tuple(shape)
 
 
-def _torch_dim(flax_dim: int, ndim: int) -> int:
-    """A Dense kernel's flax dim as the torch weight's (tp_dim names only
-    Dense kernels and biases)."""
-    return ndim - 1 - flax_dim if ndim == 2 else flax_dim
+# a conv kernel's flax dim (T, H, W, I, O) -> its torch dim (O, I, T, H, W)
+_CONV_DIM = (2, 3, 4, 1, 0)
+
+
+def _torch_dim(flax_dim: int, ndim: int, kernel: bool = True) -> int:
+    """A leaf's flax dim as the torch tensor's: a Dense kernel (in, out)
+    is the torch weight (out, in), a conv kernel DHWIO is OIDHW, any other
+    leaf (`kernel` False: a bias, a scale, a position table) keeps its
+    layout (`flax_names`)."""
+    if kernel and ndim == 2:
+        return ndim - 1 - flax_dim
+    if kernel and ndim == 5:
+        return _CONV_DIM[flax_dim]
+    return flax_dim
+
+
+def fsdp_spec(shape: tuple, fsdp_size: int, min_size: int = 2**16) -> Optional[int]:
+    """The dim (if any) of a leaf of `shape` that shards over `fsdp`: the
+    largest that `fsdp_size` divides, for a leaf of at least `min_size`
+    elements (the JAX package's `fsdp_spec`, as a dim)."""
+    shape = tuple(shape)
+    if fsdp_size <= 1 or np.prod(shape, dtype=np.int64) < min_size:
+        return None
+    for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+        if shape[d] % fsdp_size == 0:
+            return d
+    return None
+
+
+def param_dims(names: tuple, shape: tuple, tensor_size: int, fsdp_size: int,
+               min_size: int = 2**16) -> Tuple[Optional[int], Optional[int]]:
+    """(tensor dim, fsdp dim) of a flax leaf (the JAX package's
+    `param_sharding` rule): the TP dim over `tensor`, and fsdp on the
+    largest other divisible dim of a big enough leaf; `fsdp_spec` when the
+    leaf is not tensor-split (`tensor_size` 1: the conv families, or
+    context parallelism on the train mesh)."""
+    shape = tuple(shape)
+    d = tp_dim(names, shape, tensor_size)
+    if d is None:
+        return None, fsdp_spec(shape, fsdp_size, min_size)
+    if fsdp_size > 1 and np.prod(shape, dtype=np.int64) >= min_size:
+        for other in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if other != d and shape[other] % fsdp_size == 0:
+                return d, other
+    return d, None
+
+
+FsdpPlan = Dict[str, int]
+TP, FSDP = 1, 2  # a parameter's layout bits (`tensor_parallel.param_kinds`)
+
+
+def fsdp_plan(shapes: Mapping[str, tuple], fsdp_size: int, tensor_size: int = 1,
+              min_size: int = 2**16) -> FsdpPlan:
+    """{key: torch dim} of the keys of a full model's state dict (`shapes`)
+    that the fsdp axis of size `fsdp_size` splits; `tensor_size`: the
+    tensor axis the rule composes with (1 when the layout does not split
+    tensors)."""
+    if fsdp_size <= 1:
+        return {}
+    plan: FsdpPlan = {}
+    for key, shape in shapes.items():
+        names, fshape = flax_names(key, tuple(shape))
+        _, f = param_dims(names, fshape, tensor_size, fsdp_size, min_size)
+        if f is not None:
+            plan[key] = _torch_dim(f, len(shape), names[-1] == "kernel")
+    return plan
 
 
 def shard_plan(shapes: Mapping[str, tuple], count: int,
@@ -163,3 +238,48 @@ def gather_state_dict(sd: Mapping[str, torch.Tensor], plan: Plan,
 
     return {k: (join_shards(gather_list(v, group), *plan[k])
                 if k in plan else v) for k, v in sd.items()}
+
+
+def shard_fsdp(sd: Mapping[str, torch.Tensor], index: int, count: int,
+               plan: FsdpPlan) -> dict:
+    """The fsdp shards of rank `index` of `count` (a copy of each keyed
+    leaf's `index`-th contiguous chunk of its dim); other keys as they
+    are."""
+    return {k: (shard_tensor(v, index, count, plan[k], 1) if k in plan else v)
+            for k, v in sd.items()}
+
+
+def gather_fsdp(sd: Mapping[str, torch.Tensor], plan: FsdpPlan, group) -> dict:
+    """The fsdp shards of every rank of `group` joined (a collective, as
+    `gather_state_dict`)."""
+    from pytorchvideo_accelerate_tpu_torch.parallel.collectives import gather_list
+
+    return {k: (torch.cat(gather_list(v, group), plan[k]) if k in plan else v)
+            for k, v in sd.items()}
+
+
+def local_state_dict(sd: Mapping[str, torch.Tensor], axis) -> dict:
+    """A full state dict cut to this rank's shards on `axis` (a
+    `tensor_parallel.ModelAxis`): the tensor-parallel cut, then the fsdp
+    one."""
+    out = shard_state_dict(sd, axis.index, axis.count, axis.plan) if axis.plan else dict(sd)
+    if axis.fsdp_plan:
+        out = shard_fsdp(out, axis.fsdp_index, axis.fsdp_count, axis.fsdp_plan)
+    return out
+
+
+def full_state_dict(sd: Mapping[str, torch.Tensor], axis) -> dict:
+    """The full state dict from this rank's shards on `axis` (a collective
+    over the fsdp group, then the tensor group: every rank calls it with
+    the same keys in the same order)."""
+    from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+        fsdp_group,
+        tensor_group,
+    )
+
+    out = dict(sd)
+    if axis.fsdp_plan:
+        out = gather_fsdp(out, axis.fsdp_plan, fsdp_group())
+    if axis.plan:
+        out = gather_state_dict(out, axis.plan, tensor_group())
+    return out

@@ -80,6 +80,19 @@ model group load the same batches (the loader is dealt by data index and
 count), eval sums are added over the data axis, and checkpoints and the
 exported artifact hold the full tree, gathered over the model group, so
 they resume and serve at any layout.
+
+The library mesh (`--mesh.data D --mesh.fsdp F --mesh.tensor T
+--mesh.context C`, any of F, T, C above 1; `--mesh.model` above 1 beside
+them raises the JAX package's ValueError): the ranks sit on the (D, F, T,
+C) grid (`distributed.initialize_library_mesh`), the batch shards over data
+x fsdp (the loader dealt by batch-shard index and count, `--batch_size` a
+shard's), MViT and VideoMAE split over `tensor` while ring / Ulysses split
+the tokens over `context`, and every leaf of at least 2^16 elements keeps
+its fsdp chunk (`parallel/fsdp.py`, the JAX `param_sharding` rule). Every
+rank builds the full model (and loads `--model.pretrained_path` into it),
+takes rank 0's copy, then cuts: tensor and context, then fsdp. Eval sums
+over the batch shards; checkpoints and the export hold the full tree,
+gathered over fsdp and tensor, so they resume at any layout.
 """
 
 from __future__ import annotations
@@ -116,32 +129,39 @@ from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     any_process,
+    batch_count,
+    batch_index,
     check_desync,
     data_count,
     data_group,
-    data_index,
+    fsdp_count,
+    fsdp_index,
     group_ranks,
     initialize_distributed,
+    initialize_library_mesh,
     initialize_mesh,
     is_distributed,
     is_main_process,
     local_device_index,
     main_print,
-    model_group,
     model_index,
     process_count,
     process_index,
     sync_global_devices,
+    tensor_count,
+    tensor_index,
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.mesh import (
+    data_shard_count,
+    is_library,
     mesh_line,
-    resolve_train_mesh_shape,
+    resolve_layout,
 )
-from pytorchvideo_accelerate_tpu_torch.parallel.sharding import gather_state_dict
+from pytorchvideo_accelerate_tpu_torch.parallel.sharding import full_state_dict
 from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
     apply_model_axis,
     layout,
-    sharded_params,
+    param_kinds,
 )
 from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard
 from pytorchvideo_accelerate_tpu_torch.reliability.preemption import (
@@ -191,12 +211,8 @@ def refuse_unported(cfg: TrainConfig) -> None:
     computed and that this slice of the port lacks; print one line for each
     telemetry or debug option, for a `model.pretrained` without a path and
     for a `model.pretrained_path` without `model.pretrained`."""
-    d, m, mesh = cfg.data, cfg.model, cfg.mesh
+    d, m = cfg.data, cfg.model
     refused = [
-        (any(v > 1 for v in (mesh.fsdp, mesh.tensor, mesh.context)),
-         f"the legacy mesh axes (fsdp={mesh.fsdp}, tensor={mesh.tensor}, "
-         f"context={mesh.context}; FSDP and the library mesh; Multi-GPU, "
-         "ROADMAP.md A.1)"),
         (cfg.parallel.pipeline_stages > 1,
          f"parallel.pipeline_stages={cfg.parallel.pipeline_stages} "
          "(parallel/pipeline.py; Multi-GPU, ROADMAP.md A.1)"),
@@ -256,12 +272,19 @@ class Trainer:
         refuse_unported(cfg)
         self.distributed = is_distributed()
         self.rank, self.world = process_index(), process_count()
-        self.mesh_shape = resolve_train_mesh_shape(cfg.mesh, self.world)
-        if self.distributed:
+        # (data, model), or the library mesh's (data, fsdp, tensor, context)
+        self.mesh_shape = resolve_layout(cfg.mesh, self.world)
+        library = is_library(self.mesh_shape)
+        if self.distributed and library:
+            initialize_library_mesh(*self.mesh_shape[1:])
+        elif self.distributed:
             initialize_mesh(self.mesh_shape[1])
         self.device = resolve_train_device(cfg)
-        self.model_axis = layout(cfg.model.name, cfg.model.attention,
-                                 self.mesh_shape[1], model_index())
+        # the tensor-parallel split: the library mesh's tensor axis, or the
+        # model axis
+        self.model_axis = layout(
+            cfg.model.name, cfg.model.attention, tensor_count(), tensor_index(),
+            library=library, fsdp_count=fsdp_count(), fsdp_index=fsdp_index())
         if self.distributed:
             main_print(mesh_line(self.mesh_shape, self.device.type,
                                  self.model_axis.mode), flush=True)
@@ -334,11 +357,12 @@ class Trainer:
         val_tf = make_transform(training=False, num_spatial_crops=eval_spatial,
                                 **common)
         self._build_sources(train_tf, val_tf, eval_clips)
-        # the batch size is per card (a data shard), as in the JAX package
-        global_batch = d.batch_size * self.mesh_shape[0]
-        # the ranks of a model group share a data slice: dealt by data index
+        # the batch size is per card (a batch shard), as in the JAX package
+        global_batch = d.batch_size * data_shard_count(self.mesh_shape)
+        # the tensor and context ranks of a batch shard share its slice:
+        # dealt by batch-shard index (data x fsdp)
         loader_kw = dict(seed=cfg.seed, num_workers=d.num_workers,
-                         process_index=data_index(), process_count=data_count(),
+                         process_index=batch_index(), process_count=batch_count(),
                          prefetch_batches=d.prefetch_batches,
                          transport=d.transport)
         self.train_loader = ClipLoader(
@@ -426,6 +450,11 @@ class Trainer:
         self.pretrained_report: Optional[dict] = None
         if cfg.model.pretrained and cfg.model.pretrained_path:
             self._load_pretrained()
+        if self.model_axis.library and self.distributed:
+            # rank 0's full model on every rank, before the cut (on the
+            # device: NCCL carries no host tensor)
+            self.model = self.model.to(self.device)
+            self._broadcast_model(None, 0)
         self.model = apply_model_axis(self.model, self.model_axis).to(self.device)
         self._replicate()
         steps_per_epoch = self.train_loader.steps_per_epoch()
@@ -435,7 +464,7 @@ class Trainer:
             backbone_filter=getattr(type(self.model), "backbone_param_filter",
                                     None),
             freeze_backbone=cfg.model.freeze_backbone,
-            sharded=sharded_params(self.model))
+            sharded=param_kinds(self.model))
         self.lr_schedule = optimizer.schedule
         self.state = TrainState.create(self.model, optimizer,
                                        ema_decay=cfg.optim.ema_decay)
@@ -496,12 +525,17 @@ class Trainer:
         (the BN running averages) on every rank of the group: one broadcast
         per dtype, after init and after a restore (a no-op without a group
         or with one data slice). At model 1 that is rank 0 to every rank;
-        on a model axis each shard comes from its data group's first rank."""
-        if self.distributed and data_count() > 1:
+        on a model axis each shard comes from its data group's first rank.
+        On the library mesh rank 0's full model went to every rank before
+        the cut, and a restore loads one file on every rank: no-op."""
+        if self.distributed and data_count() > 1 and not self.model_axis.library:
             group = data_group()
-            broadcast_([p.data for p in self.model.parameters()]
-                       + [b for b in self.model.buffers() if b.is_floating_point()],
-                       src=group_ranks(group)[0], group=group)
+            self._broadcast_model(group, group_ranks(group)[0])
+
+    def _broadcast_model(self, group, src: int) -> None:
+        broadcast_([p.data for p in self.model.parameters()]
+                   + [b for b in self.model.buffers() if b.is_floating_point()],
+                   src=src, group=group)
 
     # --- resume / export --------------------------------------------------
 
@@ -532,11 +566,11 @@ class Trainer:
         """Write the (EMA-resolved) serving artifact of the current state;
         with `--serve.quantization int8` it is baked int8. Rank 0 writes;
         every rank returns once it has."""
-        plan, group = self.model_axis.plan, model_group()
-        full = gather_state_dict(self.model.state_dict(), plan, group)
+        axis = self.model_axis
+        full = full_state_dict(self.model.state_dict(), axis)
         ema = self.state.eval_params()
         if ema is not None:
-            ema = gather_state_dict(ema, plan, group)
+            ema = full_state_dict(ema, axis)
         if is_main_process():
             export_inference(
                 path, self.model, config=self.cfg,
@@ -597,7 +631,8 @@ class Trainer:
     def _run_eval(self, epoch: int) -> tuple:
         """One pass over the val loader; (top1, top5, mean loss). Under data
         parallelism each rank scores its share (every rank the same number
-        of batches) and the four sums are added across ranks once."""
+        of batches) and the four sums are added across the batch shards
+        once."""
         val = SumMetrics()
         for i, batch in enumerate(self.val_prefetch.epoch(epoch, from_start=True)):
             val.update(self.eval_step(self.state, batch))
@@ -606,7 +641,8 @@ class Trainer:
         if self.distributed:
             val.accuracy()  # drains the pending device sums
             keys = ("loss_sum", "correct", "correct5", "count")
-            # the ranks of a model group score the same clips: one counts
+            # the tensor and context ranks of a batch shard score the same
+            # clips: one counts
             mine = np.array([getattr(val, k) if model_index() == 0 else 0.0
                              for k in keys])
             sums = host_reduce_sum(mine)
@@ -749,8 +785,8 @@ class Trainer:
                            f"({time.time() - t_epoch:.1f}s)", flush=True)
                 if t_train > 0 and steps_done > 0:
                     sps = steps_done / t_train
-                    # clips of the global batch: every data slice's share
-                    cps = sps * self.train_loader.samples_per_yield * data_count()
+                    # clips of the global batch: every batch shard's share
+                    cps = sps * self.train_loader.samples_per_yield * batch_count()
                     last_perf = {
                         "steps_per_sec": sps,
                         "clips_per_sec": cps,
@@ -772,11 +808,11 @@ class Trainer:
                     epoch_metrics.update(last_perf)
                     self.trackers.log(epoch_metrics, step=epoch)
                 if cfg.debug_desync:
-                    sharded = set(sharded_params(self.model))
+                    kinds = param_kinds(self.model)
                     named = list(self.model.named_parameters())
                     check_desync(float(global_norm(
                         [p.detach() for _, p in named],
-                        [n in sharded for n, _ in named])),
+                        [kinds[n] for n, _ in named])),
                         name=f"params@epoch{epoch}")
                 if self.checkpointing_steps == "epoch":
                     self._save("epoch", epoch)

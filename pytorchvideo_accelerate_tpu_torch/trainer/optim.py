@@ -17,21 +17,28 @@
   update, no weight decay and no state, and the clip inside the trained
   branch takes its norm over the trained params only. Here the frozen
   params are left out of the torch optimizer, which does all of that.
-- On the model axis (tensor parallelism) some params hold one rank's
-  shard (`sharded`): the global norm of the clip sums their squares over
-  the model group and counts each replicated param once, the norm of the
-  whole gradient that the JAX step takes.
+- On the model axis (tensor parallelism) and the library mesh's fsdp
+  axis some params hold one rank's shard (`sharded`, per param its
+  `tensor_parallel.param_kinds` bits: `TP`, `FSDP` or both): the global
+  norm of the clip sums the squares of fsdp chunks over the fsdp group and
+  those of tensor shards over the tensor group, and counts each
+  replicated param once, the norm of the whole gradient that the JAX step
+  takes. SGD and AdamW update the shards in place, elementwise.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Collection, Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Mapping, Optional, Tuple
 
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.config import OptimConfig
-from pytorchvideo_accelerate_tpu_torch.parallel.distributed import model_group
+from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    fsdp_group,
+    tensor_group,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.sharding import FSDP, TP
 
 
 def build_lr_schedule(cfg: OptimConfig, total_steps: int) -> Callable[[int], float]:
@@ -67,13 +74,13 @@ class Optimizer:
     def __init__(self, opt: torch.optim.Optimizer,
                  schedule: Callable[[int], float], clip_norm: float,
                  trained: List[torch.nn.Parameter],
-                 sharded: Optional[List[bool]] = None):
+                 sharded: Optional[List[int]] = None):
         self.opt = opt
         self.schedule = schedule
         self.clip_norm = float(clip_norm)
         self.trained = trained
-        # per trained param: True where it holds a model-axis shard
-        self.sharded = sharded or [False] * len(trained)
+        # per trained param: its `TP` / `FSDP` bits (0: replicated)
+        self.sharded = sharded or [0] * len(trained)
 
     def grad_norm(self) -> torch.Tensor:
         """The global norm of the trained params' gradients (the whole
@@ -115,27 +122,34 @@ class Optimizer:
 
 
 def global_norm(tensors: List[torch.Tensor],
-                sharded: Optional[List[bool]] = None) -> torch.Tensor:
+                sharded: Optional[List[int]] = None) -> torch.Tensor:
     """sqrt of the sum of squares over every element, in f32 (optax
-    `global_norm`); a 0-d tensor on the tensors' device. `sharded` marks
-    the tensors that hold a model-axis shard: with a model group up, their
-    squares are summed over it (one scalar all-reduce) and each other
-    tensor counts once."""
+    `global_norm`); a 0-d tensor on the tensors' device. `sharded` gives
+    each tensor's `TP` / `FSDP` bits (0: replicated): the squares of fsdp
+    chunks are summed over the fsdp group, then those of tensor shards
+    (fsdp-summed where both) over the tensor group (one scalar all-reduce
+    each), and each replicated tensor counts once."""
     if not tensors:
         return torch.zeros(())
     norms = torch._foreach_norm([t.float() for t in tensors])
-    group = model_group()
-    if group is None or not sharded or not any(sharded):
+    kinds = list(sharded or [])
+    tgroup = tensor_group() if any(k & TP for k in kinds) else None
+    fgroup = fsdp_group() if any(k & FSDP for k in kinds) else None
+    if tgroup is None and fgroup is None:
         return torch.linalg.vector_norm(torch.stack(norms))
-    sq = torch.stack(norms) ** 2
-    flags = torch.tensor(sharded, device=sq.device)
-    part = torch.where(flags, sq, torch.zeros_like(sq)).sum()
     from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
         reduce_from_model,
     )
 
-    return torch.sqrt(torch.where(flags, torch.zeros_like(sq), sq).sum()
-                      + reduce_from_model(part, group))
+    sq = torch.stack(norms) ** 2
+    kind = torch.tensor(kinds, device=sq.device)
+
+    def part(k):
+        return torch.where(kind == k, sq, torch.zeros_like(sq)).sum()
+
+    fs = reduce_from_model(torch.stack([part(FSDP), part(TP | FSDP)]), fgroup)
+    tp = reduce_from_model(part(TP) + fs[1], tgroup)
+    return torch.sqrt(part(0) + fs[0] + tp)
 
 
 def build_optimizer(
@@ -144,12 +158,13 @@ def build_optimizer(
     named_params: Iterable[Tuple[str, torch.nn.Parameter]],
     backbone_filter: Optional[Callable] = None,
     freeze_backbone: bool = False,
-    sharded: Collection[str] = (),
+    sharded: Optional[Mapping[str, int]] = None,
 ) -> Optimizer:
     """SGD+momentum+wd+cosine by default; adamw for the transformer family.
     `backbone_filter(path) -> bool` (path = the param name split on ".")
     marks backbone params; with `freeze_backbone` those are not trained.
-    `sharded`: the names of the params that hold a model-axis shard."""
+    `sharded`: {name: `TP` / `FSDP` bits} of the params that hold a shard
+    (`tensor_parallel.param_kinds`; a name left out is replicated)."""
     named = [(name, p) for name, p in named_params
              if not (freeze_backbone and backbone_filter is not None
                      and backbone_filter(tuple(name.split("."))))]
@@ -163,6 +178,6 @@ def build_optimizer(
                                 capturable=any(p.is_cuda for p in trained))
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    kinds = [(sharded or {}).get(name, 0) for name, _ in named]
     return Optimizer(opt, build_lr_schedule(cfg, total_steps),
-                     cfg.grad_clip_norm, trained,
-                     [name in sharded for name, _ in named])
+                     cfg.grad_clip_norm, trained, kinds)

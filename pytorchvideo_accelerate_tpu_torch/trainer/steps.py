@@ -27,14 +27,18 @@ in the flipped global batch, and each rank's dropout mask is its rows of
 the global batch's (models/common.py `batch_rand`).
 
 On the model axis (`parallel/tensor_parallel.py`) "the ranks" above are
-the data group, the ranks that hold the same shards: a sharded gradient
-is averaged over the data group; a replicated one, equal on the ranks of
-a model group, over the whole world (the same mean, and one reduction
-leaves every rank the same bits even where a kernel's backward is not
-deterministic); the pools of a split MViT attention, which each rank
-uses in part, are summed over the model group as well (the world mean
-times the model count). The global norm sums the shards' squares over the
-model group (trainer/optim.py).
+the batch group (the data group on the (data, model) grid; data x fsdp on
+the library mesh), the ranks that hold the other shards of the global
+batch: a tensor-sharded gradient is averaged over the batch group; a
+replicated one, equal on the tensor and context ranks of a batch shard,
+over the whole world (the same mean, and one reduction leaves every rank
+the same bits even where a kernel's backward is not deterministic); the
+pools of a split MViT attention, which each rank uses in part, are summed
+over the tensor group as well (the world mean times the tensor count). An
+fsdp chunk's gradient arrives summed over the fsdp group (the reduce-scatter
+of `parallel/fsdp.py`'s gather); it is averaged over the data group and
+divided by the fsdp count. The global norm sums the shards' squares over
+their groups (trainer/optim.py).
 
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
@@ -58,16 +62,22 @@ from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
     exchange,
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
+    batch_count,
+    batch_group,
+    batch_index,
     data_count,
     data_group,
-    data_index,
+    fsdp_count,
     group_ranks,
     is_distributed,
-    model_count,
+    process_count,
+    tensor_count,
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+    FSDP,
+    TP,
+    param_kinds,
     partial_params,
-    sharded_params,
 )
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import global_norm
@@ -238,7 +248,7 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     named = dict(model.named_parameters())
     names = [n for n, p in named.items() if p.requires_grad]
     params = [named[n] for n in names]
-    sharded, partial = set(sharded_params(model)), set(partial_params(model))
+    kinds, partial = param_kinds(model), set(partial_params(model))
     dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
     buffers = [b for b in model.buffers() if b.is_floating_point()]
     snapshot = _Snapshot() if guard_skip else None
@@ -279,17 +289,17 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
         if with_accuracy:
             correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
         if distributed:
-            reduce_grads(live, sharded, partial)
-            # [loss, correct, count]: their means over the ranks (equal
-            # on the ranks of a model group), then the sums scaled back
+            reduce_grads(live, kinds, partial)
+            # [loss, correct, count]: their means over the batch shards,
+            # then the sums scaled back
             sums = torch.stack([loss, correct.float(), count.float()]
                                if with_accuracy else [loss])
-            all_reduce_mean_([sums])
+            all_reduce_mean_([sums], group=batch_group())
             loss = sums[0]
             if with_accuracy:
-                slices = float(data_count())
+                slices = float(batch_count())
                 correct, count = sums[1] * slices, sums[2] * slices
-        grad_norm = global_norm(grads, [n in sharded for n, _ in live])
+        grad_norm = global_norm(grads, [kinds[n] for n, _ in live])
         lr = optimizer.schedule(state.step)
         optimizer.step(state.step)
         if ema_decay > 0 and state.ema is not None:
@@ -314,22 +324,30 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     return step
 
 
-def reduce_grads(live, sharded, partial) -> None:
+def reduce_grads(live, kinds, partial) -> None:
     """In place, the gradients `live` ([(name, grad)]) averaged as the step
-    needs (the module docstring): at model 1 one flat all-reduce of them
-    all over the world; on a model axis the replicated ones over the world
-    (the `partial` ones then times the model count) and the `sharded` ones
-    over the data group."""
-    if model_count() == 1:
+    needs (the module docstring), by `kinds` ({name: `TP` / `FSDP` bits})
+    and the `partial` names: with one rank of each shard (the data-parallel
+    layout) one flat all-reduce of them all over the world; else the
+    replicated ones over the world (the `partial` ones then times the
+    tensor count), the tensor shards over the batch group, and the fsdp
+    chunks (already summed over the fsdp group) over the data group, then
+    divided by the fsdp count."""
+    if batch_count() == process_count() and fsdp_count() == 1:
         all_reduce_mean_([g for _, g in live])
         return
-    all_reduce_mean_([g for n, g in live if n not in sharded])
+    all_reduce_mean_([g for n, g in live if not kinds.get(n)])
     part = [g for n, g in live if n in partial]
     if part:
-        torch._foreach_mul_(part, float(model_count()))
-    shards = [g for n, g in live if n in sharded]
-    if shards and data_count() > 1:
-        all_reduce_mean_(shards, group=data_group())
+        torch._foreach_mul_(part, float(tensor_count()))
+    shards = [g for n, g in live if kinds.get(n) == TP]
+    if shards and batch_count() > 1:
+        all_reduce_mean_(shards, group=batch_group())
+    chunks = [g for n, g in live if kinds.get(n, 0) & FSDP]
+    if chunks:
+        if data_count() > 1:
+            all_reduce_mean_(chunks, group=data_group())
+        torch._foreach_div_(chunks, float(fsdp_count()))
 
 
 @dataclass(frozen=True)
@@ -383,13 +401,13 @@ def mix_weight(draw: MixDraw, hh: int, ww: int, device) -> torch.Tensor:
 
 def flip_global(x: torch.Tensor) -> torch.Tensor:
     """This rank's rows of the global batch flipped, x_global[::-1] (the
-    JAX step flips the whole batch, pairing row i with row G - 1 - i): data
-    slice d's partners are slice (D - 1 - d)'s rows, reversed, from the
-    peer in this rank's data group. `x.flip(0)` with one process."""
-    if not is_distributed() or data_count() == 1:
+    JAX step flips the whole batch, pairing row i with row G - 1 - i):
+    batch shard s's partners are shard (S - 1 - s)'s rows, reversed, from
+    the peer in this rank's batch group. `x.flip(0)` with one process."""
+    if not is_distributed() or batch_count() == 1:
         return x.flip(0)
-    group = data_group()
-    peer = group_ranks(group)[data_count() - 1 - data_index()]
+    group = batch_group()
+    peer = group_ranks(group)[batch_count() - 1 - batch_index()]
     return exchange(x, peer, group).flip(0)
 
 

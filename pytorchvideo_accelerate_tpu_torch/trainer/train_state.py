@@ -8,12 +8,15 @@ momentum buffers) and an optional EMA copy of the parameters
 (`--optim.ema_decay > 0`, made from the parameters at creation). The step
 functions update them in place.
 
-On the model axis (tensor parallelism, `parallel/tensor_parallel.py`) the
-model, the optimizer's per-param state and the EMA hold this rank's
-shards; `state_dict()` gathers the full tree over the model group (a
-collective: every rank calls it) and `load_state_dict()` takes a full tree
-and keeps this rank's shards, so a checkpoint is the same file at every
-layout and resumes at any other.
+On the model axis (tensor parallelism, `parallel/tensor_parallel.py`)
+and the library mesh's fsdp axis (`parallel/fsdp.py`) the model, the
+optimizer's per-param state and the EMA hold this rank's shards;
+`state_dict()` gathers the full tree (over the fsdp group, then the tensor
+group: a collective, every rank calls it) and `load_state_dict()` takes a
+full tree and keeps this rank's shards, so a checkpoint is the same file at
+every layout and resumes at any other. `eval_params()` is the EMA's
+shards: evaluation runs them through the model, whose fsdp hooks gather
+them like the live parameters.
 """
 
 from __future__ import annotations
@@ -23,12 +26,14 @@ from typing import Dict, Optional
 
 import torch
 
-from pytorchvideo_accelerate_tpu_torch.parallel.distributed import model_group
 from pytorchvideo_accelerate_tpu_torch.parallel.sharding import (
-    gather_state_dict,
-    shard_state_dict,
+    full_state_dict,
+    local_state_dict,
 )
-from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import model_axis_of
+from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+    ModelAxis,
+    model_axis_of,
+)
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import Optimizer
 
 
@@ -54,14 +59,15 @@ class TrainState:
 
     def eval_params(self) -> Optional[Dict[str, torch.Tensor]]:
         """The weights evaluation scores and export writes: the EMA when
-        present (BN running averages stay the live ones), else None (the
+        present (BN running averages stay the live ones; this rank's
+        shards, which the model's fsdp hooks gather), else None (the
         model's own)."""
         return self.ema
 
     def _opt_plan(self, flat: dict, plan: dict) -> dict:
-        """The plan entries of the optimizer state's flat keys ("<param
-        index>/<state key>"): each param-shaped tensor of a sharded param
-        takes its param's."""
+        """The entries of `plan` (keyed by parameter name) for the
+        optimizer state's flat keys ("<param index>/<state key>"): each
+        param-shaped tensor of a sharded param takes its param's."""
         names = {id(p): n for n, p in self.model.named_parameters()}
         by_index = {i: (plan[names[id(p)]], p.dim())
                     for i, p in enumerate(self.optimizer.trained)
@@ -73,12 +79,20 @@ class TrainState:
                 out[key] = entry[0]
         return out
 
-    def _map_opt(self, opt_sd: dict, plan: dict, fn) -> dict:
-        """`opt_sd` with `fn(flat state, its plan)` applied to its
+    def _opt_axis(self, flat: dict, axis: ModelAxis) -> ModelAxis:
+        """`axis` with its plans keyed by the optimizer state's flat keys."""
+        return ModelAxis(count=axis.count, index=axis.index,
+                         plan=self._opt_plan(flat, axis.plan),
+                         fsdp_count=axis.fsdp_count, fsdp_index=axis.fsdp_index,
+                         fsdp_min_size=axis.fsdp_min_size,
+                         fsdp_plan=self._opt_plan(flat, axis.fsdp_plan))
+
+    def _map_opt(self, opt_sd: dict, axis: ModelAxis, fn) -> dict:
+        """`opt_sd` with `fn(flat state, its axis)` applied to its
         per-param tensors."""
         flat = {f"{i}/{k}": v for i, st in opt_sd["state"].items()
                 for k, v in st.items()}
-        flat = fn(flat, self._opt_plan(flat, plan))
+        flat = fn(flat, self._opt_axis(flat, axis))
         state = {}
         for key, v in flat.items():
             i, k = key.split("/", 1)
@@ -86,18 +100,16 @@ class TrainState:
         return {**opt_sd, "state": state}
 
     def state_dict(self) -> dict:
-        """The full state (gathered over the model group when the model is
-        split: every rank of the group must call it)."""
+        """The full state (gathered over the fsdp and tensor groups when the
+        model is split: every rank must call it)."""
         model, opt, ema = (self.model.state_dict(), self.optimizer.state_dict(),
                            self.ema)
-        plan = model_axis_of(self.model).plan
-        if plan:
-            group = model_group()
-            model = gather_state_dict(model, plan, group)
-            opt = self._map_opt(opt, plan,
-                                lambda flat, p: gather_state_dict(flat, p, group))
+        axis = model_axis_of(self.model)
+        if axis.plan or axis.fsdp_plan:
+            model = full_state_dict(model, axis)
+            opt = self._map_opt(opt, axis, full_state_dict)
             if ema is not None:
-                ema = gather_state_dict(ema, plan, group)
+                ema = full_state_dict(ema, axis)
         return {"step": int(self.step), "model": model, "optimizer": opt,
                 "ema": ema}
 
@@ -109,13 +121,10 @@ class TrainState:
                 "toggling it across a resume changes the state")
         model, opt, ema = state["model"], state["optimizer"], state.get("ema")
         axis = model_axis_of(self.model)
-        if axis.plan:
-            def cut(sd, plan):
-                return shard_state_dict(sd, axis.index, axis.count, plan)
-
-            model = cut(model, axis.plan)
-            ema = None if ema is None else cut(ema, axis.plan)
-            opt = self._map_opt(opt, axis.plan, cut)
+        if axis.plan or axis.fsdp_plan:
+            model = local_state_dict(model, axis)
+            ema = None if ema is None else local_state_dict(ema, axis)
+            opt = self._map_opt(opt, axis, local_state_dict)
         self.model.load_state_dict(model)
         self.optimizer.load_state_dict(opt)
         if self.ema is not None:

@@ -382,7 +382,7 @@ def model_axis(rank, world, d):
         try:
             opt = build_optimizer(OptimConfig(**spec_all["optim"]), 4,
                                   model.named_parameters(),
-                                  sharded=tp.sharded_params(model))
+                                  sharded=tp.param_kinds(model))
             state = TrainState.create(model, opt)
             step = make_train_step(model, opt)
             b = spec["video"].shape[0] // pdist.data_count()
@@ -496,6 +496,139 @@ def ckpt(rank, world, d):
 
 
 
+# --- the library mesh: fsdp x tensor x context ---------------------------------
+
+
+def _inputs(spec, rows, accum):
+    """The clip tensors and labels of `rows` of the spec's global batch
+    (dim 1 under accumulation)."""
+    take = (lambda a: a[:, rows]) if accum > 1 else (lambda a: a[rows])
+    keys = [k for k in ("video", "slow", "fast", "label") if k in spec.files]
+    return {k: torch.from_numpy(take(spec[k]).copy()) for k in keys}
+
+
+def _library_case(case, spec_all, d):
+    """One case of DIR/library.json: the seeded twin on the case's (data,
+    fsdp, tensor, context) mesh, this rank's batch shard, one SGD step."""
+    from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig, OptimConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.models.convert import state_dict_from_jax
+    from pytorchvideo_accelerate_tpu_torch.parallel import fsdp
+    from pytorchvideo_accelerate_tpu_torch.parallel import tensor_parallel as tp
+    from pytorchvideo_accelerate_tpu_torch.parallel.sharding import full_state_dict
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import make_train_step
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    _, f, t, c = case["shape"]
+    pdist.initialize_library_mesh(f, t, c)
+    spec = np.load(os.path.join(d, case["spec"]))
+    flat = {k[2:]: spec[k] for k in spec.files if k.startswith("w/")}
+    clip = spec["video"] if "video" in spec.files else spec["fast"]
+    accum = int(spec["accum"])
+    model = create_model(
+        ModelConfig(name=case["name"], num_classes=int(spec["num_classes"]),
+                    dropout_rate=0.0, attention=case["attention"], fused_kernels="auto",
+                    remat=case.get("remat", False)),
+        "fp32", data_cfg=DataConfig(num_frames=clip.shape[-4], crop_size=clip.shape[-3]))
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                           state_dict_from_jax(flat).items()})
+    axis = tp.layout(case["name"], case["attention"], t, pdist.tensor_index(),
+                     library=True, fsdp_count=f, fsdp_index=pdist.fsdp_index(),
+                     fsdp_min_size=case["min_size"])
+    tp.apply_model_axis(model, axis)
+    kinds = tp.param_kinds(model)
+    opt = build_optimizer(OptimConfig(**spec_all["optim"]), 4, model.named_parameters(),
+                          sharded=kinds)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, accum_steps=accum)
+    b = spec["label"].shape[-1] // pdist.batch_count()
+    rows = slice(pdist.batch_index() * b, (pdist.batch_index() + 1) * b)
+    batch = _inputs(spec, rows, accum)
+    fsdp.GATHERS[0] = 0
+    m = step(state, batch)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    leftover = [n for mod in model.modules() for n in mod._parameters if n in mod.__dict__]
+    opt_numel = sum(v.numel() for st in opt.opt.state.values()
+                    for v in st.values() if torch.is_tensor(v) and v.dim())
+    return {
+        "mode": axis.mode, "plan": sorted(axis.plan), "fsdp_plan": dict(axis.fsdp_plan),
+        "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        "accuracy": float(m["accuracy"]),
+        "grads": {k: _np(v) for k, v in full_state_dict(grads, axis).items()},
+        "state": {k: _np(v) for k, v in state.state_dict()["model"].items()},
+        "replicated": {k: _np(v) for k, v in model.state_dict().items()
+                       if not kinds.get(k)},
+        "n_params": sum(p.numel() for p in model.parameters()),
+        "opt_numel": opt_numel, "gathers": fsdp.GATHERS[0], "leftover": leftover,
+        "coords": pdist.library_coords(pdist.process_index(), tuple(case["shape"]))}
+
+
+def library(rank, world, d):
+    """The cases of DIR/library.json (a case with `control` runs with the
+    sum of the gather's reduce-scatter patched out: each rank keeps its own
+    slice of its own gradient); then, with `fit` in the json, run.main's
+    Trainer at (1, world, 1, 1): a fresh fit with a checkpoint every step
+    and an export, and a resume of the (1, 1) checkpoints under DIR/resume;
+    then plain data parallelism at world `world` resuming those under
+    DIR/resume_dp."""
+    import json
+
+    with open(os.path.join(d, "library.json")) as f:
+        spec_all = json.load(f)
+    out = {}
+    rs = coll.reduce_scatter
+    for case in spec_all["cases"]:
+        if case.get("control"):
+            coll.reduce_scatter = lambda x, dim, group: x.chunk(
+                dist.get_world_size(group), dim)[dist.get_rank(group)].contiguous()
+        try:
+            out[case["tag"]] = _library_case(case, spec_all, d)
+        finally:
+            coll.reduce_scatter = rs
+    pdist.reset_mesh()
+    if "batches" in spec_all:
+        # run.main's Trainer on the library mesh: the first train batch
+        from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+        from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+        t = Trainer(parse_cli(_ma_argv(d, "batches", spec_all["batches"])))
+        batch = next(iter(t.train_prefetch.epoch(0)))
+        out["batches"] = {"batch": {k: _np(v) for k, v in batch.items()},
+                          "mode": t.model_axis.mode, "shape": t.mesh_shape}
+        t.close()
+        pdist.reset_mesh()
+    if "fit" in spec_all:
+        extra = spec_all["fit"] + ["--mesh.fsdp", str(world)]
+        _GRAD_NORMS.clear()
+        result, seen, _ = _fit(_ma_argv(d, "lib", extra))
+        t = _LAST[0]
+        lkg = t.train_guard.lkg_dir
+        out["fit"] = {"result": result, "seen": seen, "full": t.state.state_dict(),
+                      "lkg": {s: torch.load(os.path.join(lkg, str(s), "state.pt"),
+                                            weights_only=True)
+                              for s in t.train_guard.ring_steps()},
+                      "fsdp_plan": dict(t.model_axis.fsdp_plan),
+                      "n_params": sum(p.numel() for p in t.model.parameters()),
+                      "ema_numel": sum(v.numel() for v in t.state.ema.values())}
+        t.export_inference(os.path.join(d, "lib_art"))
+        resume = _ma_argv(d, "resume", extra + ["--resume_from_checkpoint", "auto"])
+        from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+        from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+        t = Trainer(parse_cli(resume))
+        t._maybe_resume()
+        restored = t.state.state_dict()
+        t.close()
+        result, seen, _ = _fit(resume)
+        out["resumed"] = {"result": result, "seen": seen, "restored": restored}
+        # the same checkpoint resumed by plain data parallelism at world 2
+        _, seen_dp, _ = _fit(_ma_argv(d, "resume_dp", spec_all["fit"] + [
+            "--resume_from_checkpoint", "auto"]))
+        out["resumed_dp"] = seen_dp
+    return out
+
+
 def run_group(scenario: str, d, world: int = 2, env=None,
               timeout_s: float = 150.0) -> list:
     """Start `world` spawned ranks of `scenario` over directory `d`; fail
@@ -528,7 +661,7 @@ SCENARIOS = {"collectives": collectives, "env": env, "train_step": train_step,
              "mix": mix, "trainer": trainer, "cuda_step": cuda_step,
              "pretrained": pretrained, "model_axis": model_axis,
              "cp_attention": cp_attention, "replicated": replicated, "ckpt": ckpt,
-             "mvit_tp_forward": mvit_tp_forward}
+             "mvit_tp_forward": mvit_tp_forward, "library": library}
 
 
 def main() -> None:
