@@ -167,7 +167,18 @@ Drives the port only (no JAX), one JSON line per phase:
             exact, the jsonl complete; then one B=8 micro-step under a
             fixed mixup draw with the forward held fixed against plain
             autograd, ms per optimizer step plain / mixed / mixed + guard,
-            and fit()'s clips/s with tracking on and off
+            and fit()'s clips/s with tracking on and off and with tracking
+            on and the obs layer off. The obs layer is on (the default):
+            its window and epoch keys in the jsonl (none with obs off), the
+            health gauges of step 1 against f32 norms recomputed from the
+            state (`param_norm`, `update_ratio` within 1e-3), `nonfinite`
+            per step, the memory ledger's `train_state` and
+            `pva_hbm_bytes_in_use` against the state's bytes and
+            `torch.cuda.memory_allocated()`, the LKG ring's async saves
+            (dispatch on the step thread, write until landed); then the
+            full train state saved async and sync (`async_checkpoint`):
+            the time on the step thread, the files bitwise, a step resumed
+            from each
 31. remat_train  hub mvit_base_32x3 (32 frames at 224^2, drop path 0.3,
             `attention pallas, depthwise_impl pallas`): B=4 micro-steps with
             and without `--model.remat`; per run ms, peak memory and the
@@ -270,6 +281,11 @@ Drives the port only (no JAX), one JSON line per phase:
             rank over all 1568 tokens; gloo ranks sharing the card; (c) (a)
             over NCCL on two cards only where present
             (`library_mesh_train_phase`)
+The serving phases run with the obs layer on: edf_serve also holds the
+ledger's weight bytes on /metrics, /history's series of the request
+counters, and a 503 on /history from a server built with
+`--obs.enabled false`; preempt_train holds the flight record's "preempt"
+events. The `seconds` line reports the script's time since it started.
 
 Then the kernels' JSON line (11 entries; its ms, plain_ms, library_ms and
 bound_ms are summed over the kernel's launches in one bucket-8 forward of
@@ -407,18 +423,20 @@ FEATURES_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=80, ckpt_every=0
                             "--tracking.trackers", "jsonl",
                             "--tracking.log_every", "1"])
 POISONED_TAKES = (3, 4)  # the train loader's 3rd and 4th batches
-# fit()'s step time with tracking on and off: Trainers of one epoch of 4
-# plain steps each, in turns on, off (the first interval of each dropped:
-# 3 per setting; 6 steps before the library-mesh phase, turns on, off,
-# off, on before the data-parallel phase, and 12 steps before the
-# serving-defaults and preemption phases)
+# fit()'s step time with tracking on and off, and with tracking on and the
+# obs layer off: Trainers of one epoch of 4 plain steps each, in turns on,
+# off, obs_off (the first interval of each dropped: 3 per setting; 6 steps
+# before the library-mesh phase, turns on, off, off, on before the
+# data-parallel phase, and 12 steps before the serving-defaults and
+# preemption phases; no obs_off turn before the telemetry phase)
 TRACKING_TRAIN = dict(SLOWFAST_TRAIN, accum=2, epochs=1, videos=64, ckpt_every=0)
-TRACKING_ORDER = ("on", "off")
+TRACKING_ORDER = ("on", "off", "obs_off")
 # the armed guard's and mixing's cost: optimizer steps timed in rounds of
 # plain, mixed, mixed + armed guard (the order turned each round; 6 rounds
 # before the library-mesh phase, 8 before the data-parallel phase, 24
-# before the serving-defaults and preemption phases)
-ARMED_ROUNDS = 4
+# before the serving-defaults and preemption phases, 4 before the telemetry
+# phase)
+ARMED_ROUNDS = 3
 # hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
 # per-block remat: B=4 micro-steps with and without --model.remat
 REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
@@ -2218,6 +2236,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          model_axis=t_slice15 - t_slice14,
          library_mesh=time.perf_counter() - t_slice15,
          total=time.perf_counter() - t_start,
+         script_s=time.perf_counter() - T_START,
+         script_limit_s=1200, nvidia_smi=smi,
          profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3049,22 +3069,27 @@ def armed_step_times(torch) -> dict:
 
 
 def tracking_times(torch, work: str) -> dict:
-    """fit()'s step time with jsonl tracking on and off: TRACKING_TRAIN's
-    Trainers in the turns of TRACKING_ORDER, one process, each step's
-    host-clock interval from its dispatch to the next one's (the loop reads
-    each step's metrics one step late, so an interval is a step's time in
-    the loop, its input wait and logging included), the first of each
-    Trainer dropped; and each fit()'s clips/s."""
+    """fit()'s step time with jsonl tracking on and off, and with tracking
+    on and the obs layer off: TRACKING_TRAIN's Trainers in the turns of
+    TRACKING_ORDER, one process, each step's host-clock interval from its
+    dispatch to the next one's (the loop reads each step's metrics one step
+    late, so an interval is a step's time in the loop, its input wait and
+    logging included), the first of each Trainer dropped; and each fit()'s
+    clips/s. The "on" round's jsonl holds the obs keys, the "obs_off"
+    round's none."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
 
-    out = {"on": [], "off": []}
-    clips = {"on": [], "off": []}
+    out = {label: [] for label in TRACKING_ORDER}
+    clips = {label: [] for label in TRACKING_ORDER}
+    obs_keys = {}
     for i, label in enumerate(TRACKING_ORDER):
+        logs = os.path.join(work, f"tracking_logs_{i}")
         extra = (["--tracking.with_tracking", "--tracking.trackers", "jsonl",
-                  "--tracking.logging_dir",
-                  os.path.join(work, f"tracking_logs_{i}")]
-                 if label == "on" else [])
+                  "--tracking.logging_dir", logs]
+                 if label != "off" else [])
+        if label == "obs_off":
+            extra += ["--obs.enabled", "false"]
         tr = Trainer(parse_cli(train_argv(os.path.join(work, f"tracking_{i}"),
                                           spec=TRACKING_TRAIN) + extra))
         inner, stamps = tr.train_step, []
@@ -3077,15 +3102,131 @@ def tracking_times(torch, work: str) -> dict:
         res = tr.fit()
         out[label] += list(np.diff(stamps)[1:] * 1e3)
         clips[label].append(res.get("clips_per_sec"))
+        if label != "off":
+            (name,) = os.listdir(logs)
+            with open(os.path.join(logs, name)) as f:
+                keys = set().union(*(json.loads(ln) for ln in f))
+            obs_keys[label] = sorted(k for k in keys | set(res) if k.startswith("obs"))
         del tr, timed, inner
         free_cuda(torch)
+    want = OBS_WINDOW_KEYS | OBS_EPOCH_KEYS | HEALTH_KEYS
+    check(want <= set(obs_keys["on"]) and obs_keys["obs_off"] == [],
+          f"obs keys with obs on {obs_keys['on']}, off {obs_keys['obs_off']}")
     res = {f"fit_step_ms_tracking_{k}": spread(v) for k, v in out.items()}
     # paired by position: the k-th steady step of an on run against the
     # k-th of the off run beside it
     res["tracking_overhead"] = overhead(out["off"], out["on"])
+    res["obs_overhead"] = overhead(out["obs_off"], out["on"])
     res.update({f"fit_clips_per_sec_tracking_{k}": v for k, v in clips.items()})
+    res["fit_clips_per_sec_obs_on"] = clips["on"]
+    res["fit_clips_per_sec_obs_off"] = clips["obs_off"]
     res["fit_step_ms_raw"] = out
     return res
+
+
+# the obs layer's keys a default (obs on) fit() logs: in its windows, on its
+# epoch line, and the health gauges on its step lines
+OBS_WINDOW_KEYS = {"obs/step_s", "obs/input_wait_s", "obs/h2d_s",
+                   "obs/window_wall_s", "obs/unattributed_s"}
+OBS_EPOCH_KEYS = {"obs_step_s", "obs_input_wait_frac", "obs_h2d_s"}
+HEALTH_KEYS = {"obs/param_norm", "obs/update_ratio", "obs/nonfinite"}
+# the health gauges against f32 norms the smoke recomputes, relative
+HEALTH_REL = 1e-3
+
+
+def health_reading(torch, state, before, m) -> dict:
+    """Step metrics `m`'s health gauges against f32 norms recomputed from
+    the parameters after the step and `before`, a copy taken before it."""
+    after = [p.detach().float() for p in state.model.parameters()]
+    pn = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(a) for a in after])))
+    un = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(a - b) for a, b in zip(after, before)])))
+    want_ratio = un / max(pn, 1e-12)
+    got_pn, got_ratio = float(m["param_norm"]), float(m["update_ratio"])
+    return {"param_norm": got_pn, "param_norm_f32": pn,
+            "param_norm_rel_err": abs(got_pn - pn) / pn,
+            "update_ratio": got_ratio, "update_ratio_f32": want_ratio,
+            "update_ratio_rel_err": abs(got_ratio - want_ratio) / want_ratio,
+            "nonfinite": float(m["nonfinite"])}
+
+
+def ledger_reading(torch, ledger, state) -> dict:
+    """The ledger's `train_state` against the bytes of the state's tensors
+    (parameters, buffers, optimizer state, EMA), and its
+    `pva_hbm_bytes_in_use` gauge against `torch.cuda.memory_allocated()`
+    read just after it (no allocation between: both read the caching
+    allocator's counter)."""
+    tensors = (list(state.model.parameters()) + list(state.model.buffers())
+               + [v for st in state.optimizer.opt.state.values() for v in st.values()
+                  if torch.is_tensor(v)] + list((state.ema or {}).values()))
+    in_use = ledger.registry.get("pva_hbm_bytes_in_use").value()
+    allocated = torch.cuda.memory_allocated()
+    snap = ledger.snapshot()
+    return {"train_state_bytes": ledger.component_bytes("train_state"),
+            "state_tensor_bytes": sum(t.numel() * t.element_size() for t in tensors),
+            "pva_hbm_bytes_in_use": int(in_use), "memory_allocated": allocated,
+            "pva_hbm_attributed_frac": ledger.registry.get(
+                "pva_hbm_attributed_frac").value(),
+            "components": snap["components"], "source": snap["source"],
+            "peak_bytes": snap["peak_bytes"]}
+
+
+def tree_bytes(torch, x) -> int:
+    """Bytes of the tensors in a nested dict."""
+    if isinstance(x, dict):
+        return sum(tree_bytes(torch, v) for v in x.values())
+    return x.numel() * x.element_size() if torch.is_tensor(x) else 0
+
+
+def async_checkpoint_phase(torch, tr, train_step, out_dir: str) -> dict:
+    """SlowFast-R50's full train state as fit() left it, saved once through
+    an asynchronous Checkpointer and once through a synchronous one: the
+    time each keeps the step thread (`save()`), and the async write until
+    `wait()` returns. The async save restored is bitwise the sync one; then
+    one `train_step` from each restore (the same batch): the loss within
+    1e-6 relative (bitwise reported), the gradient norm within LOGIT_TOL
+    (cuDNN's wgrad is not bitwise), the step counters alike."""
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
+
+    state = tr.state
+    extra = {"kind": "step", "epoch": 0, "data_state": {"epoch": 0, "position": 0}}
+    step = state.step
+    out = {"state_bytes": tree_bytes(torch, state_leaves(state.state_dict()))}
+    for label, use_async in (("async", True), ("sync", False)):
+        ck = Checkpointer(os.path.join(out_dir, f"ckpt_{label}"), use_async=use_async)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step, state, extra)
+        t1 = time.perf_counter()
+        ck.wait()
+        out[label] = {"step_thread_s": t1 - t0, "until_wait_s": time.perf_counter() - t0,
+                      "write_log": list(ck.write_log)}
+        ck.close()
+    files = {label: state_leaves(torch.load(
+        os.path.join(out_dir, f"ckpt_{label}", str(step), "state.pt"),
+        map_location="cpu", weights_only=True)) for label in ("async", "sync")}
+    diff = unequal_leaves(torch, files["async"], files["sync"])
+    check(not diff, f"the async checkpoint differs from the sync one at {diff[:4]}")
+    batch = train_batch(torch, SEED + 62, FEATURES_TRAIN)
+    batch = {k: torch.stack([v, v]) for k, v in batch.items()}  # accumulation 2
+    resumed = {}
+    for label in ("async", "sync"):
+        _, got = Checkpointer(os.path.join(out_dir, f"ckpt_{label}")).restore(state)
+        m = train_step(state, batch)
+        resumed[label] = {"restored_step": got, "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]), "step_after": state.step}
+    a, b = resumed["async"], resumed["sync"]
+    check(abs(a["loss"] - b["loss"]) <= 1e-6 * abs(b["loss"])
+          and a["restored_step"] == b["restored_step"] == step
+          and a["step_after"] == b["step_after"] == step + 1
+          and abs(a["grad_norm"] - b["grad_norm"]) <= LOGIT_TOL * abs(b["grad_norm"]),
+          f"resumed from the async save {a}, from the sync one {b}")
+    out.update(restored_bitwise=True, resumed=resumed,
+               resumed_loss_bitwise=a["loss"] == b["loss"],
+               async_step_thread_frac_of_sync=(out["async"]["step_thread_s"]
+                                               / out["sync"]["step_thread_s"]))
+    return out
 
 
 def features_train_phase(torch, work: str, launches: dict) -> dict:
@@ -3102,9 +3243,20 @@ def features_train_phase(torch, work: str, launches: dict) -> dict:
     finite loss; launches exact (one forward and one dx per fused site per
     micro-step, the skipped and abandoned steps included, plus the eval
     forwards); the jsonl holds a start line, a line per logged step
-    (train_loss_step, lr, grad_norm), the epoch line and an end line.
-    Counters zeroed just before fit(), read just after."""
+    (train_loss_step, lr, grad_norm and the health gauges), the obs windows
+    (`OBS_WINDOW_KEYS`), the epoch line (with `OBS_EPOCH_KEYS`) and an end
+    line. With obs on (the default): step 1's `param_norm` within
+    `HEALTH_REL` of an f32 norm of the parameters after it, its
+    `update_ratio` within `HEALTH_REL` of one from a copy taken before it,
+    `nonfinite` 0 on the healthy steps and 1 on the poisoned ones; before
+    step 2 the ledger's `train_state` equals the bytes of the state's
+    tensors and `pva_hbm_bytes_in_use` equals `torch.cuda.memory_allocated()`
+    to the byte; the LKG ring's saves report their dispatch on the step
+    thread and their whole write (`Checkpointer.write_log`). Then
+    `async_checkpoint_phase` on the state fit() leaves. Counters zeroed
+    just before fit(), read just after."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.reliability.guard import poison_batch
     from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
@@ -3137,13 +3289,21 @@ def features_train_phase(torch, work: str, launches: dict) -> dict:
 
     tr.train_prefetch = Poisoning()
     real_step, real_rollback = tr.train_step, tr._guard_rollback
+    lkg_ckpt = tr.train_guard._checkpointer()  # its write_log outlives close()
 
     def step(state, batch):
         call = len(seen["metrics"]) + 1
         if call == POISONED_TAKES[0]:
             seen["before"] = cpu_state(state)
+        if call == 1:
+            seen["health_pre"] = [p.detach().float().clone()
+                                  for p in state.model.parameters()]
+        if call == 2:
+            seen["ledger"] = ledger_reading(torch, obs_memory.get_ledger(), state)
         m = real_step(state, batch)
         seen["metrics"].append(m)
+        if call == 1:
+            seen["health"] = health_reading(torch, state, seen.pop("health_pre"), m)
         if call == POISONED_TAKES[0]:
             seen["after"] = cpu_state(state)
         return m
@@ -3201,11 +3361,30 @@ def features_train_phase(torch, work: str, launches: dict) -> dict:
         lines = [json.loads(ln) for ln in f]
     step_lines = [ln for ln in lines if "train_loss_step" in ln]
     epoch_lines = [ln for ln in lines if "train_loss_epoch" in ln]
+    obs_lines = [ln for ln in lines if "train_loss_step" not in ln
+                 and any(k.startswith("obs/") for k in ln)]
     check(lines[0].get("event") == "start" and lines[-1].get("event") == "end"
           and [ln["step"] for ln in step_lines] == [1, 2, 3, 4, 4]
-          and all({"lr", "grad_norm"} <= set(ln) for ln in step_lines)
-          and len(epoch_lines) == 1 and len(lines) == len(step_lines) + 3,
+          and all({"lr", "grad_norm", *HEALTH_KEYS} <= set(ln) for ln in step_lines)
+          and len(epoch_lines) == 1
+          and len(lines) == len(step_lines) + len(obs_lines) + 3,
           f"jsonl lines {[sorted(ln) for ln in lines]}")
+    obs_keys = set().union(*obs_lines) if obs_lines else set()
+    check(OBS_WINDOW_KEYS <= obs_keys and OBS_EPOCH_KEYS <= set(epoch_lines[0]),
+          f"obs keys {sorted(obs_keys)}, epoch line {sorted(epoch_lines[0])}")
+    nonfinite = [ln["obs/nonfinite"] for ln in step_lines]
+    check(nonfinite == [0.0, 0.0, 1.0, 1.0, 0.0],
+          f"nonfinite per logged step {nonfinite}")
+    health, ledger = seen["health"], seen["ledger"]
+    check(health["param_norm_rel_err"] <= HEALTH_REL
+          and health["update_ratio_rel_err"] <= HEALTH_REL
+          and health["nonfinite"] == 0.0, f"health gauges of step 1: {health}")
+    check(ledger["train_state_bytes"] == ledger["state_tensor_bytes"]
+          and ledger["pva_hbm_bytes_in_use"] == ledger["memory_allocated"],
+          f"ledger before step 2: {ledger}")
+    lkg_writes = list(lkg_ckpt.write_log)
+    check(len(lkg_writes) >= 2 and all("write_s" in w for w in lkg_writes),
+          f"LKG writes {lkg_writes}")
     bundle = guard.last_rollback["bundle"]
     fields = {
         "fit_s": fit_s, "result": result, "losses": losses, "skipped": skipped,
@@ -3214,11 +3393,19 @@ def features_train_phase(torch, work: str, launches: dict) -> dict:
         "rollback": guard.last_rollback, "lkg_ring": guard.ring_steps(),
         "replay_bundle_files": sorted(os.listdir(bundle)) if bundle else [],
         "jsonl_lines": len(lines), "restored_bitwise_ring": True,
-        "skipped_step_state_bitwise": True}
+        "skipped_step_state_bitwise": True, "health_step1": health,
+        "health_rel_tolerance": HEALTH_REL, "nonfinite_per_step": nonfinite,
+        "ledger_before_step2": ledger, "obs_keys": sorted(obs_keys),
+        "epoch_obs": {k: epoch_lines[0][k] for k in sorted(OBS_EPOCH_KEYS)},
+        "lkg_save": {"dispatch_s": spread([w["dispatch_s"] for w in lkg_writes]),
+                     "fence_s": spread([w["fence_s"] for w in lkg_writes]),
+                     "write_s": spread([w["write_s"] for w in lkg_writes]),
+                     "saves": lkg_writes}}
+    fields["async_checkpoint"] = async_checkpoint_phase(torch, tr, real_step, out_dir)
     # the wrappers and the bound `_guard_rollback` close a cycle through the
     # Trainer: drop them all, so its state (and the guard's snapshot) go now
     del (tr, seen, restored, lkg_file, step, rollback, real_step, real_rollback,
-         guard, action, inner)
+         guard, action, inner, lkg_ckpt)
     free_cuda(torch)
 
     # the same micro-step with a fixed mix (a mixup and a cutmix draw)
@@ -3584,7 +3771,13 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
     /stats and /metrics; /metrics counts and the latency histogram's count
     equal the requests answered; 41 pointwise and 51 conv launches per
     forward (counters zeroed just before the server is built, the warm-up
-    forwards included); POST /drain turns /healthz to 503."""
+    forwards included); POST /drain turns /healthz to 503. With obs on (the
+    default): /metrics carries `pva_hbm_bytes{component="model_weights:
+    slowfast_r50"}`, the engine's resident bytes; GET /history answers 200
+    with series for the request counters (polled until the server's
+    ticker has ticked after the requests); a server built with
+    `--obs.enabled false` (bucket 1 only, after the counters are read)
+    answers 503 on /history."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
     from pytorchvideo_accelerate_tpu_torch.ops import fused
@@ -3619,6 +3812,7 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
                                                  deadline_ms=deadline_ms))
         stats = json.loads(http(base + "/stats")[2])
         metrics = http(base + "/metrics")[2].decode()
+        history = history_after(base, len(batch_resp) + len(rt_resp))
         drain_code, _, drain_body, _ = http(base + "/drain", b"{}")
         health_code = http(base + "/healthz")[0]
     finally:
@@ -3646,6 +3840,18 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
     check_launches(counts, expected_forward_launches("slowfast_r50"), forwards,
                    "edf_serve")
     launches["edf_serve"] = counts
+    weights = metric_value(metrics, 'pva_hbm_bytes{component="model_weights:slowfast_r50"}')
+    check(weights == resident_bytes(server.engine.model),
+          f"ledger weights {weights}, resident {resident_bytes(server.engine.model)}")
+    off = build_server(parse_cli([
+        "--serve.checkpoint", art, "--serve.port", "0", "--serve.max_batch_size", "1",
+        "--obs.enabled", "false"])).start()
+    try:
+        host, port = off.address
+        history_off = http(f"http://{host}:{port}/history")[0]
+    finally:
+        off.close()
+    check(history_off == 503, f"/history with obs off answered {history_off}")
     server_ms = [p["latency_ms"] for p in payloads]
     return dict(
         model="slowfast_r50", server_build_s=build_s, buckets=list(server.engine.buckets),
@@ -3661,7 +3867,35 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
         forwards=forwards, scheduler_batches=stats["batches"],
         bucket_fill=stats["batch_fill_ratio"], launches=counts,
         launches_per_forward={k: v / forwards for k, v in counts.items() if v},
-        stats=stats, drain_http=drain_code, healthz_after_drain=health_code, **held)
+        stats=stats, drain_http=drain_code, healthz_after_drain=health_code,
+        hbm_weight_bytes=weights, hbm_bytes_in_use=metric_value(
+            metrics, "pva_hbm_bytes_in_use"),
+        hbm_attributed_frac=metric_value(metrics, "pva_hbm_attributed_frac"),
+        history=history, history_obs_off_http=history_off, **held)
+
+
+# the request counters a served /history carries series for
+HISTORY_KEYS = ("pva_serving_requests_total", "pva_serving_batches_total")
+
+
+def history_after(base: str, answered: int, timeout_s: float = 10.0) -> dict:
+    """GET /history?keys=HISTORY_KEYS until its last requests tick counts
+    `answered` (the server's ticker ticks once a second); its occupancy and
+    the series' lengths and last values."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        code, _, body, _ = http(base + "/history?keys=" + ",".join(HISTORY_KEYS))
+        body = json.loads(body)
+        series = body.get("series", {})
+        req = series.get(HISTORY_KEYS[0]) or [[0, 0]]
+        if code == 200 and req[-1][1] >= answered and all(series.get(k) for k in HISTORY_KEYS):
+            break
+        check(time.perf_counter() < deadline, f"/history {code}: {body}")
+        time.sleep(0.25)
+    return {"http": code, "occupancy": body["occupancy"],
+            "series_points": {k: len(v) for k, v in series.items()},
+            "last": {k: v[-1][1] for k, v in series.items()},
+            "alerts_active": body.get("alerts_active")}
 
 
 def resident_bytes(model) -> int:
@@ -3831,7 +4065,9 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
     0 with `preempted: true`, stops off a checkpointing boundary (see
     `PREEMPT_TRAIN`), leaves a checkpoint of kind "preempt" at the step it
     finished and the loader position of that step, and an
-    `emergency_checkpoint.json` naming the step; the resumed child
+    `emergency_checkpoint.json` naming the step, and a `flight_record.json`
+    whose last "preempt" events are the SIGTERM's and the emergency
+    save's; the resumed child
     ends at the unbroken run's step count, each step's loss within 5e-2 *
     (1 + |loss|) of the unbroken run's (cuDNN's strided wgrad is not
     bitwise across runs), and the launches of the two children add up to
@@ -3886,6 +4122,10 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
           and extra["data_state"] == {"epoch": 0, "position": k},
           f"checkpoint of step {k}: {extra['kind']} at {extra['data_state']}")
     check(sorted(first) == list(range(1, k + 1)), f"preempted run's steps {sorted(first)}")
+    with open(os.path.join(out, "flight_record.json")) as f:
+        flight = [e for e in json.load(f)["events"] if e["kind"] == "preempt"]
+    check([e["name"] for e in flight][-2:] == ["SIGTERM", "emergency checkpoint saved"]
+          and flight[-1]["step"] == k, f"flight record's preempt events {flight}")
     saved = [ln for ln in lines if ln.startswith("preempted (SIGTERM)")]
     check(len(saved) == 1, f"no grace-path line in {lines[-10:]}")
     save_s = float(saved[0].split(" in ")[1].split()[0])
@@ -3913,6 +4153,7 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
         model=spec["name"], batch=spec["batch"], steps=want["steps"],
         checkpointing_steps=spec["ckpt_every"], sigterm_after_log_line=PREEMPT_AT_LINE,
         preempted_at_step=k, checkpoint_kind=extra["kind"],
+        flight_record_preempt_events=flight,
         loader_state=extra["data_state"], emergency_record=emergency,
         sigterm_to_exit_s=exit_s, emergency_save_s=save_s,
         resume_s=resume_s, unbroken_s=unbroken_s,

@@ -21,6 +21,14 @@ Contracts (the JAX package's):
 - the time the consumer waits for the next batch accumulates in `wait_s`
   (`pop_wait()` drains it), the trainer's `input_wait_frac`.
 
+Telemetry (obs/): the consumer's wait is also the `wait_name` span
+("input_wait" for training, "eval_input_wait" for eval, which nests inside
+the "eval" span and so counts as background), the worker's placement the
+`h2d_name` span ("h2d" / "eval_h2d"); the memory ledger accounts the placed
+batches not yet consumed as component `prefetch_ring:<wait_name>`
+(registered when placed, released when the consumer takes them, cleared
+when the epoch's generator closes).
+
 `depth=0` places each batch inline and synchronously (the A/B baseline).
 Under data parallelism `device` is the rank's own card (`cuda:<index>`),
 and every copy, stream and event lands there.
@@ -36,7 +44,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from pytorchvideo_accelerate_tpu_torch import obs
 from pytorchvideo_accelerate_tpu_torch.data.pipeline import ClipLoader
+from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
 
 _POLL_S = 0.05  # stop-flag poll cadence for blocking waits
 _JOIN_TIMEOUT_S = 10.0
@@ -50,13 +60,17 @@ class DevicePrefetcher:
     """Bounded background host-to-device pipeline over one `ClipLoader`."""
 
     def __init__(self, loader: ClipLoader, device: torch.device,
-                 depth: int = 2):
+                 depth: int = 2, wait_name: str = "input_wait",
+                 h2d_name: str = "h2d"):
         if depth < 0:
             raise ValueError(f"device prefetch depth must be >= 0, got {depth}")
         self.loader = loader
         self.device = torch.device(device)
         self.depth = depth
         self.wait_s = 0.0  # consumer time blocked on the next device batch
+        self.wait_name = wait_name
+        self.h2d_name = h2d_name
+        self._mem_component = f"prefetch_ring:{wait_name}"
         self._stream = None
 
     def pop_wait(self) -> float:
@@ -67,6 +81,10 @@ class DevicePrefetcher:
     def _place(self, batch: dict):
         """(device batch, event or None). On the card: pinned host copy,
         then a non_blocking copy on the side stream, then an event."""
+        with obs.span(self.h2d_name):
+            return self._copy(batch)
+
+    def _copy(self, batch: dict):
         tensors = {k: _as_tensor(v) for k, v in batch.items()}
         if self.device.type != "cuda":
             return {k: v.to(self.device) for k, v in tensors.items()}, None
@@ -110,9 +128,14 @@ class DevicePrefetcher:
             while True:
                 t0 = time.perf_counter()
                 kind, payload, state = q.get()
-                self.wait_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.wait_s += dt
+                obs.observe(self.wait_name, dt)
                 if kind == "batch":
                     slots.release()
+                    # the step loop owns the batch from here
+                    obs_memory.release(self._mem_component,
+                                       obs_memory.tree_nbytes(payload[0]))
                     self.loader.state = state
                     yield self._take(*payload)
                 elif kind == "state":  # epoch rollover marker
@@ -129,6 +152,8 @@ class DevicePrefetcher:
                     q.get_nowait()
                 except queue.Empty:
                     break
+            # a worker that out-raced the drain leaves no phantom bytes
+            obs_memory.release(self._mem_component)
 
     def _epoch_sync(self, epoch: Optional[int],
                     from_start: bool) -> Iterator[dict]:
@@ -138,7 +163,9 @@ class DevicePrefetcher:
                 continue
             t0 = time.perf_counter()
             placed = self._take(*self._place(batch))
-            self.wait_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.wait_s += dt
+            obs.observe(self.wait_name, dt)
             self.loader.state = state
             yield placed
 
@@ -157,7 +184,11 @@ class DevicePrefetcher:
                         break
                 else:
                     return  # consumer gone
-                q.put(("batch", self._place(batch), state))
+                placed = self._place(batch)
+                # the ledger: the bytes of the batch resident in the ring
+                obs_memory.register(self._mem_component,
+                                    obs_memory.tree_nbytes(placed[0]))
+                q.put(("batch", placed, state))
         except BaseException as e:  # noqa: BLE001 - must cross the thread
             q.put(("error", e, None))
         else:

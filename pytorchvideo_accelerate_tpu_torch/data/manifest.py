@@ -11,7 +11,9 @@ space- or comma-separated.
 failure budget, and exhausting it moves the path into a JSON sidecar
 (`<output_dir>/quarantine.json`, the JAX package's format, so either
 package reads the other's) that the sampler excludes
-(`samplers.substitute_indices`: epoch geometry unchanged).
+(`samplers.substitute_indices`: epoch geometry unchanged). Each quarantine
+ticks `pva_data_quarantined_total{site="decode"}` and leaves a warning in the
+flight recorder.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
+from pytorchvideo_accelerate_tpu_torch.obs import get_recorder, get_registry
 from pytorchvideo_accelerate_tpu_torch.reliability.atomic import atomic_write_json
 
 logger = logging.getLogger(__name__)
@@ -125,7 +128,15 @@ class Quarantine:
         if newly:
             logger.warning("quarantined %s after %d failure(s) (%s)", path,
                            n, head)
+            self._publish(path, head)
         return newly
+
+    def _publish(self, path: str, head: str) -> None:
+        get_registry().counter(
+            "pva_data_quarantined_total",
+            "clips quarantined after exhausting the failure budget, "
+            "by site", labelnames=("site",)).inc(site="decode")
+        get_recorder().warn("clip quarantined", path=path, error=head)
 
     def _persist(self, payload: dict) -> None:
         if not self.sidecar_path:

@@ -28,6 +28,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from pytorchvideo_accelerate_tpu_torch import obs
 from pytorchvideo_accelerate_tpu_torch.data import decode as decode_mod
 from pytorchvideo_accelerate_tpu_torch.data.manifest import Manifest, Quarantine
 from pytorchvideo_accelerate_tpu_torch.data.samplers import (
@@ -390,10 +391,15 @@ class ClipLoader:
         spy = self.samples_per_yield
         n_batches = self.steps_per_epoch()
 
+        def fetch_one(i) -> dict:
+            # the "decode" span: one sample's decode and transform on a
+            # worker thread (background: it overlaps the step loop)
+            with obs.span("decode"):
+                return self.source.get(int(i), epoch)
+
         def fetch_batch(b: int) -> dict:
             chunk = indices[b * spy:(b + 1) * spy]
-            samples = list(self._pool.map(
-                lambda i: self.source.get(int(i), epoch), chunk))
+            samples = list(self._pool.map(fetch_one, chunk))
             return assemble_batch(samples, spy, accum_steps=self.accum_steps)
 
         pending: "Queue[tuple]" = Queue()

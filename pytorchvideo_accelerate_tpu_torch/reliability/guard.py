@@ -14,7 +14,9 @@ replay bundles).
    quiet.
 3. **Last-known-good ring**: the port's `trainer/checkpoint.Checkpointer`
    under `<output_dir>/guard_lkg`, saved every `guard.lkg_every_steps`
-   steps and only after a healthy window; `guard.lkg_keep` bounds it.
+   steps and only after a healthy window; `guard.lkg_keep` bounds it. The
+   saves are asynchronous (the step thread only queues the host copy); a
+   restore and `close()` fence them.
 4. **Escalation**: an anomaly streak below `guard.rollback_after` is a
    skip; at it, a rollback to the LKG with the loader fast-forwarded past
    the anomalous batch; past `guard.max_rollbacks` rollbacks, `GuardHalt`.
@@ -29,10 +31,11 @@ verdicts; rank 0 writes the LKG ring and the replay bundles (its share of
 the batch), and a rollback restores the same file on every rank after a
 barrier (`Checkpointer`).
 
-Disarmed (`guard.enabled=false`, the default) nothing here is built and
-the step carries no skip. The JAX guard's obs-registry counters are not
-ported (the obs slice, ROADMAP.md): the counts are attributes here, and
-`perf_keys()` reports them.
+Every ladder event is counted in the metric registry
+(`pva_guard_events_total{action=}`, and `pva_guard_lkg_step`), and skips
+and rollbacks leave a warning in the flight recorder, as in the JAX
+package; `perf_keys()` reports the counts. Disarmed (`guard.enabled=false`,
+the default) nothing here is built and the step carries no skip.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from pytorchvideo_accelerate_tpu_torch.config import ReliabilityConfig
+from pytorchvideo_accelerate_tpu_torch.obs import get_recorder, get_registry
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import is_main_process
 from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
 
@@ -234,7 +238,8 @@ class TrainGuard:
         if self._ckpt is None:
             self._ckpt = Checkpointer(self.lkg_dir,
                                       max_to_keep=max(self.cfg.lkg_keep, 1),
-                                      reliability=self.reliability)
+                                      reliability=self.reliability,
+                                      use_async=True)
         return self._ckpt
 
     def ring_steps(self) -> List[int]:
@@ -261,6 +266,11 @@ class TrainGuard:
                   {"kind": "lkg", "data_state": loader_state.to_dict()})
         self.lkg_step = gstep
         self._event("lkg_save", step=gstep)
+        self._publish("lkg_save")
+        get_registry().gauge(
+            "pva_guard_lkg_step",
+            "last-known-good checkpoint step the guard would roll back "
+            "to").set(gstep)
 
     # --- per-step hook -----------------------------------------------------
 
@@ -322,6 +332,8 @@ class TrainGuard:
             self.skips += 1
             self._event("skip", **{k: v for k, v in verdict.items()
                                    if k != "position"})
+            self._publish("skip")
+            self._warn("guard: anomalous step skipped", verdict)
             logger.warning("guard: anomalous step skipped: %s", verdict)
             return None
 
@@ -350,12 +362,15 @@ class TrainGuard:
             "resume_position": action.resume_position,
             "bundle": action.bundle_path, "reason": action.reason}
         self._event("rollback", **self.last_rollback)
+        self._publish("rollback")
+        self._warn("guard: rolling back to last-known-good", self.last_rollback)
         logger.warning("guard: rolling back to last-known-good: %s",
                        self.last_rollback)
         return action
 
     def _halt(self, verdict: dict, why: str) -> None:
         self._event("halt", step=verdict.get("step"), why=why)
+        self._publish("halt")
         raise GuardHalt(
             f"TrainGuard halt: {verdict['kind']} anomaly at step "
             f"{verdict.get('step')}: {why}. Replay bundle: "
@@ -365,10 +380,12 @@ class TrainGuard:
 
     def restore(self, live_state, action: GuardAction):
         """Load the LKG checkpoint `action.lkg_step` into `live_state` in
-        place; returns `(live_state, step)`. The caller moves the loader to
+        place, fenced behind the ring's asynchronous saves; returns
+        `(live_state, step)`. The caller moves the loader to
         `action.resume_position`."""
-        _extra, step = self._checkpointer().restore(live_state,
-                                                    step=action.lkg_step)
+        ckpt = self._checkpointer()
+        ckpt.wait()
+        _extra, step = ckpt.restore(live_state, step=action.lkg_step)
         return live_state, step
 
     # --- evidence ----------------------------------------------------------
@@ -401,11 +418,33 @@ class TrainGuard:
         self.events.append({"action": action, **info})
         del self.events[:-64]
 
+    def _publish(self, action: str) -> None:
+        get_registry().counter(
+            "pva_guard_events_total",
+            "TrainGuard ladder events (skip/rollback/halt/lkg_save), "
+            "by action", labelnames=("action",)).inc(action=action)
+
+    def _warn(self, msg: str, info: dict) -> None:
+        # a verdict's "kind" would collide with the record's own kind: it
+        # goes in as "verdict_kind" (the JAX guard's warn raises on it and
+        # swallows the TypeError, so its skips and rollbacks leave no
+        # warning)
+        get_recorder().warn(msg, **{
+            (f"verdict_{k}" if k in ("kind", "name") else k): str(v)[:200]
+            for k, v in info.items()})
+
     def perf_keys(self) -> Dict[str, int]:
         """fit()'s result keys: rollbacks taken and clips quarantined."""
         return {"guard_rollbacks": int(self.rollbacks),
                 "quarantined_clips": (len(self.quarantine)
                                       if self.quarantine is not None else 0)}
+
+    def close(self, barrier: bool = True) -> None:
+        """Fence the LKG ring's asynchronous saves and stop its writer
+        (`Checkpointer.close(barrier)`)."""
+        ck, self._ckpt = self._ckpt, None
+        if ck is not None:
+            ck.close(barrier)
 
 
 def poison_batch(batch: dict) -> dict:

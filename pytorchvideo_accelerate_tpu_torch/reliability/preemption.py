@@ -1,15 +1,19 @@
 """Preemption grace path: SIGTERM/SIGINT -> finish the step, save, exit 0
-(the port's copy of the JAX package's `reliability/preemption.py`, without
-its flight-recorder calls).
+(the port's copy of the JAX package's `reliability/preemption.py`).
 
 The trainer installs the process-default `PreemptionGuard` around `fit()`
 (`reliability.graceful_shutdown`, on by default) and polls
 `guard.requested` once per optimizer step: an Event read, no lock and no
 device sync. On a request it leaves the epoch loop after the step in
 flight, writes a checkpoint of kind "preempt" at the consumed loader
-position and the `emergency_checkpoint.json` record, skips eval and
-returns `preempted: True`; `--resume_from_checkpoint auto` then lands on
-that step.
+position and the `emergency_checkpoint.json` record, dumps the flight
+record, skips eval and returns `preempted: True`;
+`--resume_from_checkpoint auto` then lands on that step.
+
+While the guard is installed the first SIGTERM/SIGINT does not reach the
+flight recorder's dump-and-die handler: the guard records a "preempt"
+event and dumps the flight record itself (evidence even if the drain then
+hangs), then drains.
 
 A second signal restores the previous disposition and re-delivers the
 signal, so a grace path that hangs can still be killed. `uninstall()` (the
@@ -25,6 +29,7 @@ import threading
 import time
 from typing import Dict, Optional
 
+from pytorchvideo_accelerate_tpu_torch.obs import get_recorder
 from pytorchvideo_accelerate_tpu_torch.reliability.atomic import atomic_write_json
 
 EMERGENCY_RECORD = "emergency_checkpoint.json"
@@ -50,6 +55,7 @@ class PreemptionGuard:
         if not self._requested.is_set():
             self.reason = reason
             self._requested.set()
+            get_recorder().record("preempt", reason)
 
     def _handler(self, signum, frame) -> None:
         if self._requested.is_set():
@@ -58,8 +64,11 @@ class PreemptionGuard:
             self._restore(signum)
             os.kill(os.getpid(), signum)
             return
-        self.reason = signal.Signals(signum).name
+        name = signal.Signals(signum).name
+        self.reason = name
         self._requested.set()
+        get_recorder().record("preempt", name)
+        get_recorder().dump()  # evidence even if the drain then hangs
 
     def install(self) -> bool:
         """Take over SIGTERM/SIGINT and clear any earlier request; returns

@@ -24,6 +24,12 @@ artifact's baked `meta.quantization`, then its embedded
 
 Device: the engine runs on the CUDA card unless the caller passes
 `device="cpu"`; on a host without CUDA it raises instead of falling back.
+
+Memory ledger (obs/memory.py, armed by the server with `obs.enabled`):
+the resident weights (parameters and buffers as they sit on the device,
+int8 weights at their int8 size) register as component
+`model_weights:<model name>`; `release_memory()` (the server's close)
+returns them.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
 from pytorchvideo_accelerate_tpu_torch.precision import (
     f32_island,
     policy_compute_dtype,
@@ -163,8 +170,17 @@ class InferenceEngine:
         self.buckets = compute_buckets(max_batch_size, self.shards)
         self._seen: set = set()
         self._lock = threading.Lock()
+        # the ledger: the weights as resident on the device
+        self._mem_component = f"model_weights:{model_name or 'engine'}"
+        self._weight_bytes = obs_memory.tree_nbytes(self.model)
+        obs_memory.register(self._mem_component, self._weight_bytes)
         # set by from_artifact: the training run's resolved TrainConfig
         self.artifact_config = None
+
+    def release_memory(self) -> None:
+        """Return this engine's ledger component (the retire hook; an
+        engine dropped without it leaves its bytes attributed)."""
+        obs_memory.release(self._mem_component)
 
     @classmethod
     def from_artifact(cls, path: str, device=None, *,

@@ -15,11 +15,26 @@ Endpoints:
                    rejection and shed counters, the latency histogram
                    (buckets from --serve.latency_buckets_ms), queue depth
                    and uptime gauges.
+  GET  /history  — the metrics-history ring (obs/history.py) as JSON
+                   series, with the alert rules' state: `?window_s=S`
+                   trims to the trailing S seconds, `?keys=a,b` names flat
+                   scrape keys; 400 on a bad query, 503 while the ring is
+                   disarmed (`--obs.enabled false` or
+                   `--obs.history_ticks 0`).
   POST /drain    — controller-initiated drain: admission flips to DRAINING
                    (/healthz 503, new work sheds, queued work flushes); the
                    process keeps serving its queue and is reaped apart.
-/stream, /profile and /history answer 404 until their slices of the port
-land (ROADMAP.md).
+/stream and /profile answer 404 until their slices of the port land
+(ROADMAP.md).
+
+Telemetry (`obs.*`, on by default): `build_server` configures the span
+collector and the flight recorder (installed on
+`<checkpoint.output_dir>/flight_record.json`), arms the memory ledger
+(the engine's resident weights, `pva_hbm_*` on /metrics), the history
+ring and the burn-rate alert engine (`obs/alerts.py default_rules`) on the
+stats registry; a ticker thread ticks the alert engine, and so the history,
+once a second while the server runs. A drain and a SIGTERM leave records
+in the flight recorder, and SIGTERM dumps it before draining.
 
 Handler threads only parse JSON and block on a future; all device work is
 serialised behind one flush thread: the continuous-batching
@@ -45,10 +60,15 @@ import time
 from concurrent.futures import TimeoutError as FutureTimeout
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Sequence
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from pytorchvideo_accelerate_tpu_torch import obs
 from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
+from pytorchvideo_accelerate_tpu_torch.obs import alerts as obs_alerts
+from pytorchvideo_accelerate_tpu_torch.obs import history as obs_history
+from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
 from pytorchvideo_accelerate_tpu_torch.serving.admission import (
     DRAINING,
     AdmissionController,
@@ -124,6 +144,30 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+        elif self.path.split("?", 1)[0] == "/history":
+            # 503 while the ring is disarmed: a scraper tells "off" from
+            # "empty"
+            hist = obs_history.get_history()
+            if hist is None:
+                self._reply(503, {"error": "metrics history disarmed "
+                                           "(obs.history_ticks=0?)"})
+                return
+            try:
+                q = parse_qs(urlparse(self.path).query)
+                window_s = (float(q["window_s"][0])
+                            if "window_s" in q else None)
+                keys = (sorted({k for tok in q["keys"]
+                                for k in tok.split(",") if k})
+                        if "keys" in q else None)
+            except (ValueError, TypeError) as e:
+                self._reply(400, {"error": f"bad query: {e}"})
+                return
+            payload = hist.to_json(keys=keys, window_s=window_s)
+            engine = obs_alerts.get_engine()
+            if engine is not None:
+                payload["alerts"] = engine.snapshot()["rules"]
+                payload["alerts_active"] = engine.active()
+            self._reply(200, payload)
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -136,6 +180,7 @@ class _Handler(BaseHTTPRequestHandler):
             if length:
                 self.rfile.read(length)
             srv.admission.start_draining()
+            obs.get_recorder().record("serving", "drain-requested")
             self._reply(200, {"draining": True,
                               "status": srv.admission.state(),
                               "queue_depth": srv.batcher.queue_depth()})
@@ -246,6 +291,31 @@ class InferenceServer:
         self.httpd.owner = self  # handler back-reference
         self._thread = None
         self._closed = False
+        # the alert engine's cadence: a ticker thread while the server
+        # runs, when an engine is armed (each tick also appends a scrape to
+        # the /history ring); 0 disables it
+        self.alert_tick_s = 1.0
+        self._tick_stop: Optional[threading.Event] = None
+        self._tick_thread = None
+
+    def _start_alert_ticker(self) -> None:
+        engine = obs_alerts.get_engine()
+        if engine is None or self.alert_tick_s <= 0 \
+                or self._tick_thread is not None:
+            return
+        stop = threading.Event()
+
+        def _loop():
+            while not stop.wait(self.alert_tick_s):
+                try:
+                    engine.tick()
+                except Exception:  # noqa: BLE001 - the ticker must survive
+                    logger.exception("alert tick failed")
+
+        self._tick_stop = stop
+        self._tick_thread = threading.Thread(target=_loop, name="pva-serve-alerts",
+                                             daemon=True)
+        self._tick_thread.start()
 
     @property
     def address(self) -> tuple:
@@ -275,6 +345,7 @@ class InferenceServer:
         self._thread = threading.Thread(target=self.httpd.serve_forever,
                                         name="pva-serve-http", daemon=True)
         self._thread.start()
+        self._start_alert_ticker()
         return self
 
     def drain(self, grace_s: Optional[float] = None) -> None:
@@ -288,15 +359,20 @@ class InferenceServer:
         self.close()
 
     def serve_forever(self) -> None:
-        """Serve on the calling thread (the CLI path); SIGTERM drains."""
+        """Serve on the calling thread (the CLI path); SIGTERM drains. The
+        drain handler replaces the flight recorder's dump-only SIGTERM
+        hook, so it records the signal and dumps the ring itself first."""
         if self.drain_grace_s > 0:
             def on_term(signum, frame):
                 logger.info("SIGTERM: draining")
+                obs.get_recorder().record("signal", "SIGTERM-drain")
+                obs.get_recorder().dump()
                 # httpd.shutdown() must run off the serve_forever thread
                 threading.Thread(target=self.drain, name="pva-serve-drain",
                                  daemon=True).start()
 
             signal.signal(signal.SIGTERM, on_term)
+        self._start_alert_ticker()
         try:
             self.httpd.serve_forever()
         except KeyboardInterrupt:
@@ -309,12 +385,18 @@ class InferenceServer:
         if self._closed:
             return
         self._closed = True
+        if self._tick_stop is not None:
+            self._tick_stop.set()
+            if self._tick_thread is not None:
+                self._tick_thread.join(timeout=5.0)
+            self._tick_thread = self._tick_stop = None
         self.httpd.shutdown()
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
         self.batcher.close()
+        self.engine.release_memory()
 
 
 def build_server(cfg) -> InferenceServer:
@@ -336,6 +418,12 @@ def build_server(cfg) -> InferenceServer:
         raise SystemExit(
             f"unknown --serve.quantization {s.quantization!r} "
             f"({' | '.join(QUANT_MODES)})")
+    # telemetry: the training run's obs.* block; a killed server leaves the
+    # same flight_record.json a training run does
+    obs.configure(enabled=cfg.obs.enabled,
+                  capacity=cfg.obs.flight_recorder_events)
+    if cfg.obs.enabled:
+        obs.get_recorder().install(cfg.checkpoint.output_dir)
     latency_buckets = None
     if s.latency_buckets_ms:
         try:
@@ -348,6 +436,16 @@ def build_server(cfg) -> InferenceServer:
                 "'5,10,25,50,100,250,1000'")
     stats = ServingStats(window=s.stats_window,
                          latency_buckets=latency_buckets)
+    # the ledger, the history ring and the alert engine on the stats
+    # registry, so /metrics and /history carry them; disarmed with obs off
+    obs_memory.configure(enabled=cfg.obs.enabled and cfg.obs.memory_ledger,
+                         recorder=obs.get_recorder(), registry=stats.registry,
+                         device="cpu" if cfg.cpu else None)
+    hist = obs_history.configure(
+        enabled=cfg.obs.enabled and cfg.obs.history_ticks > 0,
+        capacity=cfg.obs.history_ticks, registry=stats.registry)
+    obs_alerts.configure(enabled=hist is not None, history=hist,
+                         registry=stats.registry, recorder=obs.get_recorder())
     engine = InferenceEngine.from_artifact(
         s.checkpoint, device="cpu" if cfg.cpu else None,
         max_batch_size=s.max_batch_size, stats=stats,
@@ -377,8 +475,10 @@ def build_server(cfg) -> InferenceServer:
     admission = AdmissionController(
         max_queue=s.max_queue, shed_frac=s.shed_queue_frac,
         recover_frac=s.recover_queue_frac, retry_after_s=s.retry_after_s,
-        on_state_change=lambda old, new: logger.warning(
-            "serving state %s -> %s", old, new))
+        on_state_change=lambda old, new: (
+            logger.warning("serving state %s -> %s", old, new),
+            obs.get_recorder().record("serving", "state-change",
+                                      old=old, new=new)))
     return InferenceServer(engine, batcher, stats, host=s.host, port=s.port,
                            request_timeout_s=s.request_timeout_s,
                            expected_spec=spec, admission=admission,

@@ -3,7 +3,8 @@ the JAX package's `serving/stub.py`, without the streaming stub).
 
 Tests of the serving control plane (batcher, scheduler, HTTP front, stats)
 need the engine surface without a model: bucket geometry, `bucket_for`,
-`predict`, and the identity attributes `/healthz` reads.
+`predict`, the identity attributes `/healthz` reads (`device` is the CPU),
+and `release_memory` (it holds no device memory: a no-op).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import time
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 class StubEngine:
@@ -21,6 +23,7 @@ class StubEngine:
 
     model_name = "stub"
     input_dtype = "float32"
+    device = torch.device("cpu")
 
     def __init__(self, tag: float = 0.0, forward_s: float = 0.001,
                  buckets: Tuple[int, ...] = (2, 4), num_classes: int = 4):
@@ -46,3 +49,6 @@ class StubEngine:
         if self.num_classes > 1:
             out[:, 1] = self.tag
         return out
+
+    def release_memory(self) -> None:
+        """Nothing registered in the memory ledger: nothing to return."""

@@ -28,10 +28,32 @@ written into a temporary directory and renamed into place with
 `os.replace`; a save that fails with OSError is tried again from a clean
 temporary directory, `retries` attempts in all
 (`reliability.ckpt_retries`), the guard's last-known-good ring included.
+
+Asynchronous saves (`use_async`, the default; `checkpoint.async_checkpoint`
+in the Trainer): the calling thread takes the state dict (the gathers over
+the fsdp and tensor groups are collectives and stay there) and queues its
+copy to host memory (pinned buffers, `non_blocking` copies on the current
+stream, then an event: the step that follows is queued behind the copies,
+so it cannot change what they read); one writer thread waits for the
+event, then runs `torch.save`, `extra.json`, `os.replace`, the retries and
+the retention. `wait()` fences: it returns once every queued write has
+landed, raises the first failed write's error (a failed write is never
+swallowed) and holds the rank barrier. A save fences the one before it,
+and so do a restore, a delete and a listing (`all_steps`,
+`latest_step`); `close()` fences and stops the writer. A rank that leaves
+on an exception fences with `barrier=False`: its writes land and a failed
+one raises, without the barrier that its peers, stuck elsewhere, would
+never reach.
+A process killed during a write leaves only its temporary directory
+(`.tmp-<step>-<pid>`, never listed as a step): `latest_step()` stays the
+last complete one. `use_async=False` writes on the calling thread and
+returns after the barrier (the preemption grace path's save).
+
 In a data-parallel job (`parallel/`) every rank holds the same state:
-rank 0 writes and prunes, then every rank meets at a barrier, so no rank
-reads or lists the directory before the write has landed; a restore
-starts with a barrier too, and every rank then loads the same file. On
+rank 0 writes and prunes, then every rank meets at a barrier (in `wait()`),
+so no rank reads or lists the directory before the write has landed; a
+restore starts with a barrier too, and every rank then loads the same
+file. On
 the model axis every rank first gathers the full state over its model
 group (`TrainState.state_dict`), so rank 0 writes the full tree, and a
 restore keeps each rank's shards of it: a checkpoint resumes at any
@@ -45,7 +67,11 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
+import threading
+import time
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,20 +173,72 @@ _STATE_FILE = "state.pt"
 _EXTRA_FILE = "extra.json"
 
 
+def _to_host(tree, pinned: bool):
+    """`tree` (dicts, lists, tuples, tensors, plain values) with every
+    tensor copied to host memory, and the CUDA event after the copies (None
+    when nothing was on the card). `pinned`: card tensors go to pinned
+    buffers by `non_blocking` copies on the current stream (complete once
+    the event has) and host tensors are cloned; else card tensors are
+    copied with a sync and host tensors kept as they are."""
+    devices = set()
+
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        if not torch.is_tensor(x):
+            return x
+        x = x.detach()
+        if not x.is_cuda:
+            return x.clone() if pinned else x
+        if not pinned:
+            return x.cpu()
+        devices.add(x.device)
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x, non_blocking=True)
+        return out
+
+    host = copy(tree)
+    event = None
+    if devices:
+        (device,) = devices
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+    return host, event
+
+
 class Checkpointer:
     """Step-indexed training checkpoints under `directory` (format in the
     module docstring). `max_to_keep > 0` keeps only the newest that many.
     `reliability` (a `ReliabilityConfig`, its defaults when None) is the
     retry policy of a save: `ckpt_retries` total attempts, backoff shaped
-    by `retry_{base_delay,max_delay,deadline}_s`."""
+    by `retry_{base_delay,max_delay,deadline}_s`. `use_async`: writes on
+    the writer thread, fenced by `wait()` (the module docstring).
+    `write_log` holds the last 64 saves' times on rank 0: `fence_s` (the
+    wait for the save before it), `dispatch_s` (the rest of `save()` on the
+    calling thread), `write_s` (from the dispatch until the files
+    landed)."""
 
     def __init__(self, directory: str, max_to_keep: int = 0,
-                 reliability: Optional[ReliabilityConfig] = None):
+                 reliability: Optional[ReliabilityConfig] = None,
+                 use_async: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max(int(max_to_keep), 0)
         self.reliability = reliability or ReliabilityConfig()
+        self.use_async = bool(use_async)
+        self.write_log: deque = deque(maxlen=64)
+        self._jobs: Optional[queue.Queue] = None  # made at the first async save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._unfenced = False  # a save not yet fenced (alike on every rank)
 
     def all_steps(self) -> List[int]:
+        """The steps on disk, once the writes in flight have landed."""
+        self.wait()
+        return self._listed_steps()
+
+    def _listed_steps(self) -> List[int]:
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(d) for d in os.listdir(self.directory)
@@ -174,12 +252,91 @@ class Checkpointer:
     def save(self, step: int, state, extra: Optional[dict] = None) -> None:
         """Write `state` (a TrainState) at `step`; a step already on disk is
         left as it is. An OSError retries the whole write. Every rank
-        takes the (gathered) state, rank 0 writes it; every rank returns
-        after the write, at a barrier."""
+        fences the save before it, then takes the (gathered) state; rank 0
+        copies it to host memory and writes it: on the writer thread when
+        asynchronous (every rank returns at once; `wait()` holds the
+        barrier), else here (every rank returns after the write, at the
+        barrier)."""
+        t_fence = time.perf_counter()
+        self.wait()
+        t0 = time.perf_counter()
         full = state.state_dict()
+        self._unfenced = True
         if is_main_process():
-            self._write(step, full, extra)
-        sync_global_devices("checkpoint_save")
+            host, event = _to_host(full, pinned=self.use_async)
+            del full
+            log = {"step": int(step), "fence_s": t0 - t_fence}
+            job = (int(step), host, extra, event, t0, log)
+            if self.use_async:
+                self._queue().put(job)
+            else:
+                try:
+                    self._run(job)
+                except BaseException:
+                    self._unfenced = False  # raised here: nothing to fence
+                    raise
+            log["dispatch_s"] = time.perf_counter() - t0
+        if not self.use_async:
+            self.wait()
+
+    def _queue(self) -> queue.Queue:
+        if self._jobs is None:
+            self._jobs = queue.Queue()
+            self._writer = threading.Thread(target=self._drain, args=(self._jobs,),
+                                            name="pva-ckpt-writer", daemon=True)
+            self._writer.start()
+        return self._jobs
+
+    def _drain(self, jobs: queue.Queue) -> None:
+        """The writer thread: one job at a time, until the None job. A
+        written job's host copy is dropped before the next wait, so its
+        pinned buffers go back to the allocator's cache for the next save."""
+        while True:
+            job = jobs.get()
+            try:
+                if job is None:
+                    return
+                self._run(job)
+            except BaseException as e:  # noqa: BLE001 - raised by wait()
+                if self._error is None:
+                    self._error = e
+            finally:
+                job = None
+                jobs.task_done()
+
+    def _run(self, job) -> None:
+        step, host, extra, event, t0, log = job
+        if event is not None:
+            event.synchronize()  # the host copies have landed
+        self._write(step, host, extra)
+        log["write_s"] = time.perf_counter() - t0
+        self.write_log.append(log)
+
+    def wait(self, barrier: bool = True) -> None:
+        """Fence: return once every queued write has landed, raising the
+        first failed write's error, then meet the other ranks at the
+        barrier (`barrier=False`: this rank only). A no-op, without a
+        barrier, when no save is pending (alike on every rank)."""
+        if not self._unfenced:
+            return
+        self._unfenced = False
+        if self._jobs is not None:
+            self._jobs.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise err
+        if barrier:
+            sync_global_devices("checkpoint_save")
+
+    def close(self, barrier: bool = True) -> None:
+        """Fence (`wait(barrier)`), then stop the writer thread."""
+        try:
+            self.wait(barrier)
+        finally:
+            if self._jobs is not None:
+                self._jobs.put(None)
+                self._writer.join()
+                self._jobs = self._writer = None
 
     def _write(self, step: int, full: dict, extra: Optional[dict]) -> None:
         step = int(step)
@@ -206,20 +363,23 @@ class Checkpointer:
                    max_delay_s=r.retry_max_delay_s,
                    deadline_s=r.retry_deadline_s)
         if self.max_to_keep:
-            for old in self.all_steps()[:-self.max_to_keep]:
+            for old in self._listed_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
 
     def delete(self, step: int) -> None:
         """Remove checkpoint `step` (a guard ring revisiting a step index
-        after a rollback replaces it); rank 0 only, the save after it
-        fences."""
+        after a rollback replaces it) once the writes in flight have landed;
+        rank 0 removes it."""
+        self.wait()
         if is_main_process():
             shutil.rmtree(os.path.join(self.directory, str(int(step))),
                       ignore_errors=True)
 
     def restore(self, state, step: Optional[int] = None) -> Tuple[dict, int]:
         """Load checkpoint `step` (default: the latest) into `state` in
-        place; returns `(extra, step)`."""
+        place, once the writes in flight have landed; returns `(extra,
+        step)`."""
+        self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:

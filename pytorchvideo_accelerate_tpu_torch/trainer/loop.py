@@ -40,10 +40,34 @@ host without CUDA it raises. Real videos need cv2 to decode; where it is
 missing the real-video branch raises `NoVideoDecoderError`, which names
 the frame-cache route (build the cache where cv2 is, train with
 `--data.cache_dir`). Options whose effect this slice lacks raise
-NotImplementedError naming their ROADMAP item; telemetry and debug options
-(`obs.*`, `debug_nans`, `debug_asserts`, `profile`), a `model.pretrained`
-without a path and a `model.pretrained_path` without `model.pretrained`
-print one line each and train on.
+NotImplementedError naming their ROADMAP item; the debug options
+(`debug_nans`, `debug_asserts`, `profile`), the opt-in telemetry of later
+slices (`obs.watchdog_timeout_s`, `obs.trace_sample_rate`,
+`obs.profile_steps`), a `model.pretrained` without a path and a
+`model.pretrained_path` without `model.pretrained` print one line each and
+train on.
+
+Telemetry (`obs.enabled`, on by default, as in the JAX package): the step
+loop's sections are spans (`step`, `log`, `sync`, `ckpt`, `eval`; the
+prefetchers add `input_wait` and `h2d`), drained every `log_every` steps
+into the trackers as `obs/<span>_s` with `obs/window_wall_s` and
+`obs/unattributed_s` (the window's wall time less its consumer spans), and
+into the epoch's `obs_step_s`, `obs_input_wait_frac` and `obs_h2d_s`; the
+step adds the health gauges `param_norm`, `update_ratio` and `nonfinite`,
+logged as `obs/<name>` and published as `pva_train_param_norm`,
+`pva_train_update_ratio` and `pva_train_nonfinite_loss_total`; the flight
+recorder (`obs.flight_recorder_events` events) is installed on
+`<output_dir>/flight_record.json` and dumped on an exception out of
+`fit()`, on SIGTERM and on a preemption; the memory ledger
+(`obs.memory_ledger`) accounts the train state and the prefetch rings
+against the card's allocator; each `log_every` boundary ticks the metrics
+history (`obs.history_ticks`). With `--obs.enabled false` none of it runs
+and the logged keys are the ones without telemetry. Checkpoints are
+written asynchronously (`checkpoint.async_checkpoint`): the step thread
+queues the host copy, the Checkpointer's writer thread writes it; the
+Trainer fences before the next save, before every restore and at the end
+of `fit()`, `evaluate()` and `close()`, and the preemption save is
+synchronous.
 
 Fine-tuning: with `--model.pretrained --model.pretrained_path P` the fresh
 model loads the converted weights of P (models/convert.py
@@ -105,6 +129,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pytorchvideo_accelerate_tpu_torch import obs
 from pytorchvideo_accelerate_tpu_torch.config import TrainConfig
 from pytorchvideo_accelerate_tpu_torch.data.cache import CachedClipSource
 from pytorchvideo_accelerate_tpu_torch.data.device_prefetch import DevicePrefetcher
@@ -122,6 +147,7 @@ from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
 from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
 from pytorchvideo_accelerate_tpu_torch.models.convert import load_pretrained
+from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
 from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
     broadcast_,
     host_broadcast,
@@ -209,25 +235,28 @@ def _say(line: str) -> None:
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
     computed and that this slice of the port lacks; print one line for each
-    telemetry or debug option, for a `model.pretrained` without a path and
-    for a `model.pretrained_path` without `model.pretrained`."""
+    debug option and opt-in telemetry option set, for a `model.pretrained`
+    without a path and for a `model.pretrained_path` without
+    `model.pretrained`."""
     d, m = cfg.data, cfg.model
     refused = [
         (cfg.parallel.pipeline_stages > 1,
          f"parallel.pipeline_stages={cfg.parallel.pipeline_stages} "
-         "(parallel/pipeline.py; Multi-GPU, ROADMAP.md A.1)"),
+         "(parallel/pipeline.py; Multi-GPU, ROADMAP.md A.3)"),
         (d.dataplane_workers > 0,
-         "data.dataplane_workers (the dataplane, ROADMAP.md A.4)"),
+         "data.dataplane_workers (the dataplane, ROADMAP.md A.7)"),
     ]
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} is not ported to PyTorch yet")
-    if cfg.obs.enabled:
-        _say("obs.* telemetry is not ported yet (ROADMAP.md); training runs "
-             "without it")
     for on, flag in ((cfg.debug_nans, "debug_nans"),
                      (cfg.debug_asserts, "debug_asserts"),
-                     (cfg.profile, "profile")):
+                     (cfg.profile, "profile"),
+                     (cfg.obs.enabled and cfg.obs.watchdog_timeout_s > 0,
+                      "obs.watchdog_timeout_s"),
+                     (cfg.obs.enabled and cfg.obs.trace_sample_rate > 0,
+                      "obs.trace_sample_rate"),
+                     (bool(cfg.obs.profile_steps), "obs.profile_steps")):
         if on:
             _say(f"{flag} is not ported yet (ROADMAP.md); training runs "
                  "without it")
@@ -280,6 +309,18 @@ class Trainer:
         elif self.distributed:
             initialize_mesh(self.mesh_shape[1])
         self.device = resolve_train_device(cfg)
+        # telemetry before the data stack, so the prefetchers' spans and the
+        # ledger's allocation sites see it (JAX `loop.py`); off, the ledger
+        # and the history are disarmed too
+        self.obs_on = cfg.obs.enabled
+        obs.configure(enabled=cfg.obs.enabled,
+                      capacity=cfg.obs.flight_recorder_events)
+        obs_memory.configure(enabled=self.obs_on and cfg.obs.memory_ledger,
+                             recorder=obs.get_recorder(), device=self.device)
+        obs.history.configure(enabled=self.obs_on and cfg.obs.history_ticks > 0,
+                              capacity=cfg.obs.history_ticks)
+        if self.obs_on:
+            obs.get_recorder().install(cfg.checkpoint.output_dir)
         # the tensor-parallel split: the library mesh's tensor axis, or the
         # model axis
         self.model_axis = layout(
@@ -374,8 +415,10 @@ class Trainer:
                                      **loader_kw)
         self.train_prefetch = DevicePrefetcher(
             self.train_loader, self.device, depth=d.device_prefetch_depth)
+        # the eval wait nests inside the "eval" span: background-classed names
         self.val_prefetch = DevicePrefetcher(
-            self.val_loader, self.device, depth=d.device_prefetch_depth)
+            self.val_loader, self.device, depth=d.device_prefetch_depth,
+            wait_name="eval_input_wait", h2d_name="eval_h2d")
 
     def _build_sources(self, train_tf, val_tf, eval_clips: int) -> None:
         """The train and val clip sources, and `num_classes`: synthetic
@@ -468,12 +511,13 @@ class Trainer:
         self.lr_schedule = optimizer.schedule
         self.state = TrainState.create(self.model, optimizer,
                                        ema_decay=cfg.optim.ema_decay)
+        self._ledger_train_state()
         if self.is_pretraining:
             self.train_step = make_pretrain_step(
                 self.model, optimizer,
                 accum_steps=cfg.optim.gradient_accumulation_steps,
                 ema_decay=cfg.optim.ema_decay, seed=cfg.seed,
-                guard_skip=cfg.guard.enabled)
+                guard_skip=cfg.guard.enabled, health_metrics=self.obs_on)
             self.eval_step = make_pretrain_eval_step(self.model)
             return
         self.train_step = make_train_step(
@@ -484,10 +528,18 @@ class Trainer:
             ema_decay=cfg.optim.ema_decay, dropout_seed=cfg.seed,
             mixup_alpha=cfg.optim.mixup_alpha,
             cutmix_alpha=cfg.optim.cutmix_alpha,
-            guard_skip=cfg.guard.enabled)
+            guard_skip=cfg.guard.enabled, health_metrics=self.obs_on)
         self.eval_step = make_eval_step(
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
+
+    def _ledger_train_state(self) -> None:
+        """The ledger's `train_state` component: the bytes of this rank's
+        parameters, buffers, optimizer state and EMA. Set at construction
+        and again after the first step (torch makes the optimizer's state
+        at the first update) and after a restore."""
+        obs_memory.release("train_state")
+        obs_memory.register("train_state", obs_memory.tree_nbytes(self.state))
 
     def _load_pretrained(self) -> None:
         """Merge `--model.pretrained_path` into the fresh full-width model
@@ -545,6 +597,7 @@ class Trainer:
         every rank's (a directory scan could race a landing checkpoint)."""
         if not (self.cfg.checkpoint.resume_from_checkpoint and self.checkpointer):
             return 0
+        self.checkpointer.wait()
         latest = self.checkpointer.latest_step()
         if self.distributed:
             latest = int(host_broadcast(-1 if latest is None else latest))
@@ -557,6 +610,7 @@ class Trainer:
                 f"no checkpoint to resume in {self.checkpointer.directory}")
         extra, step = self.checkpointer.restore(self.state, step=latest)
         self._replicate()
+        self._ledger_train_state()
         main_print(f"resumed from checkpoint step {step}")
         data_state = LoaderState.from_dict(extra.get("data_state"))
         self.train_loader.state = data_state
@@ -581,18 +635,48 @@ class Trainer:
         sync_global_devices("export_inference")
         return path
 
-    def close(self) -> None:
-        """Release the loaders and finish the trackers (fit(), evaluate()
-        and an export-only run all end here)."""
+    def close(self, unwinding: Optional[BaseException] = None) -> None:
+        """Finish the trackers, fence the checkpoint writes (the run's and
+        the guard's ring) and release the loaders (fit(), evaluate() and an
+        export-only run all end here). Each step runs even when one before
+        it raised, and the first error raises here: a failed write is never
+        lost. `unwinding`: the exception this rank is leaving on. The
+        writers are then fenced without the rank barrier (the other ranks
+        may be stuck in a collective and never reach it), and an error here
+        is added to `unwinding` as a note and logged, instead of replacing
+        it."""
+        barrier = unwinding is None
+        steps = []
         if self.trackers is not None:
-            self.trackers.finish()
+            steps.append(self.trackers.finish)
             self.trackers = None
-        self.train_loader.close()
-        self.val_loader.close()
+        if self.checkpointer is not None:
+            steps.append(lambda: self.checkpointer.close(barrier))
+        if self.train_guard is not None:
+            steps.append(lambda: self.train_guard.close(barrier))
+        steps += [self.train_loader.close, self.val_loader.close]
+        errors = []
+        for step in steps:
+            try:
+                step()
+            except BaseException as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+        if not errors:
+            return
+        if unwinding is None:
+            for e in errors[1:]:
+                errors[0].add_note(f"also raised while closing: {e!r}")
+            raise errors[0]
+        for e in errors:
+            logger.error("while closing after %r", unwinding, exc_info=e)
+            unwinding.add_note(f"also raised while closing: {e!r}")
 
-    def _make_checkpointer(self, directory: str) -> Checkpointer:
+    def _make_checkpointer(self, directory: str,
+                           use_async: Optional[bool] = None) -> Checkpointer:
         return Checkpointer(directory, max_to_keep=self.cfg.checkpoint.max_to_keep,
-                            reliability=self.cfg.reliability)
+                            reliability=self.cfg.reliability,
+                            use_async=(self.cfg.checkpoint.async_checkpoint
+                                       if use_async is None else use_async))
 
     def _emergency_save(self, epoch: int, reason: str = "") -> None:
         """The preemption grace path's save: a checkpoint of kind
@@ -604,16 +688,24 @@ class Trainer:
         t0 = time.perf_counter()
         if self.checkpointer is None:
             self.checkpointer = self._make_checkpointer(
-                os.path.join(cfg.checkpoint.output_dir, "checkpoints"))
+                os.path.join(cfg.checkpoint.output_dir, "checkpoints"),
+                use_async=False)
         step = self.state.step
-        # every rank stops at this step, and every earlier save ended at a
-        # barrier: all ranks read the same directory here
+        # every rank stops at this step, and the fence ends every earlier
+        # save at a barrier: all ranks read the same directory here
+        self.checkpointer.wait()
         if self.checkpointer.latest_step() != step:
             self._save("preempt", epoch)
+        self.checkpointer.wait()  # on disk before the process may exit
         if is_main_process():
             record_emergency(cfg.checkpoint.output_dir, step=step, epoch=epoch,
                              checkpoint_dir=self.checkpointer.directory,
                              reason=reason)
+        if self.obs_on:
+            recorder = obs.get_recorder()
+            recorder.record("preempt", "emergency checkpoint saved",
+                            step=step, epoch=epoch)
+            recorder.dump()
         main_print(f"preempted ({reason or 'requested'}): emergency checkpoint "
                    f"at step {step} in {time.perf_counter() - t0:.3f} s; resume "
                    "with --resume_from_checkpoint auto", flush=True)
@@ -621,6 +713,10 @@ class Trainer:
     def _save(self, kind: str, epoch: int) -> None:
         if self.checkpointer is None:
             return
+        with obs.span("ckpt"):
+            self._save_inner(kind, epoch)
+
+    def _save_inner(self, kind: str, epoch: int) -> None:
         self.checkpointer.save(self.state.step, self.state, {
             "kind": kind, "epoch": epoch,
             "data_state": self.train_loader.state.to_dict(),
@@ -634,10 +730,12 @@ class Trainer:
         of batches) and the four sums are added across the batch shards
         once."""
         val = SumMetrics()
-        for i, batch in enumerate(self.val_prefetch.epoch(epoch, from_start=True)):
-            val.update(self.eval_step(self.state, batch))
-            if 0 <= self.cfg.data.limit_val_batches <= i + 1:
-                break
+        with obs.span("eval"):
+            for i, batch in enumerate(self.val_prefetch.epoch(epoch,
+                                                              from_start=True)):
+                val.update(self.eval_step(self.state, batch))
+                if 0 <= self.cfg.data.limit_val_batches <= i + 1:
+                    break
         if self.distributed:
             val.accuracy()  # drains the pending device sums
             keys = ("loss_sum", "correct", "correct5", "count")
@@ -661,6 +759,7 @@ class Trainer:
                     "evaluate() without --resume_from_checkpoint or "
                     "--model.pretrained_path: scoring freshly-initialized "
                     "random weights — the result is meaningless.")
+        unwinding = None
         try:
             self._maybe_resume()
             acc, acc5, loss = self._run_eval(epoch=0)
@@ -674,8 +773,11 @@ class Trainer:
             if self.trackers is not None:
                 self.trackers.log(result, step=self.state.step)
             return result
+        except BaseException as e:
+            unwinding = e
+            raise
         finally:
-            self.close()
+            self.close(unwinding)
 
     @staticmethod
     def _print_step(values: Dict[str, float], gstep: int) -> None:
@@ -686,16 +788,54 @@ class Trainer:
     def _guard_rollback(self, action) -> None:
         """Carry out a rollback verdict: the last-known-good state loaded
         into the live model and optimizer, the loader moved just past the
-        anomalous batch (replaying it would diverge the same way)."""
+        anomalous batch (replaying it would diverge the same way). The
+        run's own writes are fenced first, the ring's by the guard."""
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
         _, step = self.train_guard.restore(self.state, action)
         self._replicate()
+        self._ledger_train_state()
         self.train_loader.state = LoaderState.from_dict(action.resume_position)
+        if self.obs_on:
+            obs.get_recorder().record(
+                "guard", "rollback", lkg_step=step,
+                resume=dict(action.resume_position), reason=action.reason)
         main_print(f"guard: rolled back to last-known-good step {step} "
               f"({action.reason}); loader fast-forwarded to epoch "
               f"{self.train_loader.state.epoch} position "
               f"{self.train_loader.state.position}"
               + (f"; replay bundle: {action.bundle_path}"
                  if action.bundle_path else ""), flush=True)
+
+    def _on_flush(self):
+        """The DeferredStepLogger hook: the step line, and with obs on the
+        logged values mirrored into the metric registry (JAX
+        `_obs_on_flush`): the grad and param norm and the update ratio as
+        gauges, a non-finite loss counted and warned into the flight
+        recorder. Sampled at `log_every`, read one step late."""
+        if not self.obs_on:
+            return self._print_step
+        reg = obs.get_registry()
+        g_grad = reg.gauge("pva_train_grad_norm",
+                           "global gradient norm (sampled at log_every)")
+        g_param = reg.gauge("pva_train_param_norm",
+                            "global parameter norm (sampled at log_every)")
+        g_ratio = reg.gauge("pva_train_update_ratio",
+                            "update-norm / param-norm (sampled at log_every)")
+        c_nonfinite = reg.counter(
+            "pva_train_nonfinite_loss_total",
+            "non-finite loss values observed at log_every sampling")
+
+        def on_flush(vals: Dict[str, float], step: int) -> None:
+            self._print_step(vals, step)
+            g_grad.set(vals["grad_norm"])
+            g_param.set(vals["obs/param_norm"])
+            g_ratio.set(vals["obs/update_ratio"])
+            if vals["obs/nonfinite"]:
+                c_nonfinite.inc()
+                obs.get_recorder().warn("non-finite loss", step=step)
+
+        return on_flush
 
     def fit(self) -> dict:
         cfg = self.cfg
@@ -706,13 +846,45 @@ class Trainer:
         last_perf: Dict[str, float] = {}
         epoch_train_times = []
         # step metrics are read one step late: after the next dispatch
-        deferred = DeferredStepLogger(self.trackers, on_flush=self._print_step)
+        deferred = DeferredStepLogger(self.trackers, on_flush=self._on_flush())
         tguard = self.train_guard
+        # obs windows: the collector aggregates named spans; each log_every
+        # boundary drains them into the trackers (obs/<span>_s, the
+        # window's wall time and its unattributed rest), and epoch_spans
+        # keeps the epoch's totals for the perf keys
+        collector = obs.get_collector() if self.obs_on else None
+        epoch_spans: Dict[str, float] = {}
+
+        def drain_spans(log_step=None, window_wall=None):
+            if collector is None:
+                return
+            window = collector.pop_window()
+            for name, (total, _count) in window.items():
+                epoch_spans[name] = epoch_spans.get(name, 0.0) + total
+            if log_step is None or self.trackers is None or not window:
+                return
+            vals = {f"obs/{n}_s": t for n, (t, _c) in window.items()}
+            if window_wall is not None:
+                # consumer spans account the loop's wall time; background
+                # ones overlap it on worker threads: reported, not summed
+                consumer = sum(t for n, (t, _c) in window.items()
+                               if n not in obs.BACKGROUND_SPANS)
+                vals["obs/window_wall_s"] = window_wall
+                vals["obs/unattributed_s"] = window_wall - consumer
+            self.trackers.log(vals, step=log_step)
+
+        if collector is not None:
+            collector.pop_window()  # construction and resume: no window's
         # SIGTERM/SIGINT set an Event; the loop reads it once per step
         guard = get_guard() if cfg.reliability.graceful_shutdown else None
         if guard is not None:
             guard.install()
         preempted = False
+        # the ledger's train_state again after the first step, which makes
+        # the optimizer's state
+        ledgered = False
+        window_t0 = time.perf_counter()
+        unwinding = None
         try:
             # a rollback re-enters this epoch, or an earlier one, from the
             # loader position it set
@@ -723,11 +895,20 @@ class Trainer:
                 steps_done = 0
                 rolled_back = False
                 self.train_prefetch.pop_wait()
+                # spans between epochs (the epoch-end save) are no window's
+                drain_spans()
+                epoch_spans.clear()
+                window_t0 = time.perf_counter()
                 for i, batch in enumerate(self.train_prefetch.epoch(epoch)):
-                    metrics = self.train_step(self.state, batch)
+                    with obs.span("step"):
+                        metrics = self.train_step(self.state, batch)
                     gstep += 1
                     steps_done += 1
-                    deferred.flush()
+                    if not ledgered:
+                        self._ledger_train_state()
+                        ledgered = True
+                    with obs.span("log"):
+                        deferred.flush()
                     if tguard is not None:
                         # observes the previous step; a rollback abandons
                         # the one just dispatched
@@ -740,10 +921,24 @@ class Trainer:
                             break
                     epoch_loss.update(metrics["loss"])
                     if gstep % cfg.tracking.log_every == 0:
-                        deferred.defer({"train_loss_step": metrics["loss"],
-                                        "lr": metrics["lr"],
-                                        "grad_norm": metrics["grad_norm"]},
-                                       step=gstep)
+                        vals = {"train_loss_step": metrics["loss"],
+                                "lr": metrics["lr"],
+                                "grad_norm": metrics["grad_norm"]}
+                        if self.obs_on:
+                            # the health gauges ride the same deferred read
+                            vals["obs/param_norm"] = metrics["param_norm"]
+                            vals["obs/update_ratio"] = metrics["update_ratio"]
+                            vals["obs/nonfinite"] = metrics["nonfinite"]
+                        deferred.defer(vals, step=gstep)
+                    if self.obs_on and gstep % cfg.tracking.log_every == 0:
+                        now = time.perf_counter()
+                        drain_spans(log_step=gstep, window_wall=now - window_t0)
+                        window_t0 = now
+                        # a scrape tick of the history ring: the ledger's
+                        # gauges land in it too
+                        hist = obs.history.get_history()
+                        if hist is not None:
+                            hist.tick()
                     if (isinstance(self.checkpointing_steps, int)
                             and gstep % self.checkpointing_steps == 0):
                         self._save("step", epoch)
@@ -760,7 +955,12 @@ class Trainer:
                     deferred.flush()
                     self._emergency_save(epoch, reason=guard.reason or "peer")
                     break
-                deferred.flush()
+                epoch_mean = float("nan")
+                if not rolled_back:
+                    with obs.span("sync"):
+                        epoch_mean = epoch_loss.mean()  # the epoch's one sync
+                with obs.span("log"):
+                    deferred.flush()
                 if tguard is not None and not rolled_back:
                     # the epoch's last step is still pending in the guard
                     action = tguard.flush(self.state, self.train_loader.state)
@@ -769,13 +969,25 @@ class Trainer:
                         rolled_back = True
                 if rolled_back:
                     gstep = self.state.step
+                    drain_spans()
+                    epoch_spans.clear()
+                    window_t0 = time.perf_counter()
                     epoch = self.train_loader.state.epoch
                     continue
-                last_train_loss = epoch_loss.mean()  # the epoch's one sync
+                last_train_loss = epoch_mean
                 t_train = time.time() - t_epoch
                 epoch_train_times.append(t_train)
                 wait_s = self.train_prefetch.pop_wait()
+                if self.obs_on:
+                    # the train section's last window closes before eval
+                    now = time.perf_counter()
+                    drain_spans(log_step=gstep, window_wall=now - window_t0)
+                    window_t0 = now
                 last_val_acc, last_val_acc5, last_val_loss = self._run_eval(epoch)
+                if self.obs_on:
+                    # the eval window: logged, no sum (eval nests its waits)
+                    drain_spans(log_step=gstep)
+                    window_t0 = time.perf_counter()
                 val_str = (f"val_recon_loss={last_val_loss:.4f}"
                            if self.is_pretraining else
                            f"val_acc={last_val_acc:.4f} "
@@ -797,6 +1009,14 @@ class Trainer:
                         last_perf["clips_per_sec_per_card"] = cps / self.world
                     if tguard is not None:
                         last_perf.update(tguard.perf_keys())
+                    if self.obs_on:
+                        # the span-sourced successors of input_wait_frac
+                        last_perf["obs_step_s"] = (
+                            epoch_spans.get("step", 0.0) / steps_done)
+                        last_perf["obs_input_wait_frac"] = min(
+                            epoch_spans.get("input_wait", 0.0) / t_train, 1.0)
+                        last_perf["obs_h2d_s"] = (
+                            epoch_spans.get("h2d", 0.0) / steps_done)
                 if self.trackers is not None:
                     epoch_metrics = {"train_loss_epoch": last_train_loss,
                                      "epoch": epoch}
@@ -819,10 +1039,20 @@ class Trainer:
                 epoch += 1
             if not preempted:
                 self._save("final", cfg.optim.num_epochs - 1)
+        except BaseException as e:
+            # the flight recorder's purpose: the recent span and metric
+            # timeline survives the crash as <output_dir>/flight_record.json
+            if self.obs_on:
+                recorder = obs.get_recorder()
+                recorder.record("exception", type(e).__name__,
+                                message=str(e)[:500], step=gstep)
+                recorder.dump()
+            unwinding = e
+            raise
         finally:
             if guard is not None:
                 guard.uninstall()  # the handlers from before fit()
-            self.close()
+            self.close(unwinding)  # fences the checkpoint writes
         result = {"train_loss": last_train_loss, "steps": self.state.step,
                   "epoch_train_times": epoch_train_times,
                   "flops_per_step": None, "analytic_flops_per_step": None,

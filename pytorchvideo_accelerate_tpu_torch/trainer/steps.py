@@ -191,11 +191,13 @@ class _Snapshot:
     def __init__(self):
         self._shapes = None
         self._groups = []
+        self._old = []  # leaf index -> its view in the "before" buffer
 
     def take(self, leaves: List[torch.Tensor]) -> None:
         shapes = [(t.dtype, t.device, t.shape) for t in leaves]
         if shapes != self._shapes:
             self._shapes, self._groups = shapes, []
+            self._old = [None] * len(leaves)
             by_kind = {}
             for i, t in enumerate(leaves):
                 by_kind.setdefault((t.dtype, t.device), []).append(i)
@@ -206,8 +208,14 @@ class _Snapshot:
                 views = [[v.view(leaves[i].shape)
                           for v, i in zip(f.split(sizes), idx)] for f in flat]
                 self._groups.append((idx, flat, views))
+                for i, v in zip(idx, views[0]):
+                    self._old[i] = v
         for idx, _, (old, _) in self._groups:
             torch._foreach_copy_(old, [leaves[i] for i in idx])
+
+    def before(self, count: int) -> List[torch.Tensor]:
+        """The copies of the first `count` leaves, as `take` found them."""
+        return self._old[:count]
 
     def restore(self, ok: torch.Tensor, leaves: List[torch.Tensor]) -> None:
         """leaves <- where(ok, leaves, snapshot): a select, not an ok * new
@@ -222,7 +230,8 @@ class _Snapshot:
 def _make_update_step(model, optimizer, forward_loss: Callable,
                       accum_steps: int, ema_decay: float,
                       dropout_seed: Optional[int], with_accuracy: bool,
-                      guard_skip: bool = False) -> Callable:
+                      guard_skip: bool = False,
+                      health_metrics: bool = False) -> Callable:
     """The optimizer step shared by the supervised and the MAE objective:
     `forward_loss(micro_batch, step, micro) -> (loss, correct, count)` per
     micro-batch in order, backward each, the summed grads divided by
@@ -244,7 +253,19 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     the ranks (one flat all-reduce), and the loss, the hit count and the
     count are the ranks' mean, sum and sum (one small all-reduce), all
     before anything reads them; a nonfinite value on one rank is then
-    nonfinite on every rank, which skips the step everywhere."""
+    nonfinite on every rank, which skips the step everywhere.
+
+    `health_metrics` (the JAX step's, on with the obs layer): the metrics
+    gain `param_norm` (the global norm of the parameters after the step),
+    `update_ratio` (the global norm of the update, new - old, over
+    max(param_norm, 1e-12)) and `nonfinite` (1 - isfinite(loss)), device
+    scalars read with the others, never synced here. The update is the
+    difference from a copy taken before the step: the guard's snapshot when
+    `guard_skip` holds one, else a copy of the parameters of its own. Both
+    norms sum shards' squares over their groups (`global_norm`), so every
+    rank reads the same values; under `guard_skip` a skipped step reports
+    the update it discarded and the parameters it kept, as the JAX step
+    does."""
     named = dict(model.named_parameters())
     names = [n for n, p in named.items() if p.requires_grad]
     params = [named[n] for n in names]
@@ -252,6 +273,9 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     dropouts = [m for m in model.modules() if isinstance(m, SeededDropout)]
     buffers = [b for b in model.buffers() if b.is_floating_point()]
     snapshot = _Snapshot() if guard_skip else None
+    # the parameters before the step, for the update's norm
+    before = (snapshot if guard_skip else _Snapshot()) if health_metrics else None
+    param_kinds_ = [kinds[n] for n in names]
     distributed = is_distributed()
 
     def leaves(state, opt_keys):
@@ -273,6 +297,8 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
             # running averages
             opt_keys = list(_optimizer_tensors(optimizer))
             snapshot.take(leaves(state, opt_keys))
+        elif before is not None:
+            before.take([p.detach() for p in params])
         losses, corrects, counts = [], [], []
         for i in range(accum_steps):
             mb = batch if accum_steps == 1 else {k: v[i] for k, v in batch.items()}
@@ -308,6 +334,12 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
             torch._foreach_mul_(ema, ema_decay)
             torch._foreach_add_(ema, live, alpha=1.0 - ema_decay)
         out = {"loss": loss, "grad_norm": grad_norm, "lr": lr}
+        if health_metrics:
+            with torch.no_grad():
+                update = torch._foreach_sub([p.detach() for p in params],
+                                            before.before(len(params)))
+            update_norm = global_norm(update, param_kinds_)
+            del update
         if guard_skip:
             ok = torch.isfinite(loss) & torch.isfinite(grad_norm)
             with torch.no_grad():
@@ -316,6 +348,11 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
                     if k not in opt_keys:  # created by this update
                         v.copy_(torch.where(ok, v, torch.zeros_like(v)))
             out["skipped"] = 1.0 - ok.float()
+        if health_metrics:
+            param_norm = global_norm([p.detach() for p in params], param_kinds_)
+            out["param_norm"] = param_norm
+            out["update_ratio"] = update_norm / torch.clamp_min(param_norm, 1e-12)
+            out["nonfinite"] = 1.0 - torch.isfinite(loss).float()
         state.step += 1
         if with_accuracy:
             out["accuracy"] = correct / torch.clamp_min(count, 1.0)
@@ -445,7 +482,8 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
                     ema_decay: float = 0.0,
                     dropout_seed: Optional[int] = None,
                     mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0,
-                    guard_skip: bool = False) -> Callable:
+                    guard_skip: bool = False,
+                    health_metrics: bool = False) -> Callable:
     """Build `step(state, batch) -> metrics`. One call is one optimizer
     step: forward + backward per micro-batch in order (the BN running
     averages thread through them), the summed grads divided by
@@ -461,7 +499,7 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     normalize, each micro-batch is mixed with its flipped self through
     `mix_weight(mix_draw(seed, step, micro, ...))`; the loss is lam_eff *
     CE(y) + (1 - lam_eff) * CE(y[::-1]) with lam_eff = mean(w), and the
-    accuracy counts the dominant label. `guard_skip`: see
+    accuracy counts the dominant label. `guard_skip`, `health_metrics`: see
     `_make_update_step`."""
     mixing = mixup_alpha > 0 or cutmix_alpha > 0
     seed = dropout_seed or 0
@@ -490,7 +528,7 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
 
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
                              ema_decay, dropout_seed, with_accuracy=True,
-                             guard_skip=guard_skip)
+                             guard_skip=guard_skip, health_metrics=health_metrics)
 
 
 def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
@@ -502,13 +540,15 @@ def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
 
 def make_pretrain_step(model, optimizer, accum_steps: int = 1,
                        ema_decay: float = 0.0, seed: int = 0,
-                       guard_skip: bool = False) -> Callable:
+                       guard_skip: bool = False,
+                       health_metrics: bool = False) -> Callable:
     """Build the VideoMAE self-supervised step `step(state, batch) ->
     metrics` (JAX `make_pretrain_step`): no labels, the model returns its
     own reconstruction loss under a tube mask drawn from
     `mask_generator(seed, step, micro)`; the same accumulation, clip, EMA
-    and `guard_skip` as `make_train_step`. `metrics`: "loss", "grad_norm",
-    "lr" (and "skipped" under `guard_skip`)."""
+    `guard_skip` and `health_metrics` as `make_train_step`. `metrics`:
+    "loss", "grad_norm", "lr" (and "skipped" under `guard_skip`, the three
+    gauges under `health_metrics`)."""
 
     def forward_loss(batch: dict, step: int, micro: int):
         out = model(batch["video"], generator=mask_generator(seed, step, micro))
@@ -517,7 +557,7 @@ def make_pretrain_step(model, optimizer, accum_steps: int = 1,
 
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
                              ema_decay, seed, with_accuracy=False,
-                             guard_skip=guard_skip)
+                             guard_skip=guard_skip, health_metrics=health_metrics)
 
 
 def make_pretrain_eval_step(model) -> Callable:

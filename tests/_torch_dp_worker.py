@@ -629,6 +629,82 @@ def library(rank, world, d):
     return out
 
 
+def health_case(fsdp_count: int = 1) -> dict:
+    """One SGD step of slowfast_t (seeded init, fp32, accumulation 2) with
+    the health gauges on: in one process (fsdp_count 1, no group) or as
+    this rank of a library mesh of (1, fsdp_count, 1, 1), this rank's
+    batch shard of the same global batch of 4 clips. Returns the gauges
+    and the loss as floats."""
+    from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig, OptimConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.parallel import tensor_parallel as tp
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import make_train_step
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    model = create_model(ModelConfig(name="slowfast_t", num_classes=5, dropout_rate=0.0,
+                                     fused_kernels="auto"),
+                         "fp32", seed=3, data_cfg=DataConfig(num_frames=8, crop_size=32))
+    if fsdp_count > 1:
+        pdist.initialize_library_mesh(fsdp_count, 1, 1)
+        axis = tp.layout("slowfast_t", "auto", 1, 0, library=True,
+                         fsdp_count=fsdp_count, fsdp_index=pdist.fsdp_index())
+        tp.apply_model_axis(model, axis)
+    kinds = tp.param_kinds(model)
+    opt = build_optimizer(OptimConfig(lr=0.01, warmup_steps=0), 4,
+                          model.named_parameters(), sharded=kinds)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, accum_steps=2, health_metrics=True)
+    rng = np.random.default_rng(11)
+    glob = {"slow": rng.standard_normal((2, 4, 2, 32, 32, 3), np.float32),
+            "fast": rng.standard_normal((2, 4, 8, 32, 32, 3), np.float32),
+            "label": rng.integers(0, 5, (2, 4)).astype(np.int64)}
+    b = 4 // fsdp_count
+    lo = (pdist.batch_index() if fsdp_count > 1 else 0) * b
+    m = step(state, {k: torch.from_numpy(v[:, lo:lo + b].copy()) for k, v in glob.items()})
+    out = {k: float(m[k]) for k in ("loss", "param_norm", "update_ratio", "nonfinite")}
+    out["fsdp_leaves"] = sum(1 for k in kinds.values() if k & tp.FSDP)
+    return out
+
+
+def health(rank, world, d):
+    """`health_case` at fsdp `world`."""
+    return health_case(world)
+
+
+def unwind(rank, world, d):
+    """Rank 0 raises before step 2, after step 1's asynchronous save was
+    dispatched and before it was fenced; rank 1 goes on into step 2's
+    gradient all-reduce. Rank 0's fit fences its writes without the rank
+    barrier (which rank 1 never reaches) and re-raises its own error; rank
+    1's all-reduce then fails as rank 0 leaves. Each rank writes its result
+    and exits here: the group's closing barrier would never meet."""
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
+
+    def fail_before_2(epoch_fn):
+        def epoch(*a, **kw):
+            for i, batch in enumerate(epoch_fn(*a, **kw)):
+                if i == 1 and rank == 0:
+                    raise RuntimeError("rank 0 step failure")
+                yield batch
+        return epoch
+
+    argv = _argv(d, "unwind", ["--data.synthetic_num_videos", "16", "--num_epochs", "1",
+                               "--checkpointing_steps", "1"])
+    t0 = time.monotonic()
+    try:
+        _fit(argv, wrap_epoch=fail_before_2)
+        error = None
+    except Exception as e:  # noqa: BLE001 - the result
+        error = e
+    out = {"error": repr(error), "seconds": time.monotonic() - t0,
+           "notes": getattr(error, "__notes__", []),
+           "steps": Checkpointer(os.path.join(d, "unwind", "checkpoints")).all_steps()}
+    torch.save(out, os.path.join(d, f"unwind.rank{rank}.pt"))
+    sys.stdout.flush()
+    os._exit(0)
+
+
 def run_group(scenario: str, d, world: int = 2, env=None,
               timeout_s: float = 150.0) -> list:
     """Start `world` spawned ranks of `scenario` over directory `d`; fail
@@ -661,7 +737,8 @@ SCENARIOS = {"collectives": collectives, "env": env, "train_step": train_step,
              "mix": mix, "trainer": trainer, "cuda_step": cuda_step,
              "pretrained": pretrained, "model_axis": model_axis,
              "cp_attention": cp_attention, "replicated": replicated, "ckpt": ckpt,
-             "mvit_tp_forward": mvit_tp_forward, "library": library}
+             "mvit_tp_forward": mvit_tp_forward, "library": library,
+             "health": health, "unwind": unwind}
 
 
 def main() -> None:

@@ -11,7 +11,10 @@ loop.py) and checkpoint retries against the JAX package's, on the CPU.
   signal kills; `uninstall` restores the previous handlers exactly; a stale
   request does not stop the next fit.
 - An OSError injected twice into a checkpoint write is retried to success;
-  one injected `ckpt_retries` times is raised, and no partial step is left.
+  one injected `ckpt_retries` times is raised (from `wait()`, the fence of
+  the default asynchronous write), and no partial step is left.
+- The grace path leaves `<output_dir>/flight_record.json` with its
+  "preempt" records: the request's, then the emergency save's.
 """
 
 import json
@@ -63,6 +66,12 @@ def _fit(argv, request_after=None, reason="api"):
     return trainer.fit(), losses
 
 
+def _flight_preempts(out):
+    """The "preempt" records of `<out>/flight_record.json`."""
+    with open(os.path.join(out, "flight_record.json")) as f:
+        return [e for e in json.load(f)["events"] if e["kind"] == "preempt"]
+
+
 def _kind(ckpt_dir, step):
     with open(os.path.join(ckpt_dir, str(step), "extra.json")) as f:
         return json.load(f)
@@ -96,6 +105,10 @@ def test_request_mid_fit_stops_after_the_step_in_flight(preempted):
     assert extra["data_state"]["position"] == 1  # yields consumed
     assert res["epoch_train_times"] and len(res["epoch_train_times"]) == 1
     assert not tpreempt.get_guard().requested  # cleared for the next fit
+    # the request's record, then the emergency save's, dumped after it
+    rec = _flight_preempts(out)
+    assert [e["name"] for e in rec][-2:] == ["test", "emergency checkpoint saved"]
+    assert rec[-1]["step"] == 4 and rec[-1]["epoch"] == 1
 
 
 def test_emergency_record_reads_back_through_jax(preempted):
@@ -217,6 +230,10 @@ def test_sigterm_to_a_child_run_exits_zero_and_resumes(tmp_path):
     ckpt = Checkpointer(os.path.join(out, "checkpoints"))
     assert ckpt.all_steps() == [rec["step"]]
     assert _kind(ckpt.directory, rec["step"])["kind"] == "preempt"
+    flight = _flight_preempts(out)
+    assert [e["name"] for e in flight][-2:] == ["SIGTERM",
+                                                "emergency checkpoint saved"]
+    assert flight[-1]["step"] == rec["step"]
     # resume=auto lands on that step: one more epoch than the checkpoint's
     epoch = _kind(ckpt.directory, rec["step"])["data_state"]["epoch"]
     res = trun.main(_RUN + ["--num_epochs", str(epoch + 1), "--output_dir", out,
@@ -271,6 +288,7 @@ def test_checkpoint_write_retries_oserror(tmp_path, monkeypatch, fails,
     state = _state()
     if ok:
         ck.save(5, state, {"kind": "step"})
+        ck.wait()
         assert ck.all_steps() == [5]
         monkeypatch.undo()
         extra, step = ck.restore(_state())
@@ -278,6 +296,7 @@ def test_checkpoint_write_retries_oserror(tmp_path, monkeypatch, fails,
     else:
         with pytest.raises(OSError, match="injected"):
             ck.save(5, state, {"kind": "step"})
+            ck.wait()
         assert ck.all_steps() == []
     assert flaky.calls == min(fails + 1, retries) if ok else retries
     # every attempt starts from a clean temporary directory, none is left

@@ -166,7 +166,7 @@ def test_healthz_and_stats(server):
     assert {"p50_ms", "p99_ms", "batch_fill_ratio", "rejected_400"} <= set(stats)
 
 
-@pytest.mark.parametrize("path", ["/history", "/profile"])
+@pytest.mark.parametrize("path", ["/stream", "/profile"])
 def test_unported_get_routes_are_404(server, path):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(_url(server, path))

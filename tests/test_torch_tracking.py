@@ -3,7 +3,8 @@ package's, on the CPU: the jsonl lines of the same calls (apart from
 `time`), what `"all"` resolves to, the hub's retry-then-disable, the
 one-step-late `DeferredStepLogger`, and the jsonl keys a `--cpu` Trainer
 with `--tracking.with_tracking` writes against the JAX Trainer's on the
-same config (obs off: the obs layer is not ported).
+same config, with `--obs.enabled false` (the keys without telemetry; the
+obs-on keys are held in tests/test_torch_obs.py).
 """
 
 import importlib.util

@@ -748,11 +748,14 @@ def test_debug_and_pathless_pretrained_flags_print_one_line(extra, line, capsys,
 
 def test_default_single_process_config_raises_and_prints_no_flag_line(
         capsys, monkeypatch):
-    """The default run (num_processes 0, no PVA_* env) trains as before:
-    only the obs.* line that the default config has always printed."""
+    """The default run (num_processes 0, no PVA_* env) trains as before,
+    with the obs layer on (its default) and no line about an unported
+    option: it prints no `pytorchvideo_accelerate_tpu_torch:` line."""
     for key in ("PVA_COORDINATOR_ADDRESS", "PVA_NUM_PROCESSES", "PVA_PROCESS_ID"):
         monkeypatch.delenv(key, raising=False)
-    Trainer(parse_cli(_RUN)).close()
+    cfg = parse_cli(_RUN)
+    assert cfg.obs.enabled
+    Trainer(cfg).close()
     said = [ln for ln in capsys.readouterr().out.splitlines()
             if ln.startswith("pytorchvideo_accelerate_tpu_torch:")]
-    assert len(said) == 1 and "obs.* telemetry" in said[0]
+    assert said == []
