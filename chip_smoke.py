@@ -9,9 +9,10 @@ int8 weights, preempt and resume a SlowFast-R50 training run, train
 SlowFast-R50 data-parallel across processes, and fine-tune SlowFast-R50,
 MViT-B 32x3, X3D-S and VideoMAE-B from full-width hub-layout checkpoints
 (and VideoMAE-B from its own MAE pretraining), train MViT-B and VideoMAE-B
-tensor- and context-parallel, and train SlowFast-R50 fully sharded (fsdp)
-and VideoMAE-B tensor x context parallel on the library mesh, on one GPU
-(and across two cards, where the machine has them).
+tensor- and context-parallel and VideoMAE-B (fine-tune and MAE) in two
+pipeline stages, and train SlowFast-R50 fully sharded (fsdp) and
+VideoMAE-B tensor x context parallel on the library mesh, on one GPU (and
+across two cards, where the machine has them).
 
     python3 chip_smoke.py            # from the repo root, on a CUDA machine
 
@@ -272,8 +273,9 @@ Drives the port only (no JAX), one JSON line per phase:
 41. model_axis_train  the (data, model) train mesh at (1, 2), two gloo
             ranks on the card, against one process on a global batch of 4
             (3 steps): MViT-B and VideoMAE-B tensor-parallel, VideoMAE-B
-            Ulysses and ring (`model_axis_train_phase`); (e) over NCCL on
-            two cards only where present
+            Ulysses and ring, VideoMAE-B fine-tune and MAE pretraining in
+            2 pipeline stages of 4 microbatches (`model_axis_train_phase`);
+            (e) and (h) over NCCL on two cards only where present
 42. library_mesh_train  the library mesh (data, fsdp, tensor, context):
             (a) SlowFast-R50 at (1, 2, 1, 1) on dp_train's geometry, its
             43 leaves of >= 2^16 elements held as fsdp chunks; (b)
@@ -304,7 +306,8 @@ phases' launches, and rows 1, 1b, 2, 2b a "dp_train" one with the
 launches of one rank of dp_train's arm (c); every row carries the
 launches of the fine-tuning phases that run it: "hub_finetune" on rows
 1-2b, "hub_x3d" on rows 1, 1b, 3, 3b, "hub_interp_finetune" on rows 4-7,
-"mae_handoff" on rows 5-7; "model_axis_train" on rows 4-7 and
+"mae_handoff" on rows 5-7; "model_axis_train" on rows 4-7,
+"model_axis_train_pipeline" on rows 5-7 (one stage rank of arm (f)) and
 "library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches),
 the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
@@ -2220,7 +2223,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
                 sub.update(line_sums(rows, kname, "slowfast_r50"))
             kernels[-1]["train_features"] = sub
         for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
-                              **MODEL_AXIS_LINE, **LIBRARY_LINE}.items():
+                              **MODEL_AXIS_LINE, **PIPELINE_LINE,
+                              **LIBRARY_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -3712,11 +3716,47 @@ INT8_REL = 5e-2
 # its result and launch counts last
 TRAIN_CHILD = (
     "import json, sys\n"
+    "import chip_smoke\n"
+    "chip_smoke.await_go(sys.argv[1])\n"
     "from pytorchvideo_accelerate_tpu_torch import run\n"
     "from pytorchvideo_accelerate_tpu_torch.ops import fused\n"
-    "result = run.main(sys.argv[1:])\n"
+    "result = run.main(sys.argv[2:])\n"
     "print('CHILD_RESULT ' + json.dumps({'result': result, "
     "'launches': dict(fused.LAUNCHES)}, default=str), flush=True)\n")
+
+
+def await_go(go: str) -> None:
+    """In a child started ahead of its turn (the smoke starts a phase's
+    child processes together, each waiting for the one before it): load
+    the card's context, cuBLAS and cuDNN while the parent's earlier work
+    runs, then wait for the parent's `go` file. The child leaves when its
+    parent has gone (a failed phase ends the smoke)."""
+    import torch
+
+    parent = os.getppid()
+    x = torch.ones(1, 8, 2, 4, 4, device="cuda")
+    y = torch.nn.functional.conv3d(x, torch.ones(8, 8, 1, 1, 1, device="cuda"))
+    (y.flatten(1) @ y.flatten(1).t()).sum().item()
+    del x, y
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.2)
+
+
+def go(path: str) -> None:
+    """Let the child processes waiting on `path` run (`await_go`)."""
+    open(path, "w").close()
+
+
+def kill_waiting(groups) -> None:
+    """Kill the child processes of `groups` (lists of Popen) still alive:
+    those started ahead of a turn that a failure ended."""
+    for procs in groups:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def http(url: str, body: bytes = None, timeout: float = 600.0):
@@ -4073,21 +4113,42 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
     bitwise across runs), and the launches of the two children add up to
     the unbroken run's, each exact. Reports the seconds from SIGTERM to
     exit and the emergency save's."""
-    import signal
-
     spec = PREEMPT_TRAIN
     per_forward = expected_forward_launches(spec["name"])
     want = expected_train_launches(spec, per_forward)
     free_cuda(torch)
 
-    def run_child(out, extra=(), on_line=None):
-        proc = train_child(train_argv(out, spec=spec) + list(extra))
+    # the three children start together; each runs when the one before it
+    # has ended (`await_go`)
+    started = {}
+    for tag, out, extra in (("unbroken", "unbroken", ()), ("preempted", "preempted", ()),
+                            ("resumed", "preempted", ["--resume_from_checkpoint", "auto"])):
+        os.makedirs(os.path.join(work, out), exist_ok=True)
+        gate = os.path.join(work, out, f"go_{tag}")
+        started[tag] = (gate, train_child(
+            [gate] + train_argv(os.path.join(work, out), spec=spec) + list(extra)))
+
+    def run_child(tag, on_line=None):
+        gate, proc = started[tag]
+        go(gate)
         lines, losses, record = read_child(proc, lambda ln: on_line(proc, ln)
                                            if on_line else None)
         return proc, lines, losses, record
 
+    try:
+        return preempt_checks(work, spec, want, per_forward, run_child, launches)
+    finally:
+        kill_waiting([[proc] for _, proc in started.values()])
+
+
+def preempt_checks(work: str, spec: dict, want: dict, per_forward: dict,
+                   run_child, launches: dict) -> dict:
+    """preempt_train's children in turn (`run_child(tag, on_line)`) and
+    what it holds of each."""
+    import signal
+
     t0 = time.perf_counter()
-    proc, lines, base_losses, base = run_child(os.path.join(work, "unbroken"))
+    proc, lines, base_losses, base = run_child("unbroken")
     check(proc.returncode == 0 and base is not None,
           f"unbroken run rc {proc.returncode}: {lines[-20:]}")
     check(base["result"]["steps"] == want["steps"] and sorted(base_losses)
@@ -4105,7 +4166,7 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
             sent["t"] = time.perf_counter()
             p.send_signal(signal.SIGTERM)
 
-    proc, lines, first, rec = run_child(out, on_line=on_line)
+    proc, lines, first, rec = run_child("preempted", on_line=on_line)
     exit_s = time.perf_counter() - sent.get("t", time.perf_counter())
     check("t" in sent, f"the child's log never showed step {PREEMPT_AT_LINE}")
     check(proc.returncode == 0 and rec is not None and rec["result"]["preempted"],
@@ -4134,7 +4195,7 @@ def preempt_train_phase(torch, work: str, launches: dict) -> dict:
           f"preempted launches {rec['launches']}, expected {pre}")
 
     t1 = time.perf_counter()
-    proc, lines, rest, res = run_child(out, ["--resume_from_checkpoint", "auto"])
+    proc, lines, rest, res = run_child("resumed")
     resume_s = time.perf_counter() - t1
     check(proc.returncode == 0 and res is not None and not res["result"]["preempted"]
           and res["result"]["steps"] == base["result"]["steps"],
@@ -4303,6 +4364,7 @@ def dp_child(args) -> None:
     elif mode == "gloo":
         pdist.initialize_distributed(address, world, rank, backend="gloo",
                                      timeout_s=DP_CHILD_TIMEOUT_S)
+    await_go(os.path.join(dump_dir, "go"))
     rec = dp_fit(torch, argv, dump_dir)
     print("CHILD_RESULT " + json.dumps(rec, default=str), flush=True)
 
@@ -4317,18 +4379,30 @@ def dp_spawn(mode: str, rank: int, world: int, address: str, dump_dir: str,
         env={**os.environ, **(env or {})})
 
 
-def dp_group(mode: str, world: int, out: str, batch: int, on_line=None) -> list:
-    """Run `world` ranks of `mode` on the same global batch (`batch` a
-    rank); returns each rank's (proc, lines, losses, record), rank order.
-    `on_line(procs, line)` sees rank 0's lines as they come."""
-    import threading
-
+def dp_start(mode: str, world: int, out: str, batch: int) -> list:
+    """Start `world` ranks of `mode` on the same global batch (`batch` a
+    rank), dumping under `out`; they wait for `dp_finish` (`await_go`)."""
     from pytorchvideo_accelerate_tpu_torch.launch import find_free_port
 
     os.makedirs(out, exist_ok=True)
     address = f"127.0.0.1:{find_free_port()}"
     argv = train_argv(out, spec=dict(DP_TRAIN, batch=batch))
-    procs = [dp_spawn(mode, r, world, address, out, argv) for r in range(world)]
+    return [dp_spawn(mode, r, world, address, out, argv) for r in range(world)]
+
+
+def dp_group(mode: str, world: int, out: str, batch: int, on_line=None) -> list:
+    """`dp_start`, then `dp_finish`."""
+    return dp_finish(dp_start(mode, world, out, batch), mode, out, on_line)
+
+
+def dp_finish(procs: list, mode: str, out: str, on_line=None) -> list:
+    """Let the ranks `dp_start` started under `out` run; returns each
+    rank's (proc, lines, losses, record), rank order. `on_line(procs,
+    line)` sees rank 0's lines as they come."""
+    import threading
+
+    world = len(procs)
+    go(os.path.join(out, "go"))
     got = [None] * world
 
     def read(r):
@@ -4418,19 +4492,34 @@ def dp_train_phase(torch, work: str, launches: dict) -> dict:
     emergency record). Reports the optimizer-step ms
     (steps 2-6, synchronised), the all-reduces a micro-step and their
     bytes, peak memory per rank."""
-    import signal
-
     t0 = time.perf_counter()
     free_cuda(torch)
     out = {"model": "slowfast_r50", "global_batch": DP_TRAIN["batch"],
            "steps": DP_TRAIN["videos"] // DP_TRAIN["batch"], "lr": DP_TRAIN["lr"]}
     arms = {}
     # (a) and (b) run as children too: the smoke's own process never joins
-    # a group, so the phases after this one run as before
-    for name, mode, world in (("a_one_process", "none", 1), ("b_nccl_one_rank", "nccl1", 1),
-                              ("c_gloo_two_ranks", "gloo", 2)):
+    # a group, so the phases after this one run as before. Every arm's
+    # ranks start now and wait for their turn (`await_go`)
+    plan = (("a_one_process", "none", 1), ("b_nccl_one_rank", "nccl1", 1),
+            ("c_gloo_two_ranks", "gloo", 2), ("c_preempted", "gloo", 2))
+    started = {name: dp_start(mode, world, os.path.join(work, f"dp_{name}"),
+                              DP_TRAIN["batch"] // world)
+               for name, mode, world in plan}
+    try:
+        return dp_checks(torch, work, started, plan, out, arms, launches, t0)
+    finally:
+        kill_waiting(started.values())
+
+
+def dp_checks(torch, work: str, started: dict, plan, out: dict, arms: dict,
+              launches: dict, t0: float) -> dict:
+    """dp_train's arms in turn (`dp_finish` of each of `started`) and what
+    it holds of each."""
+    import signal
+
+    for name, mode, world in plan[:3]:
         d = os.path.join(work, f"dp_{name}")
-        got = dp_group(mode, world, d, DP_TRAIN["batch"] // world)
+        got = dp_finish(started.pop(name), mode, d)
         arms[name] = (d, [g[3] for g in got])
         free_cuda(torch)
     ref = arms["a_one_process"][1][0]
@@ -4472,7 +4561,7 @@ def dp_train_phase(torch, work: str, launches: dict) -> dict:
             sent["t"] = time.perf_counter()
             procs[1].send_signal(signal.SIGTERM)
 
-    got = dp_group("gloo", 2, d, DP_TRAIN["batch"] // 2, on_line=on_line)
+    got = dp_finish(started.pop("c_preempted"), "gloo", d, on_line=on_line)
     exit_s = time.perf_counter() - sent.get("t", time.perf_counter())
     check("t" in sent, f"rank 0's log never showed step {DP_SIGTERM_AFTER_LINE}")
     recs = [g[3] for g in got]
@@ -4944,13 +5033,21 @@ def mae_handoff_phase(torch, work: str, launches: dict) -> dict:
 # global batch
 MA_TRAIN = dict(X3D_TRAIN, batch=4, videos=12, ckpt_every=3, lr=TRANSFORMER_LR)
 MA_DROP = ["--model.dropout_rate", "0"]
+MA_PIPE = ["--parallel.pipeline_stages", "2"]
 MA_ARMS = {  # arm: (model, attention, extra flags)
     "a_mvit_tp": ("mvit_b", "pallas", ["--model.depthwise_impl", "pallas"]),
     "b_videomae_tp": ("videomae_b", "pallas", []),
     "c_videomae_ulysses": ("videomae_b", "ulysses", []),
     "d_videomae_ring": ("videomae_b", "ring", []),
+    # the pipeline stages (P = 2 over the model axis, M = 2 P = 4 microbatches
+    # of one clip): the encoder's 12 blocks cut 6 | 6, the MAE decoder's 4
+    # cut 2 | 2
+    "f_videomae_pipe": ("videomae_b", "pallas", MA_PIPE),
+    "g_mae_pipe": ("videomae_b_pretrain", "pallas", MA_PIPE),
 }
-MA_REFS = {"mvit_b": MA_ARMS["a_mvit_tp"], "videomae_b": MA_ARMS["b_videomae_tp"]}
+MA_REFS = {"mvit_b": MA_ARMS["a_mvit_tp"], "videomae_b": MA_ARMS["b_videomae_tp"],
+           "videomae_b_pretrain": ("videomae_b_pretrain", "pallas", [])}
+MA_STAGES, MA_MICRO = 2, 4
 MA_GRAD_TOL = 5e-2  # relative 2-norm of the gathered first-step gradient
 MA_CHILD = (
     "import sys\n"
@@ -4961,6 +5058,10 @@ MA_CHILD = (
 MODEL_AXIS_LINE = {"model_axis_train": ("depthwise3d_s1", "depthwise3d_s1.bwd_dx",
                                         "flash_attention", "flash_attention.bwd_dq",
                                         "flash_attention.bwd_dkv")}
+# the kernel rows on the pipeline's path: one stage rank of model_axis_train's
+# arm (f)
+PIPELINE_LINE = {"model_axis_train_pipeline": ("flash_attention", "flash_attention.bwd_dq",
+                                               "flash_attention.bwd_dkv")}
 
 
 def ma_argv(out: str, name: str, attention: str, extra, model: int) -> list:
@@ -5019,13 +5120,16 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     from pytorchvideo_accelerate_tpu_torch.models.common import DropPath
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+    from pytorchvideo_accelerate_tpu_torch.parallel import pipeline as ppipe
     from pytorchvideo_accelerate_tpu_torch.parallel import ring_attention
     from pytorchvideo_accelerate_tpu_torch.parallel.sharding import full_state_dict
     from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import param_kinds
     from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
 
     os.makedirs(dump_dir, exist_ok=True)
+    t_build = time.perf_counter()
     trainer = Trainer(parse_cli(argv))
+    build_s = time.perf_counter() - t_build
     for m in trainer.model.modules():
         if isinstance(m, DropPath):
             m.rate = 0.0
@@ -5033,8 +5137,9 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     rank = pdist.process_index()
     kinds = param_kinds(model)
     replicated = [p for n, p in model.named_parameters() if not kinds[n]]
+    n_params = len(list(model.parameters()))
     rec = {"step_ms": [], "losses": [], "rep_hashes": [], "local_hashes": [],
-           "collectives": []}
+           "collectives": [], "stage_transfers": []}
     count = {"on": False}
     real = {n: getattr(dist, n) for n in _COLLECTIVES}
 
@@ -5065,15 +5170,19 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
             if k != "on":
                 del count[k]
         count["on"] = True
+        ppipe.reset_transfers()
         t0 = time.perf_counter()
         m = step(state, batch)
         torch.cuda.synchronize()
         rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
         count["on"] = False
         rec["collectives"].append({k: v for k, v in count.items() if k != "on"})
+        rec["stage_transfers"].append(dict(ppipe.TRANSFERS))
         rec["losses"].append(float(m["loss"]))
         rec["rep_hashes"].append(state_hash([p.data for p in replicated]))
-        rec["local_hashes"].append(state_hash([p.data for p in model.parameters()]))
+        rec["local_hashes"].append(
+            rec["rep_hashes"][-1] if len(replicated) == n_params
+            else state_hash([p.data for p in model.parameters()]))
         if len(rec["step_ms"]) == 1:
             grads = full_state_dict({n: p.grad for n, p in model.named_parameters()},
                                     axis)
@@ -5097,6 +5206,7 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
         for n in _COLLECTIVES:
             setattr(dist, n, real[n])
     rec["fit_s"] = time.perf_counter() - t0
+    rec["trainer_build_s"] = build_s
     rec["launches"] = dict(fused.LAUNCHES)
     rec["ring_blocks"] = ring_attention.RING_BLOCKS[0]
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -5113,6 +5223,11 @@ def ma_fit(torch, argv, dump_dir: str, keep: bool = False):
     rec["coords"] = (pdist.library_coords(rank, pdist.library_shape())
                      if pdist.library_shape() else None)
     rec["mode"] = axis.mode
+    plan = trainer.pipeline_plan
+    rec["pipeline"] = plan and {
+        "stages": plan.stages, "microbatches": plan.microbatches,
+        "bubble_frac_analytic": ppipe.analytic_bubble_frac(plan.stages, plan.microbatches),
+        "perf_keys": {k: v for k, v in result.items() if k.startswith("pipeline_")}}
     rec["rank"], rec["world"] = rank, pdist.process_count()
     rec["result"] = result
     rec["checkpoint"] = os.path.join(trainer.checkpointer.directory,
@@ -5142,26 +5257,50 @@ def ma_child(args) -> None:
     if mode == "gloo":
         pdist.initialize_distributed(address, world, rank, backend="gloo",
                                      timeout_s=DP_CHILD_TIMEOUT_S)
+        await_go(os.path.join(dump_dir, "go"))
     for tag, argv in json.loads(arms):
         rec = ma_fit(torch, argv, os.path.join(dump_dir, tag))
         print("CHILD_RESULT " + json.dumps({"tag": tag, **rec}, default=str), flush=True)
 
 
-def ma_group(mode: str, world: int, out: str, arms) -> list:
-    """`world` ranks of `mode` running `arms` ([(tag, argv)]) in turn;
-    returns {tag: [each rank's record]}."""
-    import threading
-
+def ma_start(mode: str, world: int, out: str, arms) -> list:
+    """Start `world` ranks of `mode` that will run `arms` ([(tag, argv)])
+    in turn under `out`; they wait for `ma_finish` (`await_go`)."""
     from pytorchvideo_accelerate_tpu_torch.launch import find_free_port
 
     os.makedirs(out, exist_ok=True)
     address = f"127.0.0.1:{find_free_port()}"
     root = os.path.dirname(os.path.abspath(__file__))
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, "-u", "-c", MA_CHILD, root, mode, str(r), str(world),
          address, out, json.dumps(arms)],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
+
+
+def ma_group(mode: str, world: int, out: str, arms, before=None) -> dict:
+    """`world` ranks of `mode` running `arms` ([(tag, argv)]) in turn;
+    returns {tag: [each rank's record]}. `before()` runs in this process
+    while the ranks start (their imports, the group's join, the card's
+    libraries), and the ranks run the arms only after it returned (so the
+    arms' timing shares the card with nothing of it)."""
+    procs = ma_start(mode, world, out, arms)
+    try:
+        if before is not None:
+            before()
+    except BaseException:
+        kill_waiting([procs])
+        raise
+    return ma_finish(procs, mode, out, arms)
+
+
+def ma_finish(procs: list, mode: str, out: str, arms) -> dict:
+    """Let the ranks `ma_start` started under `out` run their `arms`;
+    returns {tag: [each rank's record]}."""
+    import threading
+
+    world = len(procs)
+    go(os.path.join(out, "go"))
     got = [None] * world
 
     def read(r):
@@ -5204,11 +5343,25 @@ def ma_restore_hash(torch, trainer, ckpt: str) -> tuple:
     return state_hash(trainer.state.state_dict()), seconds
 
 
-def ma_expected(name: str, attention: str) -> dict:
+def ma_expected(name: str, attention: str, extra=()) -> dict:
     """Each rank's launches of one arm's fit(): its model's kernels per
     forward (a ring arm's attention launches none) over 3 micro-steps and
     1 eval forward, backward rows over the micro-steps; and the ring's
-    online-softmax blocks (2 a ring attention call at cp 2)."""
+    online-softmax blocks (2 a ring attention call at cp 2). A pipelined
+    arm (`MA_PIPE` in `extra`): a stage rank's micro-step runs its half of
+    each stack once a microbatch, forward and backward, and eval runs the
+    whole model unpipelined."""
+    if "--parallel.pipeline_stages" in extra:
+        want = expected_train_launches(dict(MA_TRAIN, name=name), {})
+        blocks = VIT_DEPTH + (VIT_DECODER_DEPTH if name.endswith("_pretrain") else 0)
+        per_micro = blocks // MA_STAGES * MA_MICRO
+        eval_forward = expected_forward_launches(name)["flash_attention"]
+        out = {k: 0 for k in SOURCES}
+        out["flash_attention"] = (per_micro * want["micro_steps"]
+                                  + eval_forward * want["eval_forwards"])
+        out["flash_attention.bwd_dq"] = out["flash_attention.bwd_dkv"] = (
+            per_micro * want["micro_steps"])
+        return {**out, "ring_blocks": 0}
     per_forward = expected_forward_launches(name)
     if attention == "ring":
         per_forward = {k: v for k, v in per_forward.items() if k != "flash_attention"}
@@ -5221,34 +5374,42 @@ def ma_expected(name: str, attention: str) -> dict:
 def model_axis_train_phase(torch, work: str, launches: dict) -> dict:
     """Phase 41. The train mesh's model axis on full-width MViT-B 16x4 and
     VideoMAE-B through `run.main`'s Trainer: the one-process references of
-    both (in this process, which joins no group), then the four arms (a) MViT-B tensor-parallel, (b)
+    MViT-B, VideoMAE-B and VideoMAE-B pretraining (in this process, which
+    joins no group), then the arms (a) MViT-B tensor-parallel, (b)
     VideoMAE-B tensor-parallel, (c) VideoMAE-B Ulysses, (d) VideoMAE-B
-    ring, each two ranks at (1, 2) sharing the card over gloo (one child
-    group running them in turn), every run on the same global batch of 4
-    clips a step, 3 steps. Held per arm: the losses within 5e-2 * (1 +
-    |loss|) of one process's; the first step's gathered gradient (the same
-    weights and clips) within 5e-2 relative 2-norm of one process's; the
-    replicated leaves bitwise equal across the ranks after every step;
-    exact launches a rank (rows 4-7 for (a), 5-7 for (b) and (c), none for
-    (d), whose ring blocks are counted); the checkpoint written at (1, 2)
-    restored in one process bitwise the gathered state. (e) runs (a) over
-    NCCL on two cards where the machine has them, and ring and Ulysses
-    there over NCCL against one card (`ma_nccl_cp`). Reports step ms against
-    one process, peak memory and parameters a rank, and the collectives a
-    micro-step with their bytes."""
+    ring, (f) VideoMAE-B and (g) its MAE pretraining in 2 pipeline stages
+    (`--parallel.pipeline_stages 2`, 4 microbatches), each two ranks at
+    (1, 2) sharing the card over gloo (one child group running them in
+    turn), every run on the same global batch of 4 clips a step, 3 steps.
+    Held per arm: the losses within 5e-2 * (1 + |loss|) of one process's;
+    the first step's gathered gradient (the same weights and clips) within
+    5e-2 relative 2-norm of one process's; the replicated leaves bitwise
+    equal across the ranks after every step (a pipelined arm's: every
+    leaf); exact launches a rank (rows 4-7 for (a), 5-7 for (b), (c), (f)
+    and (g), none for (d), whose ring blocks are counted); the checkpoint
+    written at (1, 2) restored in one process bitwise the gathered state.
+    (e) runs (a) over NCCL on two cards where the machine has them, and
+    ring and Ulysses there over NCCL against one card (`ma_nccl_cp`); (h)
+    runs (f) there. Reports step ms against one process, peak memory and
+    parameters a rank, the collectives a micro-step with their bytes, and
+    for (f), (g) the plan, the analytic bubble and the stage transfers a
+    micro-step (`parallel/pipeline.py TRANSFERS`)."""
     t0 = time.perf_counter()
     free_cuda(torch)
     d = os.path.join(work, "model_axis")
     refs, ref_trainers = {}, {}
-    for name, (_, att, extra) in MA_REFS.items():
-        rec, ref_trainers[name] = ma_fit(
-            torch, ma_argv(os.path.join(d, "one", name), name, att, extra, 1),
-            os.path.join(d, "one", name), keep=True)
-        refs[name] = [rec]
-    free_cuda(torch)
+
+    def references():
+        for name, (_, att, extra) in MA_REFS.items():
+            rec, ref_trainers[name] = ma_fit(
+                torch, ma_argv(os.path.join(d, "one", name), name, att, extra, 1),
+                os.path.join(d, "one", name), keep=True)
+            refs[name] = [rec]
+        free_cuda(torch)
+
     arms = ma_group("gloo", 2, os.path.join(d, "two"), [
         (tag, ma_argv(os.path.join(d, "two", tag), name, att, extra, 2))
-        for tag, (name, att, extra) in MA_ARMS.items()])
+        for tag, (name, att, extra) in MA_ARMS.items()], before=references)
     free_cuda(torch)
     out = {"global_batch": MA_TRAIN["batch"], "steps": 3, "mesh": [1, 2],
            "transport": "gloo, two ranks on one card"}
@@ -5257,9 +5418,9 @@ def model_axis_train_phase(torch, work: str, launches: dict) -> dict:
         got = {**{k: ref["launches"].get(k, 0) for k in SOURCES},
                "ring_blocks": ref["ring_blocks"]}
         check(got == want, f"one-process {name} launches {got}, expected {want}")
-    for tag, (name, att, _) in MA_ARMS.items():
+    for tag, (name, att, extra) in MA_ARMS.items():
         recs, ref = arms[tag], refs[name][0]
-        want = ma_expected(name, att)
+        want = ma_expected(name, att, extra)
         for rec in recs:
             got = {**{k: rec["launches"].get(k, 0) for k in SOURCES},
                    "ring_blocks": rec["ring_blocks"]}
@@ -5300,21 +5461,37 @@ def model_axis_train_phase(torch, work: str, launches: dict) -> dict:
             "params_per_rank": recs[0]["params_this_rank"],
             "params_one_process": ref["params_this_rank"],
             "collectives_per_micro_step": coll,
-            "fit_s": recs[0]["fit_s"]}
+            "fit_s": recs[0]["fit_s"], "trainer_build_s": recs[0]["trainer_build_s"]}
+        if recs[0]["pipeline"]:
+            check(recs[0]["local_hashes"] == recs[1]["local_hashes"],
+                  f"{tag}: the stage ranks' parameters differ after a step")
+            out[tag].update(
+                pipeline=recs[0]["pipeline"],
+                stage_transfers_per_micro_step=[r["stage_transfers"][-1] for r in recs],
+                params_bitwise_every_step=True)
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
         out["e_mvit_tp_nccl_two_cards"] = ma_launched_arm(torch, d, refs["mvit_b"][0])
         out["e_nccl_context_parallel"] = ma_nccl_cp(os.path.join(d, "cp"))
+        name, att, extra = MA_ARMS["f_videomae_pipe"]
+        out["h_pipeline_nccl_two_cards"] = launched_arm(
+            torch, os.path.join(d, "nccl_pipe"), "h",
+            ma_argv(os.path.join(d, "nccl_pipe", "h"), name, att, extra, 2),
+            ma_expected(name, att, extra), refs[name][0])
     else:
         emit("model_axis_train_e", run=False,
              why=f"NCCL across cards needs two cards; this machine has {n_cards} "
-                 "(NCCL refuses two ranks on one card)")
+                 "(NCCL refuses two ranks on one card): arm (e) and the "
+                 "pipeline's arm (h), (f) over NCCL")
     # the VideoMAE-B reference serves library_mesh_train's arm (b)
     KEPT["ma_refs"] = (refs, {"videomae_b": ref_trainers["videomae_b"]},
                        os.path.join(d, "one", "videomae_b", "grad.pt"))
     del ref_trainers
     free_cuda(torch)
+    out["references_s"] = {name: (ref["fit_s"], ref["trainer_build_s"])
+                           for name, (ref,) in refs.items()}
     launches["model_axis_train"] = arms["a_mvit_tp"][0]["launches"]
+    launches["model_axis_train_pipeline"] = arms["f_videomae_pipe"][0]["launches"]
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -5592,15 +5769,20 @@ def library_mesh_train_phase(torch, work: str, launches: dict) -> dict:
     t0 = time.perf_counter()
     free_cuda(torch)
     d = os.path.join(work, "library_mesh")
-    refs = lm_references(torch, d)
-    out = {}
-    for arm, shape in LM_ARMS.items():
-        world = int(np.prod(shape))
-        free_cuda(torch)
-        got = ma_group("gloo", world, os.path.join(d, arm),
-                       [(arm, lm_argv(os.path.join(d, arm, "run"), arm))])
-        out[arm] = lm_hold(torch, arm, got[arm], refs[arm], os.path.join(d, arm, arm))
-        launches[f"library_mesh_train_{arm[0]}"] = got[arm][0]["launches"]
+    # both arms' ranks start now and wait for their turn (`await_go`)
+    plan = {arm: [(arm, lm_argv(os.path.join(d, arm, "run"), arm))] for arm in LM_ARMS}
+    started = {arm: ma_start("gloo", int(np.prod(shape)), os.path.join(d, arm), plan[arm])
+               for arm, shape in LM_ARMS.items()}
+    try:
+        refs = lm_references(torch, d)
+        out = {}
+        for arm in LM_ARMS:
+            free_cuda(torch)
+            got = ma_finish(started.pop(arm), "gloo", os.path.join(d, arm), plan[arm])
+            out[arm] = lm_hold(torch, arm, got[arm], refs[arm], os.path.join(d, arm, arm))
+            launches[f"library_mesh_train_{arm[0]}"] = got[arm][0]["launches"]
+    finally:
+        kill_waiting(started.values())
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
         free_cuda(torch)

@@ -61,12 +61,12 @@ class ParallelConfig:
     stack into that many stages placed one per model-axis slice (the 2-D
     train mesh's ``model`` axis, or ``tensor`` on the library mesh — the
     stage count must equal that axis's size), and the train step streams
-    microbatches through the stages (1F1B-style steady-state occupancy;
-    plain autodiff replays the schedule backwards). Transformer families
-    only (mvit/videomae); on the 2-D train mesh the stages SPEND the
-    model axis, so they exclude Megatron TP and ring/ulysses CP there —
+    microbatches through the stages (a fill-drain schedule: every
+    microbatch's forward, then every backward in reverse). Transformer
+    families only (mvit/videomae); on the 2-D train mesh the stages SPEND
+    the model axis, so they exclude Megatron TP and ring/ulysses CP there —
     compose pipeline x CP on the library mesh (tensor=P, context=C)
-    instead. Checkpoints are layout-portable: the param tree is identical
+    instead; not with fsdp > 1 yet (NotImplementedError). Checkpoints are layout-portable: the param tree is identical
     to the unpipelined model, so a run saved under (data, P) resumes
     unpipelined on (N, 1) or a single chip (trainer/checkpoint.py)."""
 
@@ -90,7 +90,7 @@ class DataConfig:
     train_list: str = ""
     val_list: str = ""
     # pre-decoded frame cache (data/cache.py, built offline with
-    # `python -m pytorchvideo_accelerate_tpu.data.cache build`): when set,
+    # `python -m pytorchvideo_accelerate_tpu_torch.data.cache build`): when set,
     # clips come from memmap slices instead of per-clip video decode; expects
     # train/ and val/ sub-caches mirroring data_dir
     cache_dir: str = ""

@@ -45,6 +45,7 @@ from pytorchvideo_accelerate_tpu_torch.models.videomae import (
 )
 from pytorchvideo_accelerate_tpu_torch.models.x3d import X3D
 from pytorchvideo_accelerate_tpu_torch.ops.attention import check_backend
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import is_active
 from pytorchvideo_accelerate_tpu_torch.precision import policy_compute_dtype
 
 # each entry: (ModelConfig, compute dtype, DataConfig) -> module
@@ -177,16 +178,25 @@ def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
 
 def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
                  seed: int = 0, data_cfg: DataConfig = None,
-                 model_axis=None) -> nn.Module:
+                 model_axis=None, pipeline=None) -> nn.Module:
     """Build the module for `cfg.name`, initialised by `init_like_jax` from
     a generator seeded with `seed`. `mixed_precision` "bf16"/"fp16" computes
     in bf16 with f32 parameters, else f32. `data_cfg` gives the clip
     geometry that sizes MViT's `pos_embed` (default `DataConfig()`).
     `model_axis` (a `parallel/tensor_parallel.ModelAxis`): cut the model
-    to that rank's shards after the init."""
+    to that rank's shards after the init. `pipeline` (an active
+    `parallel/pipeline.PipelinePlan`): the transformer trunk trains through
+    the stage pipeline (the model's `set_pipeline`); a family without that
+    seam (the conv nets) refuses with the JAX package's error."""
     if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {available_models()}")
+    if is_active(pipeline) and not cfg.name.startswith(_TRANSFORMERS):
+        raise ValueError(
+            f"model {cfg.name!r} has no pipeline stage-cut seam "
+            "(parallel.pipeline_stages > 1 needs a transformer block "
+            "stack — mvit/videomae families); conv families spend the "
+            "model axis on replication, not stages")
     if cfg.fused_kernels not in FUSED_MODES:
         raise ValueError(
             f"model.fused_kernels must be one of {FUSED_MODES}, got "
@@ -196,6 +206,8 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
     model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision),
                                 data_cfg or DataConfig())
     init_like_jax(model, torch.Generator().manual_seed(seed))
+    if is_active(pipeline):
+        model.set_pipeline(pipeline)
     if model_axis is not None:
         # here, not at the top: tensor_parallel builds on models/common.py
         from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (

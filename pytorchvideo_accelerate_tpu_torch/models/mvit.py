@@ -30,7 +30,10 @@ head-aligned, the pools on the local heads' channels of their shared
 weights, `proj` row-parallel; `mlp_fc1` / `mlp_fc2` split as a
 column / row pair and `skip_proj` stays replicated. `--model.attention
 ring|ulysses` splits the attention's tokens over the same axis instead.
-Not ported: the pipelined block stack (`pipeline`), block-boundary
+`set_pipeline(plan)` streams a uniform trunk (no stage starts, no drop
+path, dense or pallas attention: `pipeline_cut_check`, the JAX refusals)
+through the stage pipeline in training (`parallel/pipeline.py`);
+full-width MViT-B is multiscale and refuses. Not ported: block-boundary
 sharding (`shard_mesh`) and the streaming stem seam (`from_stem`).
 
 Input: (B, T, H, W, 3) NDHWC, normalized frames.
@@ -38,7 +41,7 @@ Input: (B, T, H, W, 3) NDHWC, normalized frames.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +57,12 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
 )
 from pytorchvideo_accelerate_tpu_torch.ops.attention import dot_product_attention
 from pytorchvideo_accelerate_tpu_torch.ops.depthwise import DepthwiseConv3D
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
+    PipelinePlan,
+    apply_pipelined_blocks,
+    is_active,
+    stage_cuts,
+)
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 
 ONE = (1, 1, 1)
@@ -211,6 +220,10 @@ class MViT(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
+        self.stage_starts = tuple(stage_starts)
+        self.drop_path_rate = drop_path_rate
+        self.attention_backend = attention_backend
+        self.pipeline: Optional[PipelinePlan] = None
         self.patch_embed = nn.Conv3d(3, embed_dim, tuple(patch_kernel),
                                      tuple(patch_stride),
                                      padding=[k // 2 for k in patch_kernel])
@@ -245,6 +258,45 @@ class MViT(nn.Module):
         """True for backbone params (everything but the head)."""
         return path[0] != "head"
 
+    def pipeline_cut_check(self, stages: int) -> None:
+        """Raise ValueError naming the first obstruction to cutting this
+        trunk into `stages` equal stages (the JAX package's texts)."""
+        stage_cuts(self.depth, stages)
+        if self.stage_starts:
+            raise ValueError(
+                "mvit pipeline_stages>1 needs a homogeneous block stack, "
+                f"but stage_starts={self.stage_starts} double dims/"
+                "heads and q-pool the token grid at those blocks — the "
+                "per-stage param trees and activation shapes differ, so "
+                "no equal stage cut exists. Pipeline the videomae trunk, "
+                "or configure a uniform MViT (stage_starts=()); see "
+                "docs/PARALLELISM.md § pipeline")
+        if self.drop_path_rate > 0:
+            raise ValueError(
+                "mvit pipeline_stages>1 needs rng-free, per-block-"
+                f"identical blocks; drop_path_rate={self.drop_path_rate} "
+                "gives every block its own stochastic-depth rate (and an "
+                "rng stream) — set model.dropout/drop_path off to "
+                "pipeline this trunk")
+        if self.attention_backend in ("ring", "ulysses"):
+            raise ValueError(
+                "mvit pipeline_stages>1 does not compose with the "
+                f"context-parallel attention backend "
+                f"{self.attention_backend!r}: the pipelined region keeps "
+                "MViT's (B,T,H,W,C) token grid un-sharded — use dense/"
+                "pallas attention, or pipeline the videomae trunk where "
+                "CP composes on the library mesh")
+
+    def set_pipeline(self, plan: Optional[PipelinePlan]) -> None:
+        """Pipeline the trunk under `plan` (checked by `pipeline_cut_check`
+        first; None: the plain loop)."""
+        if is_active(plan):
+            self.pipeline_cut_check(plan.stages)
+        self.pipeline = plan
+
+    def pipelined_blocks(self):
+        return [f"block{i}" for i in range(self.depth)] if is_active(self.pipeline) else []
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
         x = F.conv3d(x.to(d).permute(0, 4, 1, 2, 3), self.patch_embed.weight.to(d),
@@ -257,7 +309,7 @@ class MViT(nn.Module):
                 f"match pos_embed {tuple(self.pos_embed.shape[1:4])} (the "
                 "model was built for another num_frames / crop_size)")
         x = x + self.pos_embed.to(d)
-        for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+        x = apply_pipelined_blocks([getattr(self, f"block{i}") for i in range(self.depth)],
+                                   x, self.pipeline)
         x = self.norm(x).mean(dim=(1, 2, 3))
         return self.head(f32_island(self.dropout(x)))

@@ -29,8 +29,10 @@ column-parallel and head-aligned, `proj` row-parallel) and every block's
 MLP splits as a column / row pair; the decoder's attention stays
 replicated (the JAX rules name no `dec_block*` `proj`). `--model.attention
 ring|ulysses` splits the attention's tokens over the same axis instead.
-Not ported: the pipelined block stacks (`pipeline`) and block-boundary
-sharding.
+`set_pipeline(plan)` (`parallel/pipeline.py`) streams the encoder's blocks,
+and the decoder's when its depth divides into the stages, through the
+stage pipeline in training (`run_vit_blocks`); the parameter tree is the
+same either way. Not ported: block-boundary sharding.
 """
 
 from __future__ import annotations
@@ -54,6 +56,11 @@ from pytorchvideo_accelerate_tpu_torch.models.common import (
 from pytorchvideo_accelerate_tpu_torch.ops.attention import (
     dot_product_attention,
     temporal_band_mask,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
+    PipelinePlan,
+    apply_pipelined_blocks,
+    is_active,
 )
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 
@@ -146,12 +153,11 @@ class CubeEmbed(nn.Module):
 
 
 def run_vit_blocks(blocks: Sequence[nn.Module], tokens: torch.Tensor,
-                   mask=None) -> torch.Tensor:
-    """A stack of ViTBlocks in order (the plain loop of the JAX package's
-    `run_vit_blocks`; the pipelined lowering is not ported)."""
-    for block in blocks:
-        tokens = block(tokens, mask)
-    return tokens
+                   mask=None, pipeline: Optional[PipelinePlan] = None) -> torch.Tensor:
+    """A stack of ViTBlocks in order, through the stage pipeline when
+    `pipeline` is active (`parallel/pipeline.py apply_pipelined_blocks`,
+    which refuses a band mask with the JAX error)."""
+    return apply_pipelined_blocks(blocks, tokens, pipeline, mask)
 
 
 class VideoMAEEncoder(nn.Module):
@@ -176,9 +182,17 @@ class VideoMAEEncoder(nn.Module):
                                                   attention_backend=attention_backend,
                                                   dtype=dtype, remat=remat))
         self.norm = LayerNorm(dim, dtype=dtype) if final_norm else None
+        self.pipeline: Optional[PipelinePlan] = None
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def set_pipeline(self, plan: Optional[PipelinePlan]) -> None:
+        """Pipeline the blocks under `plan` (None: the plain loop)."""
+        self.pipeline = plan
+
+    def pipelined_blocks(self):
+        return [f"block{i}" for i in range(self.depth)] if is_active(self.pipeline) else []
 
     def band_mask(self, t: int, hw: int, device):
         """The temporal band of `attn_mask` over t slots of hw tokens, or
@@ -206,7 +220,7 @@ class VideoMAEEncoder(nn.Module):
         if keep_idx is not None:
             tokens = torch.gather(tokens, 1, keep_idx[..., None].expand(
                 -1, -1, tokens.shape[-1]))
-        tokens = run_vit_blocks(self.blocks(), tokens, mask)
+        tokens = run_vit_blocks(self.blocks(), tokens, mask, self.pipeline)
         if self.norm is not None:
             tokens = self.norm(tokens)
         return tokens, (t, h, w)
@@ -279,6 +293,19 @@ class VideoMAEForPretraining(nn.Module):
         self.dec_norm = LayerNorm(decoder_dim, dtype=dtype)
         tt, p, _ = self.tubelet
         self.dec_pred = nn.Linear(decoder_dim, tt * p * p * 3)
+        self.dec_pipeline: Optional[PipelinePlan] = None
+
+    def set_pipeline(self, plan: Optional[PipelinePlan]) -> None:
+        """Pipeline the encoder under `plan`, and the decoder too when its
+        depth divides into the stages (else it runs unpipelined on every
+        stage rank, as in the JAX package)."""
+        self.encoder.set_pipeline(plan)
+        self.dec_pipeline = plan if plan is not None and plan.covers(self.decoder_depth) else None
+
+    def pipelined_blocks(self):
+        if not is_active(self.dec_pipeline):
+            return []
+        return [f"dec_block{i}" for i in range(self.decoder_depth)]
 
     def grid(self, x: torch.Tensor) -> Tuple[int, int, int]:
         tt, p, _ = self.tubelet
@@ -302,7 +329,7 @@ class VideoMAEForPretraining(nn.Module):
             dim=1)                                           # (B, n, dec_dim)
         dec_tokens = run_vit_blocks(
             [getattr(self, f"dec_block{i}") for i in range(self.decoder_depth)],
-            dec_tokens)
+            dec_tokens, pipeline=self.dec_pipeline)
         dec_tokens = self.dec_norm(dec_tokens)
         pred = self.dec_pred(f32_island(dec_tokens[:, enc.shape[1]:]))
         target = _take(patchify(f32_island(x), self.tubelet), masked_idx)
@@ -334,6 +361,10 @@ class VideoMAEClassifier(nn.Module):
         self.fc_norm = LayerNorm(dim, dtype=dtype)
         self.dropout = SeededDropout(dropout_rate)
         self.head = nn.Linear(dim, num_classes)
+
+    def set_pipeline(self, plan: Optional[PipelinePlan]) -> None:
+        """Pipeline the encoder's blocks under `plan`."""
+        self.encoder.set_pipeline(plan)
 
     def reset_parameters_like_jax(self, generator: torch.Generator) -> None:
         """The head's normal(0.01) kernel and zero bias."""

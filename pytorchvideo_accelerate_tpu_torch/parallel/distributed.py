@@ -9,44 +9,35 @@ them into one `torch.distributed` group over
 ranks on one card); a failing NCCL init fails the run, it never falls
 back. Each rank trains on card `rank % torch.cuda.device_count()`.
 
-The train mesh: after `initialize_distributed`, `initialize_mesh(model)`
-lays the ranks out on the (data, model) grid, rank r at (r // model,
-r % model) (the row-major order of the JAX package's device grid on the
-CPU), and makes one data group per model index (the ranks that hold the
-same shard of the model, over which gradients are averaged) and one model
-group per data index (the ranks that share a slice of the global batch,
-over which heads, MLP widths or tokens are split). `data_index()`,
-`data_count()`, `model_index()`, `model_count()`, `data_group()` and
-`model_group()` read it; at model 1 (or with no group) they are the
-rank, the world size, 0, 1, the default group and None, so a
-data-parallel job runs as before.
+One rank grid serves both meshes of the JAX package: a tuple of named
+axes and their sizes, rank r at the row-major coordinates of r
+(`grid_ranks`), and one group of each kind for this rank, a kind being the
+ranks that differ only on its axes: each axis, "batch" (the batch axes:
+data, and fsdp on the library mesh) and "model" (every other axis).
 
-The library mesh (`--mesh.fsdp/tensor/context`, the JAX package's
-`make_mesh`): `initialize_library_mesh(fsdp, tensor, context)` lays the
-ranks on the 4-axis (data, fsdp, tensor, context) grid, rank r at the
-row-major coordinates of r (`library_ranks`), and makes five kinds of
-group, each with its index and count:
+- `initialize_mesh(model)` lays out the (data, model) train mesh, (world
+  // model, model) (the row-major order of the JAX package's device grid
+  on the CPU). model 1 lays out nothing: the data-parallel layout, every
+  rank in the data and batch groups (the default group) and no model
+  group.
+- `initialize_library_mesh(fsdp, tensor, context)` lays out the 4-axis
+  (data, fsdp, tensor, context) library mesh (the JAX package's
+  `make_mesh`).
 
-- batch: the ranks that share (tensor, context), i.e. data x fsdp: the
-  shards of every global batch (the loader's shard index
-  `data_index * fsdp + fsdp_index`), over which sync BatchNorm, the loss
-  and eval sum;
-- fsdp: the ranks that share (data, tensor, context), over which the
-  fsdp-sharded parameters are gathered and their gradients
-  reduce-scattered (`parallel/fsdp.py`);
-- data: the ranks that share (fsdp, tensor, context), over which the
-  fsdp shards' gradients are averaged;
-- tensor: the ranks that share (data, fsdp, context), over which
-  Megatron tensor parallelism splits heads and MLP widths;
-- context: the ranks that share (data, fsdp, tensor), over which ring or
-  Ulysses attention splits the tokens.
-
-On the (data, model) grid the same functions read that layout: the batch
-group is the data group, the fsdp group none, and the tensor and context
-groups are both the model group (a run spends the model axis on one of
-them). `model_count()` / `model_index()` on the library mesh are those of
-the tensor x context ranks that share a batch slice (`tensor * context`,
-`tensor_index * context + context_index`); it makes no group of them.
+The accessors read the grid by role, as the JAX package reads a mesh
+(`mesh.model_axis`, `mesh.cp_axis`): the tensor group (Megatron tensor
+parallelism, and a pipeline's stages) is the group of the model-parallel
+axis, `model` on the train mesh and `tensor` on the library mesh; the
+context group (ring and Ulysses attention) that of the context-parallel
+axis, `model` and `context`. On the train mesh both are the model group,
+which a run spends on one of them. The batch group holds the shards of
+every global batch (the loader's shard index `data_index * fsdp +
+fsdp_index`), over which sync BatchNorm, the loss and eval sum; the fsdp
+group the ranks over which fsdp-sharded parameters are gathered and their
+gradients reduce-scattered (`parallel/fsdp.py`); the data group the ranks
+over which a shard's gradients are averaged. `model_count()` /
+`model_index()` are those of the model axes together (tensor x context on
+the library mesh).
 
 Host-side agreement (barriers, the resume step, the preemption flag,
 desync fingerprints) runs over `host_group()`: the group itself under
@@ -70,17 +61,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pytorchvideo_accelerate_tpu_torch.parallel import mesh as pmesh
+from pytorchvideo_accelerate_tpu_torch.parallel.mesh import LIBRARY_AXES, TRAIN_AXES
+
 _INITIALIZED = False
 _HOST_GROUP = None
-# the train mesh: model-axis size, this rank's data and model groups
-_MODEL_COUNT = 1
-_DATA_GROUP = None
-_MODEL_GROUP = None
-# the library mesh: its (data, fsdp, tensor, context) shape and this rank's
+# the one rank grid: its axes (the train mesh's or the library mesh's), their
+# sizes (None: no grid laid out, the data-parallel layout) and this rank's
 # group of each kind
-_LIBRARY: Optional[Tuple[int, int, int, int]] = None
+_AXES: Tuple[str, ...] = TRAIN_AXES
+_SHAPE: Optional[Tuple[int, ...]] = None
 _GROUPS: Dict[str, object] = {}
-
 
 def initialize_distributed(coordinator_address: str = "",
                            num_processes: int = 0, process_id: int = -1, *,
@@ -142,64 +133,43 @@ def _destroy() -> None:
     reset_mesh()
 
 
-def mesh_ranks(data: int, model: int) -> tuple:
-    """(data groups, model groups) of a (data, model) grid as lists of
-    global ranks: data group m holds ranks m, model + m, 2 model + m, ...;
-    model group d holds ranks d * model ... d * model + model - 1."""
-    return ([[d * model + m for d in range(data)] for m in range(model)],
-            [[d * model + m for m in range(model)] for d in range(data)])
-
-
-def initialize_mesh(model: int) -> None:
-    """Lay the ranks out on the (world // model, model) train mesh and make
-    its groups (`dist.new_group`, every rank the same calls in the same
-    order, as torch requires). model 1 makes no group. Idempotent for the
-    same size; another size replaces the layout (after a `reset_mesh`)."""
-    global _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP
-    world = process_count()
-    if model < 1 or world % model:
-        raise ValueError(f"mesh.model={model} does not divide device count "
-                         f"{world}")
-    if (_LIBRARY is None and model == _MODEL_COUNT
-            and (model == 1 or _MODEL_GROUP is not None)):
-        return
-    reset_mesh()
-    if model == 1:
-        return
-    rank = process_index()
-    data_groups, model_groups = mesh_ranks(world // model, model)
-    for ranks in data_groups:
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            _DATA_GROUP = g
-    for ranks in model_groups:
-        g = dist.new_group(ranks)
-        if rank in ranks:
-            _MODEL_GROUP = g
-    _MODEL_COUNT = model
-
-
-def library_ranks(shape: Tuple[int, int, int, int]) -> Dict[str, List[List[int]]]:
-    """{kind: its groups as lists of global ranks} of the (data, fsdp,
-    tensor, context) grid `shape`, rank r at the row-major coordinates of
-    r; each kind (batch, fsdp, data, tensor, context) holds the ranks that
-    differ only on its own axes (batch: data and fsdp; each other kind: its
-    one axis)."""
-    varying = {"batch": (0, 1), "fsdp": (1,), "data": (0,), "tensor": (2,),
-               "context": (3,)}
+def grid_ranks(axes: Tuple[str, ...], shape: Tuple[int, ...]) -> Dict[str, List[List[int]]]:
+    """{kind: its groups as lists of global ranks} of the grid of `axes`
+    sized `shape`, rank r at the row-major coordinates of r. A kind holds
+    the ranks that differ only on its own axes: one kind per axis, "batch"
+    (the batch axes, `mesh.batch_axes`) and "model" (every other axis)."""
+    batch = pmesh.batch_axes(axes)
+    varying = {"batch": batch, **{a: (a,) for a in axes},
+               "model": tuple(a for a in axes if a not in batch)}
     coords = list(itertools.product(*(range(n) for n in shape)))
     out = {}
-    for kind, axes in varying.items():
+    for kind, names in varying.items():
+        pos = {axes.index(a) for a in names}
         groups: Dict[tuple, List[int]] = {}
         for rank, c in enumerate(coords):
-            key = tuple(v for i, v in enumerate(c) if i not in axes)
+            key = tuple(v for i, v in enumerate(c) if i not in pos)
             groups.setdefault(key, []).append(rank)
         out[kind] = list(groups.values())
     return out
 
 
-def library_coords(rank: int, shape: Tuple[int, int, int, int]) -> tuple:
-    """(data, fsdp, tensor, context) index of `rank` on the grid `shape`."""
+def mesh_ranks(data: int, model: int) -> tuple:
+    """(data groups, model groups) of a (data, model) grid as lists of
+    global ranks: data group m holds ranks m, model + m, 2 model + m, ...;
+    model group d holds ranks d * model ... d * model + model - 1."""
+    kinds = grid_ranks(TRAIN_AXES, (data, model))
+    return kinds["data"], kinds["model"]
+
+
+def library_ranks(shape: Tuple[int, int, int, int]) -> Dict[str, List[List[int]]]:
+    """`grid_ranks` of the (data, fsdp, tensor, context) grid `shape`:
+    batch (data and fsdp), each axis, and model (tensor and context)."""
+    return grid_ranks(LIBRARY_AXES, shape)
+
+
+def library_coords(rank: int, shape: Tuple[int, ...]) -> tuple:
+    """The row-major coordinates of `rank` on the grid `shape` ((data,
+    fsdp, tensor, context) on the library mesh)."""
     out = []
     for n in reversed(shape):
         out.append(rank % n)
@@ -207,164 +177,198 @@ def library_coords(rank: int, shape: Tuple[int, int, int, int]) -> tuple:
     return tuple(reversed(out))
 
 
+def _lay_out(axes: Tuple[str, ...], shape: Tuple[int, ...]) -> None:
+    """Make the groups of the grid (`dist.new_group`, every rank the same
+    calls in the same order, as torch requires). A kind whose groups span
+    the world is the default group, one whose groups are those of a kind
+    made before shares its groups, and one of single ranks still makes
+    them (a collective over it is its identity, never the default group's).
+    Idempotent for the same grid."""
+    global _AXES, _SHAPE, _GROUPS
+    if (axes, shape) == (_AXES, _SHAPE):
+        return
+    reset_mesh()
+    world, rank = process_count(), process_index()
+    groups, made = {}, {}
+    for kind, lists in grid_ranks(axes, shape).items():
+        key = tuple(map(tuple, lists))
+        if key in made:
+            groups[kind] = made[key]
+            continue
+        if len(lists[0]) == world:
+            groups[kind] = dist.group.WORLD
+        else:
+            for ranks in lists:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[kind] = g
+        made[key] = groups[kind]
+    _AXES, _SHAPE, _GROUPS = axes, shape, groups
+
+
+def initialize_mesh(model: int) -> None:
+    """Lay the ranks out on the (world // model, model) train mesh. model 1
+    makes no group (the data-parallel layout); another size replaces the
+    layout."""
+    world = process_count()
+    if model < 1 or world % model:
+        raise ValueError(f"mesh.model={model} does not divide device count "
+                         f"{world}")
+    if model == 1:
+        reset_mesh()
+        return
+    _lay_out(TRAIN_AXES, (world // model, model))
+
+
 def initialize_library_mesh(fsdp: int, tensor: int, context: int) -> None:
     """Lay the ranks out on the (world / (fsdp tensor context), fsdp,
-    tensor, context) library mesh and make its groups (`dist.new_group`,
-    every rank the same calls in the same order). A kind whose groups span
-    the world is the default group; one of single ranks still makes them
-    (a collective over it is its identity, never the default group's).
-    Idempotent for the same shape."""
-    global _LIBRARY, _GROUPS
+    tensor, context) library mesh."""
     world = process_count()
     inner = fsdp * tensor * context
     if min(fsdp, tensor, context) < 1 or world % inner:
         raise ValueError(f"mesh axes fsdp*tensor*context={inner} does not "
                          f"divide device count {world}")
-    shape = (world // inner, fsdp, tensor, context)
-    if shape == _LIBRARY:
-        return
-    reset_mesh()
-    rank = process_index()
-    groups = {}
-    for kind, lists in library_ranks(shape).items():
-        if len(lists[0]) == world:
-            groups[kind] = dist.group.WORLD
-            continue
-        for ranks in lists:
-            g = dist.new_group(ranks)
-            if rank in ranks:
-                groups[kind] = g
-    _LIBRARY, _GROUPS = shape, groups
+    _lay_out(LIBRARY_AXES, (world // inner, fsdp, tensor, context))
 
 
 def library_shape() -> Optional[Tuple[int, int, int, int]]:
     """The library mesh's (data, fsdp, tensor, context), None on the
     (data, model) grid."""
-    return _LIBRARY
+    return _SHAPE if _AXES == LIBRARY_AXES else None
 
 
 def reset_mesh() -> None:
     """Back to the data-parallel layout (model 1); the groups are left to
     the process group's teardown."""
-    global _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP, _LIBRARY, _GROUPS
-    _MODEL_COUNT, _DATA_GROUP, _MODEL_GROUP = 1, None, None
-    _LIBRARY, _GROUPS = None, {}
+    global _AXES, _SHAPE, _GROUPS
+    _AXES, _SHAPE, _GROUPS = TRAIN_AXES, None, {}
 
 
-def _coord(axis: int) -> int:
-    return library_coords(process_index(), _LIBRARY)[axis]
+def _sizes() -> Dict[str, int]:
+    """{axis: size} of the grid; (world, 1) when none is laid out."""
+    return dict(zip(_AXES, _SHAPE or (process_count(), 1)))
+
+
+def _coords() -> Dict[str, int]:
+    sizes = _sizes()
+    return dict(zip(_AXES, library_coords(process_index(), tuple(sizes.values()))))
+
+
+def _count(axes) -> int:
+    sizes = _sizes()
+    return int(np.prod([sizes.get(a, 1) for a in axes]))
+
+
+def _index(axes) -> int:
+    """This rank's row-major index over `axes` (0 over absent ones)."""
+    sizes, coords, i = _sizes(), _coords(), 0
+    for a in axes:
+        i = i * sizes.get(a, 1) + coords.get(a, 0)
+    return i
+
+
+def _group(kind: str):
+    """This rank's group of `kind`; with no grid laid out every rank shares
+    the data and batch kinds (the default group) and no other."""
+    if kind in _GROUPS:
+        return _GROUPS[kind]
+    if kind in ("data", "batch") and _SHAPE is None and is_distributed():
+        return dist.group.WORLD
+    return None
+
+
+def _model_axes() -> tuple:
+    return tuple(a for a in _AXES if a not in pmesh.batch_axes(_AXES))
 
 
 def model_count() -> int:
     """Ranks on the model axis (1 without a mesh); on the library mesh the
     tensor x context ranks that share a batch slice."""
-    if _LIBRARY is not None:
-        return _LIBRARY[2] * _LIBRARY[3]
-    return _MODEL_COUNT
+    return _count(_model_axes())
 
 
 def model_index() -> int:
-    if _LIBRARY is not None:
-        return _coord(2) * _LIBRARY[3] + _coord(3)
-    return process_index() % _MODEL_COUNT
+    return _index(_model_axes())
+
+
+def model_group():
+    """This rank's model group (the tensor x context ranks of its batch
+    shard on the library mesh); None at model 1."""
+    return _group("model")
 
 
 def data_count() -> int:
     """Ranks on the data axis: on the (data, model) grid the slices of
     every global batch."""
-    if _LIBRARY is not None:
-        return _LIBRARY[0]
-    return process_count() // _MODEL_COUNT
+    return _count(("data",))
 
 
 def data_index() -> int:
-    if _LIBRARY is not None:
-        return _coord(0)
-    return process_index() // _MODEL_COUNT
+    return _index(("data",))
 
 
 def data_group():
     """This rank's data group: the default group at model 1."""
-    if _LIBRARY is not None:
-        return _GROUPS["data"]
-    if _MODEL_COUNT == 1:
-        return dist.group.WORLD if is_distributed() else None
-    return _DATA_GROUP
-
-
-def model_group():
-    """This rank's model group; None at model 1 and on the library mesh
-    (whose tensor and context groups split it)."""
-    return _MODEL_GROUP
+    return _group("data")
 
 
 def batch_count() -> int:
     """The shards of every global batch: data x fsdp (the data count on
     the (data, model) grid)."""
-    if _LIBRARY is not None:
-        return _LIBRARY[0] * _LIBRARY[1]
-    return data_count()
+    return _count(pmesh.batch_axes(_AXES))
 
 
 def batch_index() -> int:
     """This rank's batch shard, data_index * fsdp + fsdp_index."""
-    if _LIBRARY is not None:
-        return _coord(0) * _LIBRARY[1] + _coord(1)
-    return data_index()
+    return _index(pmesh.batch_axes(_AXES))
 
 
 def batch_group():
     """The ranks of the other batch shards of this rank's (tensor,
     context): the data group on the (data, model) grid."""
-    if _LIBRARY is not None:
-        return _GROUPS["batch"]
-    return data_group()
+    return _group("batch")
 
 
 def fsdp_count() -> int:
-    return _LIBRARY[1] if _LIBRARY is not None else 1
+    return _count(("fsdp",))
 
 
 def fsdp_index() -> int:
-    return _coord(1) if _LIBRARY is not None else 0
+    return _index(("fsdp",))
 
 
 def fsdp_group():
     """The ranks over which the fsdp shards are gathered; None off the
     library mesh."""
-    return _GROUPS.get("fsdp")
+    return _group("fsdp")
 
 
 def tensor_count() -> int:
-    """Ranks Megatron tensor parallelism splits over: the model axis on
-    the (data, model) grid."""
-    return _LIBRARY[2] if _LIBRARY is not None else _MODEL_COUNT
+    """Ranks Megatron tensor parallelism (or the pipeline's stages) splits
+    over: the model axis on the (data, model) grid."""
+    return _count((pmesh.model_axis(_AXES),))
 
 
 def tensor_index() -> int:
-    return _coord(2) if _LIBRARY is not None else model_index()
+    return _index((pmesh.model_axis(_AXES),))
 
 
 def tensor_group():
-    if _LIBRARY is not None:
-        return _GROUPS["tensor"]
-    return _MODEL_GROUP
+    return _group(pmesh.model_axis(_AXES))
 
 
 def context_count() -> int:
     """Ranks ring or Ulysses attention splits the tokens over: the model
     axis on the (data, model) grid."""
-    return _LIBRARY[3] if _LIBRARY is not None else _MODEL_COUNT
+    return _count((pmesh.cp_axis(_AXES),))
 
 
 def context_index() -> int:
-    return _coord(3) if _LIBRARY is not None else model_index()
+    return _index((pmesh.cp_axis(_AXES),))
 
 
 def context_group():
-    if _LIBRARY is not None:
-        return _GROUPS["context"]
-    return _MODEL_GROUP
+    return _group(pmesh.cp_axis(_AXES))
 
 
 def group_ranks(group) -> list:

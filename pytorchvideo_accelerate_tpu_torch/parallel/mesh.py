@@ -7,20 +7,23 @@ The port runs one process per card. Two layouts, as in the JAX package:
   (`distributed.initialize_mesh`). `data` slices every global batch;
   `model` is spent per run as the JAX trainer spends it
   (`parallel/tensor_parallel.py layout`: tensor-parallel heads and MLP
-  widths, context-parallel tokens, or replication; its `cp_axis` and
-  `model_axis` are this one axis). The defaults (`model` 1, `data` -1) are
+  widths, context-parallel tokens, pipeline stages
+  (`parallel/pipeline.py`) or replication; its `cp_axis` and `model_axis`
+  are this one axis). The defaults (`model` 1, `data` -1) are
   the reference's DDP layout.
 - the 4-axis library mesh (data, fsdp, tensor, context), which any of
   `--mesh.fsdp/tensor/context` above 1 selects (the JAX package's
   `make_train_mesh` falls through to `make_mesh`): rank r at the row-major
   coordinates of r (`distributed.initialize_library_mesh`). The batch
   shards over data x fsdp, the parameters and optimizer state shard over
-  fsdp (`parallel/fsdp.py`), Megatron TP runs over `tensor` and ring /
-  Ulysses over `context`, both at once.
+  fsdp (`parallel/fsdp.py`), Megatron TP (or the pipeline's stages) runs
+  over `tensor` and ring / Ulysses over `context`, both at once.
 
 A resolved shape is a tuple: (data, model) or (data, fsdp, tensor,
 context); `batch_axes`, `model_axis`, `cp_axis` and `data_shard_count` read
-the axes off it, as the JAX functions read them off a mesh.
+the axes off it, as the JAX functions read them off a mesh (the first three
+equally off the axis names, which is how `distributed.py`'s one rank grid
+reads its roles). Both layouts are one grid of ranks there.
 """
 
 from __future__ import annotations

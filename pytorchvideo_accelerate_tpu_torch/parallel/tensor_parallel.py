@@ -15,10 +15,11 @@ layers and their collectives are explicit).
   decision). On the (data, model) grid the one model axis is spent on
   tensor parallelism (MViT and VideoMAE: `tp`), on context parallelism
   (`--model.attention ring|ulysses`: `cp`, the attention's token axis
-  split over the same ranks, parameters replicated) or on nothing (the
-  conv families replicate). On the library mesh TP runs over `tensor` and
-  CP over `context`, both at once, and `fsdp_plan` shards the big leaves
-  over `fsdp` (`parallel/fsdp.py`).
+  split over the same ranks, parameters replicated), on pipeline stages
+  (`pipeline`, `parallel/pipeline.py`: parameters replicated) or on
+  nothing (the conv families replicate). On the library mesh TP (or the
+  stages) runs over `tensor` and CP over `context`, both at once, and
+  `fsdp_plan` shards the big leaves over `fsdp` (`parallel/fsdp.py`).
 - `apply_model_axis(model, axis)`: the full-width model, built from the
   seed on every rank, cut to this rank's shards in place by
   `parallel/sharding.py shard_plan`: each split `qkv`/`proj`/`mlp_fc1`/
@@ -38,7 +39,7 @@ model group.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +52,11 @@ from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.distributed import tensor_group
 from pytorchvideo_accelerate_tpu_torch.parallel.fsdp import apply_fsdp
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
+    PipelinePlan,
+    is_active,
+    staged_params,
+)
 from pytorchvideo_accelerate_tpu_torch.parallel.sharding import (
     FSDP,
     TP,
@@ -87,11 +93,15 @@ class ModelAxis:
     fsdp_index: int = 0
     fsdp_min_size: int = 2**16
     fsdp_plan: FsdpPlan = field(default_factory=dict)
+    pipeline: Optional[PipelinePlan] = None
 
     @property
     def mode(self) -> str:
         """What the model-parallel axis carries (the JAX trainer's word):
         on the library mesh context parallelism has its own axis."""
+        if self.pipeline is not None:
+            return (f"pipelined ({self.pipeline.stages} stages, "
+                    f"{self.pipeline.microbatches} microbatches)")
         if self.cp and not self.library:
             return "context-parallel"
         return "tensor-parallel" if self.tp else "replicated"
@@ -99,7 +109,8 @@ class ModelAxis:
 
 def layout(model_name: str, attention: str, count: int, index: int = 0, *,
            library: bool = False, fsdp_count: int = 1, fsdp_index: int = 0,
-           fsdp_min_size: int = 2**16) -> ModelAxis:
+           fsdp_min_size: int = 2**16,
+           pipeline: Optional[PipelinePlan] = None) -> ModelAxis:
     """The JAX trainer's decision (`trainer/loop.py`): on the (data,
     model) grid the context-parallel lane spends the model axis when
     `attention` is ring or ulysses; otherwise the transformer families
@@ -107,12 +118,16 @@ def layout(model_name: str, attention: str, count: int, index: int = 0, *,
     library mesh (`library`) the transformer families split over the
     tensor axis (`count`) whatever the attention, ring and ulysses run
     over the context axis, and the fsdp axis shards the leaves of at least
-    `fsdp_min_size` elements (the JAX package's `min_size`)."""
+    `fsdp_min_size` elements (the JAX package's `min_size`). An active
+    `pipeline` spends the axis on stages (`parallel/pipeline.py`): no
+    tensor parallelism."""
     cp = attention in CP_BACKENDS
-    tp = family_uses_tp(model_name) and (library or not cp)
+    pipelined = is_active(pipeline)
+    tp = family_uses_tp(model_name) and (library or not cp) and not pipelined
     return ModelAxis(count=count, index=index, tp=tp and count > 1, cp=cp,
                      library=library, fsdp_count=fsdp_count,
-                     fsdp_index=fsdp_index, fsdp_min_size=fsdp_min_size)
+                     fsdp_index=fsdp_index, fsdp_min_size=fsdp_min_size,
+                     pipeline=pipeline if pipelined else None)
 
 
 class ColumnDense(Dense):
@@ -193,9 +208,11 @@ def model_axis_of(model: nn.Module) -> ModelAxis:
 
 def partial_params(model: nn.Module) -> List[str]:
     """Names of the replicated parameters whose gradient each rank holds in
-    part (the pools of each split MViT attention): the step sums them over
-    the model group."""
-    out = []
+    part: the pools of each split MViT attention, and the blocks of a
+    pipelined trunk, each of which only its owner stage runs
+    (`parallel/pipeline.py staged_params`). The step sums them over the
+    tensor group (the stage group)."""
+    out = staged_params(model)
     for name, m in model.named_modules():
         for pool in getattr(m, "partial_pools", lambda: [])():
             out += [f"{name}.{pool}.{n}" for n, _ in

@@ -97,7 +97,13 @@ world / M): the ranks sit on the (world / M, M) train mesh, rank r at
 the JAX trainer spends it (`parallel/tensor_parallel.py layout`, printed on
 rank 0): MViT and VideoMAE split heads and MLP widths over it
 (tensor-parallel), `--model.attention ring|ulysses` splits the
-attention's tokens instead (context-parallel), the conv families
+attention's tokens instead (context-parallel), `--parallel.pipeline_stages
+M` cuts their block stacks into M stages instead (pipelined,
+`parallel/pipeline.py`: the (G, B) micro axis folded into one forward,
+eval unpipelined on every rank, the step's perf keys `pipeline_stages`,
+`pipeline_microbatches`, `pipeline_bubble_frac_analytic`,
+`pipeline_cps_per_chip`; on the library mesh the stages take the tensor
+axis and compose with ring / Ulysses over context), the conv families
 replicate. Every rank builds the full-width model from the seed (and loads
 `--model.pretrained_path` into it), then keeps its shards; the ranks of a
 model group load the same batches (the loader is dealt by data index and
@@ -178,13 +184,22 @@ from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     tensor_index,
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.mesh import (
+    cp_axis,
     data_shard_count,
     is_library,
     mesh_line,
     resolve_layout,
 )
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
+    PipelinePlan,
+    analytic_bubble_frac,
+)
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
+    make_plan as make_pipeline_plan,
+)
 from pytorchvideo_accelerate_tpu_torch.parallel.sharding import full_state_dict
 from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+    CP_BACKENDS,
     apply_model_axis,
     layout,
     param_kinds,
@@ -240,9 +255,9 @@ def refuse_unported(cfg: TrainConfig) -> None:
     `model.pretrained`."""
     d, m = cfg.data, cfg.model
     refused = [
-        (cfg.parallel.pipeline_stages > 1,
-         f"parallel.pipeline_stages={cfg.parallel.pipeline_stages} "
-         "(parallel/pipeline.py; Multi-GPU, ROADMAP.md A.3)"),
+        (cfg.parallel.pipeline_stages > 1 and cfg.mesh.fsdp > 1,
+         "parallel.pipeline_stages > 1 with mesh.fsdp > 1 (pipeline x "
+         "FSDP, ROADMAP.md A)"),
         (d.dataplane_workers > 0,
          "data.dataplane_workers (the dataplane, ROADMAP.md A.7)"),
     ]
@@ -308,6 +323,18 @@ class Trainer:
             initialize_library_mesh(*self.mesh_shape[1:])
         elif self.distributed:
             initialize_mesh(self.mesh_shape[1])
+        # pipeline stages spend the model axis (the library mesh's tensor
+        # axis): no Megatron TP then; on the train mesh ring / Ulysses want
+        # the same axis and make_plan refuses, on the library mesh they
+        # keep the context axis
+        self.pipeline_plan: Optional[PipelinePlan] = None
+        if cfg.parallel.pipeline_stages > 1:
+            self.pipeline_plan = make_pipeline_plan(
+                self.mesh_shape, cfg.parallel.pipeline_stages,
+                microbatches=cfg.parallel.pipeline_microbatches,
+                accum_steps=cfg.optim.gradient_accumulation_steps,
+                cp_axis_name=(cp_axis(self.mesh_shape)
+                              if cfg.model.attention in CP_BACKENDS else None))
         self.device = resolve_train_device(cfg)
         # telemetry before the data stack, so the prefetchers' spans and the
         # ledger's allocation sites see it (JAX `loop.py`); off, the ledger
@@ -325,7 +352,8 @@ class Trainer:
         # model axis
         self.model_axis = layout(
             cfg.model.name, cfg.model.attention, tensor_count(), tensor_index(),
-            library=library, fsdp_count=fsdp_count(), fsdp_index=fsdp_index())
+            library=library, fsdp_count=fsdp_count(), fsdp_index=fsdp_index(),
+            pipeline=self.pipeline_plan)
         if self.distributed:
             main_print(mesh_line(self.mesh_shape, self.device.type,
                                  self.model_axis.mode), flush=True)
@@ -489,7 +517,8 @@ class Trainer:
         # the full-width model on every rank (and the pretrained weights
         # loaded into it), then this rank's shards of it
         self.model = create_model(cfg.model, cfg.mixed_precision,
-                                  seed=cfg.seed, data_cfg=cfg.data)
+                                  seed=cfg.seed, data_cfg=cfg.data,
+                                  pipeline=self.pipeline_plan)
         self.pretrained_report: Optional[dict] = None
         if cfg.model.pretrained and cfg.model.pretrained_path:
             self._load_pretrained()
@@ -517,7 +546,10 @@ class Trainer:
                 self.model, optimizer,
                 accum_steps=cfg.optim.gradient_accumulation_steps,
                 ema_decay=cfg.optim.ema_decay, seed=cfg.seed,
-                guard_skip=cfg.guard.enabled, health_metrics=self.obs_on)
+                guard_skip=cfg.guard.enabled, health_metrics=self.obs_on,
+                pipeline=self.pipeline_plan)
+            # eval runs without autograd: the plain loop on every rank, the
+            # JAX trainer's unpipelined eval twin
             self.eval_step = make_pretrain_eval_step(self.model)
             return
         self.train_step = make_train_step(
@@ -528,10 +560,27 @@ class Trainer:
             ema_decay=cfg.optim.ema_decay, dropout_seed=cfg.seed,
             mixup_alpha=cfg.optim.mixup_alpha,
             cutmix_alpha=cfg.optim.cutmix_alpha,
-            guard_skip=cfg.guard.enabled, health_metrics=self.obs_on)
+            guard_skip=cfg.guard.enabled, health_metrics=self.obs_on,
+            pipeline=self.pipeline_plan)
         self.eval_step = make_eval_step(
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
+
+    def _pipeline_perf(self, perf: dict) -> None:
+        """The JAX trainer's pipeline keys: the plan's stages and
+        microbatches, the analytic fill-drain bubble and clips/s per card,
+        and the `pva_pipeline_bubble_frac` gauge when obs is on."""
+        plan = self.pipeline_plan
+        perf["pipeline_stages"] = plan.stages
+        perf["pipeline_microbatches"] = plan.microbatches
+        perf["pipeline_bubble_frac_analytic"] = analytic_bubble_frac(
+            plan.stages, plan.microbatches)
+        perf["pipeline_cps_per_chip"] = perf["clips_per_sec"] / self.world
+        if self.obs_on:
+            obs.get_registry().gauge(
+                "pva_pipeline_bubble_frac",
+                "pipeline fill/drain idle fraction, analytic (P-1)/(M+P-1)",
+            ).set(perf["pipeline_bubble_frac_analytic"])
 
     def _ledger_train_state(self) -> None:
         """The ledger's `train_state` component: the bytes of this rank's
@@ -1007,6 +1056,8 @@ class Trainer:
                     }
                     if self.distributed:
                         last_perf["clips_per_sec_per_card"] = cps / self.world
+                    if self.pipeline_plan is not None:
+                        self._pipeline_perf(last_perf)
                     if tguard is not None:
                         last_perf.update(tguard.perf_keys())
                     if self.obs_on:

@@ -40,6 +40,16 @@ of `parallel/fsdp.py`'s gather); it is averaged over the data group and
 divided by the fsdp count. The global norm sums the shards' squares over
 their groups (trainer/optim.py).
 
+Under an active pipeline plan (`parallel/pipeline.py`) the (G, B, ...)
+micro axis is folded into one forward of G B rows (`fold_micro_axis`, the
+JAX step's `_fold_micro_axis`): the stage schedule streams the plan's
+microbatches, so the accumulation loop, which would fill and drain the
+pipeline once a micro-step, goes; mixing and the MAE tube mask then draw
+once per effective batch (micro-step 0's draw). The trunk blocks'
+gradients, each non-zero only on its owner stage, are among the partial
+ones above: summed over the stage group (the tensor group), and nothing
+else is.
+
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
 (1.0 = real sample, 0.0 = padding). With gradient accumulation G > 1 every
@@ -73,6 +83,7 @@ from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     process_count,
     tensor_count,
 )
+from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import is_active
 from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
     FSDP,
     TP,
@@ -227,11 +238,17 @@ class _Snapshot:
             torch._foreach_copy_(live, new_views)
 
 
+def fold_micro_axis(batch: dict) -> dict:
+    """Every (G, B, ...) leaf of `batch` as (G B, ...)."""
+    return {k: v.reshape((v.shape[0] * v.shape[1],) + tuple(v.shape[2:]))
+            for k, v in batch.items()}
+
+
 def _make_update_step(model, optimizer, forward_loss: Callable,
                       accum_steps: int, ema_decay: float,
                       dropout_seed: Optional[int], with_accuracy: bool,
                       guard_skip: bool = False,
-                      health_metrics: bool = False) -> Callable:
+                      health_metrics: bool = False, pipeline=None) -> Callable:
     """The optimizer step shared by the supervised and the MAE objective:
     `forward_loss(micro_batch, step, micro) -> (loss, correct, count)` per
     micro-batch in order, backward each, the summed grads divided by
@@ -265,7 +282,10 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     norms sum shards' squares over their groups (`global_norm`), so every
     rank reads the same values; under `guard_skip` a skipped step reports
     the update it discarded and the parameters it kept, as the JAX step
-    does."""
+    does.
+
+    `pipeline` (an active `PipelinePlan`): the micro axis is folded into
+    one forward (`fold_micro_axis`; the module docstring)."""
     named = dict(model.named_parameters())
     names = [n for n, p in named.items() if p.requires_grad]
     params = [named[n] for n in names]
@@ -277,6 +297,8 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     before = (snapshot if guard_skip else _Snapshot()) if health_metrics else None
     param_kinds_ = [kinds[n] for n in names]
     distributed = is_distributed()
+    fold = is_active(pipeline) and accum_steps > 1
+    micro_steps = 1 if fold else accum_steps
 
     def leaves(state, opt_keys):
         opt = _optimizer_tensors(optimizer)
@@ -300,8 +322,10 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
         elif before is not None:
             before.take([p.detach() for p in params])
         losses, corrects, counts = [], [], []
-        for i in range(accum_steps):
-            mb = batch if accum_steps == 1 else {k: v[i] for k, v in batch.items()}
+        if fold:
+            batch = fold_micro_axis(batch)
+        for i in range(micro_steps):
+            mb = batch if micro_steps == 1 else {k: v[i] for k, v in batch.items()}
             loss, correct, count = forward_loss(mb, state.step, i)
             loss.backward()
             losses.append(loss.detach())
@@ -309,8 +333,8 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
             counts.append(count)
         live = [(n, p.grad) for n, p in zip(names, params) if p.grad is not None]
         grads = [g for _, g in live]
-        if accum_steps > 1:
-            torch._foreach_div_(grads, float(accum_steps))
+        if micro_steps > 1:
+            torch._foreach_div_(grads, float(micro_steps))
         loss = torch.stack(losses).mean()
         if with_accuracy:
             correct, count = torch.stack(corrects).sum(), torch.stack(counts).sum()
@@ -483,7 +507,7 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
                     dropout_seed: Optional[int] = None,
                     mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0,
                     guard_skip: bool = False,
-                    health_metrics: bool = False) -> Callable:
+                    health_metrics: bool = False, pipeline=None) -> Callable:
     """Build `step(state, batch) -> metrics`. One call is one optimizer
     step: forward + backward per micro-batch in order (the BN running
     averages thread through them), the summed grads divided by
@@ -499,8 +523,8 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     normalize, each micro-batch is mixed with its flipped self through
     `mix_weight(mix_draw(seed, step, micro, ...))`; the loss is lam_eff *
     CE(y) + (1 - lam_eff) * CE(y[::-1]) with lam_eff = mean(w), and the
-    accuracy counts the dominant label. `guard_skip`, `health_metrics`: see
-    `_make_update_step`."""
+    accuracy counts the dominant label. `guard_skip`, `health_metrics`,
+    `pipeline`: see `_make_update_step`."""
     mixing = mixup_alpha > 0 or cutmix_alpha > 0
     seed = dropout_seed or 0
 
@@ -528,7 +552,8 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
 
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
                              ema_decay, dropout_seed, with_accuracy=True,
-                             guard_skip=guard_skip, health_metrics=health_metrics)
+                             guard_skip=guard_skip, health_metrics=health_metrics,
+                             pipeline=pipeline)
 
 
 def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
@@ -541,12 +566,13 @@ def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
 def make_pretrain_step(model, optimizer, accum_steps: int = 1,
                        ema_decay: float = 0.0, seed: int = 0,
                        guard_skip: bool = False,
-                       health_metrics: bool = False) -> Callable:
+                       health_metrics: bool = False, pipeline=None) -> Callable:
     """Build the VideoMAE self-supervised step `step(state, batch) ->
     metrics` (JAX `make_pretrain_step`): no labels, the model returns its
     own reconstruction loss under a tube mask drawn from
     `mask_generator(seed, step, micro)`; the same accumulation, clip, EMA
-    `guard_skip` and `health_metrics` as `make_train_step`. `metrics`:
+    `guard_skip`, `health_metrics` and `pipeline` as `make_train_step`
+    (folded, one mask of micro-step 0 for the effective batch). `metrics`:
     "loss", "grad_norm", "lr" (and "skipped" under `guard_skip`, the three
     gauges under `health_metrics`)."""
 
@@ -557,7 +583,8 @@ def make_pretrain_step(model, optimizer, accum_steps: int = 1,
 
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
                              ema_decay, seed, with_accuracy=False,
-                             guard_skip=guard_skip, health_metrics=health_metrics)
+                             guard_skip=guard_skip, health_metrics=health_metrics,
+                             pipeline=pipeline)
 
 
 def make_pretrain_eval_step(model) -> Callable:

@@ -705,6 +705,302 @@ def unwind(rank, world, d):
     os._exit(0)
 
 
+# --- pipeline stages (tests/test_torch_pipeline.py) --------------------------
+
+
+def _count_stage_calls(counts):
+    """Wrap dist's collectives to count this rank's calls per (name, group
+    ranks); returns the originals for `_restore_calls`."""
+    real = {}
+    for name in ("broadcast", "all_reduce", "batch_isend_irecv"):
+        real[name] = getattr(dist, name)
+
+        def call(*a, _name=name, **kw):
+            group = kw.get("group")
+            if _name == "batch_isend_irecv":
+                group = a[0][0].group
+            key = (_name, tuple(pdist.group_ranks(group)))
+            counts[key] = counts.get(key, 0) + 1
+            return real[_name](*a, **kw)
+        setattr(dist, name, call)
+    return real
+
+
+def _restore_calls(real):
+    for name, fn in real.items():
+        setattr(dist, name, fn)
+
+
+def _pipe_model(d, case, plan, attention="dense"):
+    """The case's seeded twin (`w/` leaves of DIR/<name>.npz) built with
+    `plan`."""
+    from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.models.convert import state_dict_from_jax
+
+    spec = np.load(os.path.join(d, f"{case['name']}.npz"))
+    flat = {k[2:]: spec[k] for k in spec.files if k.startswith("w/")}
+    model = create_model(
+        ModelConfig(name=case["name"], num_classes=int(spec["num_classes"]),
+                    dropout_rate=0.0, attention=attention,
+                    remat=bool(case.get("remat"))), "fp32",
+        data_cfg=DataConfig(num_frames=spec["video"].shape[1],
+                            crop_size=spec["video"].shape[2]), pipeline=plan)
+    model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in
+                           state_dict_from_jax(flat).items()})
+    return spec, model
+
+
+def _rows(x, index, count):
+    b = x.shape[0] // count
+    return torch.from_numpy(np.ascontiguousarray(x[index * b:(index + 1) * b]))
+
+
+def _inject_mask(spec):
+    """The port's tube mask replaced by this batch shard's rows of the
+    spec's global `keep` / `masked` indices; returns the function to put
+    back."""
+    from pytorchvideo_accelerate_tpu_torch.models import videomae as tvideomae
+
+    def mask(generator, batch, t, h, w, ratio, device=None):
+        return tuple(_rows(spec[k], pdist.batch_index(), pdist.batch_count()).to(device)
+                     for k in ("keep", "masked"))
+    real, tvideomae.tube_mask_indices = tvideomae.tube_mask_indices, mask
+    return real
+
+
+def _pipe_blocks(d, case, plan):
+    """(b): `pipeline_blocks` over the encoder blocks of the videomae_t
+    twin (under remat with `remat`) on this data shard's rows of
+    DIR/blocks.npz's tokens, the loss sum(y * ct), the gradients reduced
+    as the step reduces them."""
+    from pytorchvideo_accelerate_tpu_torch.parallel import pipeline as pl
+    from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+        param_kinds,
+        partial_params,
+    )
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import reduce_grads
+
+    _, model = _pipe_model(d, {"name": "videomae_t", "remat": case.get("remat")}, plan)
+    enc = model.encoder
+    spec = np.load(os.path.join(d, "blocks.npz"))
+    x = _rows(spec["x"], pdist.data_index(), pdist.data_count()).requires_grad_()
+    ct = _rows(spec["ct"], pdist.data_index(), pdist.data_count())
+    counts = {}
+    pl.reset_transfers()
+    real = _count_stage_calls(counts)
+    try:
+        y = pl.pipeline_blocks(enc.blocks(), x, plan)
+        (y * ct).sum().backward()
+    finally:
+        _restore_calls(real)
+    transfers = dict(pl.TRANSFERS)
+    live = [(n, p.grad) for n, p in enc.named_parameters() if p.grad is not None]
+    reduce_grads(live, param_kinds(enc), set(partial_params(enc)))
+    return {"y": _np(y), "dx": _np(x.grad), "counts": counts, "transfers": transfers,
+            "grads": {n: _np(g) for n, g in live if n.startswith("block")}}
+
+
+def _pipe_step(d, case, plan):
+    """(c), (g): one step of the case's model built with `plan` on this
+    data shard's rows (the tube mask injected), SGD of the spec's optim;
+    `nan`: the first clip poisoned, under `guard_skip`."""
+    import json
+
+    from pytorchvideo_accelerate_tpu_torch.config import OptimConfig
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import (
+        make_pretrain_step,
+        make_train_step,
+    )
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    with open(os.path.join(d, "pipeline.json")) as f:
+        optim = json.load(f)["optim"]
+    spec, model = _pipe_model(d, case, plan)
+    opt = build_optimizer(OptimConfig(**optim), 4, model.named_parameters())
+    state = TrainState.create(model, opt)
+    guard = bool(case.get("nan"))
+    video = _rows(spec["video"], pdist.batch_index(), pdist.batch_count())
+    if guard and pdist.batch_index() == 0:
+        video[0, 0, 0, 0] = float("nan")
+    from pytorchvideo_accelerate_tpu_torch.models import videomae as tvideomae
+
+    batch, mask = {"video": video}, tvideomae.tube_mask_indices
+    if case["name"].endswith("_pretrain"):
+        mask = _inject_mask(spec)
+        step = make_pretrain_step(model, opt, pipeline=plan, guard_skip=guard)
+    else:
+        batch["label"] = _rows(spec["label"], pdist.batch_index(), pdist.batch_count())
+        step = make_train_step(model, opt, pipeline=plan, guard_skip=guard)
+    before = {k: _np(v) for k, v in model.state_dict().items()}
+    counts = {}
+    real = _count_stage_calls(counts)
+    try:
+        m = step(state, batch)
+    finally:
+        _restore_calls(real)
+        tvideomae.tube_mask_indices = mask
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "skipped": float(m.get("skipped", 0.0)),
+            "accuracy": float(m.get("accuracy", 0.0)), "counts": counts,
+            "grads": {n: _np(p.grad) for n, p in model.named_parameters()},
+            "before": before, "state": {k: _np(v) for k, v in model.state_dict().items()},
+            "opt": {f"{i}/{k}": _np(v) for i, st in enumerate(opt.opt.state.values())
+                    for k, v in st.items() if torch.is_tensor(v)}}
+
+
+def _pipe_fold(d, case, plan):
+    """(d): videomae_t, accumulation 2, the pipelined step (the micro axis
+    folded) against the unpipelined step on the same weights and batch."""
+    import json
+
+    from pytorchvideo_accelerate_tpu_torch.config import OptimConfig
+    from pytorchvideo_accelerate_tpu_torch.trainer.optim import build_optimizer
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import make_train_step
+    from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+
+    with open(os.path.join(d, "pipeline.json")) as f:
+        optim = json.load(f)["optim"]
+    out = {}
+    for tag, p in (("pipelined", plan), ("plain", None)):
+        spec, model = _pipe_model(d, case, p)
+        opt = build_optimizer(OptimConfig(**optim), 4, model.named_parameters())
+        state = TrainState.create(model, opt)
+        step = make_train_step(model, opt, accum_steps=2, pipeline=p)
+        batch = {k: torch.from_numpy(spec[k].reshape((2, -1) + spec[k].shape[1:]).copy())
+                 for k in ("video", "label")}
+        m = step(state, batch)
+        out[tag] = {"loss": float(m["loss"]),
+                    "state": {k: _np(v) for k, v in model.state_dict().items()}}
+    return out
+
+
+def _pipe_mvit(d, case, plan):
+    """(e): a uniform MViT (no stage starts, no drop path) pipelined
+    against the same weights unpipelined: output and input gradient on
+    the seeded clips of DIR/mvit_u.npz, the gradients reduced."""
+    import copy
+
+    from pytorchvideo_accelerate_tpu_torch.models import init_like_jax
+    from pytorchvideo_accelerate_tpu_torch.models.mvit import MViT
+    from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+        param_kinds,
+        partial_params,
+    )
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import reduce_grads
+
+    spec = np.load(os.path.join(d, "mvit_u.npz"))
+    plain = MViT(4, input_grid=spec["x"].shape[1:4], embed_dim=16, depth=4, num_heads=2,
+                 stage_starts=(), drop_path_rate=0.0, dropout_rate=0.0)
+    init_like_jax(plain, torch.Generator().manual_seed(0))
+    piped = copy.deepcopy(plain)
+    piped.set_pipeline(plan)
+    out = {}
+    for tag, m in (("plain", plain), ("pipelined", piped)):
+        x = torch.from_numpy(spec["x"]).requires_grad_()
+        y = m(x)
+        (y * torch.from_numpy(spec["ct"])).sum().backward()
+        live = [(n, p.grad) for n, p in m.named_parameters() if p.grad is not None]
+        reduce_grads(live, param_kinds(m), set(partial_params(m)))
+        out[tag] = {"y": _np(y), "dx": _np(x.grad), "grads": {n: _np(g) for n, g in live}}
+    return out
+
+
+def _pipe_library(d, case, plan):
+    """(f): videomae_t on the (1, 1, 2, 2) library mesh, pipelined over
+    `tensor` with ring attention over `context`, against the dense
+    unpipelined twin: logits, and the gradients of sum(logits * ct)."""
+    from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
+        param_kinds,
+        partial_params,
+    )
+    from pytorchvideo_accelerate_tpu_torch.trainer.steps import reduce_grads
+
+    out = {}
+    for tag, p, att in (("dense", None, "dense"), ("ring_pipelined", plan, "ring")):
+        spec, model = _pipe_model(d, case, p, attention=att)
+        y = model(torch.from_numpy(spec["video"]))
+        (y * torch.from_numpy(spec["ct"])).sum().backward()
+        live = [(n, g.grad) for n, g in model.named_parameters() if g.grad is not None]
+        if p is not None:
+            reduce_grads(live, param_kinds(model), set(partial_params(model)))
+        out[tag] = {"y": _np(y), "grads": {n: _np(g) for n, g in live}}
+    return out
+
+
+def _pipe_trainer(d, case, plan):
+    """(h): run.main's Trainer at (1, 2) with `--parallel.pipeline_stages
+    2` (videomae_t_pretrain, a checkpoint every step): each step's loss and
+    this rank's parameters after it, the fit's result and its full state."""
+    del plan
+    argv = _ma_argv(d, case["tag"], case["argv"])
+    states = []
+
+    def keep(trainer, step):
+        states.append({k: _np(v) for k, v in trainer.model.state_dict().items()})
+    result, seen, _ = _fit(argv, on_step=keep)
+    t = _LAST[0]
+    full = {k: _np(v) for k, v in t.state.state_dict()["model"].items()}
+    ckpt = os.path.join(t.checkpointer.directory, str(t.checkpointer.latest_step()))
+    t.close()
+    return {"result": result, "seen": seen, "states": states, "full": full, "ckpt": ckpt,
+            "mode": t.model_axis.mode}
+
+
+_PIPE_KINDS = {"blocks": _pipe_blocks, "step": _pipe_step, "fold": _pipe_fold,
+               "mvit": _pipe_mvit, "library": _pipe_library, "trainer": _pipe_trainer}
+
+
+def pipeline(rank, world, d):
+    """The cases of DIR/pipeline.json for this world size in turn, each on
+    its grid (`model`: the (world / model, model) train mesh; `library`: the
+    (data, fsdp, tensor, context) mesh) with its plan; a case with
+    `control` runs with the stage-group sum patched out (the trunk blocks'
+    gradients reduced as replicated ones)."""
+    import json
+
+    from pytorchvideo_accelerate_tpu_torch.parallel import pipeline as pl
+    from pytorchvideo_accelerate_tpu_torch.parallel import tensor_parallel as tp
+
+    with open(os.path.join(d, "pipeline.json")) as f:
+        cases = [c for c in json.load(f)["cases"] if c["world"] == world]
+    staged = tp.staged_params
+    out = {}
+    for case in cases:
+        if "library" in case:
+            pdist.initialize_library_mesh(*case["library"][1:])
+            shape = tuple(case["library"])
+        else:
+            pdist.initialize_mesh(case["model"])
+            shape = (world // case["model"], case["model"])
+        plan = pl.make_plan(shape, case.get("stages", 2), microbatches=case.get("micro", 2),
+                            cp_axis_name="context" if "library" in case else None)
+        if case.get("control"):
+            tp.staged_params = lambda model: []
+        try:
+            out[case["tag"]] = _PIPE_KINDS[case["kind"]](d, case, plan)
+        finally:
+            tp.staged_params = staged
+    return out
+
+
+def pipeline_restore(rank, world, d):
+    """(h) at (1, 1): a fresh Trainer of the test's one-process argv
+    restoring the (1, 2) pipelined checkpoint DIR/ckpt.txt names; its
+    state."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import Checkpointer
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    with open(os.path.join(d, "ckpt.txt")) as f:
+        ckpt = f.read().strip()
+    t = Trainer(parse_cli(_ma_argv(d, "restore11", [
+        "--model.name", "videomae_t_pretrain", "--batch_size", "4"])))
+    Checkpointer(os.path.dirname(ckpt)).restore(t.state, step=int(os.path.basename(ckpt)))
+    return {k: _np(v) for k, v in t.state.state_dict()["model"].items()}
+
+
 def run_group(scenario: str, d, world: int = 2, env=None,
               timeout_s: float = 150.0) -> list:
     """Start `world` spawned ranks of `scenario` over directory `d`; fail
@@ -738,7 +1034,8 @@ SCENARIOS = {"collectives": collectives, "env": env, "train_step": train_step,
              "pretrained": pretrained, "model_axis": model_axis,
              "cp_attention": cp_attention, "replicated": replicated, "ckpt": ckpt,
              "mvit_tp_forward": mvit_tp_forward, "library": library,
-             "health": health, "unwind": unwind}
+             "health": health, "unwind": unwind, "pipeline": pipeline,
+             "pipeline_restore": pipeline_restore}
 
 
 def main() -> None:

@@ -45,7 +45,8 @@ twins (`slowfast_t` of `tests/test_torch_train.py`, `mvit_t` and
   bitwise those of plain data parallelism at world 2 resuming the same
   file, and the unbroken (1,1) run's at rtol 1e-6 for the first step and
   1e-5 for all 5 (two batch shards sum in another f32 order than one);
-- (vii) what stays refused: pipeline stages, the dataplane, the process
+- (vii) what stays refused: pipeline stages against a tensor axis of 1
+  (the JAX package's "must equal the mesh's"), the dataplane, the process
   transport.
 """
 
@@ -650,7 +651,7 @@ _REFUSE = ["--cpu", "--synthetic", "--model.name", "slowfast_t", "--num_frames",
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--parallel.pipeline_stages", "2"], NotImplementedError, "pipeline"),
+    (["--parallel.pipeline_stages", "2"], ValueError, "must equal the mesh's"),
     (["--data.dataplane_workers", "2"], NotImplementedError, "dataplane"),
     (["--data.transport", "process"], NotImplementedError, "process"),
     (["--mesh.fsdp", "2"], ValueError, "does not divide device count 1"),

@@ -35,7 +35,8 @@ tokens). Weights are the seeded twins of `tests/test_torch_mvit_videomae.py`
   moments, EMA), the exported artifact of a (1, 2) run equal to world 1's
   export of the same state, and the clip's global norm at (1, 2) equal to
   world 1's (rtol 1e-5);
-- (ix) what stays refused: pipeline stages, `--mesh.model` beside a
+- (ix) what stays refused: pipeline stages against a model axis of 1 (the
+  JAX package's "must equal the mesh's"), `--mesh.model` beside a
   legacy fsdp / tensor axis (the JAX package's "pick one layout"), ring
   or ulysses with a mask, and a model axis that does not divide the world.
 """
@@ -503,7 +504,7 @@ _REFUSE = ["--cpu", "--synthetic", "--model.name", "videomae_t", "--num_frames",
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    (["--parallel.pipeline_stages", "2"], NotImplementedError, "pipeline"),
+    (["--parallel.pipeline_stages", "2"], ValueError, "must equal the mesh's"),
     (["--mesh.tensor", "2", "--mesh.model", "2"], ValueError, "pick one layout"),
     (["--mesh.fsdp", "2", "--mesh.model", "2"], ValueError, "pick one layout"),
     (["--mesh.model", "2"], ValueError, "does not divide device count 1"),
