@@ -241,7 +241,15 @@ Drives the port only (no JAX), one JSON line per phase:
             gradient within 5e-2 of (a)'s; then (c) with SIGTERM to rank 1
             alone: both ranks stop at one step off a checkpoint boundary,
             exit 0, one "preempt" checkpoint. Step ms (synchronised), the
-            all-reduces a micro-step and their bytes, peak memory per rank
+            all-reduces a micro-step and their bytes, peak memory per rank.
+            Arm (c) runs under the hang watch (slice 18): each rank with
+            `--obs.watchdog_timeout_s 10` and a schedule recorder, rank 1
+            with a `collective.sync` delay of 25 s armed in the barrier of
+            its last checkpoint fence (`Checkpointer.close`), after the
+            timed steps: both ranks' watchdogs attribute the same wedged
+            `barrier`, each flight record holds the stall (rank 1's alone
+            the fault), no stall comes before the fault, and the merged
+            schedules do not diverge (`dp_hang_hold`)
 37. hub_finetune  the reference's recipe: a full-width `slowfast_r50`
             checkpoint in the hub layout (every key and shape of
             tests/hub_manifests.py, seeded values, a K400 head, a
@@ -276,7 +284,16 @@ Drives the port only (no JAX), one JSON line per phase:
             Ulysses and ring, VideoMAE-B fine-tune and MAE pretraining in
             2 pipeline stages of 4 microbatches (`model_axis_train_phase`);
             (e) and (h) over NCCL on two cards only where present
-42. library_mesh_train  the library mesh (data, fsdp, tensor, context):
+42. hang_watch  an in-process full-width SlowFast-R50 Trainer with
+            `--debug_nans --debug_asserts --device_init_timeout 120
+            --obs.watchdog_timeout_s 30`: the probe child reports the card;
+            2 clean steps of B=8, no stall, launches exact; a
+            `step.dispatch` ``nan`` plan on the 3rd raises
+            FloatingPointError naming a module; a batch whose label has the
+            wrong rank raises AssertionError before any launch
+            (`hang_watch_phase`); the step ms under the debug flags are
+            reported beside train_timing's micro-step, not held
+43. library_mesh_train  the library mesh (data, fsdp, tensor, context):
             (a) SlowFast-R50 at (1, 2, 1, 1) on dp_train's geometry, its
             43 leaves of >= 2^16 elements held as fsdp chunks; (b)
             VideoMAE-B at (1, 1, 2, 2) with Ulysses, 3 of its 12 heads a
@@ -308,7 +325,8 @@ launches of the fine-tuning phases that run it: "hub_finetune" on rows
 1-2b, "hub_x3d" on rows 1, 1b, 3, 3b, "hub_interp_finetune" on rows 4-7,
 "mae_handoff" on rows 5-7; "model_axis_train" on rows 4-7,
 "model_axis_train_pipeline" on rows 5-7 (one stage rank of arm (f)) and
-"library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches),
+"library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches;
+"hang_watch" on rows 1-2b: its 2 clean steps' launches),
 the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
@@ -438,15 +456,17 @@ TRACKING_ORDER = ("on", "off", "obs_off")
 # plain, mixed, mixed + armed guard (the order turned each round; 6 rounds
 # before the library-mesh phase, 8 before the data-parallel phase, 24
 # before the serving-defaults and preemption phases, 4 before the telemetry
-# phase)
-ARMED_ROUNDS = 3
+# phase, 3 before the hang-watch phase)
+ARMED_ROUNDS = 2
 # hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
 # per-block remat: B=4 micro-steps with and without --model.remat
 REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
                    argv=ATTN_ARGV + ["--sampling_rate", "3"])
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
-DW_REPS = 10  # profiled calls per timing of a depthwise-slice kernel row
+# profiled calls per timing of a depthwise-slice kernel row (10 before the
+# hang-watch phase)
+DW_REPS = 5
 # calls per class breakdown (a forward or a micro-step; 3 forwards and 2
 # micro-steps before the smoke grew the fine-tuning phases, cut to keep the
 # whole smoke inside its time limit)
@@ -540,11 +560,11 @@ class DeviceEvent:
         return self.end - self.start
 
 
-def _profiled(torch, fn, reps: int, cpu: bool = False):
+def _profiled(torch, fn, reps: int):
     """The device-side events (kernels, copies) torch.profiler records over
-    `reps` calls of `fn`. Only the CUDA activity is traced (`cpu`: the
-    host-side ops too, which spreads the device work over a longer span),
-    and the events are read from the profiler's raw results: the host-side
+    `reps` calls of `fn`. Only the CUDA activity is traced (tracing the
+    host-side ops too spreads the device work over a longer span: PERF.md
+    §3), and the events are read from the profiler's raw results: the host-side
     ops and the `FunctionEvent` table that `prof.events()` builds cost
     several times the profiled work, for the same names and times. The
     profile object is freed here: its table of bound methods makes it a
@@ -553,8 +573,7 @@ def _profiled(torch, fn, reps: int, cpu: bool = False):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -568,7 +587,7 @@ def _profiled(torch, fn, reps: int, cpu: bool = False):
     return kev
 
 
-def device_events(torch, fn, reps: int, attempts: int = 1, cpu: bool = False):
+def device_events(torch, fn, reps: int, attempts: int = 1):
     """The device-side events of `reps` calls of `fn` after one warm-up
     call, from a profile that is known to be complete. On the card a
     profile can come back with some or all of its device events missing:
@@ -596,8 +615,8 @@ def device_events(torch, fn, reps: int, attempts: int = 1, cpu: bool = False):
     torch.cuda.synchronize()
     seen = []
     for _ in range(attempts):
-        one = kernels(_profiled(torch, fn, 1, cpu))
-        kev = _profiled(torch, fn, reps, cpu)
+        one = kernels(_profiled(torch, fn, 1))
+        kev = _profiled(torch, fn, reps)
         many = kernels(kev)
         want = reps * sum(one.values())
         if want and abs(sum(many.values()) - want) <= want // 100:
@@ -1121,8 +1140,12 @@ def kernel_sums(rows) -> dict:
 
 
 # timed calls of each SlowFast-R50 GEMM kernel row (and its plain and
-# library versions): 20 before the library-mesh phase
-GEMM_REPS = 10
+# library versions): 20 before the library-mesh phase, 10 before the
+# hang-watch phase
+GEMM_REPS = 5
+# timed calls of each flash kernel row and strided MViT pool (5 before the
+# hang-watch phase)
+ATTN_REPS = 3
 
 
 def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = GEMM_REPS):
@@ -1397,12 +1420,11 @@ def profile_forward(torch, engine, batch, reps: int = PROFILE_REPS) -> dict:
     return profile_of(torch, lambda: engine.predict(batch), reps, "forward")
 
 
-def profile_of(torch, fn, reps: int, unit: str, cpu: bool = False) -> dict:
+def profile_of(torch, fn, reps: int, unit: str) -> dict:
     """Device time by kernel class over `reps` calls of `fn`, per call, and
-    the device's busy share of the span the calls' device work covers
-    (`cpu`: traced with the host-side ops, `_profiled`)."""
+    the device's busy share of the span the calls' device work covers."""
     try:
-        kev = device_events(torch, fn, reps, cpu=cpu)
+        kev = device_events(torch, fn, reps)
     except IncompleteProfile as e:
         INCOMPLETE_PROFILES[0] += 1
         return {"complete": False, "reason": str(e)}
@@ -2127,12 +2149,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          forward_ms_plain=forward_ms(torch, plain_engine, batch),
          forward_ms_unfused_cudnn=forward_ms(torch, off_engine, batch),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # the same forwards traced with the host-side ops as well, the busy
-    # share that tracing gives (reported beside, not held)
-    with_cpu = profile_of(torch, lambda: server.engine.predict(batch), PROFILE_REPS,
-                          "forward", cpu=True)
-    emit("profile", bucket=BUCKET, **profile_forward(torch, server.engine, batch),
-         device_busy_share_cpu_and_cuda_tracing=with_cpu.get("device_busy_share"))
+    emit("profile", bucket=BUCKET, **profile_forward(torch, server.engine, batch))
     del server, plain_engine, off_engine
     free_cuda(torch)
 
@@ -2143,10 +2160,12 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     # 9. kernels against plain on one training micro-step
     emit("train_parity", **train_parity_phase(torch))
     # 10. micro-step times, clips/s of fit()'s steady epoch, memory, profile
+    timing = train_timing_phase(torch)
+    KEPT["train_timing_micro_step_ms"] = timing["micro_step_ms_auto"]
     emit("train_timing", batch=TRAIN_BATCH, nvidia_smi=smi,
          fit_clips_per_sec=train["result"].get("clips_per_sec"),
          fit_input_wait_frac=train["result"].get("input_wait_frac"),
-         **train_timing_phase(torch), profile_retakes=PROFILE_RETAKES[0],
+         **timing, profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
     slowfast_s = time.perf_counter() - t_start
 
@@ -2173,6 +2192,10 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     # 36. this slice's path: data-parallel training, counters zeroed in
     # each rank just before fit()
     emit("dp_train", nvidia_smi=smi, **dp_train_phase(torch, work, launches))
+    t_hang = time.perf_counter()
+    # 42. this slice's path: the debug flags and the device probe on one
+    # in-process Trainer, counters zeroed just before fit()
+    emit("hang_watch", nvidia_smi=smi, **hang_watch_phase(torch, work, launches))
     t_slice13 = time.perf_counter()
     # 37-40. this slice's paths: fine-tuning from full-width hub-layout
     # checkpoints and the MAE handoff, counters zeroed just before each fit()
@@ -2187,7 +2210,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     emit("model_axis_train", nvidia_smi=smi,
          **model_axis_train_phase(torch, work, launches))
     t_slice15 = time.perf_counter()
-    # 42. the library mesh: fsdp on SlowFast-R50, tensor x context on
+    # 43. the library mesh: fsdp on SlowFast-R50, tensor x context on
     # VideoMAE-B, counters zeroed in each rank just before fit()
     emit("library_mesh_train", nvidia_smi=smi,
          **library_mesh_train_phase(torch, work, launches))
@@ -2224,7 +2247,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             kernels[-1]["train_features"] = sub
         for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
                               **MODEL_AXIS_LINE, **PIPELINE_LINE,
-                              **LIBRARY_LINE}.items():
+                              **LIBRARY_LINE, **HANG_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2235,7 +2258,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          features=t_real - t_features,
          real_video=t_slice11 - t_real,
          serving_defaults_and_preemption=t_slice12 - t_slice11,
-         data_parallel=t_slice13 - t_slice12,
+         data_parallel=t_hang - t_slice12,
+         hang_watch=t_slice13 - t_hang,
          finetune=t_slice14 - t_slice13,
          model_axis=t_slice15 - t_slice14,
          library_mesh=time.perf_counter() - t_slice15,
@@ -2514,7 +2538,7 @@ def max_excess(got, want) -> tuple:
             ((got - want).norm() / want.norm()).item())
 
 
-def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
+def attn_kernel_phase(torch, model: str, sites, reps: int = ATTN_REPS):
     """The three flash kernels at every distinct attention site shape of
     `model`'s forward: the forward's out and lse against `flash_fwd_plain`,
     dq and dk/dv (from the plain forward's out and lse) against
@@ -2637,7 +2661,7 @@ def attn_kernel_phase(torch, model: str, sites, reps: int = 5):
     return rows
 
 
-def strided_pool_ms(torch, pool_sites, reps: int = 5) -> dict:
+def strided_pool_ms(torch, pool_sites, reps: int = ATTN_REPS) -> dict:
     """Device time of the strided MViT pools, each one bf16 cuDNN grouped
     `F.conv3d(groups=C)` as the model runs them (depthwise_impl pallas keeps
     only the stride-1 pools)."""
@@ -4240,10 +4264,18 @@ DP_TRAIN = dict(SLOWFAST_TRAIN, batch=8, accum=1, epochs=1, videos=48,
                 ckpt_every=4, lr=TRANSFORMER_LR, argv=["--model.dropout_rate", "0"])
 DP_SIGTERM_AFTER_LINE = 1
 DP_CHILD_TIMEOUT_S = 300.0
+# arm (c) under the hang watch: rank 1 sleeps DP_HANG_DELAY_S inside the
+# barrier of its last checkpoint fence (after every timed step); each rank's
+# watchdog (DP_HANG_TIMEOUT_S, below the group's DP_CHILD_TIMEOUT_S) must
+# attribute its wedge to that barrier
+DP_HANG_TIMEOUT_S = 10
+DP_HANG_DELAY_S = 25.0
+DP_HANG_BARRIER = "name=checkpoint_close"
 # a child of the dp_train phase: `mode` none (no group), nccl1 (a one-rank
 # NCCL group the child makes itself), gloo (two ranks on one card, joined
 # by `initialize_distributed(backend="gloo")`) or env (the launcher's PVA_*
-# env: NCCL, one card a rank); it prints its record last
+# env: NCCL, one card a rank), with "+hang" the hang watch of arm (c)
+# (`dp_child`); it prints its record last
 DP_CHILD = (
     "import sys\n"
     "sys.path.insert(0, sys.argv[1])\n"
@@ -4340,6 +4372,8 @@ def dp_fit(torch, argv, dump_dir: str) -> dict:
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["result"] = result
     rec["rank"], rec["world"] = rank, pdist.process_count()
+    if trainer.watchdog is not None:
+        rec["watchdog"] = watchdog_record(trainer, rank)
     if not result["preempted"]:
         live = dp_state_hash(trainer.model)
         latest = trainer.checkpointer.latest_step()
@@ -4349,13 +4383,38 @@ def dp_fit(torch, argv, dump_dir: str) -> dict:
     return rec
 
 
+def watchdog_record(trainer, rank: int) -> dict:
+    """What a Trainer's hang watchdog saw: its stall count, the components
+    and attributions of its last stall, and the watchdog and fault events
+    of this rank's flight record file (empty when nothing was dumped)."""
+    from pytorchvideo_accelerate_tpu_torch.obs.flight_recorder import rank_file_name
+
+    wd = trainer.watchdog
+    path = os.path.join(trainer.cfg.checkpoint.output_dir, rank_file_name(rank))
+    events = []
+    if os.path.exists(path):
+        with open(path) as f:
+            events = [e for e in json.load(f)["events"]
+                      if e["kind"] in ("watchdog", "fault")]
+    return {"stall_count": wd.stall_count, "last_stalled": wd.last_stalled,
+            "last_attribution": dict(wd.last_attribution), "flight": events}
+
+
 def dp_child(args) -> None:
-    """A dp_train child: `mode rank world address dump_dir run-args...`."""
+    """A dp_train child: `mode rank world address dump_dir run-args...`; a
+    mode ending in "+hang" (arm (c)) installs a collective-schedule recorder
+    after joining, arms rank 1's `collective.sync` delay (`DP_HANG_*`), and
+    adds the schedule and the fired faults to the record."""
     import torch
 
     mode, rank, world, address, dump_dir, *argv = args
     rank, world = int(rank), int(world)
+    hang = mode.endswith("+hang")
+    mode = mode.split("+")[0]
     from pytorchvideo_accelerate_tpu_torch.parallel import distributed as pdist
+    from pytorchvideo_accelerate_tpu_torch.parallel import schedule_recorder as srec
+    from pytorchvideo_accelerate_tpu_torch.parallel.hangcheck import host_tag
+    from pytorchvideo_accelerate_tpu_torch.reliability import faults
 
     if mode == "nccl1":
         torch.cuda.set_device(0)
@@ -4364,8 +4423,17 @@ def dp_child(args) -> None:
     elif mode == "gloo":
         pdist.initialize_distributed(address, world, rank, backend="gloo",
                                      timeout_s=DP_CHILD_TIMEOUT_S)
+    if hang:
+        srec.install_schedule_recorder(srec.CollectiveScheduleRecorder(host_tag()))
+        if rank == 1:
+            faults.arm(faults.FaultPlan(SEED, [faults.FaultSpec(
+                "collective.sync", kind="delay", delay_s=DP_HANG_DELAY_S,
+                path_substr=DP_HANG_BARRIER, max_fires=1)]))
     await_go(os.path.join(dump_dir, "go"))
     rec = dp_fit(torch, argv, dump_dir)
+    if hang:
+        rec["schedule"] = srec.current_recorder().schedules()
+        rec["fired"] = faults.fault_history()
     print("CHILD_RESULT " + json.dumps(rec, default=str), flush=True)
 
 
@@ -4379,14 +4447,18 @@ def dp_spawn(mode: str, rank: int, world: int, address: str, dump_dir: str,
         env={**os.environ, **(env or {})})
 
 
-def dp_start(mode: str, world: int, out: str, batch: int) -> list:
+def dp_start(mode: str, world: int, out: str, batch: int, hang: bool = False) -> list:
     """Start `world` ranks of `mode` on the same global batch (`batch` a
-    rank), dumping under `out`; they wait for `dp_finish` (`await_go`)."""
+    rank), dumping under `out`, with `hang` under the hang watch
+    (`dp_child`); they wait for `dp_finish` (`await_go`)."""
     from pytorchvideo_accelerate_tpu_torch.launch import find_free_port
 
     os.makedirs(out, exist_ok=True)
     address = f"127.0.0.1:{find_free_port()}"
     argv = train_argv(out, spec=dict(DP_TRAIN, batch=batch))
+    if hang:
+        mode, argv = mode + "+hang", argv + ["--obs.watchdog_timeout_s",
+                                             str(DP_HANG_TIMEOUT_S)]
     return [dp_spawn(mode, r, world, address, out, argv) for r in range(world)]
 
 
@@ -4503,7 +4575,8 @@ def dp_train_phase(torch, work: str, launches: dict) -> dict:
     plan = (("a_one_process", "none", 1), ("b_nccl_one_rank", "nccl1", 1),
             ("c_gloo_two_ranks", "gloo", 2), ("c_preempted", "gloo", 2))
     started = {name: dp_start(mode, world, os.path.join(work, f"dp_{name}"),
-                              DP_TRAIN["batch"] // world)
+                              DP_TRAIN["batch"] // world,
+                              hang=name == "c_gloo_two_ranks")
                for name, mode, world in plan}
     try:
         return dp_checks(torch, work, started, plan, out, arms, launches, t0)
@@ -4521,6 +4594,8 @@ def dp_checks(torch, work: str, started: dict, plan, out: dict, arms: dict,
         d = os.path.join(work, f"dp_{name}")
         got = dp_finish(started.pop(name), mode, d)
         arms[name] = (d, [g[3] for g in got])
+        if name == "c_gloo_two_ranks":
+            hang = dp_hang_hold(got)
         free_cuda(torch)
     ref = arms["a_one_process"][1][0]
     KEPT["dp_one_process"] = arms["a_one_process"]
@@ -4550,6 +4625,7 @@ def dp_checks(torch, work: str, started: dict, plan, out: dict, arms: dict,
         grad_rel_err_between_ranks_local=rel_err(local[0], local[1]))
     check(out["c_gloo_two_ranks"]["head_grad_rel_err_vs_one_process"] <= LOGIT_TOL,
           f"(c) head gradient against (a): {out['c_gloo_two_ranks']}")
+    out["c_gloo_two_ranks"]["hang_watch"] = hang
     del local, reduced, g_a
 
     # (c) preempted: SIGTERM to rank 1 alone
@@ -4611,6 +4687,55 @@ def dp_checks(torch, work: str, started: dict, plan, out: dict, arms: dict,
     return out
 
 
+def dp_hang_hold(got: list) -> dict:
+    """Arm (c)'s hang watch, held on both ranks: at least one stall, every
+    stall after rank 1's armed fault and of the `collective` component
+    alone, the stall line naming rank r's `barrier ... name=checkpoint_close`
+    (the same op on both ranks), a watchdog stall event in each flight
+    record and the `collective.sync` delay event in rank 1's alone; the
+    ranks' merged schedules diffed (`diff_schedules`): no divergence, and
+    one `step_dispatch` a step after the first. Returns the report."""
+    from pytorchvideo_accelerate_tpu_torch.parallel import schedule_recorder as srec
+
+    recs, lines = [g[3] for g in got], [g[1] for g in got]
+    fired = recs[1]["fired"]
+    check(recs[0]["fired"] == [] and [(f["point"], f["kind"]) for f in fired]
+          == [("collective.sync", "delay")], f"(c) fired faults: {fired}")
+    fault_ts = fired[0]["ts"]
+    out = {"timeout_s": DP_HANG_TIMEOUT_S, "delay_s": DP_HANG_DELAY_S,
+           "fault_hit": fired[0]["hit"]}
+    for r, (rec, ls) in enumerate(zip(recs, lines)):
+        w = rec["watchdog"]
+        want = f"barrier host={r}/2 {DP_HANG_BARRIER}"
+        wedged = [ln for ln in ls if "collective wedged inside '" in ln]
+        stalls = [e for e in w["flight"] if (e["kind"], e["name"]) == ("watchdog", "stall")]
+        faults_ = [e for e in w["flight"] if e["kind"] == "fault"]
+        check(w["stall_count"] >= 1 and wedged
+              and all(f"wedged inside '{want}'" in ln for ln in wedged),
+              f"(c) rank {r} watchdog {w['stall_count']} stalls, lines {wedged}")
+        check(stalls and all(e["stalled"] == ["collective"] and e["ts"] >= fault_ts
+                             for e in stalls),
+              f"(c) rank {r} stall events {stalls} (the fault at {fault_ts})")
+        check([(e["name"], e["fault_kind"]) for e in faults_]
+              == ([("collective.sync", "delay")] if r == 1 else []),
+              f"(c) rank {r} fault events {faults_}")
+        detail, age = w["last_attribution"]["collective"]
+        out[f"rank{r}"] = {"stall_count": w["stall_count"], "wedged_inside": detail,
+                           "stall_age_s": age, "stall_after_fault_s":
+                           [e["ts"] - fault_ts for e in stalls]}
+    merged = {**recs[0]["schedule"], **recs[1]["schedule"]}
+    report = srec.diff_schedules(merged)
+    check(sorted(merged) == ["host=0/2", "host=1/2"] and not report["diverged"],
+          srec.format_divergence(report))
+    counts = srec.op_counts(merged["host=0/2"])
+    steps = len(recs[0]["losses"])
+    check(counts.get("step_dispatch") == steps - 1,
+          f"(c) step_dispatch sections {counts}, expected {steps - 1}")
+    out.update(schedule_diverged=False, schedule_lengths=report["lengths"],
+               schedule_op_counts=counts)
+    return out
+
+
 def dp_launched_arm(torch, work: str, ref: dict) -> dict:
     """(d): `launch.py --num_processes 2` of a dp child per card over NCCL
     (the launcher's PVA_* env), held as (c)."""
@@ -4648,6 +4773,111 @@ def dp_launched_arm(torch, work: str, ref: dict) -> dict:
           f"(d) launch rc {proc.returncode}: {lines[-25:]}")
     records.sort(key=lambda r: r["rank"])
     return dp_arm_fields(torch, records, dp_expected(2), ref)
+
+
+# --- slice 18: the debug flags and the device probe on one Trainer --------------
+
+# SlowFast-R50 at the reference geometry, B=8, one micro-step a step: 2 clean
+# steps, then the 3rd dispatch poisoned by a `step.dispatch` "nan" plan
+HANG_TRAIN = dict(SLOWFAST_TRAIN, batch=8, accum=1, epochs=1, videos=24, ckpt_every=0)
+HANG_ARGV = ["--debug_nans", "--debug_asserts", "--device_init_timeout", "120",
+             "--obs.watchdog_timeout_s", "30"]
+HANG_NAN_HIT = 2
+# the kernel rows on slice 18's in-process path
+HANG_LINE = {"hang_watch": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                            "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")}
+
+
+def hang_watch_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 42. A full-width SlowFast-R50 Trainer with `HANG_ARGV`: the
+    device probe's child reported the card (its seconds reported); the
+    counters zeroed just before fit(), read before the 3rd dispatch: the 2
+    clean steps' launches exact, no stall; the 3rd dispatch, poisoned by
+    the armed `step.dispatch` "nan", raises FloatingPointError naming a
+    module of the forward (and launches nothing: the stem, a plain conv,
+    traps it); then the first batch with a label of rank 2 raises
+    AssertionError out of the step with no launch and the step count
+    unchanged. Reports the synchronised step ms under the debug flags
+    beside train_timing's B=8 micro-step (not held: anomaly mode and a host
+    read per module are slow by design)."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.reliability import faults
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    t0 = time.perf_counter()
+    free_cuda(torch)
+    trainer = Trainer(parse_cli(train_argv(os.path.join(work, "hang_watch"),
+                                           spec=HANG_TRAIN) + HANG_ARGV))
+    built_s = time.perf_counter() - t0
+    probe = trainer.device_probe
+    check(probe is not None and probe["ok"] and probe["stdout"].startswith("cuda "),
+          f"the device probe: {probe}")
+    step = trainer.train_step
+    seen = {"ms": [], "first": None, "launches": None}
+
+    def timed(state, batch):
+        if len(seen["ms"]) == HANG_NAN_HIT:
+            seen["launches"] = dict(fused.LAUNCHES)  # the clean steps'
+        if seen["first"] is None:
+            seen["first"] = batch
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        seen["ms"].append((time.perf_counter() - t) * 1e3)
+        return m
+
+    trainer.train_step = timed
+    faults.arm(faults.FaultPlan(SEED, [faults.FaultSpec(
+        "step.dispatch", kind="nan", at_hits=(HANG_NAN_HIT,))]))
+    fused.reset_launch_counts()
+    raised = None
+    try:
+        trainer.fit()
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        faults.disarm()
+    after = dict(fused.LAUNCHES)
+    check(raised is not None and "NaN in the output of module " in raised,
+          f"the poisoned step raised {raised!r}, not FloatingPointError")
+    check(len(seen["ms"]) == HANG_NAN_HIT and seen["launches"] is not None,
+          f"clean steps {seen['ms']}")
+    want = expected_train_launches(dict(HANG_TRAIN, videos=HANG_NAN_HIT * HANG_TRAIN["batch"],
+                                        val_videos=0),
+                                   expected_forward_launches("slowfast_r50"))
+    check(all(seen["launches"][k] == want[k] for k in SOURCES),
+          f"hang_watch launches {seen['launches']}, expected {want}")
+    check(trainer.watchdog.stall_count == 0,
+          f"{trainer.watchdog.stall_count} stalls: {trainer.watchdog.last_attribution}")
+    launches["hang_watch"] = seen["launches"]
+    nan_step_launches = {k: after[k] - seen["launches"][k] for k in SOURCES
+                         if after[k] != seen["launches"][k]}
+    good = seen.pop("first")
+    bad = dict(good, label=good["label"][:, None])
+    s0 = trainer.state.step
+    fused.reset_launch_counts()
+    asserted = None
+    try:
+        step(trainer.state, bad)
+    except AssertionError as e:
+        asserted = str(e)
+    check(asserted is not None and "label of shape" in asserted
+          and not any(fused.LAUNCHES.values()) and trainer.state.step == s0,
+          f"the malformed batch: {asserted!r}, launches {fused.LAUNCHES}, step "
+          f"{trainer.state.step} (was {s0})")
+    del trainer, good, bad, step
+    free_cuda(torch)
+    return {"model": "slowfast_r50", "batch": HANG_TRAIN["batch"], "flags": HANG_ARGV,
+            "probe_s": probe["elapsed_s"], "probe_stdout": probe["stdout"],
+            "trainer_build_s": built_s, "clean_steps": HANG_NAN_HIT,
+            "launches": launches["hang_watch"], "stall_count": 0,
+            "step_ms_debug_flags": seen["ms"],
+            "train_timing_micro_step_ms_auto": KEPT.get("train_timing_micro_step_ms"),
+            "nan_raised": raised, "nan_step_launches": nan_step_launches,
+            "malformed_batch_raised": asserted,
+            "seconds": time.perf_counter() - t0}
 
 
 # --- slice 13: fine-tuning from pretrained weights ------------------------------

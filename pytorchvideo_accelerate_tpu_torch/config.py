@@ -585,18 +585,21 @@ class TrainConfig:
     # reference's fp16 GradScaler path, SURVEY §2.3-N7); "fp32" = full fp32.
     mixed_precision: str = "bf16"
     cpu: bool = False  # force CPU backend (reference --cpu)
-    # >0: probe device init in a disposable subprocess with this deadline
-    # (seconds) BEFORE the job touches jax.devices(), and fail loudly if it
-    # can't complete — a wedged PJRT client-create otherwise hangs the job
-    # forever with no error (utils/device_doctor.py; SURVEY §5). 0 = off.
+    # >0: probe CUDA init in a disposable subprocess with this deadline
+    # (seconds) before the Trainer touches the card, and raise if it does
+    # not answer: a wedged driver otherwise hangs the job in its first CUDA
+    # call with no error (utils/device_doctor.py). 0 = off; --cpu: no probe.
     device_init_timeout: int = 0
     # persistent XLA compilation cache dir ("" = off): pays the 1-2 min
     # model compile once per config instead of once per restart
     compilation_cache_dir: str = ""
     profile: bool = False  # jax.profiler trace of a step window (SURVEY §5)
     profile_dir: str = "/tmp/pva_tpu_profile"
-    debug_nans: bool = False  # jax.config debug_nans (SURVEY §5 sanitizers)
-    # trace-time batch-contract chex asserts in the compiled steps
+    # the first NaN raises FloatingPointError naming its module, and anomaly
+    # mode checks the backward (utils/debug_nans.py)
+    debug_nans: bool = False
+    # each step's batch held to the step's shape and dtype contract before
+    # anything runs (trainer/steps.py assert_batch_contract)
     debug_asserts: bool = False
     # per-epoch cross-host fingerprint comparison (multi-process runs)
     debug_desync: bool = False

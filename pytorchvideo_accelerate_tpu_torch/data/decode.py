@@ -8,6 +8,10 @@ frame cache where cv2 is (`python -m
 pytorchvideo_accelerate_tpu_torch.data.cache build ...`) and train from it
 with `--data.cache_dir`. It is an ImportError, not one of
 `DECODE_ERRORS`, so no caller mistakes it for an unreadable file.
+
+`decode_span` is the `decode.read` fault point (reliability/faults.py): an
+injected fault is an OSError, so it takes the retry and quarantine path a
+real unreadable file takes.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 
 try:
     import cv2
@@ -83,6 +89,7 @@ def decode_span(path: str, start_sec: float, end_sec: float,
     CorruptVideoError on unreadable files; returns at least one frame for
     any readable video (a span past the end yields what exists)."""
     require_decoder()
+    fault_point("decode.read", path=path)
     cap = cv2.VideoCapture(path)
     try:
         if not cap.isOpened():

@@ -27,7 +27,13 @@ the "eval" span and so counts as background), the worker's placement the
 `h2d_name` span ("h2d" / "eval_h2d"); the memory ledger accounts the placed
 batches not yet consumed as component `prefetch_ring:<wait_name>`
 (registered when placed, released when the consumer takes them, cleared
-when the epoch's generator closes).
+when the epoch's generator closes). With a `watchdog` (obs/watchdog.py)
+the worker sends `heartbeat(watchdog_name)` for each batch it takes from
+the loader (the inline path: for each batch it places) and clears the
+component when its epoch ends: an idle prefetcher is no stall. Each
+placement is the `prefetch.h2d` fault point (reliability/faults.py): a
+``delay`` is a starved host link, a ``raise`` crosses the queue and
+re-raises in the consumer like a real placement failure.
 
 `depth=0` places each batch inline and synchronously (the A/B baseline).
 Under data parallelism `device` is the rank's own card (`cuda:<index>`),
@@ -47,6 +53,7 @@ import torch
 from pytorchvideo_accelerate_tpu_torch import obs
 from pytorchvideo_accelerate_tpu_torch.data.pipeline import ClipLoader
 from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 
 _POLL_S = 0.05  # stop-flag poll cadence for blocking waits
 _JOIN_TIMEOUT_S = 10.0
@@ -61,7 +68,8 @@ class DevicePrefetcher:
 
     def __init__(self, loader: ClipLoader, device: torch.device,
                  depth: int = 2, wait_name: str = "input_wait",
-                 h2d_name: str = "h2d"):
+                 h2d_name: str = "h2d", watchdog=None,
+                 watchdog_name: str = "prefetch"):
         if depth < 0:
             raise ValueError(f"device prefetch depth must be >= 0, got {depth}")
         self.loader = loader
@@ -70,6 +78,8 @@ class DevicePrefetcher:
         self.wait_s = 0.0  # consumer time blocked on the next device batch
         self.wait_name = wait_name
         self.h2d_name = h2d_name
+        self.watchdog = watchdog
+        self.watchdog_name = watchdog_name
         self._mem_component = f"prefetch_ring:{wait_name}"
         self._stream = None
 
@@ -81,6 +91,7 @@ class DevicePrefetcher:
     def _place(self, batch: dict):
         """(device batch, event or None). On the card: pinned host copy,
         then a non_blocking copy on the side stream, then an event."""
+        fault_point("prefetch.h2d")
         with obs.span(self.h2d_name):
             return self._copy(batch)
 
@@ -157,17 +168,24 @@ class DevicePrefetcher:
 
     def _epoch_sync(self, epoch: Optional[int],
                     from_start: bool) -> Iterator[dict]:
-        for batch, state in self.loader.epoch_items(epoch, from_start):
-            if batch is None:
+        try:
+            for batch, state in self.loader.epoch_items(epoch, from_start):
+                if batch is None:
+                    self.loader.state = state
+                    continue
+                t0 = time.perf_counter()
+                placed = self._take(*self._place(batch))
+                dt = time.perf_counter() - t0
+                self.wait_s += dt
+                obs.observe(self.wait_name, dt)
+                if self.watchdog is not None:
+                    self.watchdog.heartbeat(self.watchdog_name)
                 self.loader.state = state
-                continue
-            t0 = time.perf_counter()
-            placed = self._take(*self._place(batch))
-            dt = time.perf_counter() - t0
-            self.wait_s += dt
-            obs.observe(self.wait_name, dt)
-            self.loader.state = state
-            yield placed
+                yield placed
+        finally:
+            # a finished epoch is idle, not stalled
+            if self.watchdog is not None:
+                self.watchdog.clear(self.watchdog_name)
 
     def _worker(self, items: Iterator[tuple], q: "queue.Queue[tuple]",
                 stop: threading.Event, slots: threading.Semaphore) -> None:
@@ -176,6 +194,8 @@ class DevicePrefetcher:
         pending work."""
         try:
             for batch, state in items:
+                if self.watchdog is not None:
+                    self.watchdog.heartbeat(self.watchdog_name)
                 if batch is None:  # exhaustion marker: no slot, no copy
                     q.put(("state", None, state))
                     continue
@@ -194,4 +214,7 @@ class DevicePrefetcher:
         else:
             q.put(("done", None, None))
         finally:
+            # a finished or closed worker is idle, not stalled
+            if self.watchdog is not None:
+                self.watchdog.clear(self.watchdog_name)
             items.close()

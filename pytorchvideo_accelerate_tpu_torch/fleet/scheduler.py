@@ -1,6 +1,8 @@
 """Continuous-batching scheduler: deadlines, priority classes, EDF launches
 (the port's copy of the JAX package's `fleet/scheduler.py`, without the
-streaming-session launch path, tracing and fault points).
+streaming-session launch path and tracing). Each launch is the
+`serve.flush` fault point (reliability/faults.py): an injected raise fails
+that launch's futures, never the flush thread.
 
 The server's default front (`--serve.scheduler edf`). Per launch:
 
@@ -41,6 +43,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 from pytorchvideo_accelerate_tpu_torch.serving.batcher import QueueFullError
 from pytorchvideo_accelerate_tpu_torch.serving.engine import CLIP_KEYS, clip_key
 
@@ -314,6 +317,7 @@ class Scheduler:
 
     def _launch(self, reqs: List[_SchedRequest]) -> None:
         try:
+            fault_point("serve.flush")
             reqs = [r for r in reqs
                     if r.future.set_running_or_notify_cancel()]
             if not reqs:

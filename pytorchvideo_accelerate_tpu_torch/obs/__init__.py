@@ -1,13 +1,13 @@
 """The port's telemetry layer (its copy of the JAX package's `obs/`):
 spans, the flight recorder, the metric registry, the device-memory ledger,
-the metrics history and the burn-rate alerts.
+the metrics history, the burn-rate alerts and the hang watchdog.
 
 Stdlib only at import time. The process-default singletons
 (`get_collector`/`get_recorder`/`get_registry`) are the shared path;
 tests construct private instances. `configure()` is the one switch:
 `obs.enabled=false` turns every span into a shared no-op and detaches the
-recorder. The watchdog, the profiler and distributed tracing are later
-slices (ROADMAP.md).
+recorder. The profiler and distributed tracing are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from pytorchvideo_accelerate_tpu_torch.obs.spans import (  # noqa: F401
     observe,
     span,
 )
+from pytorchvideo_accelerate_tpu_torch.obs.watchdog import Watchdog  # noqa: F401
 
 # default wiring: completed spans feed the flight-recorder ring
 get_collector().recorder = get_recorder()

@@ -1,6 +1,9 @@
 """Flight recorder: a bounded in-memory ring of recent telemetry events,
 dumped to `<output_dir>/flight_record.json` when the process dies (the
-port's copy of the JAX package's `obs/flight_recorder.py`).
+port's copy of the JAX package's `obs/flight_recorder.py`). Ranks that
+share an output directory name their files apart: rank 0 writes
+`flight_record.json`, rank r `flight_record.rank<r>.json` (`file_name`,
+set by `install`).
 
 Spans, sampled metrics, warnings and exceptions append here cheaply (one
 deque append under a lock; the deque's maxlen bounds memory). Dump paths:
@@ -10,7 +13,8 @@ deque append under a lock; the deque's maxlen bounds memory). Dump paths:
 - **SIGTERM**: `install()` chains a handler so an external kill leaves
   evidence behind (while `fit()` runs, the preemption guard takes SIGTERM
   first, records it and dumps itself: reliability/preemption.py);
-- **preemption**: the trainer's grace path dumps after its checkpoint.
+- **preemption**: the trainer's grace path dumps after its checkpoint;
+- **stall**: the hang watchdog (obs/watchdog.py) dumps after its report.
 """
 
 from __future__ import annotations
@@ -27,6 +31,13 @@ from typing import List, Optional
 from pytorchvideo_accelerate_tpu_torch.utils.sync import shared_state
 
 _MIN_CAPACITY = 16
+FILE_NAME = "flight_record.json"
+
+
+def rank_file_name(rank: int) -> str:
+    """The dump's file name for process `rank` of a group (rank 0, or no
+    group: `flight_record.json`)."""
+    return FILE_NAME if rank == 0 else f"flight_record.rank{rank}.json"
 
 
 @shared_state("_events", "_output_dir", "_installed")
@@ -40,6 +51,7 @@ class FlightRecorder:
         self._lock = threading.RLock()
         self._events: deque = deque(maxlen=max(capacity, _MIN_CAPACITY))
         self._output_dir = ""
+        self.file_name = FILE_NAME
         self._installed = False
 
     # --- recording --------------------------------------------------------
@@ -73,7 +85,7 @@ class FlightRecorder:
             out_dir = self._output_dir
         if not out_dir:
             return None
-        return os.path.join(out_dir, "flight_record.json")
+        return os.path.join(out_dir, self.file_name)
 
     def dump(self, path: Optional[str] = None) -> Optional[str]:
         """Write the ring to `path` (default: the installed output dir).
@@ -95,13 +107,15 @@ class FlightRecorder:
 
     # --- crash hooks ------------------------------------------------------
 
-    def install(self, output_dir: str) -> None:
-        """Point dumps at `output_dir` and (once per process) chain
-        sys.excepthook and SIGTERM so an uncaught crash or an external kill
-        flushes the ring. Later calls only move the output dir."""
+    def install(self, output_dir: str, file_name: str = FILE_NAME) -> None:
+        """Point dumps at `output_dir/file_name` and (once per process)
+        chain sys.excepthook and SIGTERM so an uncaught crash or an
+        external kill flushes the ring. Later calls only move the output
+        dir and the name."""
         with self._lock:
             if output_dir:
                 self._output_dir = output_dir
+            self.file_name = file_name
             if self._installed:
                 return
             self._installed = True

@@ -2,5 +2,5 @@
 JAX package's `parallel/`: the process group and its one rank grid, host
 collectives, the (data, model) train mesh and the (data, fsdp, tensor,
 context) library mesh, FSDP, tensor parallelism, ring / Ulysses context
-parallelism and pipeline stages; the hang check is queued in
-ROADMAP.md)."""
+parallelism, pipeline stages, and the hang check with its collective
+schedule recorder)."""

@@ -5,7 +5,8 @@ tensors over gloo): `host_allgather`,
 `host_broadcast` (numeric leaves, and str/bytes leaves as a length then a
 byte buffer) and `host_reduce_sum`. With one process they return what the
 JAX package returns there: a leading axis of 1, numpy leaves. A pytree here
-is nested dicts, lists and tuples.
+is nested dicts, lists and tuples. Each is one watched section of the hang
+check (`parallel/hangcheck.py collective_section`), named after it.
 
 The step's collectives, the counterpart of the JAX step's in-graph
 `pmean`/`psum`: `all_reduce_mean_` (one flat all-reduce of many tensors,
@@ -61,6 +62,7 @@ from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
+from pytorchvideo_accelerate_tpu_torch.parallel.hangcheck import collective_section
 
 
 def _flatten(x: Any) -> tuple:
@@ -85,7 +87,13 @@ def tree_map(fn: Callable, x: Any) -> Any:
 
 def host_allgather(x: Any) -> Any:
     """Every process's value of each leaf, stacked on a new leading axis
-    (process order), as numpy; for host-side logging and checks."""
+    (process order), as numpy; for host-side logging and checks. Watched:
+    a `host_allgather` section (parallel/hangcheck.py)."""
+    with collective_section("host_allgather"):
+        return _allgather(x)
+
+
+def _allgather(x: Any) -> Any:
     if process_count() == 1:
         return tree_map(lambda a: np.asarray(a)[None], x)
     def gather(a):
@@ -114,7 +122,12 @@ def host_broadcast(x: Any) -> Any:
     """Process 0's value on every process (the resume step, a run name:
     anything one process decides for all). Numeric leaves come back as
     numpy arrays on every process, single-process runs included; str and
-    bytes leaves as str and bytes."""
+    bytes leaves as str and bytes. Watched: a `host_broadcast` section."""
+    with collective_section("host_broadcast"):
+        return _broadcast(x)
+
+
+def _broadcast(x: Any) -> Any:
     if process_count() == 1:
         return tree_map(lambda v: v if isinstance(v, (str, bytes))
                         else np.asarray(v), x)
@@ -138,8 +151,10 @@ def host_broadcast(x: Any) -> Any:
 
 
 def host_reduce_sum(x: Any) -> Any:
-    """Each leaf summed across processes (host-side counters)."""
-    return tree_map(lambda a: np.asarray(a.sum(axis=0)), host_allgather(x))
+    """Each leaf summed across processes (host-side counters, eval sums).
+    Watched: a `host_reduce_sum` section."""
+    with collective_section("host_reduce_sum"):
+        return tree_map(lambda a: np.asarray(a.sum(axis=0)), _allgather(x))
 
 
 # --- the step's collectives ---------------------------------------------------

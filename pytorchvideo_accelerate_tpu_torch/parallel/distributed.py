@@ -62,6 +62,7 @@ import torch
 import torch.distributed as dist
 
 from pytorchvideo_accelerate_tpu_torch.parallel import mesh as pmesh
+from pytorchvideo_accelerate_tpu_torch.parallel.hangcheck import collective_section
 from pytorchvideo_accelerate_tpu_torch.parallel.mesh import LIBRARY_AXES, TRAIN_AXES
 
 _INITIALIZED = False
@@ -87,7 +88,9 @@ def initialize_distributed(coordinator_address: str = "",
     when the caller has set one up itself (`torch.distributed`'s own
     `init_process_group`). `backend`: "nccl" on the card and "gloo" with
     `cpu` unless given; `timeout_s` bounds every collective of the group
-    (torch's default otherwise)."""
+    (torch's default otherwise). A hang watchdog
+    (`obs.watchdog_timeout_s`) dumps its evidence only if its timeout is
+    shorter than this one: past `timeout_s` NCCL or gloo ends the rank."""
     global _INITIALIZED
     if _INITIALIZED or dist.is_initialized():
         return dist.is_initialized()
@@ -423,21 +426,23 @@ def local_device_index(rank: Optional[int] = None) -> int:
 
 def sync_global_devices(name: str = "barrier") -> None:
     """A barrier of every rank (checkpoint fences); a no-op without a
-    group. `name` is for the reader of a hang's stack."""
-    del name
+    group. Watched: a `barrier` section whose detail carries `name`
+    (parallel/hangcheck.py)."""
     if is_distributed():
-        dist.barrier(group=host_group())
+        with collective_section("barrier", name=name):
+            dist.barrier(group=host_group())
 
 
 def any_process(flag: bool) -> bool:
     """True on every rank when `flag` is true on any rank: one scalar
-    all-reduce (max) over the host group. A decision that one rank makes
-    alone (a preemption signal) is made by all this way, at the same
-    step."""
+    all-reduce (max) over the host group, in an `any_process` section. A
+    decision that one rank makes alone (a preemption signal) is made by
+    all this way, at the same step."""
     if not is_distributed():
         return flag
     t = torch.tensor([1 if flag else 0], dtype=torch.int32)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
+    with collective_section("any_process"):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=host_group())
     return bool(t.item())
 
 
@@ -452,7 +457,8 @@ def check_desync(fingerprint: float, name: str = "train_state") -> None:
         host_allgather,
     )
 
-    vals = np.asarray(host_allgather(np.float32(fingerprint))).reshape(-1)
+    with collective_section("desync_check", name=name):
+        vals = np.asarray(host_allgather(np.float32(fingerprint))).reshape(-1)
     agree = np.all((vals == vals[0]) | (np.isnan(vals) & np.isnan(vals[0])))
     if not agree:
         raise RuntimeError(

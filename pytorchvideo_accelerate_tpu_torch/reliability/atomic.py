@@ -1,10 +1,12 @@
 """Atomic file writes: tmp file + fsync + os.replace (the port's copy of the
-JAX package's `reliability/atomic.py`, without its fault point).
+JAX package's `reliability/atomic.py`).
 
 Every plain file the port writes itself (inference-export weights and
 meta, the quarantine sidecar) goes through here, so a kill mid-save never
 leaves a truncated file at the destination: readers see the old complete
-content or the new complete content.
+content or the new complete content. The write is the `ckpt.write` fault
+point (reliability/faults.py): a ``partial_write`` truncates the tmp file
+and raises, and the destination stays as it was.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Callable
+
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 
 
 def _fsync_dir(path: str) -> None:
@@ -39,6 +43,7 @@ def atomic_write(path: str, write_fn: Callable[[str], None]) -> str:
     tmp = os.path.join(d, f".{root}.tmp-{os.getpid()}{ext}")
     try:
         write_fn(tmp)
+        fault_point("ckpt.write", write_path=tmp)
         fd = os.open(tmp, os.O_RDONLY)
         try:
             os.fsync(fd)

@@ -1,11 +1,14 @@
 """Micro-batching in front of the device (counterpart of the JAX package's
-`serving/batcher.py`, without its obs, trace and fault hooks).
+`serving/batcher.py`, without its obs and trace hooks).
 
 A bounded queue feeds one flush thread that launches a batch when
 `max_batch_size` requests wait OR the oldest has waited `max_wait_ms`. Each
 launch is padded up to the engine's nearest bucket with zero rows + a mask,
 and each request's future resolves with exactly its own row. A full queue
 raises `QueueFullError` at submit time (the HTTP front maps it to 503).
+A batch that raises fails its own requests' futures (the HTTP front's
+500), never the flush thread; each batch run is the `serve.flush` fault
+point (reliability/faults.py).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 from pytorchvideo_accelerate_tpu_torch.serving.engine import CLIP_KEYS, clip_key
 
 logger = logging.getLogger("pva_tpu_torch")
@@ -171,6 +175,9 @@ class MicroBatcher:
                         req.future.set_exception(e)
 
     def _run(self, reqs: List[_Request]) -> None:
+        # an injected raise fails this batch's futures in `_flush`, as a
+        # real engine failure does
+        fault_point("serve.flush")
         # claim each future first: a caller-cancelled future (the HTTP
         # front's timeout path) drops out here, and a claimed one can no
         # longer be cancelled while set_result runs below

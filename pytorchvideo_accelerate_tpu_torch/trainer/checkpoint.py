@@ -43,7 +43,11 @@ and so do a restore, a delete and a listing (`all_steps`,
 `latest_step`); `close()` fences and stops the writer. A rank that leaves
 on an exception fences with `barrier=False`: its writes land and a failed
 one raises, without the barrier that its peers, stuck elsewhere, would
-never reach.
+never reach. Each of these host waits is a watched section of the hang
+check (parallel/hangcheck.py): `ckpt_save step=N` (the gathers and the
+dispatch), `ckpt_wait` (a fence with a save pending; its barrier is named
+`checkpoint_save`), `ckpt_close` (its barrier `checkpoint_close`) and
+`ckpt_restore step=N` (its barrier `checkpoint_restore`).
 A process killed during a write leaves only its temporary directory
 (`.tmp-<step>-<pid>`, never listed as a step): `latest_step()` stays the
 last complete one. `use_async=False` writes on the calling thread and
@@ -87,6 +91,7 @@ from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     is_main_process,
     sync_global_devices,
 )
+from pytorchvideo_accelerate_tpu_torch.parallel.hangcheck import collective_section
 from pytorchvideo_accelerate_tpu_torch.reliability.atomic import (
     atomic_write,
     atomic_write_json,
@@ -260,22 +265,23 @@ class Checkpointer:
         t_fence = time.perf_counter()
         self.wait()
         t0 = time.perf_counter()
-        full = state.state_dict()
-        self._unfenced = True
-        if is_main_process():
-            host, event = _to_host(full, pinned=self.use_async)
-            del full
-            log = {"step": int(step), "fence_s": t0 - t_fence}
-            job = (int(step), host, extra, event, t0, log)
-            if self.use_async:
-                self._queue().put(job)
-            else:
-                try:
-                    self._run(job)
-                except BaseException:
-                    self._unfenced = False  # raised here: nothing to fence
-                    raise
-            log["dispatch_s"] = time.perf_counter() - t0
+        with collective_section("ckpt_save", step=int(step)):
+            full = state.state_dict()
+            self._unfenced = True
+            if is_main_process():
+                host, event = _to_host(full, pinned=self.use_async)
+                del full
+                log = {"step": int(step), "fence_s": t0 - t_fence}
+                job = (int(step), host, extra, event, t0, log)
+                if self.use_async:
+                    self._queue().put(job)
+                else:
+                    try:
+                        self._run(job)
+                    except BaseException:
+                        self._unfenced = False  # raised here: nothing to fence
+                        raise
+                log["dispatch_s"] = time.perf_counter() - t0
         if not self.use_async:
             self.wait()
 
@@ -312,26 +318,29 @@ class Checkpointer:
         log["write_s"] = time.perf_counter() - t0
         self.write_log.append(log)
 
-    def wait(self, barrier: bool = True) -> None:
+    def wait(self, barrier: bool = True, name: str = "checkpoint_save") -> None:
         """Fence: return once every queued write has landed, raising the
         first failed write's error, then meet the other ranks at the
-        barrier (`barrier=False`: this rank only). A no-op, without a
-        barrier, when no save is pending (alike on every rank)."""
+        barrier `name` (`barrier=False`: this rank only). A no-op, without
+        a barrier, when no save is pending (alike on every rank)."""
         if not self._unfenced:
             return
         self._unfenced = False
-        if self._jobs is not None:
-            self._jobs.join()
-        err, self._error = self._error, None
-        if err is not None:
-            raise err
-        if barrier:
-            sync_global_devices("checkpoint_save")
+        with collective_section("ckpt_wait"):
+            if self._jobs is not None:
+                self._jobs.join()
+            err, self._error = self._error, None
+            if err is not None:
+                raise err
+            if barrier:
+                sync_global_devices(name)
 
     def close(self, barrier: bool = True) -> None:
-        """Fence (`wait(barrier)`), then stop the writer thread."""
+        """Fence (`wait(barrier)`, its barrier `checkpoint_close`), then
+        stop the writer thread."""
         try:
-            self.wait(barrier)
+            with collective_section("ckpt_close"):
+                self.wait(barrier, name="checkpoint_close")
         finally:
             if self._jobs is not None:
                 self._jobs.put(None)
@@ -385,12 +394,13 @@ class Checkpointer:
             if step is None:
                 raise FileNotFoundError(
                     f"no checkpoint found in {self.directory}")
-        sync_global_devices("checkpoint_restore")
-        d = os.path.join(self.directory, str(int(step)))
-        device = next(state.model.parameters()).device
-        saved = torch.load(os.path.join(d, _STATE_FILE), map_location=device,
-                           weights_only=True)
-        state.load_state_dict(saved)
+        with collective_section("ckpt_restore", step=int(step)):
+            sync_global_devices("checkpoint_restore")
+            d = os.path.join(self.directory, str(int(step)))
+            device = next(state.model.parameters()).device
+            saved = torch.load(os.path.join(d, _STATE_FILE), map_location=device,
+                               weights_only=True)
+            state.load_state_dict(saved)
         with open(os.path.join(d, _EXTRA_FILE)) as f:
             extra = json.load(f)
         return extra, int(step)

@@ -40,12 +40,36 @@ host without CUDA it raises. Real videos need cv2 to decode; where it is
 missing the real-video branch raises `NoVideoDecoderError`, which names
 the frame-cache route (build the cache where cv2 is, train with
 `--data.cache_dir`). Options whose effect this slice lacks raise
-NotImplementedError naming their ROADMAP item; the debug options
-(`debug_nans`, `debug_asserts`, `profile`), the opt-in telemetry of later
-slices (`obs.watchdog_timeout_s`, `obs.trace_sample_rate`,
-`obs.profile_steps`), a `model.pretrained` without a path and a
-`model.pretrained_path` without `model.pretrained` print one line each and
-train on.
+NotImplementedError naming their ROADMAP item; `profile`, the opt-in
+telemetry of later slices (`obs.trace_sample_rate`, `obs.profile_steps`),
+a watchdog asked for with the obs layer off, a `model.pretrained` without
+a path and a `model.pretrained_path` without `model.pretrained` print one
+line each and train on.
+
+Debugging and hang attribution (the JAX Trainer's opt-ins):
+`--device_init_timeout S` (S > 0, not with `--cpu`) probes the card in a
+disposable child before the Trainer touches it and raises RuntimeError when
+it does not answer within S seconds (utils/device_doctor.py; the record is
+`trainer.device_probe`). `--debug_nans` raises FloatingPointError at the
+first NaN: a forward hook on every module names the module whose output
+holds it, and torch's anomaly mode checks every backward function during
+`fit()` (utils/debug_nans.py). `--debug_asserts` holds each step's batch to
+the step's contract before anything runs (trainer/steps.py
+`assert_batch_contract`: AssertionError). `--obs.watchdog_timeout_s T`
+(obs on) builds the hang watchdog (obs/watchdog.py): the loop sends
+`heartbeat("train")` each step and eval batch, the prefetchers
+`prefetch_train` / `prefetch_val` per batch, and every point where a rank
+waits on the others is an attributed section (parallel/hangcheck.py:
+`step_dispatch` around each dispatch after the first and the deferred read,
+with `stage=s/P` when pipelined; `epoch_sync`; the checkpoint fences; the
+host collectives and barriers). A component silent for T seconds gets one
+stall dump to stderr and the flight record (rank r > 0:
+`flight_record.rank<r>.json`); the watchdog never kills. Keep T below the
+process group's timeout, or NCCL or gloo ends the rank before the dump.
+`fit()` and `evaluate()` (re)start it; `close()` stops it after the
+checkpoint fences. `step.dispatch` is a fault point
+(reliability/faults.py): an armed ``nan`` poisons the batch
+(`reliability/guard.py poison_batch`).
 
 Telemetry (`obs.enabled`, on by default, as in the JAX package): the step
 loop's sections are spans (`step`, `log`, `sync`, `ckpt`, `eval`; the
@@ -130,6 +154,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+from contextlib import ExitStack, nullcontext
 from typing import Dict, Optional
 
 import numpy as np
@@ -154,6 +179,7 @@ from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
 from pytorchvideo_accelerate_tpu_torch.models import create_model
 from pytorchvideo_accelerate_tpu_torch.models.convert import load_pretrained
 from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
+from pytorchvideo_accelerate_tpu_torch.obs.flight_recorder import rank_file_name
 from pytorchvideo_accelerate_tpu_torch.parallel.collectives import (
     broadcast_,
     host_broadcast,
@@ -183,6 +209,12 @@ from pytorchvideo_accelerate_tpu_torch.parallel.distributed import (
     tensor_count,
     tensor_index,
 )
+from pytorchvideo_accelerate_tpu_torch.parallel.hangcheck import (
+    collective_section,
+    current_watchdog,
+    install_collective_watch,
+    uninstall_collective_watch,
+)
 from pytorchvideo_accelerate_tpu_torch.parallel.mesh import (
     cp_axis,
     data_shard_count,
@@ -193,6 +225,7 @@ from pytorchvideo_accelerate_tpu_torch.parallel.mesh import (
 from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
     PipelinePlan,
     analytic_bubble_frac,
+    stage_tag,
 )
 from pytorchvideo_accelerate_tpu_torch.parallel.pipeline import (
     make_plan as make_pipeline_plan,
@@ -204,7 +237,8 @@ from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
     layout,
     param_kinds,
 )
-from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
+from pytorchvideo_accelerate_tpu_torch.reliability.guard import TrainGuard, poison_batch
 from pytorchvideo_accelerate_tpu_torch.reliability.preemption import (
     get_guard,
     record_emergency,
@@ -227,6 +261,7 @@ from pytorchvideo_accelerate_tpu_torch.trainer.tracking import (
     TrackerHub,
 )
 from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
+from pytorchvideo_accelerate_tpu_torch.utils import debug_nans, device_doctor
 
 logger = logging.getLogger(__name__)
 
@@ -250,9 +285,11 @@ def _say(line: str) -> None:
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
     computed and that this slice of the port lacks; print one line for each
-    debug option and opt-in telemetry option set, for a `model.pretrained`
-    without a path and for a `model.pretrained_path` without
-    `model.pretrained`."""
+    unported debug or opt-in telemetry option set (`profile`,
+    `obs.trace_sample_rate`, `obs.profile_steps`), for a watchdog asked for
+    with the obs layer off (the JAX Trainer arms it only with obs on), for
+    a `model.pretrained` without a path and for a `model.pretrained_path`
+    without `model.pretrained`."""
     d, m = cfg.data, cfg.model
     refused = [
         (cfg.parallel.pipeline_stages > 1 and cfg.mesh.fsdp > 1,
@@ -264,17 +301,17 @@ def refuse_unported(cfg: TrainConfig) -> None:
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} is not ported to PyTorch yet")
-    for on, flag in ((cfg.debug_nans, "debug_nans"),
-                     (cfg.debug_asserts, "debug_asserts"),
-                     (cfg.profile, "profile"),
-                     (cfg.obs.enabled and cfg.obs.watchdog_timeout_s > 0,
-                      "obs.watchdog_timeout_s"),
+    for on, flag in ((cfg.profile, "profile"),
                      (cfg.obs.enabled and cfg.obs.trace_sample_rate > 0,
                       "obs.trace_sample_rate"),
                      (bool(cfg.obs.profile_steps), "obs.profile_steps")):
         if on:
             _say(f"{flag} is not ported yet (ROADMAP.md); training runs "
                  "without it")
+    if not cfg.obs.enabled and cfg.obs.watchdog_timeout_s > 0:
+        _say("--obs.watchdog_timeout_s needs the obs layer, and "
+             "--obs.enabled false turns it off: training runs without the "
+             "hang watchdog")
     if m.pretrained and not m.pretrained_path:
         _say("--model.pretrained set but --model.pretrained_path empty: "
              "training from scratch. Convert a checkpoint first and pass "
@@ -309,6 +346,13 @@ class Trainer:
         # self-supervised objective (VideoMAE): no labels, the model
         # computes its own loss
         self.is_pretraining = cfg.model.name.endswith("_pretrain")
+        # the card's init can wedge with no error: a disposable child
+        # initialises it first, under the deadline, and a card that does
+        # not answer raises here (utils/device_doctor.py)
+        self.device_probe: Optional[dict] = None
+        if cfg.device_init_timeout > 0 and not cfg.cpu:
+            self.device_probe = device_doctor.assert_device_reachable(
+                cfg.device_init_timeout, log=logger.info)
         resolve_train_device(cfg)  # no card and no --cpu: raise before joining
         initialize_distributed(cfg.coordinator_address, cfg.num_processes,
                                cfg.process_id, cpu=cfg.cpu)
@@ -346,8 +390,24 @@ class Trainer:
                              recorder=obs.get_recorder(), device=self.device)
         obs.history.configure(enabled=self.obs_on and cfg.obs.history_ticks > 0,
                               capacity=cfg.obs.history_ticks)
+        self.watchdog: Optional[obs.Watchdog] = None
         if self.obs_on:
-            obs.get_recorder().install(cfg.checkpoint.output_dir)
+            # ranks sharing an output dir dump to files of their own
+            obs.get_recorder().install(cfg.checkpoint.output_dir,
+                                       rank_file_name(self.rank))
+            if cfg.obs.watchdog_timeout_s > 0:
+                # the stall dump before an external kill; the collective
+                # sections (parallel/hangcheck.py) attribute a wedge to
+                # the op and the rank it is stuck in
+                self.watchdog = obs.Watchdog(
+                    cfg.obs.watchdog_timeout_s,
+                    output_dir=cfg.checkpoint.output_dir,
+                    recorder=obs.get_recorder(),
+                    collector=obs.get_collector()).start()
+                install_collective_watch(self.watchdog)
+        # the first dispatch (kernel builds, cuBLAS and cuDNN handles) runs
+        # outside the step_dispatch section: a false wedge otherwise
+        self._dispatched = False
         # the tensor-parallel split: the library mesh's tensor axis, or the
         # model axis
         self.model_axis = layout(
@@ -442,11 +502,13 @@ class Trainer:
                                      shuffle=False, drop_last=False,
                                      **loader_kw)
         self.train_prefetch = DevicePrefetcher(
-            self.train_loader, self.device, depth=d.device_prefetch_depth)
+            self.train_loader, self.device, depth=d.device_prefetch_depth,
+            watchdog=self.watchdog, watchdog_name="prefetch_train")
         # the eval wait nests inside the "eval" span: background-classed names
         self.val_prefetch = DevicePrefetcher(
             self.val_loader, self.device, depth=d.device_prefetch_depth,
-            wait_name="eval_input_wait", h2d_name="eval_h2d")
+            wait_name="eval_input_wait", h2d_name="eval_h2d",
+            watchdog=self.watchdog, watchdog_name="prefetch_val")
 
     def _build_sources(self, train_tf, val_tf, eval_clips: int) -> None:
         """The train and val clip sources, and `num_classes`: synthetic
@@ -528,6 +590,9 @@ class Trainer:
             self.model = self.model.to(self.device)
             self._broadcast_model(None, 0)
         self.model = apply_model_axis(self.model, self.model_axis).to(self.device)
+        if cfg.debug_nans:
+            # a NaN out of any module raises, naming it (utils/debug_nans.py)
+            debug_nans.install_nan_hooks(self.model)
         self._replicate()
         steps_per_epoch = self.train_loader.steps_per_epoch()
         self.total_steps = max(steps_per_epoch * cfg.optim.num_epochs, 1)
@@ -547,7 +612,7 @@ class Trainer:
                 accum_steps=cfg.optim.gradient_accumulation_steps,
                 ema_decay=cfg.optim.ema_decay, seed=cfg.seed,
                 guard_skip=cfg.guard.enabled, health_metrics=self.obs_on,
-                pipeline=self.pipeline_plan)
+                pipeline=self.pipeline_plan, debug_asserts=cfg.debug_asserts)
             # eval runs without autograd: the plain loop on every rank, the
             # JAX trainer's unpipelined eval twin
             self.eval_step = make_pretrain_eval_step(self.model)
@@ -561,7 +626,7 @@ class Trainer:
             mixup_alpha=cfg.optim.mixup_alpha,
             cutmix_alpha=cfg.optim.cutmix_alpha,
             guard_skip=cfg.guard.enabled, health_metrics=self.obs_on,
-            pipeline=self.pipeline_plan)
+            pipeline=self.pipeline_plan, debug_asserts=cfg.debug_asserts)
         self.eval_step = make_eval_step(
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
@@ -693,8 +758,11 @@ class Trainer:
         writers are then fenced without the rank barrier (the other ranks
         may be stuck in a collective and never reach it), and an error here
         is added to `unwinding` as a note and logged, instead of replacing
-        it."""
+        it. The hang watchdog stops last: the checkpoint fences and their
+        barriers stay watched."""
         barrier = unwinding is None
+        if self.watchdog is not None:
+            self.watchdog.clear("train")  # the loop has left its steps
         steps = []
         if self.trackers is not None:
             steps.append(self.trackers.finish)
@@ -704,6 +772,8 @@ class Trainer:
         if self.train_guard is not None:
             steps.append(lambda: self.train_guard.close(barrier))
         steps += [self.train_loader.close, self.val_loader.close]
+        if self.watchdog is not None:
+            steps.append(self._stop_watch)
         errors = []
         for step in steps:
             try:
@@ -719,6 +789,20 @@ class Trainer:
         for e in errors:
             logger.error("while closing after %r", unwinding, exc_info=e)
             unwinding.add_note(f"also raised while closing: {e!r}")
+
+    def _start_watch(self) -> None:
+        """(Re)start the watchdog, route the collective sections to it and
+        register the loop's "train" component (fit() and evaluate() start
+        here after their resume, close() stops it)."""
+        if self.watchdog is not None:
+            self.watchdog.start()
+            install_collective_watch(self.watchdog)
+            self.watchdog.heartbeat("train")
+
+    def _stop_watch(self) -> None:
+        self.watchdog.stop()
+        if current_watchdog() is self.watchdog:
+            uninstall_collective_watch()
 
     def _make_checkpointer(self, directory: str,
                            use_async: Optional[bool] = None) -> Checkpointer:
@@ -782,6 +866,8 @@ class Trainer:
         with obs.span("eval"):
             for i, batch in enumerate(self.val_prefetch.epoch(epoch,
                                                               from_start=True)):
+                if self.watchdog is not None:
+                    self.watchdog.heartbeat("train")
                 val.update(self.eval_step(self.state, batch))
                 if 0 <= self.cfg.data.limit_val_batches <= i + 1:
                     break
@@ -811,6 +897,7 @@ class Trainer:
         unwinding = None
         try:
             self._maybe_resume()
+            self._start_watch()
             acc, acc5, loss = self._run_eval(epoch=0)
             if self.is_pretraining:
                 main_print(f"evaluate: val_recon_loss={loss:.4f}")
@@ -924,6 +1011,13 @@ class Trainer:
 
         if collector is not None:
             collector.pop_window()  # construction and resume: no window's
+        watch = self.watchdog
+        self._start_watch()
+        # a pipelined rank's dispatch section names the stage it computes
+        stage_note = (f"stage={stage_tag(self.mesh_shape, [self.rank])}"
+                      if self.pipeline_plan is not None else "")
+        nan_errors = (debug_nans.as_floating_point_error if cfg.debug_nans
+                      else nullcontext)
         # SIGTERM/SIGINT set an Event; the loop reads it once per step
         guard = get_guard() if cfg.reliability.graceful_shutdown else None
         if guard is not None:
@@ -934,7 +1028,11 @@ class Trainer:
         ledgered = False
         window_t0 = time.perf_counter()
         unwinding = None
+        modes = ExitStack()
         try:
+            if cfg.debug_nans:
+                # every backward function's outputs checked for NaN
+                modes.enter_context(debug_nans.anomaly())
             # a rollback re-enters this epoch, or an earlier one, from the
             # loader position it set
             epoch = starting_epoch
@@ -949,15 +1047,30 @@ class Trainer:
                 epoch_spans.clear()
                 window_t0 = time.perf_counter()
                 for i, batch in enumerate(self.train_prefetch.epoch(epoch)):
-                    with obs.span("step"):
-                        metrics = self.train_step(self.state, batch)
+                    if watch is not None:
+                        watch.heartbeat("train")
+                    # "delay": a slow dispatch, "raise": a failing one,
+                    # "nan": a poisoned batch (the divergence the guard's
+                    # ladder recovers from)
+                    if fault_point("step.dispatch") == "nan":
+                        batch = poison_batch(batch)
+                    # after the first, a dispatch and the deferred read of
+                    # the step before it (where the host waits on the
+                    # card's queue, and on the peers' collectives) are one
+                    # attributed section
+                    with (collective_section("step_dispatch", host_note=stage_note,
+                                             gstep=gstep)
+                          if self._dispatched else nullcontext()):
+                        with obs.span("step"), nan_errors():
+                            metrics = self.train_step(self.state, batch)
+                        with obs.span("log"):
+                            deferred.flush()
+                    self._dispatched = True
                     gstep += 1
                     steps_done += 1
                     if not ledgered:
                         self._ledger_train_state()
                         ledgered = True
-                    with obs.span("log"):
-                        deferred.flush()
                     if tguard is not None:
                         # observes the previous step; a rollback abandons
                         # the one just dispatched
@@ -1006,7 +1119,8 @@ class Trainer:
                     break
                 epoch_mean = float("nan")
                 if not rolled_back:
-                    with obs.span("sync"):
+                    with obs.span("sync"), collective_section("epoch_sync",
+                                                              step=gstep):
                         epoch_mean = epoch_loss.mean()  # the epoch's one sync
                 with obs.span("log"):
                     deferred.flush()
@@ -1101,6 +1215,7 @@ class Trainer:
             unwinding = e
             raise
         finally:
+            modes.close()
             if guard is not None:
                 guard.uninstall()  # the handlers from before fit()
             self.close(unwinding)  # fences the checkpoint writes

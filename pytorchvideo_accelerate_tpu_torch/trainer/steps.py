@@ -53,7 +53,9 @@ else is.
 Batch convention: dict with "video" (single-pathway) or "slow"/"fast"
 (SlowFast packing), each clip NDHWC, "label" int, optional "mask" float32
 (1.0 = real sample, 0.0 = padding). With gradient accumulation G > 1 every
-leaf carries a leading (G, B, ...) micro-step axis.
+leaf carries a leading (G, B, ...) micro-step axis. `debug_asserts` (the
+Trainer's `--debug_asserts`) holds each step's batch to that contract
+before anything runs (`assert_batch_contract`, the JAX step's checks).
 """
 
 from __future__ import annotations
@@ -92,6 +94,35 @@ from pytorchvideo_accelerate_tpu_torch.parallel.tensor_parallel import (
 )
 from pytorchvideo_accelerate_tpu_torch.precision import f32_island
 from pytorchvideo_accelerate_tpu_torch.trainer.optim import global_norm
+
+
+def assert_batch_contract(batch: dict, leading_micro: bool = False) -> None:
+    """The JAX step's batch contract (`assert_batch_contract`, its chex
+    checks) in the port's layout: each clip (B, T, H, W, C), or with a view
+    axis (B, V, T, H, W, C); "label" (B,) int32; "mask" (B,) float32; the
+    clips, the label and the mask share the leading B; `leading_micro`
+    (accumulation): one more leading (G,) axis on every leaf. Raises
+    AssertionError."""
+    lead = 2 if leading_micro else 1
+    clips = [batch[k] for k in ("slow", "fast", "video") if k in batch]
+    assert clips, "batch has neither 'video' nor 'slow'/'fast' clips"
+    for c in clips:
+        assert c.dim() in (4 + lead, 5 + lead), (
+            f"clip of shape {tuple(c.shape)}: expected rank {4 + lead} or "
+            f"{5 + lead}")
+    prefix = tuple(clips[0].shape[:lead])
+    if "label" in batch:
+        label = batch["label"]
+        assert label.dim() == lead, (
+            f"label of shape {tuple(label.shape)}: expected rank {lead}")
+        assert label.dtype == torch.int32, f"label dtype {label.dtype}, expected int32"
+        assert tuple(label.shape[:lead]) == prefix, (
+            f"label leading dims {tuple(label.shape[:lead])} != the clips' {prefix}")
+    if batch.get("mask") is not None:
+        mask = batch["mask"]
+        assert mask.dtype == torch.float32, f"mask dtype {mask.dtype}, expected float32"
+        assert tuple(mask.shape[:lead]) == prefix, (
+            f"mask leading dims {tuple(mask.shape[:lead])} != the clips' {prefix}")
 
 
 def model_inputs(batch: dict):
@@ -248,7 +279,8 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
                       accum_steps: int, ema_decay: float,
                       dropout_seed: Optional[int], with_accuracy: bool,
                       guard_skip: bool = False,
-                      health_metrics: bool = False, pipeline=None) -> Callable:
+                      health_metrics: bool = False, pipeline=None,
+                      debug_asserts: bool = False) -> Callable:
     """The optimizer step shared by the supervised and the MAE objective:
     `forward_loss(micro_batch, step, micro) -> (loss, correct, count)` per
     micro-batch in order, backward each, the summed grads divided by
@@ -285,7 +317,8 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
     does.
 
     `pipeline` (an active `PipelinePlan`): the micro axis is folded into
-    one forward (`fold_micro_axis`; the module docstring)."""
+    one forward (`fold_micro_axis`; the module docstring). `debug_asserts`:
+    `assert_batch_contract` on each step's batch, before anything else."""
     named = dict(model.named_parameters())
     names = [n for n, p in named.items() if p.requires_grad]
     params = [named[n] for n in names]
@@ -307,6 +340,8 @@ def _make_update_step(model, optimizer, forward_loss: Callable,
                 + [opt[k] for k in opt_keys] + ema)
 
     def step(state, batch: dict) -> dict:
+        if debug_asserts:
+            assert_batch_contract(batch, leading_micro=accum_steps > 1)
         model.train()
         if dropout_seed is not None:
             base = dropout_seed * 1_000_003 + state.step
@@ -507,7 +542,8 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
                     dropout_seed: Optional[int] = None,
                     mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0,
                     guard_skip: bool = False,
-                    health_metrics: bool = False, pipeline=None) -> Callable:
+                    health_metrics: bool = False, pipeline=None,
+                    debug_asserts: bool = False) -> Callable:
     """Build `step(state, batch) -> metrics`. One call is one optimizer
     step: forward + backward per micro-batch in order (the BN running
     averages thread through them), the summed grads divided by
@@ -524,7 +560,7 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     `mix_weight(mix_draw(seed, step, micro, ...))`; the loss is lam_eff *
     CE(y) + (1 - lam_eff) * CE(y[::-1]) with lam_eff = mean(w), and the
     accuracy counts the dominant label. `guard_skip`, `health_metrics`,
-    `pipeline`: see `_make_update_step`."""
+    `pipeline`, `debug_asserts`: see `_make_update_step`."""
     mixing = mixup_alpha > 0 or cutmix_alpha > 0
     seed = dropout_seed or 0
 
@@ -553,7 +589,7 @@ def make_train_step(model, optimizer, accum_steps: int = 1,
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
                              ema_decay, dropout_seed, with_accuracy=True,
                              guard_skip=guard_skip, health_metrics=health_metrics,
-                             pipeline=pipeline)
+                             pipeline=pipeline, debug_asserts=debug_asserts)
 
 
 def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
@@ -566,13 +602,15 @@ def mask_generator(seed: int, step: int, micro: int) -> torch.Generator:
 def make_pretrain_step(model, optimizer, accum_steps: int = 1,
                        ema_decay: float = 0.0, seed: int = 0,
                        guard_skip: bool = False,
-                       health_metrics: bool = False, pipeline=None) -> Callable:
+                       health_metrics: bool = False, pipeline=None,
+                       debug_asserts: bool = False) -> Callable:
     """Build the VideoMAE self-supervised step `step(state, batch) ->
     metrics` (JAX `make_pretrain_step`): no labels, the model returns its
     own reconstruction loss under a tube mask drawn from
-    `mask_generator(seed, step, micro)`; the same accumulation, clip, EMA
-    `guard_skip`, `health_metrics` and `pipeline` as `make_train_step`
-    (folded, one mask of micro-step 0 for the effective batch). `metrics`:
+    `mask_generator(seed, step, micro)`; the same accumulation, clip, EMA,
+    `guard_skip`, `health_metrics`, `pipeline` and `debug_asserts` as
+    `make_train_step` (folded, one mask of micro-step 0 for the effective
+    batch). `metrics`:
     "loss", "grad_norm", "lr" (and "skipped" under `guard_skip`, the three
     gauges under `health_metrics`)."""
 
@@ -584,7 +622,7 @@ def make_pretrain_step(model, optimizer, accum_steps: int = 1,
     return _make_update_step(model, optimizer, forward_loss, accum_steps,
                              ema_decay, seed, with_accuracy=False,
                              guard_skip=guard_skip, health_metrics=health_metrics,
-                             pipeline=pipeline)
+                             pipeline=pipeline, debug_asserts=debug_asserts)
 
 
 def make_pretrain_eval_step(model) -> Callable:

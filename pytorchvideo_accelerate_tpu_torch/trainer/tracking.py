@@ -6,8 +6,9 @@ retrying fan-out `TrackerHub`, and the one-step-late `DeferredStepLogger`.
 `JsonlTracker` writes the JAX package's lines, so one parser reads either
 package's file. TensorBoard goes through `torch.utils.tensorboard` (it needs
 the `tensorboard` package) and wandb through `wandb`; a machine without
-them tracks to jsonl alone under `"all"`. The JAX hub's fault point waits
-for the port of `reliability/faults.py` (ROADMAP.md).
+them tracks to jsonl alone under `"all"`. Each attempt of the hub's
+fan-out is the `tracker.log` fault point (reliability/faults.py): an
+injected raise takes the retry-then-disable path of a real outage.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 from pytorchvideo_accelerate_tpu_torch.reliability.retry import retry_call
 
 logger = logging.getLogger(__name__)
@@ -168,8 +170,12 @@ class TrackerHub:
         with self._lock:
             trackers = list(self.trackers)
         for t in trackers:
+            def attempt(t=t):
+                fault_point("tracker.log")
+                fn(t)
+
             try:
-                retry_call(lambda t=t: fn(t), attempts=self.retries,
+                retry_call(attempt, attempts=self.retries,
                            retry_on=(Exception,), base_delay_s=0.02,
                            deadline_s=2.0)
             except Exception as e:  # noqa: BLE001 - any tracker bug qualifies

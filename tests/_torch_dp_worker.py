@@ -1001,6 +1001,41 @@ def pipeline_restore(rank, world, d):
     return {k: _np(v) for k, v in t.state.state_dict()["model"].items()}
 
 
+# the hang watch at world 2: rank 1 sleeps HANG_DELAY_S inside the barrier of
+# the last checkpoint fence (`Checkpointer.close`), rank 0 waits in it; each
+# watchdog, at HANG_TIMEOUT_S, attributes its rank's wedge
+HANG_TIMEOUT_S, HANG_DELAY_S = 1.5, 4.0
+HANG_BARRIER = "name=checkpoint_close"
+
+
+def hangwatch(rank, world, d):
+    import json
+
+    from pytorchvideo_accelerate_tpu_torch.parallel import schedule_recorder as srec
+    from pytorchvideo_accelerate_tpu_torch.parallel.hangcheck import host_tag
+    from pytorchvideo_accelerate_tpu_torch.reliability import faults
+
+    recorder = srec.CollectiveScheduleRecorder(host_tag())
+    srec.install_schedule_recorder(recorder)
+    if rank == 1:
+        faults.arm(faults.FaultPlan(0, [faults.FaultSpec(
+            "collective.sync", kind="delay", delay_s=HANG_DELAY_S,
+            path_substr=HANG_BARRIER, max_fires=1)]))
+    argv = _argv(d, "hang", ["--data.synthetic_num_videos", "16", "--num_epochs", "1",
+                             "--checkpointing_steps", "2",
+                             "--obs.watchdog_timeout_s", str(HANG_TIMEOUT_S)])
+    result, seen, _ = _fit(argv)
+    wd = _LAST[0].watchdog
+    name = "flight_record.json" if rank == 0 else f"flight_record.rank{rank}.json"
+    with open(os.path.join(d, "hang", name)) as f:
+        flight = json.load(f)["events"]
+    return {"result": result, "stall_count": wd.stall_count,
+            "last_stalled": wd.last_stalled,
+            "attribution": dict(wd.last_attribution),
+            "schedule": recorder.schedules(), "fired": faults.fault_history(),
+            "flight": [e for e in flight if e["kind"] in ("watchdog", "fault")]}
+
+
 def run_group(scenario: str, d, world: int = 2, env=None,
               timeout_s: float = 150.0) -> list:
     """Start `world` spawned ranks of `scenario` over directory `d`; fail
@@ -1035,7 +1070,7 @@ SCENARIOS = {"collectives": collectives, "env": env, "train_step": train_step,
              "cp_attention": cp_attention, "replicated": replicated, "ckpt": ckpt,
              "mvit_tp_forward": mvit_tp_forward, "library": library,
              "health": health, "unwind": unwind, "pipeline": pipeline,
-             "pipeline_restore": pipeline_restore}
+             "pipeline_restore": pipeline_restore, "hangwatch": hangwatch}
 
 
 def main() -> None:
