@@ -57,6 +57,16 @@ Drives the port only (no JAX), one JSON line per phase:
             PyTorch (`train_parity_phase`)
 10. train_timing  ms per micro-step through the kernels, unfused and
             plain; peak memory; a profiled micro-step
+10b. transport  16 fp32 clips of SlowFast-R50's train transforms, B=8, 8
+            workers, one epoch on threads and one through forked workers
+            and the native shm ring: no fallback, the batches byte-equal,
+            clips/s of each; a worker that touches CUDA fails in-band
+10c. observe_train  a SlowFast-R50 Trainer, B=8, 4 steps, with `--data.transport
+            process --obs.profile_steps 1..3 --obs.trace_sample_rate 1.0`:
+            launches exact, the window's trace holding rows 1-2b's
+            launches of its 2 micro-steps exactly, a `train_step` root a
+            step, `h2d` in a step's trace, `pva-torch-trace` merging the
+            ring with the flight record
 11. x3d_weights, csn_weights  the same seeded, calibrated, planted
             artifacts for X3D-M (16 frames at 224^2) and CSN-R101 (32 frames
             at 224^2), and the site shapes of one plain bucket-8 (X3D-M) and
@@ -206,7 +216,10 @@ Drives the port only (no JAX), one JSON line per phase:
             /metrics counts and the latency histogram's count equal to the
             requests answered, 41 pointwise and 51 conv launches per forward,
             POST /drain then /healthz 503; client and server p50/p99 per
-            class, launches per batch, bucket fill
+            class, launches per batch, bucket fill; a POST /profile window
+            (202, then 409) holding one forward's launches of rows 1 and 2,
+            and a request with a `traceparent` echoed, found in the ring
+            dumped at drain and in /stats `slowest_traces`
 34. int8_serve  int8 artifacts of SlowFast-R50 and MViT-B baked by the
             port's `export_inference`, each served by `build_server`: the
             fp forward's launches (rows 1 and 2; rows 4 and 5), the logits
@@ -326,7 +339,8 @@ launches of the fine-tuning phases that run it: "hub_finetune" on rows
 "mae_handoff" on rows 5-7; "model_axis_train" on rows 4-7,
 "model_axis_train_pipeline" on rows 5-7 (one stage rank of arm (f)) and
 "library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches;
-"hang_watch" on rows 1-2b: its 2 clean steps' launches),
+"hang_watch" on rows 1-2b: its 2 clean steps' launches; "observe_train"
+on rows 1-2b),
 the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
@@ -456,8 +470,9 @@ TRACKING_ORDER = ("on", "off", "obs_off")
 # plain, mixed, mixed + armed guard (the order turned each round; 6 rounds
 # before the library-mesh phase, 8 before the data-parallel phase, 24
 # before the serving-defaults and preemption phases, 4 before the telemetry
-# phase, 3 before the hang-watch phase)
-ARMED_ROUNDS = 2
+# phase, 3 before the hang-watch phase, 2 before the transport-and-tracing
+# phases)
+ARMED_ROUNDS = 1
 # hub mvit_base_32x3 (32 frames x stride 3 at 224^2, drop path 0.3) under
 # per-block remat: B=4 micro-steps with and without --model.remat
 REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
@@ -465,8 +480,8 @@ REMAT_TRAIN = dict(X3D_TRAIN, name="mvit_b_32x3", batch=4, lr=TRANSFORMER_LR,
 TRAIN_BATCH = SLOWFAST_TRAIN["batch"]
 BASE_LR = 0.1  # OptimConfig default, cosine to 0 over the run, no warmup
 # profiled calls per timing of a depthwise-slice kernel row (10 before the
-# hang-watch phase)
-DW_REPS = 5
+# hang-watch phase, 5 before the transport-and-tracing phases)
+DW_REPS = 3
 # calls per class breakdown (a forward or a micro-step; 3 forwards and 2
 # micro-steps before the smoke grew the fine-tuning phases, cut to keep the
 # whole smoke inside its time limit)
@@ -1141,11 +1156,11 @@ def kernel_sums(rows) -> dict:
 
 # timed calls of each SlowFast-R50 GEMM kernel row (and its plain and
 # library versions): 20 before the library-mesh phase, 10 before the
-# hang-watch phase
-GEMM_REPS = 5
+# hang-watch phase, 5 before the transport-and-tracing phases
+GEMM_REPS = 3
 # timed calls of each flash kernel row and strided MViT pool (5 before the
-# hang-watch phase)
-ATTN_REPS = 3
+# hang-watch phase, 3 before the transport-and-tracing phases)
+ATTN_REPS = 2
 
 
 def kernel_phase(torch, sites, model: str = "slowfast_r50", reps: int = GEMM_REPS):
@@ -1453,9 +1468,9 @@ def profile_of(torch, fn, reps: int, unit: str) -> dict:
     }
 
 
-def forward_ms(torch, engine, batch, reps: int = 5):
+def forward_ms(torch, engine, batch, reps: int = 3):
     """Host-clock ms of synchronised `engine.predict(batch)` calls, after one
-    warm-up call."""
+    warm-up call (5 calls before the transport-and-tracing phases)."""
     engine.predict(batch)
     times = []
     for _ in range(reps):
@@ -2167,7 +2182,13 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          fit_input_wait_frac=train["result"].get("input_wait_frac"),
          **timing, profile_retakes=PROFILE_RETAKES[0],
          incomplete_profiles=INCOMPLETE_PROFILES[0])
+    t_observe = time.perf_counter()
+    # 8b-8c. slice 19's paths: the process transport, and the profile
+    # window and tracing on a Trainer, counters zeroed just before fit()
+    emit("transport", nvidia_smi=smi, **transport_phase(torch, work))
+    emit("observe_train", nvidia_smi=smi, **observe_train_phase(torch, work, launches))
     slowfast_s = time.perf_counter() - t_start
+    observe_s = time.perf_counter() - t_observe
 
     rows += depthwise_phases(torch, work, launches)
     t_attention = time.perf_counter()
@@ -2185,7 +2206,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     # 33-35. this slice's paths: the serving defaults on SlowFast-R50 and
     # MViT-B, the preemption grace path, counters zeroed just before each
     emit("edf_serve", nvidia_smi=smi,
-         **edf_serve_phase(torch, art, clips, plain_logits, launches))
+         **edf_serve_phase(torch, work, art, clips, plain_logits, launches))
     emit("int8_serve", nvidia_smi=smi, **int8_serve_phase(torch, work, launches))
     emit("preempt_train", nvidia_smi=smi, **preempt_train_phase(torch, work, launches))
     t_slice12 = time.perf_counter()
@@ -2247,12 +2268,13 @@ def run(torch, work: str, smi: str, kind: str) -> int:
             kernels[-1]["train_features"] = sub
         for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
                               **MODEL_AXIS_LINE, **PIPELINE_LINE,
-                              **LIBRARY_LINE, **HANG_LINE}.items():
+                              **LIBRARY_LINE, **HANG_LINE,
+                              **OBSERVE_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
                 kernels[-1][phase] = {"launches": n}
-    emit("seconds", slowfast=slowfast_s,
+    emit("seconds", slowfast=slowfast_s, observe=observe_s,
          attention=t_r2plus1d - t_attention,
          r2plus1d=t_features - t_r2plus1d,
          features=t_real - t_features,
@@ -2723,11 +2745,11 @@ def mae_micro_step(torch, attention: str, x, seed: int = 0):
     return model, fn
 
 
-def micro_step_times(torch, fn, reps: int = 2) -> dict:
+def micro_step_times(torch, fn, reps: int = 1) -> dict:
     """Host-clock ms of `reps` synchronised `fn()` calls after one warm-up
-    call, the peak device memory over them, and the memory live before
-    them (held by the caller: weights, the batch, what earlier phases
-    left)."""
+    call (2 before the transport-and-tracing phases), the peak device
+    memory over them, and the memory live before them (held by the caller:
+    weights, the batch, what earlier phases left)."""
     fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3783,11 +3805,11 @@ def kill_waiting(groups) -> None:
                 p.wait()
 
 
-def http(url: str, body: bytes = None, timeout: float = 600.0):
+def http(url: str, body: bytes = None, timeout: float = 600.0, headers=None):
     """(status, headers, body bytes, client ms) of a GET (no body) or POST,
     error statuses included."""
-    req = urllib.request.Request(url, data=body,
-                                 headers={"Content-Type": "application/json"})
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json", **(headers or {})})
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
@@ -3823,7 +3845,8 @@ def quantiles(xs) -> dict:
 EDF_REALTIME = 2
 
 
-def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dict:
+def edf_serve_phase(torch, work: str, art: str, clips, plain_logits,
+                    launches: dict) -> dict:
     """Phase 33. The SlowFast-R50 artifact of phase 3 served by
     `build_server` with no `--serve.scheduler` flag (the EDF scheduler):
     8 batch-class requests sent concurrently (the 5 request clips and 3 of
@@ -3841,13 +3864,27 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
     with series for the request counters (polled until the server's
     ticker has ticked after the requests); a server built with
     `--obs.enabled false` (bucket 1 only, after the counters are read)
-    answers 503 on /history."""
+    answers 503 on /history. Slice 19 (tracing armed at a head-sampling
+    rate, `EDF_TRACE_RATE`, that the seed's draws sample none of the
+    phase's requests at, so the one that carries a `traceparent` is the
+    one traced): before the last realtime request, POST /profile?seconds=S
+    (S = `EDF_PROFILE_S`, or twice the realtime request before it plus 1 s
+    where that is longer: the window must outlast the request's JSON
+    parse) answers 202 and a second one at once 409; that request carries a `traceparent` and gets back
+    `x-pva-trace-id` equal to its trace id; the published window holds at
+    least one bucket forward's launches of rows 1 and 2; /stats
+    `slowest_traces` names the trace, and the ring, dumped by
+    `InferenceServer.drain`, holds its `http_predict` (a child of the
+    caller's span), `sched_wait` and `device_dispatch`."""
+    from pytorchvideo_accelerate_tpu_torch import obs
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
     from pytorchvideo_accelerate_tpu_torch.ops import fused
     from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
 
     bodies = request_bodies(clips)
+    out = os.path.join(work, "edf_serve")
+    remote = obs.trace.TraceContext("%032x" % (SEED + 19), "%016x" % (SEED + 19))
     order = [i % len(clips) for i in range(BUCKET)]
     free_cuda(torch)
     fused.reset_launch_counts()
@@ -3856,7 +3893,8 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
     # concurrent requests' JSON to parse, and their deadline beyond it
     server = build_server(parse_cli([
         "--serve.checkpoint", art, "--serve.port", "0",
-        "--serve.max_wait_ms", "20000", "--serve.batch_deadline_ms", "60000"]))
+        "--serve.max_wait_ms", "20000", "--serve.batch_deadline_ms", "60000",
+        "--obs.trace_sample_rate", str(EDF_TRACE_RATE), "--output_dir", out]))
     check(isinstance(server.batcher, Scheduler),
           f"default front is {type(server.batcher).__name__}, not the Scheduler")
     server.start()
@@ -3869,7 +3907,16 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
                 lambda i: http(base + "/predict", with_keys(bodies[i], priority="batch")),
                 order))
         rt_resp = [http(base + "/predict", with_keys(bodies[i], priority="realtime"))
-                   for i in range(EDF_REALTIME)]
+                   for i in range(EDF_REALTIME - 1)]
+        # the last realtime request inside a profile window, traced: the
+        # window outlasts the request's client time (its JSON parse)
+        window_s = max(EDF_PROFILE_S, round(2 * rt_resp[-1][3] / 1e3 + 1, 1))
+        prof = http(base + f"/profile?seconds={window_s}", b"")
+        busy = http(base + f"/profile?seconds={window_s}", b"")
+        rt_resp.append(http(base + "/predict", with_keys(
+            bodies[EDF_REALTIME - 1], priority="realtime"),
+            headers={"traceparent": obs.trace.format_traceparent(remote)}))
+        obs.profiler.get_profiler().join(timeout=120)
         svc_ms = server.batcher._estimate_s(1) * 1e3
         deadline_ms = max(svc_ms / 2, 1.0)
         shed = http(base + "/predict", with_keys(bodies[4], priority="realtime",
@@ -3880,7 +3927,8 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
         drain_code, _, drain_body, _ = http(base + "/drain", b"{}")
         health_code = http(base + "/healthz")[0]
     finally:
-        server.close()
+        server.drain(grace_s=10)  # closes, and dumps the trace ring
+        obs.trace.disable_tracing()
     counts = dict(fused.LAUNCHES)
     answered = batch_resp + rt_resp
     check(all(r[0] == 200 for r in answered),
@@ -3900,6 +3948,8 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
           "/metrics counts differ from the requests answered and shed")
     check(drain_code == 200 and json.loads(drain_body)["draining"]
           and health_code == 503, f"/drain {drain_code}, then /healthz {health_code}")
+    observed = edf_observe_checks(out, prof, busy, rt_resp[-1], stats, remote)
+    observed["window_s"] = window_s
     forwards = len(server.engine.buckets) + int(stats["batches"])
     check_launches(counts, expected_forward_launches("slowfast_r50"), forwards,
                    "edf_serve")
@@ -3935,7 +3985,37 @@ def edf_serve_phase(torch, art: str, clips, plain_logits, launches: dict) -> dic
         hbm_weight_bytes=weights, hbm_bytes_in_use=metric_value(
             metrics, "pva_hbm_bytes_in_use"),
         hbm_attributed_frac=metric_value(metrics, "pva_hbm_attributed_frac"),
-        history=history, history_obs_off_http=history_off, **held)
+        history=history, history_obs_off_http=history_off, observe=observed,
+        **held)
+
+
+def edf_observe_checks(out: str, prof, busy, traced, stats: dict, remote) -> dict:
+    """edf_serve's slice-19 checks (its docstring) on the /profile replies,
+    the traced request's reply, /stats and the dumped trace ring."""
+    check(prof[0] == 202 and json.loads(prof[2])["capturing"] and busy[0] == 409,
+          f"POST /profile answered {prof[0]}, then {busy[0]}")
+    tag = json.loads(prof[2])["tag"]
+    echo = traced[1]["x-pva-trace-id"]
+    check(echo == remote.trace_id, f"x-pva-trace-id {echo}, sent {remote.trace_id}")
+    window = window_launches(os.path.join(out, f"profile_{tag}", "trace.json"))
+    got = {k: window["kernels_by_class"].get(k, 0) for k in SITES_PER_FORWARD}
+    check(all(got[k] >= n for k, n in SITES_PER_FORWARD.items()),
+          f"the /profile window's kernels {got}, expected at least "
+          f"{SITES_PER_FORWARD}; the window: {window}, the request's client "
+          f"ms {traced[3]}")
+    slowest = [s["trace_id"] for s in stats.get("slowest_traces", [])]
+    check(remote.trace_id in slowest, f"/stats slowest_traces {slowest}")
+    with open(os.path.join(out, "trace_ring.json")) as f:
+        ring = json.load(f)["traceEvents"]
+    mine = {e["name"]: e["args"] for e in ring
+            if e["args"]["trace_id"] == remote.trace_id}
+    check({"http_predict", "sched_wait", "device_dispatch"} <= set(mine)
+          and mine["http_predict"].get("parent_id") == remote.span_id,
+          f"the traced request's events {mine}")
+    return {"profile_http": prof[0], "profile_busy_http": busy[0], "tag": tag,
+            "window": {"launches": got, **window}, "trace_id": echo,
+            "trace_events": sorted(mine), "slowest_traces": slowest,
+            "ring_events": len(ring)}
 
 
 # the request counters a served /history carries series for
@@ -4877,6 +4957,257 @@ def hang_watch_phase(torch, work: str, launches: dict) -> dict:
             "train_timing_micro_step_ms_auto": KEPT.get("train_timing_micro_step_ms"),
             "nan_raised": raised, "nan_step_launches": nan_step_launches,
             "malformed_batch_raised": asserted,
+            "seconds": time.perf_counter() - t0}
+
+
+# --- slice 19: the process transport, tracing and the profiler ------------------
+
+# a full-width SlowFast-R50 Trainer, B=8, 4 steps of synthetic clips (8 val
+# clips: one eval forward) through the process transport, with the
+# run-relative profile window of steps 1 and 2 and every step traced
+OBSERVE_TRAIN = dict(SLOWFAST_TRAIN, batch=8, accum=1, epochs=1, videos=32, ckpt_every=0)
+OBSERVE_WINDOW = (1, 3)
+OBSERVE_ARGV = ["--data.transport", "process",
+                "--obs.profile_steps", "%d..%d" % OBSERVE_WINDOW,
+                "--obs.trace_sample_rate", "1.0"]
+OBSERVE_LINE = {"observe_train": ("fused_pw_bn_act", "fused_pw_bn_act.bwd_dx",
+                                  "fused_conv_bn_act", "fused_conv_bn_act.bwd_dx")}
+# the transport arm: one epoch of 16 fp32 clips in batches of 8, 8 workers
+TRANSPORT_CLIPS, TRANSPORT_WORKERS = 16, 8
+# edf_serve's POST /profile window, seconds (at least; longer where the
+# realtime request before it took longer than half of it), and its
+# head-sampling rate
+EDF_PROFILE_S = 2
+EDF_TRACE_RATE = 0.001
+
+
+def window_launches(trace_json: str) -> dict:
+    """Device kernels by class (`KERNEL_CLASSES`) in a profile window's
+    Chrome trace (`obs/profiler.py`: events of category "kernel"), and the
+    CPU ops it holds by thread."""
+    with open(trace_json) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, cpu_tids = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            cls = next((c for c, keys in KERNEL_CLASSES
+                        if any(k in e["name"] for k in keys)), "other")
+            kernels[cls] = kernels.get(cls, 0) + 1
+        elif e.get("cat") == "cpu_op":
+            cpu_tids[str(e.get("tid"))] = cpu_tids.get(str(e.get("tid")), 0) + 1
+    return {"kernels_by_class": kernels, "cpu_ops_by_tid": cpu_tids,
+            "events": len(events), "mb": os.path.getsize(trace_json) / 1e6}
+
+
+def same_bytes(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)))
+
+
+class CudaTouchingSource:
+    """A clip source whose samples touch the card: in a forked worker torch
+    raises, and the error must come back in-band."""
+
+    num_classes = 1
+
+    def __len__(self):
+        return 1
+
+    def get(self, index, epoch):
+        import torch
+
+        return {"x": torch.zeros(1, device="cuda").cpu().numpy()}
+
+
+def transport_phase(torch, work: str) -> dict:
+    """Phase 8b. The process transport at full width: the Trainer's train
+    transforms (32 frames at 256^2, PackPathway, fp32) over synthetic
+    clips, B=8, `TRANSPORT_CLIPS` clips, `TRANSPORT_WORKERS` workers: the
+    native library built (no fallback to threads: `transport` stays
+    "process"), the workers forked, one epoch's batches byte-equal to the
+    thread transport's; each transport's clips/s over its epoch (a reading);
+    a worker that touches CUDA after the fork fails in-band with torch's
+    "Cannot re-initialize CUDA in forked subprocess"."""
+    from pytorchvideo_accelerate_tpu_torch import native
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.data.pipeline import (
+        ClipLoader,
+        SyntheticClipSource,
+    )
+    from pytorchvideo_accelerate_tpu_torch.data.transforms import make_transform
+    from pytorchvideo_accelerate_tpu_torch.native.shm_loader import ShmWorkerPool
+
+    t0 = time.perf_counter()
+    check(native.load() is not None,
+          f"the native loader library did not build: {native.load_error()}")
+    d = parse_cli(train_argv(work, spec=OBSERVE_TRAIN)).data
+    tf = make_transform(training=True, num_frames=d.num_frames, is_slowfast=True,
+                        slowfast_alpha=ALPHA, min_short_side_scale=d.min_short_side_scale,
+                        max_short_side_scale=d.max_short_side_scale,
+                        crop_size=d.crop_size, mean=d.mean, std=d.std,
+                        horizontal_flip_p=d.horizontal_flip_p, output_dtype="float32")
+    source = SyntheticClipSource(tf, num_videos=TRANSPORT_CLIPS,
+                                 num_classes=NUM_CLASSES, seed=SEED)
+    batches, seconds, pool = {}, {}, {}
+    for transport in ("thread", "process"):
+        loader = ClipLoader(source, OBSERVE_TRAIN["batch"], shuffle=True, seed=SEED,
+                            num_workers=TRANSPORT_WORKERS, transport=transport)
+        check(loader.transport == transport,
+              f"the {transport} transport runs as {loader.transport}")
+        try:
+            t = time.perf_counter()
+            batches[transport] = list(loader.epoch(0))
+            seconds[transport] = time.perf_counter() - t
+            if transport == "process":
+                p = loader._shm_pool
+                pool = {"forks": p.forks, "slot_bytes": p.slot_bytes,
+                        "slots_per_worker": p.slots_per_worker,
+                        "ring_bytes": p.forks * p.slots_per_worker * p.slot_bytes}
+        finally:
+            loader.close()
+    n = TRANSPORT_CLIPS // OBSERVE_TRAIN["batch"]
+    check(len(batches["thread"]) == len(batches["process"]) == n,
+          f"batches {len(batches['thread'])} / {len(batches['process'])}, expected {n}")
+    check(pool["forks"] == TRANSPORT_WORKERS, f"forked workers {pool['forks']}")
+    for i, (a, b) in enumerate(zip(batches["thread"], batches["process"])):
+        check(set(a) == set(b) and all(same_bytes(a[k], b[k]) for k in a),
+              f"batch {i} of the process transport differs from the thread "
+              "transport's: max |diff| " + str({
+                  k: float(np.abs(np.asarray(a[k], np.float64) - b[k]).max())
+                  for k in a}))
+    sample_mb = sum(v[0].nbytes for v in batches["process"][0].values()) / 1e6
+    del batches
+    torch.cuda.init()  # the parent's CUDA context, as in every later phase
+    cuda_pool = ShmWorkerPool(CudaTouchingSource(), num_workers=1, slot_bytes=4096,
+                              timeout_ms=60_000)
+    in_band = None
+    try:
+        list(cuda_pool.map_epoch([0], 0))
+    except RuntimeError as e:
+        in_band = str(e)
+    check(in_band is not None and "Cannot re-initialize CUDA in forked subprocess"
+          in in_band, f"a worker touching CUDA: {in_band!r}")
+    return {"model": "slowfast_r50", "clips": TRANSPORT_CLIPS,
+            "batch": OBSERVE_TRAIN["batch"], "workers": TRANSPORT_WORKERS,
+            "dtype": "float32", "batches_byte_equal": n, "sample_mb": sample_mb,
+            **pool, "epoch_s": seconds,
+            "clips_per_sec": {k: TRANSPORT_CLIPS / v for k, v in seconds.items()},
+            "cuda_in_child": in_band.strip().splitlines()[-1],
+            "seconds": time.perf_counter() - t0}
+
+
+def observe_train_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 8c. A full-width SlowFast-R50 Trainer (B=8, 4 steps, one eval
+    forward) with `OBSERVE_ARGV`: both loaders on the process transport
+    (their workers forked: `ShmWorkerPool._spawn` counted), every loss
+    finite, the launches exact (counters zeroed just before fit()); the
+    profile window `profile_steps_1_3/` published (no dot-prefixed
+    temporary directory left) whose trace holds rows 1 + 1b and 2 + 2b's
+    launches of its micro-steps exactly ((41 + 41) and (51 + 51) each);
+    `trace_ring.json` one `train_step` root per step with its `gstep`, an
+    `h2d` span inside a step's trace; `pva-torch-trace` (the module's CLI)
+    merging the ring with the flight record, its summary counting both
+    files' events and the 4 traces."""
+    from pytorchvideo_accelerate_tpu_torch import obs
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.native import shm_loader
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.trainer.loop import Trainer
+
+    t0 = time.perf_counter()
+    free_cuda(torch)
+    out = os.path.join(work, "observe_train")
+    forks = []
+    spawn = shm_loader.ShmWorkerPool._spawn
+
+    def counted(pool, indices, epoch):
+        spawn(pool, indices, epoch)
+        forks.append(len(pool._pids))
+
+    shm_loader.ShmWorkerPool._spawn = counted
+    try:
+        trainer = Trainer(parse_cli(train_argv(out, spec=OBSERVE_TRAIN) + OBSERVE_ARGV))
+        transports = (trainer.train_loader.transport, trainer.val_loader.transport)
+        check(transports == ("process", "process"),
+              f"the loaders run {transports}: a fallback to threads")
+        step, losses = trainer.train_step, []
+
+        def recording(state, batch):
+            m = step(state, batch)
+            losses.append(m["loss"])
+            return m
+
+        trainer.train_step = recording
+        fused.reset_launch_counts()
+        t_fit = time.perf_counter()
+        res = trainer.fit()
+        fit_s = time.perf_counter() - t_fit
+        counts = dict(fused.LAUNCHES)
+        flight = obs.get_recorder().dump()
+    finally:
+        shm_loader.ShmWorkerPool._spawn = spawn
+        obs.trace.disable_tracing()
+        obs.profiler.configure(enabled=False)
+    losses = [float(x) for x in losses]
+    steps = OBSERVE_TRAIN["videos"] // OBSERVE_TRAIN["batch"]
+    check(len(losses) == steps and all(np.isfinite(losses)), f"losses {losses}")
+    want = expected_train_launches(OBSERVE_TRAIN, expected_forward_launches("slowfast_r50"))
+    check(all(counts[k] == want[k] for k in SOURCES),
+          f"observe_train launches {counts}, expected {want}")
+    launches["observe_train"] = counts
+    check(len(forks) == 2 and all(f == trainer.train_loader.num_workers for f in forks),
+          f"forked workers per epoch pass {forks}")
+    check(not any("process transport unavailable" in json.dumps(e)
+                  for e in obs.get_recorder().snapshot()),
+          "the flight recorder holds a fallback to threads")
+    tag = "steps_%d_%d" % OBSERVE_WINDOW
+    listed = sorted(os.listdir(out))
+    check(f"profile_{tag}" in listed and not any(p.startswith(".profile_tmp")
+                                                 for p in listed),
+          f"output dir {listed}")
+    window = window_launches(os.path.join(out, f"profile_{tag}", "trace.json"))
+    micro = (OBSERVE_WINDOW[1] - OBSERVE_WINDOW[0]) * OBSERVE_TRAIN["accum"]
+    want_window = {k: 2 * n * micro for k, n in SITES_PER_FORWARD.items()}
+    got_window = {k: window["kernels_by_class"].get(k, 0) for k in want_window}
+    check(got_window == want_window,
+          f"the profile window's kernels {got_window}, expected {want_window} "
+          f"({micro} micro-steps, forward + dx)")
+    ring_path = os.path.join(out, "trace_ring.json")
+    with open(ring_path) as f:
+        ring = json.load(f)["traceEvents"]
+    roots = [e for e in ring if e["name"] == "train_step"]
+    check([e["args"]["gstep"] for e in roots] == list(range(steps))
+          and all("parent_id" not in e["args"] for e in roots),
+          f"train_step roots {[e['args'] for e in roots]}")
+    ids = {e["args"]["trace_id"] for e in roots}
+    h2d = [e for e in ring if e["name"] == "h2d" and e["args"]["trace_id"] in ids]
+    check(len(h2d) >= 1, "no h2d span inside a train_step trace")
+    merged = os.path.join(out, "merged.json")
+    cli = subprocess.run([sys.executable, "-m",
+                          "pytorchvideo_accelerate_tpu_torch.obs.tracetool",
+                          "--out", merged, ring_path, flight],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(cli.returncode == 0, f"pva-torch-trace exit {cli.returncode}: {cli.stderr[-500:]}")
+    summary = json.loads(cli.stdout.strip().splitlines()[-1])
+    with open(flight) as f:
+        n_flight = len(json.load(f)["events"])
+    check(summary["events"] == len(ring) + n_flight and summary["traces"] == len(ids)
+          and summary["pids"] == [os.getpid()],
+          f"pva-torch-trace summary {summary}, ring {len(ring)} + flight {n_flight} "
+          f"events, {len(ids)} traces")
+    del trainer, step
+    free_cuda(torch)
+    return {"model": "slowfast_r50", "batch": OBSERVE_TRAIN["batch"], "steps": steps,
+            "flags": OBSERVE_ARGV, "losses": losses, "launches": counts,
+            "forks_per_epoch_pass": forks, "fit_s": fit_s,
+            "fit_clips_per_sec": res.get("clips_per_sec"),
+            "input_wait_frac": res.get("input_wait_frac"),
+            "window": {"tag": tag, "micro_steps": micro, "launches": got_window,
+                       **window},
+            "trace_ring_events": len(ring), "train_step_roots": len(roots),
+            "h2d_in_step_traces": len(h2d), "tracetool_summary": summary,
             "seconds": time.perf_counter() - t0}
 
 

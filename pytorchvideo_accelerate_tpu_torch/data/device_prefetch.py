@@ -35,6 +35,12 @@ placement is the `prefetch.h2d` fault point (reliability/faults.py): a
 ``delay`` is a starved host link, a ``raise`` crosses the queue and
 re-raises in the consumer like a real placement failure.
 
+Tracing (obs/trace.py): the worker's placements run under the consumer's
+trace context, so their `h2d` spans join its trace: the one captured when
+the epoch starts (the JAX package's handoff) or, once the consumer hands
+one in with `set_trace_context` (the Trainer does at each traced step), the
+latest handed in: a placement joins the step that runs while it is made.
+
 `depth=0` places each batch inline and synchronously (the A/B baseline).
 Under data parallelism `device` is the rank's own card (`cuda:<index>`),
 and every copy, stream and event lands there.
@@ -53,6 +59,7 @@ import torch
 from pytorchvideo_accelerate_tpu_torch import obs
 from pytorchvideo_accelerate_tpu_torch.data.pipeline import ClipLoader
 from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
+from pytorchvideo_accelerate_tpu_torch.obs import trace
 from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 
 _POLL_S = 0.05  # stop-flag poll cadence for blocking waits
@@ -82,6 +89,12 @@ class DevicePrefetcher:
         self.watchdog_name = watchdog_name
         self._mem_component = f"prefetch_ring:{wait_name}"
         self._stream = None
+        self._trace_ctx = None  # the consumer's latest handed-in context
+
+    def set_trace_context(self, ctx) -> None:
+        """The trace context the worker's next placements join (None: the
+        one captured when the epoch started)."""
+        self._trace_ctx = ctx
 
     def pop_wait(self) -> float:
         """Accumulated input-wait seconds since the last call."""
@@ -131,8 +144,11 @@ class DevicePrefetcher:
         stop = threading.Event()
         slots = threading.Semaphore(self.depth)
         items = self.loader.epoch_items(epoch, from_start)
+        # the consumer's context when the epoch starts (None when tracing
+        # is disarmed or nothing is traced here)
+        self._trace_ctx = None
         worker = threading.Thread(target=self._worker,
-                                  args=(items, q, stop, slots),
+                                  args=(items, q, stop, slots, trace.capture()),
                                   name="device-prefetch", daemon=True)
         worker.start()
         try:
@@ -188,10 +204,12 @@ class DevicePrefetcher:
                 self.watchdog.clear(self.watchdog_name)
 
     def _worker(self, items: Iterator[tuple], q: "queue.Queue[tuple]",
-                stop: threading.Event, slots: threading.Semaphore) -> None:
-        """Producer: advance the loader, place, enqueue. Closing `items`
-        from this thread (the only one that ran it) cancels the loader's
-        pending work."""
+                stop: threading.Event, slots: threading.Semaphore,
+                ctx=None) -> None:
+        """Producer: advance the loader, place, enqueue. `ctx` is the
+        consumer's trace context at the epoch's start. Closing `items` from
+        this thread (the only one that ran it) cancels the loader's pending
+        work."""
         try:
             for batch, state in items:
                 if self.watchdog is not None:
@@ -204,7 +222,8 @@ class DevicePrefetcher:
                         break
                 else:
                     return  # consumer gone
-                placed = self._place(batch)
+                with trace.attach(self._trace_ctx or ctx):
+                    placed = self._place(batch)
                 # the ledger: the bytes of the batch resident in the ring
                 obs_memory.register(self._mem_component,
                                     obs_memory.tree_nbytes(placed[0]))

@@ -1,14 +1,21 @@
 """Host-side clip pipeline: sources, batching, prefetch, state (the port's
 copy of the JAX package's `data/pipeline.py`: the real-video and synthetic
-sources with the bad-sample quarantine, and the thread transport; the
-frame-cache source is in `data/cache.py`; the process transport is queued
-in ROADMAP.md).
+sources with the bad-sample quarantine, and both transports; the
+frame-cache source is in `data/cache.py`).
 
 - a `ClipSource` maps (epoch, index) to one sample dict, deterministically;
 - per-epoch shuffling from the shared seed, `(seed, 0xDA7A, epoch)`, with
   quarantined indices remapped onto clean ones (`substitute_indices`);
 - a thread pool decodes and transforms samples, one batch-assembly lane
-  keeps `prefetch_batches` batches in flight;
+  keeps `prefetch_batches` batches in flight (`transport="thread"`, and
+  "auto"); each decode thread runs torch on one intra-op thread, as the
+  process transport's forked workers must (`_decode_pool`); or, with `transport="process"`, forked workers write samples
+  into per-worker shared-memory rings (`native/shm_loader.py`), batches
+  byte-equal to the thread transport's. Where the native library cannot
+  be built the loader warns (the log and the flight recorder) and runs
+  threads, and `transport` says "thread";
+- batches are stacked by the native multithreaded gather-copy where the
+  library loads (`stack_samples`), else by numpy / torch;
 - the iterator position {epoch, position} is checkpointable (`LoaderState`),
   and resume fast-forwards it in O(1).
 
@@ -28,7 +35,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from pytorchvideo_accelerate_tpu_torch import obs
+from pytorchvideo_accelerate_tpu_torch import native, obs
 from pytorchvideo_accelerate_tpu_torch.data import decode as decode_mod
 from pytorchvideo_accelerate_tpu_torch.data.manifest import Manifest, Quarantine
 from pytorchvideo_accelerate_tpu_torch.data.samplers import (
@@ -36,6 +43,7 @@ from pytorchvideo_accelerate_tpu_torch.data.samplers import (
     substitute_indices,
     uniform_clips,
 )
+from pytorchvideo_accelerate_tpu_torch.native.ringbuf import gather_copy
 from pytorchvideo_accelerate_tpu_torch.reliability.retry import retry_call
 
 logger = logging.getLogger(__name__)
@@ -248,11 +256,52 @@ class SyntheticClipSource(ClipSource):
         return out
 
 
+def _decode_pool(n: int) -> ThreadPoolExecutor:
+    """`n` decode threads, each running torch on one intra-op thread, as the
+    process transport's forked workers do (`native/shm_loader.py`): the
+    transforms' `F.interpolate` gives other bytes on another thread count
+    (up to 3.6e-7 apart at full width on AVX-512), and the two transports'
+    batches must be byte-equal. With torch's OpenMP backend
+    `torch.set_num_threads` sets the calling thread's count and the default
+    of threads not yet started: each worker sets 1 as it starts (after
+    torch's lazy per-thread initialisation, which would reset it), and once
+    all have started the constructing thread restores the default (its own
+    count is unchanged)."""
+    threads = torch.get_num_threads()
+    started = threading.Barrier(n + 1)
+
+    def one_thread():
+        torch.get_num_threads()
+        torch.set_num_threads(1)
+        started.wait(timeout=60)
+
+    pool = ThreadPoolExecutor(max_workers=n, initializer=one_thread)
+    for _ in range(n):  # a worker waiting in its initializer is not idle:
+        pool.submit(int)  # each submit starts another
+    started.wait(timeout=60)
+    torch.set_num_threads(threads)
+    return pool
+
+
 def stack_samples(arrs: List):
-    """Stack numpy arrays (or torch tensors: bf16 clips) on a new axis 0."""
-    if torch.is_tensor(arrs[0]):
-        return torch.stack(arrs)
-    return np.stack(arrs)
+    """Stack numpy arrays (or torch tensors: bf16 clips) on a new axis 0,
+    through the native gather-copy (`native/ringbuf.gather_copy`) where the
+    library loads: the one batch-assembly path of both transports."""
+    first = arrs[0]
+    lib = native.load() if np.ndim(first) > 0 else None
+    if torch.is_tensor(first):
+        if lib is None or first.dtype != torch.bfloat16:
+            return torch.stack(arrs)
+        out = torch.empty((len(arrs), *first.shape), dtype=first.dtype)
+        gather_copy(out.view(torch.int16).numpy(),
+                    [a.contiguous().view(torch.int16).numpy() for a in arrs])
+        return out
+    if lib is None:
+        return np.stack(arrs)
+    first = np.asarray(first)
+    out = np.empty((len(arrs), *first.shape), first.dtype)
+    gather_copy(out, arrs)
+    return out
 
 
 def _pad_rows(x, n: int):
@@ -305,7 +354,12 @@ class ClipLoader:
     the i-th, and every process yields `len(source) // process_count`
     clips' worth of batches (the JAX package's geometry: the same batch
     count on every rank, so no rank waits in a collective for a batch its
-    peer never has)."""
+    peer never has).
+
+    `transport`: "thread" (and "auto", as in the JAX package) decodes on a
+    thread pool; "process" on forked workers through shared-memory rings,
+    falling back to threads where the native library cannot be built
+    (`self.transport` then reads "thread")."""
 
     def __init__(self, source: ClipSource, global_batch_size: int,
                  accum_steps: int = 1, shuffle: bool = False,
@@ -316,11 +370,7 @@ class ClipLoader:
             raise ValueError(
                 f"global_batch_size {global_batch_size} not divisible by "
                 f"process_count {process_count}")
-        if transport == "process":
-            raise NotImplementedError(
-                "data.transport process (forked workers + native shm ring) "
-                "is not ported yet (ROADMAP.md); use thread")
-        if transport not in ("auto", "thread"):
+        if transport not in ("auto", "thread", "process"):
             raise ValueError(
                 f"transport must be auto|thread|process, got {transport!r}")
         self.source = source
@@ -335,7 +385,14 @@ class ClipLoader:
         self.num_workers = max(num_workers, 1)
         self.prefetch_batches = prefetch_batches
         self.state = LoaderState()
-        self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        self._pool = _decode_pool(self.num_workers)
+        self.transport = "thread" if transport == "auto" else transport
+        self._shm_pool = None
+        if self.transport == "process" and native.load() is None:
+            self.transport = "thread"
+            obs.get_recorder().warn(
+                "process transport unavailable: the native library did not "
+                "build; running threads", error=native.load_error())
 
     # --- epoch geometry ---------------------------------------------------
 
@@ -390,6 +447,10 @@ class ClipLoader:
         indices = self._epoch_indices(epoch)
         spy = self.samples_per_yield
         n_batches = self.steps_per_epoch()
+        if self.transport == "process":
+            yield from self._epoch_process_items(
+                epoch, start_state.position, indices, n_batches)
+            return
 
         def fetch_one(i) -> dict:
             # the "decode" span: one sample's decode and transform on a
@@ -436,5 +497,49 @@ class ClipLoader:
             return LoaderState(epoch=epoch, position=0)
         return self.state
 
+    def _epoch_process_items(self, epoch: int, start: int,
+                             indices: np.ndarray,
+                             n_batches: int) -> Iterator[tuple]:
+        """Forked shm workers; batches byte-equal to the thread transport's.
+        The rings' capacity is the prefetch (workers run ahead of
+        assembly)."""
+        from pytorchvideo_accelerate_tpu_torch.native.shm_loader import (
+            ShmWorkerPool,
+        )
+
+        spy = self.samples_per_yield
+        if self._shm_pool is None:
+            # a batch's slots are released once it is assembled; worker w
+            # holds ceil(spy / W) samples of a batch, so its ring holds
+            # that many slots in flight plus prefetch headroom
+            self._shm_pool = ShmWorkerPool(
+                self.source, num_workers=self.num_workers,
+                slots_per_worker=-(-spy // self.num_workers) + 2)
+        usable = indices[:n_batches * spy] if self.drop_last else indices
+        samples, dones = [], []
+        b = start
+
+        def flush():
+            nonlocal samples, dones
+            batch = assemble_batch(samples, spy, accum_steps=self.accum_steps)
+            for done in dones:
+                done()
+            samples, dones = [], []
+            return batch
+
+        for sample, done in self._shm_pool.map_epoch(usable, epoch,
+                                                     start=start * spy):
+            samples.append(sample)
+            dones.append(done)
+            if len(samples) == spy:
+                yield flush(), LoaderState(epoch=epoch, position=b + 1)
+                b += 1
+        if samples:  # non-drop_last tail, padded + masked
+            yield flush(), LoaderState(epoch=epoch, position=b + 1)
+        yield None, LoaderState(epoch=epoch + 1, position=0)
+
     def close(self) -> None:
         self._pool.shutdown(wait=False)
+        if self._shm_pool is not None:
+            self._shm_pool.close()
+            self._shm_pool = None

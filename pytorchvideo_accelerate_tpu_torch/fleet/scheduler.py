@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: deadlines, priority classes, EDF launches
 (the port's copy of the JAX package's `fleet/scheduler.py`, without the
-streaming-session launch path and tracing). Each launch is the
+streaming-session launch path). Each launch is the
 `serve.flush` fault point (reliability/faults.py): an injected raise fails
 that launch's futures, never the flush thread.
 
@@ -26,6 +26,11 @@ never resolve into a response). One flush thread serialises launches;
 `swap_engine` installs another engine with the same buckets between
 launches, so a launch runs start to finish on one engine.
 
+Tracing (obs/trace.py): each request carries its submitter's trace context
+across the pending-queue hop; a traced request's wait is a `sched_wait`
+trace event, the launch a `device_dispatch` span under the launch's first
+traced request, and the latencies reach the stats with their trace ids.
+
 The service-time EWMA starts at the first launch: the engine must be warm
 before the scheduler takes requests (`build_server` runs every bucket
 first), or the first launch's one-off costs (kernel builds, cuDNN's
@@ -43,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pytorchvideo_accelerate_tpu_torch.obs import trace
 from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 from pytorchvideo_accelerate_tpu_torch.serving.batcher import QueueFullError
 from pytorchvideo_accelerate_tpu_torch.serving.engine import CLIP_KEYS, clip_key
@@ -75,6 +81,9 @@ class _SchedRequest:
     priority: str
     key: tuple  # clip geometry: only same-shaped requests share a launch
     seq: int = 0
+    # the submitter's trace context, carried across the pending-queue hop
+    # (None: tracing disarmed or the caller untraced)
+    ctx: Optional[object] = None
 
     def rank(self) -> Tuple[int, float, int]:
         """EDF order, realtime class strictly first; seq breaks ties FIFO."""
@@ -151,7 +160,7 @@ class Scheduler:
                if deadline_ms is None else max(float(deadline_ms), 1.0) / 1e3)
         req = _SchedRequest(clip=clips, future=Future(), t_enqueue=now,
                             deadline=now + ttl, priority=priority,
-                            key=clip_key(clips))
+                            key=clip_key(clips), ctx=trace.capture())
         with self._lock:
             if self._closed.is_set():
                 raise RuntimeError("scheduler is closed")
@@ -334,10 +343,26 @@ class Scheduler:
             # 1.0 = real request, 0.0 = padding (the eval path's convention)
             stacked["mask"] = np.asarray([1.0] * n + [0.0] * (bucket - n),
                                          np.float32)
+            # traced requests record their scheduler wait, and the launch
+            # runs under the first traced request's context (disarmed: one
+            # global read and the shared no-ops)
+            rt = trace.get_tracer()
+            head_ctx = None
+            if rt is not None:
+                now_w, now_m = time.time(), time.monotonic()
+                for req in reqs:
+                    if req.ctx is not None:
+                        if head_ctx is None:
+                            head_ctx = req.ctx
+                        waited = now_m - req.t_enqueue
+                        rt.event(req.ctx, "sched_wait", now_w - waited,
+                                 waited, priority=req.priority)
             t0 = time.perf_counter()
             # one engine for the whole launch: swap_engine waits on this lock
-            with self._launch_lock:
-                logits = self.engine.predict(stacked)
+            with trace.attach(head_ctx):
+                with trace.span("device_dispatch", batch=n, bucket=bucket):
+                    with self._launch_lock:
+                        logits = self.engine.predict(stacked)
             svc = time.perf_counter() - t0
             done = time.monotonic()
             latencies = []
@@ -349,7 +374,10 @@ class Scheduler:
                 except Exception:
                     pass  # cancelled between claim and resolve
             if self.stats is not None:
-                self.stats.observe_batch(n, bucket, latencies)
+                self.stats.observe_batch(
+                    n, bucket, latencies,
+                    trace_ids=[getattr(r.ctx, "trace_id", None)
+                               for r in reqs])
             with self._lock:
                 prev = self._svc.get(bucket)
                 self._svc[bucket] = (svc if prev is None else

@@ -1,13 +1,16 @@
 """The port's telemetry layer (its copy of the JAX package's `obs/`):
 spans, the flight recorder, the metric registry, the device-memory ledger,
-the metrics history, the burn-rate alerts and the hang watchdog.
+the metrics history, the burn-rate alerts, the hang watchdog, distributed
+tracing (`obs.trace`: `configure_tracing`, the capture/attach handoff
+helpers, the per-process trace ring) and the on-demand profiler
+(`obs.profiler`).
 
 Stdlib only at import time. The process-default singletons
 (`get_collector`/`get_recorder`/`get_registry`) are the shared path;
 tests construct private instances. `configure()` is the one switch:
 `obs.enabled=false` turns every span into a shared no-op and detaches the
-recorder. The profiler and distributed tracing are later slices
-(ROADMAP.md).
+recorder. Tracing and the profiler are armed apart, and disarmed each
+costs one global read per hook.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from __future__ import annotations
 from pytorchvideo_accelerate_tpu_torch.obs import alerts  # noqa: F401
 from pytorchvideo_accelerate_tpu_torch.obs import history  # noqa: F401
 from pytorchvideo_accelerate_tpu_torch.obs import memory  # noqa: F401
+from pytorchvideo_accelerate_tpu_torch.obs import profiler  # noqa: F401
+from pytorchvideo_accelerate_tpu_torch.obs import trace  # noqa: F401
 from pytorchvideo_accelerate_tpu_torch.obs.alerts import (  # noqa: F401
     AlertEngine,
     AlertRule,

@@ -1,6 +1,5 @@
 """Process-wide metric registry with Prometheus text exposition (the
-port's copy of the JAX package's `obs/registry.py`, without histogram
-exemplars).
+port's copy of the JAX package's `obs/registry.py`).
 
 The serving server's `/metrics` renders a `Registry` verbatim and `/stats`
 reads the same counter objects, so the two surfaces cannot drift. Metric
@@ -21,7 +20,8 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 
 def _fmt(v: float) -> str:
@@ -217,7 +217,13 @@ def family_buckets(name: str,
 class Histogram(_Metric):
     """Cumulative-bucket histogram (Prometheus convention: each `le` bucket
     counts every observation <= its bound; `+Inf` == `_count`). Buckets
-    resolve per family when not given explicitly (`family_buckets`)."""
+    resolve per family when not given explicitly (`family_buckets`).
+
+    `observe(value, trace_id=...)` also pins an OpenMetrics-style exemplar
+    on the bucket the observation lands in (the last (trace_id, value,
+    timestamp) per bucket), so the top latency bucket names the trace of a
+    real slow request. `render(exemplars=True)` prints them; the default
+    text stays plain Prometheus v0.0.4."""
 
     kind = "histogram"
 
@@ -231,8 +237,11 @@ class Histogram(_Metric):
             raise ValueError("histogram needs at least one finite bucket")
         self._counts = [0] * (len(self.buckets) + 1)  # + the +Inf bucket
         self._sum = 0.0
+        # bucket index -> (trace_id, value, unix_ts); last observation wins
+        self._exemplars: List[Optional[Tuple[str, float, float]]] = (
+            [None] * (len(self.buckets) + 1))
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, trace_id: Optional[str] = None) -> None:
         v = float(value)
         i = len(self.buckets)
         for j, b in enumerate(self.buckets):
@@ -242,6 +251,8 @@ class Histogram(_Metric):
         with self._lock:
             self._counts[i] += 1
             self._sum += v
+            if trace_id:
+                self._exemplars[i] = (str(trace_id), v, time.time())
 
     @property
     def count(self) -> int:
@@ -252,6 +263,14 @@ class Histogram(_Metric):
     def sum(self) -> float:
         with self._lock:
             return self._sum
+
+    def exemplars(self) -> Dict[str, Tuple[str, float, float]]:
+        """{le-label: (trace_id, value, ts)} for buckets holding one, keyed
+        the way render() labels them (`+Inf` for the overflow)."""
+        with self._lock:
+            exs = list(self._exemplars)
+        labels = [_fmt(b) for b in self.buckets] + ["+Inf"]
+        return {labels[i]: ex for i, ex in enumerate(exs) if ex is not None}
 
     def quantile(self, q: float) -> float:
         """Bucket-interpolated quantile estimate (Prometheus
@@ -278,16 +297,22 @@ class Histogram(_Metric):
                 return lo + (b - lo) * (rank - prev) / counts[i]
         return self.buckets[-1]
 
-    def render(self) -> str:
+    def render(self, exemplars: bool = False) -> str:
         with self._lock:
             counts = list(self._counts)
             total_sum = self._sum
+            exs = list(self._exemplars)
         labels = [_fmt(b) for b in self.buckets] + ["+Inf"]
         lines = [self.header()]
         cum = 0
         for i, label in enumerate(labels):
             cum += counts[i]
-            lines.append(f'{self.name}_bucket{{le="{label}"}} {cum}\n')
+            line = f'{self.name}_bucket{{le="{label}"}} {cum}'
+            if exemplars and exs[i] is not None:
+                tid, v, ts = exs[i]
+                line += (f' # {{trace_id="{_escape_label(tid)}"}} '
+                         f"{_fmt(v)} {_fmt(round(ts, 3))}")
+            lines.append(line + "\n")
         lines.append(f"{self.name}_sum {_fmt(total_sum)}\n")
         lines.append(f"{self.name}_count {cum}\n")
         return "".join(lines)
@@ -351,11 +376,15 @@ class Registry:
                     out[key] = float(v)
         return out
 
-    def render(self) -> str:
-        """Prometheus text exposition v0.0.4 of every registered metric."""
+    def render(self, exemplars: bool = False) -> str:
+        """Prometheus text exposition v0.0.4 of every registered metric;
+        `exemplars=True` adds OpenMetrics exemplar suffixes to histogram
+        bucket lines (off by default: plain scrapers keep parsing)."""
         with self._lock:
             metrics = [self._metrics[n] for n in sorted(self._metrics)]
-        return "".join(m.render() for m in metrics)
+        return "".join(
+            m.render(exemplars=exemplars) if isinstance(m, Histogram)
+            else m.render() for m in metrics)
 
 
 _DEFAULT = Registry()

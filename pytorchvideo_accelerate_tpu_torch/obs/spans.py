@@ -17,10 +17,9 @@ carries the recent timeline.
 - **Consumer against background.** Spans recorded on worker threads (`h2d`,
   ...) overlap the step loop's wall time; `BACKGROUND` names them so the
   per-window sum uses the consumer's spans only.
-
-The JAX module's distributed-tracing hook (a span doubling as a trace event
-of `obs/trace.py`) is left out: tracing is a later slice of the port, which
-adds the hook back with it.
+- **Tracing.** Under an armed tracer (`obs/trace.py`), a span opened on a
+  thread with an active trace context is also a trace event carrying the
+  trace and parent ids; disarmed, the hook is one module-global read.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import threading
 import time
 from typing import Dict, Tuple
 
+from pytorchvideo_accelerate_tpu_torch.obs.trace import get_tracer as _get_tracer
 from pytorchvideo_accelerate_tpu_torch.utils.sync import make_lock, shared_state
 
 
@@ -46,20 +46,29 @@ _NOOP = _Noop()
 
 
 class _Span:
-    __slots__ = ("_c", "name", "_t0")
+    __slots__ = ("_c", "name", "_t0", "_trace")
 
     def __init__(self, collector: "SpanCollector", name: str):
         self._c = collector
         self.name = name
         self._t0 = 0.0
+        self._trace = None
 
     def __enter__(self):
         self._c._push(self.name)
+        # the tracer hook: with a trace active on this thread the span is
+        # also a trace event
+        rt = _get_tracer()
+        self._trace = rt.span_begin(self.name) if rt is not None else None
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         dt = time.perf_counter() - self._t0
+        tok = self._trace
+        if tok is not None:
+            tok.end(error=exc_type is not None)
+            self._trace = None
         self._c._pop(self.name)
         self._c.observe(self.name, dt, error=exc_type is not None)
         return False

@@ -1,5 +1,5 @@
 """Micro-batching in front of the device (counterpart of the JAX package's
-`serving/batcher.py`, without its obs and trace hooks).
+`serving/batcher.py`).
 
 A bounded queue feeds one flush thread that launches a batch when
 `max_batch_size` requests wait OR the oldest has waited `max_wait_ms`. Each
@@ -8,7 +8,11 @@ and each request's future resolves with exactly its own row. A full queue
 raises `QueueFullError` at submit time (the HTTP front maps it to 503).
 A batch that raises fails its own requests' futures (the HTTP front's
 500), never the flush thread; each batch run is the `serve.flush` fault
-point (reliability/faults.py).
+point (reliability/faults.py). Tracing (obs/trace.py): each request
+carries its submitter's trace context across the queue hop; a traced
+request gets its queue wait as a `queue_wait` trace event, the launch runs
+as a `device_dispatch` span under the batch's first traced request, and
+the latencies reach the stats with their trace ids.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from pytorchvideo_accelerate_tpu_torch.obs import trace
 from pytorchvideo_accelerate_tpu_torch.reliability.faults import fault_point
 from pytorchvideo_accelerate_tpu_torch.serving.engine import CLIP_KEYS, clip_key
 
@@ -44,6 +49,9 @@ class _Request:
     future: Future
     t_enqueue: float
     key: tuple  # clip geometry: only same-shaped requests batch together
+    # the submitter's trace context, carried with the payload across the
+    # queue hop (None when tracing is disarmed or the caller is untraced)
+    ctx: Optional[object] = None
 
 
 _STOP = object()
@@ -83,7 +91,8 @@ class MicroBatcher:
         if self._closed.is_set():
             raise RuntimeError("batcher is closed")
         req = _Request(clip=clips, future=Future(),
-                       t_enqueue=time.monotonic(), key=clip_key(clips))
+                       t_enqueue=time.monotonic(), key=clip_key(clips),
+                       ctx=trace.capture())
         try:
             self._q.put_nowait(req)
         except queue.Full:
@@ -196,7 +205,22 @@ class MicroBatcher:
         # 1.0 = real request, 0.0 = padding (the eval path's convention)
         stacked["mask"] = np.asarray([1.0] * n + [0.0] * (bucket - n),
                                      np.float32)
-        logits = self.engine.predict(stacked)
+        # each traced request's queue wait is a trace event; the dispatch
+        # runs under the first traced request's context. Disarmed: one
+        # global read and the shared no-ops
+        rt = trace.get_tracer()
+        head_ctx = None
+        if rt is not None:
+            now_w, now_m = time.time(), time.monotonic()
+            for req in reqs:
+                if req.ctx is not None:
+                    if head_ctx is None:
+                        head_ctx = req.ctx
+                    waited = now_m - req.t_enqueue
+                    rt.event(req.ctx, "queue_wait", now_w - waited, waited)
+        with trace.attach(head_ctx):
+            with trace.span("device_dispatch", batch=n, bucket=bucket):
+                logits = self.engine.predict(stacked)
         done = time.monotonic()
         # padded rows are sliced away here: response i carries row i only
         latencies = []
@@ -204,4 +228,6 @@ class MicroBatcher:
             latencies.append(done - req.t_enqueue)
             req.future.set_result(logits[i])
         if self.stats is not None:
-            self.stats.observe_batch(n, bucket, latencies)
+            self.stats.observe_batch(
+                n, bucket, latencies,
+                trace_ids=[getattr(r.ctx, "trace_id", None) for r in reqs])

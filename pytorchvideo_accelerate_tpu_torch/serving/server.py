@@ -9,7 +9,9 @@ Endpoints:
                    and "deadline_ms" for the default scheduler.
   GET  /healthz  — liveness + model identity (load balancers poll this).
   GET  /stats    — ServingStats.snapshot(): p50/p95/p99 latency, queue
-                   depth, batch fill, throughput, rejections by cause, sheds.
+                   depth, batch fill, throughput, rejections by cause, sheds;
+                   and `slowest_traces` ([{trace_id, latency_ms}]) once a
+                   traced request has completed.
   GET  /metrics  — Prometheus text exposition of the registry the /stats
                    counters read (obs/registry.py): request, batch,
                    rejection and shed counters, the latency histogram
@@ -24,8 +26,19 @@ Endpoints:
   POST /drain    — controller-initiated drain: admission flips to DRAINING
                    (/healthz 503, new work sheds, queued work flushes); the
                    process keeps serving its queue and is reaped apart.
-/stream and /profile answer 404 until their slices of the port land
-(ROADMAP.md).
+  POST /profile?seconds=S — a torch.profiler window of S seconds (0 < S <=
+                   120, default 3) on the live server (obs/profiler.py),
+                   published as <checkpoint.output_dir>/profile_<tag>/
+                   trace.json: 202 with the tag, 409 while a window is open,
+                   503 with the obs layer off.
+/stream answers 404 until its slice of the port lands (ROADMAP.md).
+
+Tracing (`--obs.trace_sample_rate R`, R > 0, obs on; obs/trace.py): a
+/predict with a `traceparent` header continues that trace, one without
+starts a trace head-sampled at rate R; the submit carries the context into
+the scheduler, whose wait and device dispatch join the trace, and the reply
+(a traced rejection too) echoes `x-pva-trace-id`. The ring is dumped to
+<checkpoint.output_dir>/trace_ring.json by `drain()` and on SIGTERM.
 
 Telemetry (`obs.*`, on by default): `build_server` configures the span
 collector and the flight recorder (installed on
@@ -69,6 +82,8 @@ from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
 from pytorchvideo_accelerate_tpu_torch.obs import alerts as obs_alerts
 from pytorchvideo_accelerate_tpu_torch.obs import history as obs_history
 from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
+from pytorchvideo_accelerate_tpu_torch.obs import profiler as obs_profiler
+from pytorchvideo_accelerate_tpu_torch.obs import trace
 from pytorchvideo_accelerate_tpu_torch.serving.admission import (
     DRAINING,
     AdmissionController,
@@ -109,11 +124,14 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _reject(self, code: int, message: str, retry_after_s: float) -> None:
-        """503/504 with Retry-After."""
+    def _reject(self, code: int, message: str, retry_after_s: float,
+                headers: Optional[Dict[str, str]] = None) -> None:
+        """503/504 with Retry-After (and any extra headers, e.g. the trace
+        id echo)."""
+        hdrs = {"Retry-After": str(max(int(round(retry_after_s)), 1))}
+        hdrs.update(headers or {})
         self._reply(code, {"error": message, "retry_after_s": retry_after_s},
-                    headers={"Retry-After":
-                             str(max(int(round(retry_after_s)), 1))})
+                    headers=hdrs)
 
     def do_GET(self):  # noqa: N802 - stdlib API
         srv: "InferenceServer" = self.server.owner
@@ -135,7 +153,13 @@ class _Handler(BaseHTTPRequestHandler):
                                        for k, v in srv.expected_spec.items()}
             self._reply(503 if state == DRAINING else 200, health)
         elif self.path == "/stats":
-            self._reply(200, srv.stats.snapshot())
+            snap = srv.stats.snapshot()
+            # the slowest traced completions name trace ids to pull from
+            # the merged timeline
+            slowest = srv.stats.slowest_traces()
+            if slowest:
+                snap["slowest_traces"] = slowest
+            self._reply(200, snap)
         elif self.path == "/metrics":
             body = srv.stats.registry.render().encode()
             self.send_response(200)
@@ -185,6 +209,9 @@ class _Handler(BaseHTTPRequestHandler):
                               "status": srv.admission.state(),
                               "queue_depth": srv.batcher.queue_depth()})
             return
+        if self.path.split("?", 1)[0] == "/profile":
+            self._do_profile(srv)
+            return
         if self.path != "/predict":
             self._reply(404, {"error": f"no route {self.path}"})
             return
@@ -218,15 +245,35 @@ class _Handler(BaseHTTPRequestHandler):
             srv.stats.observe_rejected("400")
             self._reply(400, {"error": f"bad request: {e}"})
             return
+        # continue an incoming `traceparent` (the head already sampled it)
+        # or start a head-sampled trace; the submit captures the context,
+        # so the scheduler's wait and dispatch join it. Sheds above stay
+        # untraced: a shed stays the cheapest reply
+        rt = trace.get_tracer()
+        handle = None
+        if rt is not None:
+            tp = self.headers.get("traceparent")
+            handle = rt.continue_trace(tp, "http_predict") if tp else None
+            if handle is None:
+                # absent, malformed or unsampled header: the local
+                # head-sampling decision
+                handle = rt.start("http_predict")
+        tid = handle.ctx.trace_id if handle is not None else None
+        echo = {"x-pva-trace-id": tid} if tid else None
+        with (handle if handle is not None else trace.NOOP):
+            self._predict(srv, clip, kwargs, echo)
+
+    def _predict(self, srv: "InferenceServer", clip: dict, kwargs: dict,
+                 echo: Optional[Dict[str, str]]) -> None:
         try:
             future = srv.batcher.submit(clip, **kwargs)
         except QueueFullError as e:
             # the batcher already counted this one (cause "503")
-            self._reject(503, str(e), e.retry_after_s)
+            self._reject(503, str(e), e.retry_after_s, headers=echo)
             return
         except ValueError as e:
             srv.stats.observe_rejected("400")
-            self._reply(400, {"error": f"bad request: {e}"})
+            self._reply(400, {"error": f"bad request: {e}"}, headers=echo)
             return
         t0 = time.monotonic()
         try:
@@ -241,22 +288,55 @@ class _Handler(BaseHTTPRequestHandler):
                 logger.warning("504 after engine claim (request completed "
                                "but the client timed out)")
             self._reject(504, f"request exceeded {srv.request_timeout_s}s "
-                         "budget", srv.admission.retry_after_s)
+                         "budget", srv.admission.retry_after_s, headers=echo)
             return
         except QueueFullError as e:
             # shed after admission (the scheduler's shed before a deadline
             # miss resolves the future with ShedError): 503 + Retry-After
-            self._reject(503, str(e), e.retry_after_s)
+            self._reject(503, str(e), e.retry_after_s, headers=echo)
             return
         except Exception as e:  # noqa: BLE001 - batch failure surfaced per-request
             srv.stats.observe_error()
-            self._reply(500, {"error": f"inference failed: {e}"})
+            self._reply(500, {"error": f"inference failed: {e}"},
+                        headers=echo)
             return
         self._reply(200, {
             "logits": np.asarray(logits, np.float32).tolist(),
             "top1": int(np.argmax(logits)),
             "latency_ms": round((time.monotonic() - t0) * 1e3, 3),
-        })
+        }, headers=echo)
+
+    def _do_profile(self, srv: "InferenceServer") -> None:
+        """POST /profile?seconds=S: a torch.profiler window on the live
+        server, closed by a background thread and published atomically as
+        <output_dir>/profile_<tag>/ (obs/profiler.py). 202 with the pending
+        tag, 409 while a window is open, 503 when the profiler is
+        disarmed, 400 on a bad query."""
+        length = int(self.headers.get("Content-Length", 0))
+        if length:  # keep the keep-alive stream clean
+            self.rfile.read(length)
+        prof = obs_profiler.get_profiler()
+        if prof is None:
+            self._reply(503, {"error": "profiler disarmed (obs.enabled "
+                                       "off or no output_dir)"})
+            return
+        try:
+            q = parse_qs(urlparse(self.path).query)
+            seconds = float(q.get("seconds", ["3"])[0])
+            if not 0 < seconds <= 120:
+                raise ValueError("seconds must be in (0, 120]")
+        except (ValueError, TypeError) as e:
+            self._reply(400, {"error": f"bad query: {e}"})
+            return
+        tag = prof.capture_for(seconds)
+        if tag is None:
+            self._reply(409, {"error": "a profile capture is already "
+                                       "running", "busy": True})
+            return
+        obs.get_recorder().record("profile", "capture-requested",
+                                  seconds=seconds, tag=tag)
+        self._reply(202, {"capturing": True, "seconds": seconds,
+                          "tag": tag})
 
 
 class InferenceServer:
@@ -357,6 +437,7 @@ class InferenceServer:
             logger.warning("drain: queue not empty at grace deadline; "
                            "remaining requests will be failed by close()")
         self.close()
+        trace.dump()  # the trace ring (a no-op when disarmed)
 
     def serve_forever(self) -> None:
         """Serve on the calling thread (the CLI path); SIGTERM drains. The
@@ -367,6 +448,7 @@ class InferenceServer:
                 logger.info("SIGTERM: draining")
                 obs.get_recorder().record("signal", "SIGTERM-drain")
                 obs.get_recorder().dump()
+                trace.dump()  # the trace ring too (a no-op when disarmed)
                 # httpd.shutdown() must run off the serve_forever thread
                 threading.Thread(target=self.drain, name="pva-serve-drain",
                                  daemon=True).start()
@@ -424,6 +506,17 @@ def build_server(cfg) -> InferenceServer:
                   capacity=cfg.obs.flight_recorder_events)
     if cfg.obs.enabled:
         obs.get_recorder().install(cfg.checkpoint.output_dir)
+    # tracing: head-sample this share of /predict requests (an incoming
+    # traceparent is always continued); disarmed at rate 0 or with obs off
+    trace.configure_tracing(
+        cfg.obs.trace_sample_rate if cfg.obs.enabled else 0.0, seed=cfg.seed,
+        capacity=cfg.obs.trace_ring_events,
+        output_dir=cfg.checkpoint.output_dir)
+    # POST /profile's capture singleton: the card's kernels too, unless
+    # serving on the CPU
+    obs_profiler.configure(enabled=cfg.obs.enabled,
+                           output_dir=cfg.checkpoint.output_dir,
+                           recorder=obs.get_recorder(), cuda=not cfg.cpu)
     latency_buckets = None
     if s.latency_buckets_ms:
         try:

@@ -1,5 +1,5 @@
 """Serving statistics for `/stats` and `/metrics` (counterpart of the JAX
-package's `serving/stats.py`, without its trace exemplars).
+package's `serving/stats.py`).
 
 `snapshot()` returns a flat {str: float}: latency percentiles (enqueue ->
 response, ms) over the last `window` completed requests, batch-fill ratio
@@ -11,7 +11,10 @@ them.
 The counters and the latency histogram live in this object's own
 `obs.registry.Registry`: `/metrics` renders it and `/stats` reads the same
 counter objects, so the two surfaces cannot drift. Names, labels and help
-strings are the JAX package's, so one dashboard reads both servers.
+strings are the JAX package's, so one dashboard reads both servers. A traced
+completion (`observe_batch(..., trace_ids=)`) pins its trace id as the
+latency bucket's exemplar and enters the top-K slowest traced completions
+(`slowest_traces()`, served on `/stats`).
 """
 
 from __future__ import annotations
@@ -71,6 +74,8 @@ class ServingStats:
         self._lock = threading.Lock()
         self._lat = deque(maxlen=max(window, 1))     # (done_ts, latency_s)
         self._fills = deque(maxlen=max(window, 1))   # (n_real, bucket)
+        # top-K (latency_s, trace_id) among traced completions
+        self._slowest: list = []
         self.queue_depth_fn = queue_depth_fn
         self._started = time.monotonic()
         self.registry = Registry()
@@ -112,17 +117,41 @@ class ServingStats:
             "seconds since this ServingStats was created").set_function(
                 lambda: time.monotonic() - self._started)
 
+    _SLOWEST_KEEP = 8
+
     def observe_batch(self, n_real: int, bucket: int,
-                      latencies_s: Sequence[float]) -> None:
+                      latencies_s: Sequence[float],
+                      trace_ids: Optional[Sequence[Optional[str]]] = None,
+                      ) -> None:
+        """`trace_ids` (parallel to `latencies_s`, entries may be None)
+        links each completion to its sampled trace: the latency histogram's
+        exemplar and `slowest_traces()`."""
         now = time.monotonic()
         self._c_requests.inc(len(latencies_s))
         self._c_batches.inc()
-        for lat in latencies_s:
-            self._h_latency.observe(lat)
+        for i, lat in enumerate(latencies_s):
+            tid = (trace_ids[i] if trace_ids is not None
+                   and i < len(trace_ids) else None)
+            self._h_latency.observe(lat, trace_id=tid)
         with self._lock:
             self._fills.append((int(n_real), int(bucket)))
-            for lat in latencies_s:
+            for i, lat in enumerate(latencies_s):
                 self._lat.append((now, float(lat)))
+                tid = (trace_ids[i] if trace_ids is not None
+                       and i < len(trace_ids) else None)
+                if tid:
+                    self._slowest.append((float(lat), str(tid)))
+            if len(self._slowest) > self._SLOWEST_KEEP:
+                self._slowest.sort(reverse=True)
+                del self._slowest[self._SLOWEST_KEEP:]
+
+    def slowest_traces(self, k: int = 5) -> list:
+        """Top-k traced completions by latency: [{trace_id, latency_ms}]
+        (served on `/stats`, not part of the flat `snapshot()` dict)."""
+        with self._lock:
+            worst = sorted(self._slowest, reverse=True)[:k]
+        return [{"trace_id": tid, "latency_ms": round(lat * 1e3, 3)}
+                for lat, tid in worst]
 
     def observe_rejected(self, cause: str = "503", n: int = 1) -> None:
         """A request refused before completion; `cause` is the HTTP status."""

@@ -40,11 +40,25 @@ host without CUDA it raises. Real videos need cv2 to decode; where it is
 missing the real-video branch raises `NoVideoDecoderError`, which names
 the frame-cache route (build the cache where cv2 is, train with
 `--data.cache_dir`). Options whose effect this slice lacks raise
-NotImplementedError naming their ROADMAP item; `profile`, the opt-in
-telemetry of later slices (`obs.trace_sample_rate`, `obs.profile_steps`),
-a watchdog asked for with the obs layer off, a `model.pretrained` without
-a path and a `model.pretrained_path` without `model.pretrained` print one
-line each and train on.
+NotImplementedError naming their ROADMAP item; a watchdog asked for with
+the obs layer off, a `model.pretrained` without a path and a
+`model.pretrained_path` without `model.pretrained` print one line each and
+train on.
+
+Profiling and tracing (the JAX Trainer's opt-ins): `--profile` records a
+torch.profiler window over run-relative steps 2-5 into
+`<profile_dir>/profile_steps_2_6/trace.json`; `--obs.profile_steps A..B`
+(validated at construction) one over steps A to B - 1 into
+`<output_dir>/profile_steps_A_B/trace.json` (obs/profiler.py: CPU ops and,
+on the card, every CUDA kernel; published atomically; rank r > 0 adds
+`.rank<r>` to the directory). `--obs.trace_sample_rate R` (obs on) arms
+tracing (obs/trace.py): each sampled step is a `train_step` trace root
+tagged `epoch`, `gstep` and, when pipelined, `stage`, whose spans (`step`,
+`log`, and the prefetcher's `h2d`, handed the step's context) are its
+children; the ring is dumped to `<output_dir>/trace_ring.json` (rank r >
+0: `trace_ring.rank<r>.json`) when `fit()` ends or raises, and an open
+profile window is closed then too. `--data.transport process` decodes in
+forked workers through shared-memory rings (data/pipeline.py).
 
 Debugging and hang attribution (the JAX Trainer's opt-ins):
 `--device_init_timeout S` (S > 0, not with `--cpu`) probes the card in a
@@ -284,12 +298,10 @@ def _say(line: str) -> None:
 
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for options that would change what is
-    computed and that this slice of the port lacks; print one line for each
-    unported debug or opt-in telemetry option set (`profile`,
-    `obs.trace_sample_rate`, `obs.profile_steps`), for a watchdog asked for
-    with the obs layer off (the JAX Trainer arms it only with obs on), for
-    a `model.pretrained` without a path and for a `model.pretrained_path`
-    without `model.pretrained`."""
+    computed and that this slice of the port lacks; print one line for a
+    watchdog asked for with the obs layer off (the JAX Trainer arms it only
+    with obs on), for a `model.pretrained` without a path and for a
+    `model.pretrained_path` without `model.pretrained`."""
     d, m = cfg.data, cfg.model
     refused = [
         (cfg.parallel.pipeline_stages > 1 and cfg.mesh.fsdp > 1,
@@ -301,13 +313,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
     for bad, what in refused:
         if bad:
             raise NotImplementedError(f"{what} is not ported to PyTorch yet")
-    for on, flag in ((cfg.profile, "profile"),
-                     (cfg.obs.enabled and cfg.obs.trace_sample_rate > 0,
-                      "obs.trace_sample_rate"),
-                     (bool(cfg.obs.profile_steps), "obs.profile_steps")):
-        if on:
-            _say(f"{flag} is not ported yet (ROADMAP.md); training runs "
-                 "without it")
     if not cfg.obs.enabled and cfg.obs.watchdog_timeout_s > 0:
         _say("--obs.watchdog_timeout_s needs the obs layer, and "
              "--obs.enabled false turns it off: training runs without the "
@@ -390,6 +395,29 @@ class Trainer:
                              recorder=obs.get_recorder(), device=self.device)
         obs.history.configure(enabled=self.obs_on and cfg.obs.history_ticks > 0,
                               capacity=cfg.obs.history_ticks)
+        # a malformed --obs.profile_steps window fails here, not epochs in;
+        # run-relative steps A..B
+        self.profile_steps = obs.profiler.parse_steps(cfg.obs.profile_steps)
+        cuda = self.device.type == "cuda"
+        obs.profiler.configure(enabled=self.profile_steps is not None,
+                               output_dir=cfg.checkpoint.output_dir,
+                               recorder=obs.get_recorder(), cuda=cuda,
+                               rank=self.rank)
+        # --profile's window (steps 2-5) into profile_dir
+        self.step_profiler: Optional[obs.profiler.ProfilerCapture] = (
+            obs.profiler.ProfilerCapture(cfg.profile_dir,
+                                         recorder=obs.get_recorder(),
+                                         cuda=cuda, rank=self.rank)
+            if cfg.profile else None)
+        # sampled steps become `train_step` trace roots and the ring dumps
+        # to <output_dir>/trace_ring.json when fit() ends; at rate 0 (or
+        # obs off) tracing is disarmed, like the ledger and the history: a
+        # later run in the process never writes into this one's directory
+        obs.trace.configure_tracing(
+            cfg.obs.trace_sample_rate if self.obs_on else 0.0, seed=cfg.seed,
+            capacity=cfg.obs.trace_ring_events,
+            output_dir=cfg.checkpoint.output_dir,
+            file_name=obs.trace.rank_file_name(self.rank))
         self.watchdog: Optional[obs.Watchdog] = None
         if self.obs_on:
             # ranks sharing an output dir dump to files of their own
@@ -977,6 +1005,14 @@ class Trainer:
         cfg = self.cfg
         starting_epoch = self._maybe_resume()
         gstep = self.state.step
+        # the profile windows count steps from this run's first
+        run_start_step = gstep
+        window = self.profile_steps
+        window_tag = f"steps_{window[0]}_{window[1]}" if window else ""
+        # the armed check once: disarmed, a step pays one bool test
+        traced = obs.trace.get_tracer() is not None
+        trace_tags = ({"stage": stage_tag(self.mesh_shape, [self.rank])}
+                      if self.pipeline_plan is not None else {})
         last_val_acc = last_val_acc5 = last_val_loss = 0.0
         last_train_loss = float("nan")
         last_perf: Dict[str, float] = {}
@@ -1054,19 +1090,49 @@ class Trainer:
                     # ladder recovers from)
                     if fault_point("step.dispatch") == "nan":
                         batch = poison_batch(batch)
-                    # after the first, a dispatch and the deferred read of
-                    # the step before it (where the host waits on the
-                    # card's queue, and on the peers' collectives) are one
-                    # attributed section
-                    with (collective_section("step_dispatch", host_note=stage_note,
-                                             gstep=gstep)
-                          if self._dispatched else nullcontext()):
-                        with obs.span("step"), nan_errors():
-                            metrics = self.train_step(self.state, batch)
-                        with obs.span("log"):
-                            deferred.flush()
+                    ran = gstep - run_start_step
+                    if self.step_profiler is not None and ran == 2:
+                        self.step_profiler.start(tag="steps_2_6")
+                    if window is not None and ran == window[0]:
+                        prof = obs.profiler.get_profiler()
+                        if prof is not None and not prof.busy:
+                            prof.start(tag=window_tag)
+                    # a sampled step is a trace root; the prefetcher's
+                    # placements from here on join it
+                    with (obs.trace.root("train_step", epoch=epoch,
+                                         gstep=gstep, **trace_tags)
+                          if traced else nullcontext()):
+                        if traced:
+                            self.train_prefetch.set_trace_context(
+                                obs.trace.capture())
+                        # after the first, a dispatch and the deferred read
+                        # of the step before it (where the host waits on
+                        # the card's queue, and on the peers' collectives)
+                        # are one attributed section
+                        with (collective_section("step_dispatch",
+                                                 host_note=stage_note,
+                                                 gstep=gstep)
+                              if self._dispatched else nullcontext()):
+                            with obs.span("step"), nan_errors(), \
+                                    torch.profiler.record_function("train"):
+                                metrics = self.train_step(self.state, batch)
+                            with obs.span("log"):
+                                deferred.flush()
                     self._dispatched = True
                     gstep += 1
+                    ran = gstep - run_start_step
+                    if self.step_profiler is not None and ran >= 6:
+                        out = self.step_profiler.stop()
+                        if out:
+                            main_print(f"profile trace written to {out}",
+                                       flush=True)
+                    if window is not None and ran >= window[1]:
+                        prof = obs.profiler.get_profiler()
+                        if prof is not None and prof.busy:
+                            out = prof.stop()
+                            if out:
+                                main_print(f"profile window written to {out}",
+                                           flush=True)
                     steps_done += 1
                     if not ledgered:
                         self._ledger_train_state()
@@ -1216,6 +1282,14 @@ class Trainer:
             raise
         finally:
             modes.close()
+            # an open window still publishes (a partial trace beats none on
+            # a crash), and the trace ring lands beside the flight record
+            if self.step_profiler is not None and self.step_profiler.busy:
+                self.step_profiler.stop()
+            prof = obs.profiler.get_profiler() if window is not None else None
+            if prof is not None and prof.busy:
+                prof.stop()
+            obs.trace.dump()
             if guard is not None:
                 guard.uninstall()  # the handlers from before fit()
             self.close(unwinding)  # fences the checkpoint writes

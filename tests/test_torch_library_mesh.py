@@ -46,8 +46,8 @@ twins (`slowfast_t` of `tests/test_torch_train.py`, `mvit_t` and
   file, and the unbroken (1,1) run's at rtol 1e-6 for the first step and
   1e-5 for all 5 (two batch shards sum in another f32 order than one);
 - (vii) what stays refused: pipeline stages against a tensor axis of 1
-  (the JAX package's "must equal the mesh's"), the dataplane, the process
-  transport.
+  (the JAX package's "must equal the mesh's"), the dataplane; the process
+  transport, refused before it was ported, trains.
 """
 
 import json
@@ -653,10 +653,23 @@ _REFUSE = ["--cpu", "--synthetic", "--model.name", "slowfast_t", "--num_frames",
 @pytest.mark.parametrize("extra,err,match", [
     (["--parallel.pipeline_stages", "2"], ValueError, "must equal the mesh's"),
     (["--data.dataplane_workers", "2"], NotImplementedError, "dataplane"),
-    (["--data.transport", "process"], NotImplementedError, "process"),
     (["--mesh.fsdp", "2"], ValueError, "does not divide device count 1"),
     (["--mesh.fsdp", "2", "--mesh.model", "2"], ValueError, "pick one layout"),
 ])
 def test_what_stays_refused(extra, err, match):
     with pytest.raises(err, match=match):
         Trainer(parse_cli(_REFUSE + extra))
+
+
+def test_process_transport_trains(tmp_path):
+    """The process transport left what stays refused: slowfast_t trains a
+    step on it, the loss the thread transport's bit for bit."""
+    from pytorchvideo_accelerate_tpu_torch import run as trun
+
+    argv = _REFUSE + ["--num_epochs", "1", "--data.limit_train_batches", "1",
+                      "--mixed_precision", "fp32"]
+    res = {t: trun.main(argv + ["--data.transport", t,
+                                "--output_dir", str(tmp_path / t)])
+           for t in ("process", "thread")}
+    assert res["process"]["steps"] == 1
+    assert res["process"]["train_loss"] == res["thread"]["train_loss"]

@@ -667,11 +667,23 @@ def test_trainer_without_cpu_flag_needs_cuda():
         Trainer(parse_cli(argv))
 
 
-@pytest.mark.parametrize("extra", [
-    ["--data.dataplane_workers", "2"], ["--data.transport", "process"]])
+@pytest.mark.parametrize("extra", [["--data.dataplane_workers", "2"]])
 def test_unported_options_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported"):
         Trainer(parse_cli(_RUN + extra))
+
+
+def test_process_transport_trains_a_step(tmp_path):
+    """`--data.transport process` is ported (tests/test_torch_native.py):
+    the Trainer's loaders fork their workers and one step trains, with the
+    loss of the thread transport bit for bit."""
+    argv = _RUN + ["--num_epochs", "1", "--data.limit_train_batches", "1"]
+    res = {t: trun.main(argv + ["--data.transport", t,
+                                "--output_dir", str(tmp_path / t)])
+           for t in ("process", "thread")}
+    assert res["process"]["steps"] == 1
+    assert res["process"]["train_loss"] == res["thread"]["train_loss"]
+    assert np.isfinite(res["process"]["train_loss"])
 
 
 @pytest.mark.parametrize("extra", [
@@ -735,17 +747,26 @@ def test_multi_process_jobs_raise(extra, env, match, monkeypatch):
 @pytest.mark.parametrize("extra,line,count", [
     (["--debug_nans"], "not ported yet", 0),
     (["--debug_asserts"], "not ported yet", 0),
-    (["--profile"], "profile is not ported yet", 1),
+    (["--profile", "--data.synthetic_num_videos", "24"], "not ported yet", 0),
     (["--model.pretrained"], "training from scratch. Convert a checkpoint", 1)])
 def test_debug_and_pathless_pretrained_flags_print_one_line(extra, line, count,
                                                             capsys, tmp_path):
-    """`--profile` and a pathless `--model.pretrained` print their one line
-    and train; `--debug_nans` and `--debug_asserts` are ported
-    (tests/test_torch_hangwatch.py): no such line, and two clean steps
-    train under them."""
+    """A pathless `--model.pretrained` prints its one line and trains;
+    `--debug_nans` and `--debug_asserts` are ported
+    (tests/test_torch_hangwatch.py), and so is `--profile`
+    (tests/test_torch_trace.py): no such line, and two clean steps train
+    under them (`--profile` six, for its window of steps 2-5, whose trace
+    lands in `profile_dir`)."""
+    prof_dir = tmp_path / "prof"
+    if "--profile" in extra:
+        extra = extra + ["--profile_dir", str(prof_dir)]
     res = trun.main(_RUN + extra + ["--num_epochs", "1",
                                     "--output_dir", str(tmp_path / "run")])
-    assert res["steps"] == 2 and np.isfinite(res["train_loss"])
+    steps = 6 if "--profile" in extra else 2
+    assert res["steps"] == steps and np.isfinite(res["train_loss"])
+    if "--profile" in extra:
+        assert os.listdir(prof_dir) == ["profile_steps_2_6"]
+        assert os.path.getsize(prof_dir / "profile_steps_2_6" / "trace.json") > 0
     said = [ln for ln in capsys.readouterr().out.splitlines() if line in ln]
     assert len(said) == count
     assert all(ln.startswith("pytorchvideo_accelerate_tpu_torch:") for ln in said)
