@@ -5,7 +5,8 @@ serve VideoMAE-B and pretrain it (MAE), serve R(2+1)D-50 and train it
 from a frame cache of real-format clips, train SlowFast-R50 with
 mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, serve
 SlowFast-R50 with the server's defaults and SlowFast-R50 and MViT-B with
-int8 weights, preempt and resume a SlowFast-R50 training run, train
+int8 weights, stream sessions of SlowFast-R50 (over HTTP), VideoMAE-B and
+MViT-B, preempt and resume a SlowFast-R50 training run, train
 SlowFast-R50 data-parallel across processes, and fine-tune SlowFast-R50,
 MViT-B 32x3, X3D-S and VideoMAE-B from full-width hub-layout checkpoints
 (and VideoMAE-B from its own MAE pretraining), train MViT-B and VideoMAE-B
@@ -313,6 +314,31 @@ Drives the port only (no JAX), one JSON line per phase:
             rank over all 1568 tokens; gloo ranks sharing the card; (c) (a)
             over NCCL on two cards only where present
             (`library_mesh_train_phase`)
+44. stream_serve  streaming sessions (`streaming/engine.py`): (a) the
+            SlowFast-R50 artifact of phase 3 through `build_server`
+            with `--serve.streaming true --serve.scheduler edf
+            --serve.stream_strides 8`: 4 sessions established over /stream
+            with 32 x 256^2 u8 windows, then 8 advances each (two
+            wraparounds of the dual rings), each response held against
+            `full_recompute` of the client's window, one window against
+            /predict of the same clip, 41 pointwise and 51 conv launches
+            per forward, 409 for an unknown session sent with no window,
+            503 + Retry-After for a 5th session past the 32 MB budget;
+            (b) VideoMAE-B's token ring (12 flash launches per step) and a
+            `--model.attn_mask causal` VideoMAE-B with `trunk="causal"` K/V
+            rings in bf16 and in int8 (0 launches: the masked attention
+            runs on the dense route), 2 sessions, stride 2, two
+            wraparounds, against `full_recompute` and
+            `full_recompute_history`; (c) MViT-B's stem ring, 2 sessions,
+            stride 4, one wraparound, against `full_recompute_history`, 16
+            flash and 4 `depthwise3d_s1` launches per step; (d) a green
+            VideoMAE-B on other seeded weights, `prepare_carry_from`, then
+            `Scheduler.swap_engine` with (b)'s token sessions live: the
+            next advance, sent with no window, against green's
+            `full_recompute`, the blackout ms. Each family: advance against
+            full_recompute ms at one bucket, H2D bytes per advance against
+            a full window, ring bytes per session, `memory_allocated()`
+            byte-equal over the last 4 advances (`stream_serve_phase`)
 The serving phases run with the obs layer on: edf_serve also holds the
 ledger's weight bytes on /metrics, /history's series of the request
 counters, and a 503 on /history from a server built with
@@ -340,7 +366,8 @@ launches of the fine-tuning phases that run it: "hub_finetune" on rows
 "model_axis_train_pipeline" on rows 5-7 (one stage rank of arm (f)) and
 "library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches;
 "hang_watch" on rows 1-2b: its 2 clean steps' launches; "observe_train"
-on rows 1-2b),
+on rows 1-2b; "stream_serve" on rows 1, 2, 4 and 5: the launches of the
+four arms together),
 the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
@@ -879,12 +906,13 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
 
 def make_engine(torch, name: str, state, norm, fused: str, impl: str = "conv",
                 bucket: int = BUCKET, attention: str = "dense",
-                quantization: str = "off"):
+                quantization: str = "off", attn_mask: str = "none"):
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
     from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
 
     cfg = serve_cfg(parse_cli, fused, name, impl, attention=attention)
+    cfg.model.attn_mask = attn_mask
     return InferenceEngine(
         create_model(cfg.model, "bf16", data_cfg=cfg.data),
         state, num_classes=classes(name), max_batch_size=bucket,
@@ -1156,8 +1184,9 @@ def kernel_sums(rows) -> dict:
 
 # timed calls of each SlowFast-R50 GEMM kernel row (and its plain and
 # library versions): 20 before the library-mesh phase, 10 before the
-# hang-watch phase, 5 before the transport-and-tracing phases
-GEMM_REPS = 3
+# hang-watch phase, 5 before the transport-and-tracing phases, 3 before the
+# streaming phase
+GEMM_REPS = 2
 # timed calls of each flash kernel row and strided MViT pool (5 before the
 # hang-watch phase, 3 before the transport-and-tracing phases)
 ATTN_REPS = 2
@@ -2209,6 +2238,10 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          **edf_serve_phase(torch, work, art, clips, plain_logits, launches))
     emit("int8_serve", nvidia_smi=smi, **int8_serve_phase(torch, work, launches))
     emit("preempt_train", nvidia_smi=smi, **preempt_train_phase(torch, work, launches))
+    t_stream = time.perf_counter()
+    # 44. the streaming path: sessions on SlowFast-R50 (over HTTP),
+    # VideoMAE-B and MViT-B, counters zeroed just before each arm
+    emit("stream_serve", nvidia_smi=smi, **stream_serve_phase(torch, work, launches))
     t_slice12 = time.perf_counter()
     # 36. this slice's path: data-parallel training, counters zeroed in
     # each rank just before fit()
@@ -2269,7 +2302,7 @@ def run(torch, work: str, smi: str, kind: str) -> int:
         for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
                               **MODEL_AXIS_LINE, **PIPELINE_LINE,
                               **LIBRARY_LINE, **HANG_LINE,
-                              **OBSERVE_LINE}.items():
+                              **OBSERVE_LINE, **STREAM_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2279,7 +2312,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          r2plus1d=t_features - t_r2plus1d,
          features=t_real - t_features,
          real_video=t_slice11 - t_real,
-         serving_defaults_and_preemption=t_slice12 - t_slice11,
+         serving_defaults_and_preemption=t_stream - t_slice11,
+         streaming=t_slice12 - t_stream,
          data_parallel=t_hang - t_slice12,
          hang_watch=t_slice13 - t_hang,
          finetune=t_slice14 - t_slice13,
@@ -4040,6 +4074,448 @@ def history_after(base: str, answered: int, timeout_s: float = 10.0) -> dict:
             "series_points": {k: len(v) for k, v in series.items()},
             "last": {k: v[-1][1] for k, v in series.items()},
             "alerts_active": body.get("alerts_active")}
+
+
+# the streaming phase: sessions (streaming/engine.py) on three families
+STREAM_SESSIONS = 4  # arm (a): SlowFast-R50 sessions over HTTP
+STREAM_ENGINE_SESSIONS = 2  # arms (b)-(d): sessions a ring kind
+# frames per advance: SlowFast-R50 a multiple of alpha, VideoMAE-B of its
+# tubelet (2), MViT-B aligned to its (3,7,7)/(2,4,4) stem with a halo of 1
+STREAM_STRIDE = {"slowfast_r50": 8, "videomae_b": 2, "mvit_b": 4}
+# ring wraparounds each family advances through (MViT-B: one)
+STREAM_WRAPS = {"slowfast_r50": 2, "videomae_b": 2, "mvit_b": 1}
+# arm (a)'s session budget: a SlowFast-R50 session's rings are 32 + 8
+# frames of 256^2 u8 (7.86 MB), so 4 fit and a 5th is refused (503)
+STREAM_BUDGET_MB = 32
+# session budgets of the engine arms: room for their 2 sessions (a
+# VideoMAE-B K/V session is 62.6 MB in bf16, 33.9 MB in int8)
+STREAM_ENGINE_BUDGET_MB = {"tokens": 64, "causal": 130, "causal_int8": 70, "stem": 32}
+STREAM_TIMING_REPS = 3  # advance / full_recompute calls timed a family
+# the kernel rows stream_serve runs: rows 1-2 in SlowFast-R50's dual rings,
+# row 4 in MViT-B's pools, row 5 in VideoMAE-B's token ring and MViT-B
+STREAM_LINE = {"stream_serve": ("fused_pw_bn_act", "fused_conv_bn_act",
+                                "depthwise3d_s1", "flash_attention")}
+# ASCII of 0..255 right-aligned in 3 characters (JSON whitespace pads)
+_DIGITS = np.array([list(f"{i:3d}".encode()) for i in range(256)], np.uint8)
+
+
+def json_u8(arr) -> bytes:
+    """The JSON nested list of a uint8 array, built with numpy: each value
+    padded to 3 characters with spaces, otherwise `json.dumps(arr.tolist())`
+    (a window's list of 6.3M values takes a second that way)."""
+    x = _DIGITS[np.asarray(arr)]
+    for _ in range(np.ndim(arr)):
+        sep = np.full(x.shape[:-1] + (1,), ord(","), np.uint8)
+        sep[..., -1, :] = ord("]")
+        x = np.concatenate([x, sep], axis=-1).reshape(x.shape[:-2] + (-1,))
+        x = np.concatenate([np.full(x.shape[:-1] + (1,), ord("["), np.uint8), x], axis=-1)
+    return x.tobytes()
+
+
+def stream_body(sid: str, **fields) -> bytes:
+    """A /stream body: `sid`, u8 arrays ("window", "frames") and scalars."""
+    parts = [b'"session":' + json.dumps(sid).encode()]
+    for k, v in fields.items():
+        parts.append(json.dumps(k).encode() + b":"
+                     + (json_u8(v) if isinstance(v, np.ndarray) else json.dumps(v).encode()))
+    return b"{" + b",".join(parts) + b"}"
+
+
+def stream_clips(rng, name: str, n: int, advances: int) -> tuple:
+    """(windows (n, T, H, W, 3), new frames (advances, n, stride, H, W, 3))
+    of u8 frames at `name`'s geometry; for the transformers noise around a
+    per-session colour (`u8_clips`), so the sessions' pooled features
+    differ."""
+    frames, crop = GEOMETRY[name]
+    stride = STREAM_STRIDE[name]
+    shape = (n, frames + advances * stride, crop, crop, 3)
+    if is_transformer(name):
+        clip = (rng.integers(48, 208, (n, 1, 1, 1, 3))
+                + rng.integers(-48, 48, shape)).astype(np.uint8)
+    else:
+        clip = rng.integers(0, 256, shape, np.uint8)
+    news = clip[:, frames:].reshape(n, advances, stride, crop, crop, 3)
+    return clip[:, :frames], news.transpose(1, 0, 2, 3, 4, 5)
+
+
+def count_steps(se) -> list:
+    """Count the streaming engine's device steps (one model forward each)
+    from now on: [count], updated in place."""
+    steps = [0]
+    call = se._call
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return call(*args, **kwargs)
+
+    se._call = counted
+    return steps
+
+
+def hold_stream(got, want, what: str) -> float:
+    """Stream logits within LOGIT_TOL * (1 + |oracle|) of their oracle."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    check(got.shape == want.shape and bool(np.isfinite(got).all()),
+          f"{what}: logits shape {got.shape} (oracle {want.shape}) or non-finite")
+    err = np.abs(got - want)
+    check(bool((err <= LOGIT_TOL * (1 + np.abs(want))).all()),
+          f"{what}: logits differ from the oracle by up to {err.max()}")
+    return float(err.max())
+
+
+def stream_facts(se, name: str, stride: int, mem, adv_s, full_s) -> dict:
+    """One family's report: the memory over the last 4 steady advances
+    (byte-equal), advance against full_recompute ms at one bucket, the H2D
+    bytes of each, ring bytes per session."""
+    frames, crop = GEOMETRY[name]
+    geom = se.geom_key(frames, crop, crop, 3, se.input_dtype)
+    check(len(set(mem[-4:])) == 1,
+          f"{name}: memory_allocated() moved across steady advances: {mem[-4:]}")
+    pool = se._pools[geom]
+    full_h2d = se.full_h2d_bytes(geom)
+    if se.kind == "dual":  # /predict ships the slow pathway too
+        full_h2d += se.full_h2d_bytes(geom) // se._tok_meta["alpha"]
+    return {"kind": se.kind, "trunk": se.trunk, "stride": stride,
+            "memory_allocated_last4": mem[-4:],
+            "advance_ms": [1e3 * t for t in adv_s],
+            "full_recompute_ms": [1e3 * t for t in full_s],
+            "advance_over_full": float(np.median(adv_s) / np.median(full_s)),
+            "h2d_bytes_advance": se.advance_h2d_bytes(geom, stride),
+            "h2d_bytes_full_window": full_h2d,
+            "ring_bytes_per_session": se.ring_bytes(geom),
+            "ring_bytes_measured_per_row": pool["measured_bytes"] // (pool["cap"] + 1),
+            "pool_sessions": pool["cap"], "keys": len(se.compiled_stream_keys())}
+
+
+def stream_timing(se, items_fn, windows_fn) -> tuple:
+    """STREAM_TIMING_REPS synchronised advances (`items_fn()` a launch's
+    items, each call new frames) and as many `full_recompute`s of the
+    windows the sessions then hold (`windows_fn()`) at the same bucket:
+    (advance seconds, full seconds)."""
+    adv, full = [], []
+    for _ in range(STREAM_TIMING_REPS):
+        items = items_fn()
+        t0 = time.perf_counter()
+        out = se.advance_batch(items)
+        adv.append(time.perf_counter() - t0)
+        check(not any(isinstance(o, Exception) for o in out), f"timed advance: {out}")
+    for _ in range(STREAM_TIMING_REPS):
+        windows = windows_fn()
+        t0 = time.perf_counter()
+        se.full_recompute(windows)
+        full.append(time.perf_counter() - t0)
+    return adv, full
+
+
+def stream_http_arm(torch, work: str) -> tuple:
+    """Arm (a): the SlowFast-R50 artifact of phase 3 through `build_server`
+    with `--serve.streaming true --serve.scheduler edf
+    --serve.stream_strides 8`: 4 sessions established over /stream with
+    their 32 x 256^2 windows, then 8 advances each (two wraparounds of the
+    fast ring), a round's 4 sent at once; `memory_allocated()` after each
+    round. Then /predict of one window, an advance for an unknown session
+    with no window (409), a 5th session past the budget (503 +
+    Retry-After). Every response against `full_recompute` of the window the
+    client holds; /predict against that window's establish; 41 pointwise
+    and 51 conv launches per forward (counters zeroed just before the
+    server is built: its warm-up forwards, the stream steps and /predict).
+    Returns (the launches, the arm's fields)."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.serving.server import build_server
+    from pytorchvideo_accelerate_tpu_torch.streaming import StreamingEngine
+
+    name = "slowfast_r50"
+    art = ARTIFACTS[name][0]
+    stride, n = STREAM_STRIDE[name], STREAM_SESSIONS
+    advances = STREAM_WRAPS[name] * GEOMETRY[name][0] // stride
+    wins, news = stream_clips(np.random.default_rng(SEED + 20), name, n, advances)
+    sids = [f"sf{i}" for i in range(n)]
+    t0 = time.perf_counter()
+    est_bodies = [stream_body(sid, window=wins[i], stride=stride,
+                              deadline_ms=60000) for i, sid in enumerate(sids)]
+    adv_bodies = [[stream_body(sid, frames=news[k, i], deadline_ms=60000)
+                   for i, sid in enumerate(sids)] for k in range(advances)]
+    predict_body = (b'{"deadline_ms":60000,"slow":' + json_u8(wins[0][::ALPHA])
+                    + b',"fast":' + json_u8(wins[0]) + b"}")
+    encode_s = time.perf_counter() - t0
+    free_cuda(torch)
+    fused.reset_launch_counts()
+    t0 = time.perf_counter()
+    server = build_server(parse_cli([
+        "--serve.checkpoint", art, "--serve.port", "0", "--serve.streaming", "true",
+        "--serve.scheduler", "edf", "--serve.stream_strides", str(stride),
+        "--serve.stream_session_budget_mb", str(STREAM_BUDGET_MB),
+        "--output_dir", os.path.join(work, "stream_serve")]))
+    se = server.batcher.engine
+    check(isinstance(se, StreamingEngine) and se.kind == "dual"
+          and se._ring_names == ("raw", "slow"),
+          f"stream engine {type(se).__name__} kind {getattr(se, 'kind', None)}")
+    steps = count_steps(se)
+    server.start()
+    mem, rounds = [], []
+    try:
+        build_s = time.perf_counter() - t0
+        host, port = server.address
+        base = f"http://{host}:{port}"
+        health = json.loads(http(base + "/healthz")[2])
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=n) as pool:
+            rounds.append(list(pool.map(lambda b: http(base + "/stream", b), est_bodies)))
+            for k in range(advances):
+                rounds.append(list(pool.map(lambda b: http(base + "/stream", b),
+                                            adv_bodies[k])))
+                torch.cuda.synchronize()
+                mem.append(torch.cuda.memory_allocated())
+        http_s = time.perf_counter() - t1
+        predicted = http(base + "/predict", predict_body)
+        unknown = http(base + "/stream", stream_body("sf-unknown", frames=news[0, 0]))
+        over = http(base + "/stream", est_bodies[0].replace(b'"sf0"', b'"sf-extra"'))
+        stats = json.loads(http(base + "/stats")[2])
+        svc_ms = {b: 1e3 * t for b, t in server.batcher._svc.items()}
+    finally:
+        server.close()
+    counts = dict(fused.LAUNCHES)
+    codes = [[r[0] for r in rnd] for rnd in rounds]
+    check(all(c == 200 for rnd in codes for c in rnd) and predicted[0] == 200,
+          f"stream_serve (a): HTTP codes {codes}, /predict {predicted[0]} "
+          f"{predicted[2][:300]!r}; service EWMA ms {svc_ms}")
+    check(health.get("streaming") is True, f"/healthz streaming {health.get('streaming')}")
+    check(unknown[0] == 409, f"unknown session without a window answered {unknown[0]}")
+    check(over[0] == 503 and int(over[1]["Retry-After"]) >= 1,
+          f"a session past the budget answered {over[0]}")
+    buckets = len(se.buckets)
+    # engine.warmup and warmup_stream (establish + advance) at every
+    # bucket, the stream steps, /predict
+    forwards = buckets + 2 * buckets + steps[0] + 1
+    check_launches(counts, expected_forward_launches(name), forwards, "stream_serve (a)")
+    logits = [np.stack([np.asarray(json.loads(r[2])["logits"], np.float32) for r in rnd])
+              for rnd in rounds]
+    history = np.concatenate([wins] + [news[k] for k in range(advances)], axis=1)
+    frames = GEOMETRY[name][0]
+    errs = []
+    for k, got in enumerate(logits):  # k = 0: the establishes
+        end = frames + k * stride
+        errs.append(hold_stream(got, se.full_recompute(history[:, end - frames:end]),
+                                f"stream_serve (a) round {k}"))
+    p_err = hold_stream(json.loads(predicted[2])["logits"], logits[0][0],
+                        "stream_serve (a) /predict against the establish")
+    rng = np.random.default_rng(SEED + 21)
+    cur = [history[:, -frames:]]
+
+    def items():
+        f = rng.integers(0, 256, (n, stride) + wins.shape[2:], np.uint8)
+        cur[0] = np.concatenate([cur[0][:, stride:], f], axis=1)
+        return [{"sid": sid, "frames": f[i]} for i, sid in enumerate(sids)]
+
+    adv_s, full_s = stream_timing(se, items, lambda: cur[0])
+    fields = dict(
+        model=name, sessions=n, advances=advances, server_build_s=build_s,
+        encode_s=encode_s, http_s=http_s, stream_steps=steps[0], forwards=forwards,
+        launches=counts, http_codes=codes, predict_http=predicted[0],
+        unknown_http=unknown[0], unknown_error=json.loads(unknown[2])["error"],
+        over_budget_http=over[0], over_budget_retry_after=over[1]["Retry-After"],
+        over_budget_error=json.loads(over[2])["error"],
+        logit_max_abs_err_by_round=errs, predict_vs_establish_max_abs_err=p_err,
+        logit_tolerance=f"{LOGIT_TOL}*(1+|full_recompute|)",
+        client_ms=quantiles([r[3] for rnd in rounds[1:] for r in rnd]),
+        server_ms=quantiles([json.loads(r[2])["latency_ms"] for rnd in rounds[1:] for r in rnd]),
+        scheduler_batches=stats["batches"], bucket_fill=stats["batch_fill_ratio"],
+        service_ewma_ms=svc_ms,
+        **stream_facts(se, name, stride, mem, adv_s, full_s))
+    del server, se
+    free_cuda(torch)
+    return counts, fields
+
+
+def drive_stream(torch, se, name: str, n: int, seed: int, history_oracle: bool,
+                 per_forward: dict, what: str) -> tuple:
+    """Establish `n` sessions on `se`, then advance them through
+    STREAM_WRAPS[name] ring wraparounds, a launch of all `n` an advance;
+    counters zeroed just before, `memory_allocated()` after each advance.
+    Then each launch's logits against the oracle of the windows (or, with
+    `history_oracle`, the whole histories) the client holds, the launches
+    against `per_forward` per step, and the family's timing. Returns
+    (launches, fields, the sessions' ids, their current windows)."""
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+
+    frames, crop = GEOMETRY[name]
+    stride = STREAM_STRIDE[name]
+    advances = STREAM_WRAPS[name] * frames // stride
+    rng = np.random.default_rng(seed)
+    wins, news = stream_clips(rng, name, n, advances)
+    sids = [f"{what}{i}" for i in range(n)]
+
+    def run(items):
+        out = se.advance_batch(items)
+        bad = [o for o in out if isinstance(o, Exception)]
+        if bad:
+            raise bad[0]
+        return np.stack(out)
+
+    free_cuda(torch)
+    fused.reset_launch_counts()
+    steps = count_steps(se)
+    outs = [run([{"sid": sid, "window": wins[i], "stride": stride}
+                 for i, sid in enumerate(sids)])]
+    mem = []
+    for k in range(advances):
+        outs.append(run([{"sid": sid, "frames": news[k, i]} for i, sid in enumerate(sids)]))
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+    counts = dict(fused.LAUNCHES)
+    check_launches(counts, per_forward, steps[0], f"stream_serve {what}")
+    history = np.concatenate([wins] + [news[k] for k in range(advances)], axis=1)
+    errs = []
+    for k, got in enumerate(outs):
+        end = frames + k * stride
+        want = (se.full_recompute_history(history[:, :end], frames) if history_oracle
+                else se.full_recompute(history[:, end - frames:end]))
+        errs.append(hold_stream(got, want, f"stream_serve {what} step {k}"))
+    cur = [history[:, -frames:]]
+
+    def items():
+        f = stream_clips(rng, name, n, 1)[1][0]
+        cur[0] = np.concatenate([cur[0][:, stride:], f], axis=1)
+        return [{"sid": sid, "frames": f[i]} for i, sid in enumerate(sids)]
+
+    adv_s, full_s = stream_timing(se, items, lambda: cur[0])
+    fields = dict(sessions=n, advances=advances, stream_steps=steps[0], launches=counts,
+                  logit_max_abs_err_by_step=errs,
+                  oracle="full_recompute_history" if history_oracle else "full_recompute",
+                  logit_tolerance=f"{LOGIT_TOL}*(1+|oracle|)",
+                  **stream_facts(se, name, stride, mem, adv_s, full_s))
+    return counts, fields, sids, cur[0]
+
+
+def stream_engines_arms(torch) -> tuple:
+    """Arms (b)-(d) on the engines, the artifacts of phase 18. (b)
+    VideoMAE-B (16 x 224^2, tubelet (2,16,16)): the token ring under
+    `attention pallas` (12 flash launches per step), then a `--model.attn_mask
+    causal` engine under `attention dense` with `trunk="causal"` K/V rings
+    in bf16 and with int8 weights and K/V (no kernel launch: the masked
+    attention runs on the dense route); 2 sessions each, stride 2, two
+    wraparounds, the token ring held against `full_recompute`, the K/V rings
+    against `full_recompute_history`. (c) MViT-B 16x4's stem ring under
+    `attention pallas, depthwise_impl pallas`: 2 sessions, stride 4, one
+    wraparound, against `full_recompute_history`; 16 flash and 4
+    `depthwise3d_s1` launches per step. (d) the hot swap: a green VideoMAE-B
+    token engine on other seeded weights, `prepare_carry_from` the token
+    engine of (b) with its 2 sessions live, `Scheduler.swap_engine`, then
+    an advance of each sent with no window against green's
+    `full_recompute`. Returns (the launches summed, the fields)."""
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.streaming import StreamingEngine
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import load_inference
+
+    n = STREAM_ENGINE_SESSIONS
+    data = serve_cfg(parse_cli, "off").data
+    norm = (data.mean, data.std)
+    total = {k: 0 for k in SOURCES}
+    out = {}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+
+    def stream(engine, budget: str, name: str = "", **kw):
+        # one ledger component (`stream_rings:<name>`) an engine
+        return StreamingEngine(engine, session_budget_mb=STREAM_ENGINE_BUDGET_MB[budget],
+                               name=f"smoke-{name or budget}", **kw)
+
+    v_state = load_inference(ARTIFACTS["videomae_b"][0])[0]
+    tokens = stream(make_engine(torch, "videomae_b", v_state, norm, "off",
+                                attention="pallas"), "tokens")
+    check(tokens.kind == "tokens" and tokens._ring_names == ("raw", "tok"),
+          f"videomae_b ring {tokens.kind} {tokens._ring_names}")
+    counts, out["videomae_b_tokens"], sids, cur = drive_stream(
+        torch, tokens, "videomae_b", n, SEED + 22, False,
+        expected_forward_launches("videomae_b"), "tok")
+    add(counts)
+    for label, quant in (("causal", "off"), ("causal_int8", "int8")):
+        kv = stream(make_engine(torch, "videomae_b", v_state, norm, "off",
+                                quantization=quant, attn_mask="causal"),
+                    label, trunk="causal")
+        check(kv._ring_names == (("raw", "tok", "kv", "kv_scale", "hid") if quant == "int8"
+                                 else ("raw", "tok", "kv", "hid")), f"{label} rings {kv._ring_names}")
+        # the masked trunk runs on the dense route: no kernel launches
+        counts, out[f"videomae_b_kv_{label}"], _, _ = drive_stream(
+            torch, kv, "videomae_b", n, SEED + 23, True, {}, label)
+        out[f"videomae_b_kv_{label}"]["kv_dtype"] = str(next(iter(kv._pools.values()))["kv"].dtype)
+        del kv
+        free_cuda(torch)
+
+    # (d) the hot swap, with (b)'s token sessions live
+    cfg = serve_cfg(parse_cli, "off", "videomae_b", attention="pallas")
+    green_state = seeded_state_dict(create_model(cfg.model, "bf16", data_cfg=cfg.data),
+                                    np.random.default_rng(SEED + 24))
+    green = stream(make_engine(torch, "videomae_b", green_state, norm, "off",
+                               attention="pallas"), "tokens", "green")
+    sched = Scheduler(tokens, max_queue=16, realtime_deadline_ms=60000.0)
+    try:
+        t0 = time.perf_counter()
+        prepared = green.prepare_carry_from(tokens)
+        prepare_s = time.perf_counter() - t0
+        blackout_s = sched.swap_engine(green)
+        check(sched.current_engine() is green
+              and all(green.table.get(sid) is not None for sid in sids),
+              "hot swap: the sessions were not carried")
+        rng = np.random.default_rng(SEED + 25)
+        f = stream_clips(rng, "videomae_b", n, 1)[1][0]
+        cur = np.concatenate([cur[:, STREAM_STRIDE["videomae_b"]:], f], axis=1)
+        fused.reset_launch_counts()
+        steps = count_steps(green)
+        futs = [sched.submit({"video": f[i]}, session={"sid": sid})  # no window
+                for i, sid in enumerate(sids)]
+        got = np.stack([fut.result(timeout=300) for fut in futs])
+        counts = dict(fused.LAUNCHES)
+    finally:
+        sched.close()
+    check_launches(counts, expected_forward_launches("videomae_b"), steps[0],
+                   "stream_serve hot swap")
+    add(counts)
+    want = green.full_recompute(cur)
+    blue_want = tokens.full_recompute(cur)
+    out["hot_swap"] = dict(
+        sessions_carried=len(sids), prepared_steps=prepared, prepare_s=prepare_s,
+        blackout_ms=1e3 * blackout_s, stream_steps=steps[0], launches=counts,
+        logit_max_abs_err=hold_stream(got, want, "stream_serve hot swap"),
+        green_vs_blue_max_abs_diff=float(np.abs(want - blue_want).max()))
+    check(out["hot_swap"]["green_vs_blue_max_abs_diff"] > LOGIT_TOL,
+          "hot swap: green's weights give blue's logits")
+    del tokens, green, sched
+    free_cuda(torch)
+
+    # (c) MViT-B's stem ring
+    m_state = load_inference(ARTIFACTS["mvit_b"][0])[0]
+    stem = stream(make_engine(torch, "mvit_b", m_state, norm, "off", impl="pallas",
+                              attention="pallas"), "stem")
+    check(stem.kind == "stem" and stem._ring_names == ("raw", "stem"),
+          f"mvit_b ring {stem.kind} {stem._ring_names}")
+    counts, out["mvit_b_stem"], _, _ = drive_stream(
+        torch, stem, "mvit_b", n, SEED + 26, True, expected_mvit_launches(), "stem")
+    add(counts)
+    del stem
+    free_cuda(torch)
+    return total, out
+
+
+def stream_serve_phase(torch, work: str, launches: dict) -> dict:
+    """Phase 44, the streaming path: arm (a) over HTTP (`stream_http_arm`),
+    arms (b)-(d) on the engines (`stream_engines_arms`). `launches
+    ["stream_serve"]` sums the arms' main-path launches."""
+    t0 = time.perf_counter()
+    counts, http_fields = stream_http_arm(torch, work)
+    t_http = time.perf_counter() - t0
+    engine_counts, fields = stream_engines_arms(torch)
+    launches["stream_serve"] = {k: counts.get(k, 0) + engine_counts.get(k, 0)
+                                for k in SOURCES}
+    return dict(slowfast_r50_http=http_fields, **fields,
+                launches=launches["stream_serve"], http_arm_s=t_http,
+                seconds=time.perf_counter() - t0)
 
 
 def resident_bytes(model) -> int:

@@ -1,7 +1,6 @@
 """Continuous-batching scheduler: deadlines, priority classes, EDF launches
-(the port's copy of the JAX package's `fleet/scheduler.py`, without the
-streaming-session launch path). Each launch is the
-`serve.flush` fault point (reliability/faults.py): an injected raise fails
+(the port's copy of the JAX package's `fleet/scheduler.py`). Each launch is
+the `serve.flush` fault point (reliability/faults.py): an injected raise fails
 that launch's futures, never the flush thread.
 
 The server's default front (`--serve.scheduler edf`). Per launch:
@@ -24,7 +23,15 @@ The interface is the `MicroBatcher`'s (`submit`/`queue_depth`/`drain`/
 `close`), and so are the padding and the masked-row convention (padded rows
 never resolve into a response). One flush thread serialises launches;
 `swap_engine` installs another engine with the same buckets between
-launches, so a launch runs start to finish on one engine.
+launches, so a launch runs start to finish on one engine; a streaming engine
+(streaming/engine.py) takes the old one's live sessions over there, under
+the launch lock (`carry_state_from`).
+
+Streaming sessions (`submit(..., session=)`): a session advance rides the
+same queue, deadlines and sheds, keyed apart from stateless clips of the
+same shape (`("stream",) + geometry`), and launches through the engine's
+`advance_batch` under a `stream_dispatch` span; an item's error fails that
+item's future only. `supports_sessions` reads the current engine.
 
 Tracing (obs/trace.py): each request carries its submitter's trace context
 across the pending-queue hop; a traced request's wait is a `sched_wait`
@@ -84,6 +91,8 @@ class _SchedRequest:
     # the submitter's trace context, carried across the pending-queue hop
     # (None: tracing disarmed or the caller untraced)
     ctx: Optional[object] = None
+    # a streaming-session advance: {"sid", "window", "stride", "end"}
+    session: Optional[dict] = None
 
     def rank(self) -> Tuple[int, float, int]:
         """EDF order, realtime class strictly first; seq breaks ties FIFO."""
@@ -103,7 +112,12 @@ class Scheduler:
     # the HTTP front forwards per-request priority and deadline only to a
     # front that declares it (the MicroBatcher ignores both by design)
     supports_priority = True
-    supports_sessions = False
+
+    @property
+    def supports_sessions(self) -> bool:
+        """True iff the current engine runs session advances
+        (`StreamingEngine.advance_batch`)."""
+        return bool(getattr(self.engine, "supports_sessions", False))
 
     def __init__(self, engine, *, max_queue: int = 256, stats=None,
                  realtime_deadline_ms: float = 500.0,
@@ -137,22 +151,45 @@ class Scheduler:
 
     def submit(self, clip: Dict[str, np.ndarray], *,
                priority: str = REALTIME,
-               deadline_ms: Optional[float] = None) -> Future:
+               deadline_ms: Optional[float] = None,
+               session: Optional[dict] = None) -> Future:
         """Enqueue ONE clip (leaves (T, H, W, C) or (V, T, H, W, C)) and get
         a Future resolving to its f32 logits (num_classes,). A full queue
         raises `QueueFullError` here; an unmeetable deadline resolves the
-        future with `ShedError`."""
+        future with `ShedError`.
+
+        `session` marks a streaming-session advance: ``{"sid": str,
+        "window": optional resendable (T, H, W, C), "stride": optional int,
+        "end": bool}`` with the s new frames as the "video" clip; it needs
+        a session-capable engine."""
         if priority not in PRIORITIES:
             raise ValueError(
                 f"priority must be one of {PRIORITIES}, got {priority!r}")
         clips = {k: np.asarray(v) for k, v in clip.items() if k in CLIP_KEYS}
-        if not clips:
-            raise ValueError("request has neither 'video' nor 'slow'/'fast'")
-        for k, v in clips.items():
-            if v.ndim not in (4, 5):
+        if session is not None:
+            if not self.supports_sessions:
                 raise ValueError(
-                    f"clip {k!r} must be (T,H,W,C) or (V,T,H,W,C), "
-                    f"got shape {v.shape}")
+                    "this replica serves no streaming sessions "
+                    "(engine lacks advance_batch; serve.streaming off?)")
+            if not session.get("sid"):
+                raise ValueError("session request carries no 'sid'")
+            win = session.get("window")
+            if not clips and win is None:
+                raise ValueError(
+                    "session request needs new frames ('video') or a "
+                    "resendable 'window'")
+            geo = (clip_key(clips) if clips
+                   else (("window", tuple(np.shape(win))),))
+            key = ("stream",) + geo
+        elif not clips:
+            raise ValueError("request has neither 'video' nor 'slow'/'fast'")
+        else:
+            for k, v in clips.items():
+                if v.ndim not in (4, 5):
+                    raise ValueError(
+                        f"clip {k!r} must be (T,H,W,C) or (V,T,H,W,C), "
+                        f"got shape {v.shape}")
+            key = clip_key(clips)
         if self._closed.is_set():
             raise RuntimeError("scheduler is closed")
         now = time.monotonic()
@@ -160,7 +197,7 @@ class Scheduler:
                if deadline_ms is None else max(float(deadline_ms), 1.0) / 1e3)
         req = _SchedRequest(clip=clips, future=Future(), t_enqueue=now,
                             deadline=now + ttl, priority=priority,
-                            key=clip_key(clips), ctx=trace.capture())
+                            key=key, ctx=trace.capture(), session=session)
         with self._lock:
             if self._closed.is_set():
                 raise RuntimeError("scheduler is closed")
@@ -217,9 +254,10 @@ class Scheduler:
 
     def swap_engine(self, new_engine) -> float:
         """Install `new_engine` between launches; returns the blackout in
-        seconds (waiting out the launch in flight, then the swap). The
-        caller warms `new_engine` first; its buckets must be this
-        scheduler's (queued requests' padding plans assume them)."""
+        seconds (waiting out the launch in flight, the state carry, then
+        the swap). The caller warms `new_engine` first (a streaming one
+        with `prepare_carry_from`); its buckets must be this scheduler's
+        (queued requests' padding plans assume them)."""
         if tuple(new_engine.buckets) != self._buckets:
             raise ValueError(
                 f"hot-swap changes the bucket ladder {self._buckets} -> "
@@ -227,6 +265,13 @@ class Scheduler:
                 "(in-flight padding plans assume stable buckets)")
         t0 = time.perf_counter()
         with self._launch_lock:
+            # the streaming state carry happens here, with the old engine
+            # quiesced by the launch lock: sessions established or advanced
+            # any earlier would be lost or stale on the new engine
+            old = self.engine
+            if (hasattr(new_engine, "carry_state_from")
+                    and hasattr(old, "table") and old is not new_engine):
+                new_engine.carry_state_from(old)
             self.engine = new_engine
         return time.perf_counter() - t0
 
@@ -331,6 +376,9 @@ class Scheduler:
                     if r.future.set_running_or_notify_cancel()]
             if not reqs:
                 return
+            if reqs[0].session is not None:
+                self._launch_stream(reqs)
+                return
             n = len(reqs)
             bucket = self._bucket_for(n)
             stacked: Dict[str, np.ndarray] = {}
@@ -343,45 +391,16 @@ class Scheduler:
             # 1.0 = real request, 0.0 = padding (the eval path's convention)
             stacked["mask"] = np.asarray([1.0] * n + [0.0] * (bucket - n),
                                          np.float32)
-            # traced requests record their scheduler wait, and the launch
-            # runs under the first traced request's context (disarmed: one
-            # global read and the shared no-ops)
-            rt = trace.get_tracer()
-            head_ctx = None
-            if rt is not None:
-                now_w, now_m = time.time(), time.monotonic()
-                for req in reqs:
-                    if req.ctx is not None:
-                        if head_ctx is None:
-                            head_ctx = req.ctx
-                        waited = now_m - req.t_enqueue
-                        rt.event(req.ctx, "sched_wait", now_w - waited,
-                                 waited, priority=req.priority)
+            head_ctx = self._trace_waits(reqs)
             t0 = time.perf_counter()
             # one engine for the whole launch: swap_engine waits on this lock
             with trace.attach(head_ctx):
                 with trace.span("device_dispatch", batch=n, bucket=bucket):
                     with self._launch_lock:
                         logits = self.engine.predict(stacked)
-            svc = time.perf_counter() - t0
-            done = time.monotonic()
-            latencies = []
-            for i, req in enumerate(reqs):
-                latencies.append(done - req.t_enqueue)
-                # padded rows are sliced away: response i is row i only
-                try:
-                    req.future.set_result(logits[i])
-                except Exception:
-                    pass  # cancelled between claim and resolve
-            if self.stats is not None:
-                self.stats.observe_batch(
-                    n, bucket, latencies,
-                    trace_ids=[getattr(r.ctx, "trace_id", None)
-                               for r in reqs])
-            with self._lock:
-                prev = self._svc.get(bucket)
-                self._svc[bucket] = (svc if prev is None else
-                                     (1 - _SVC_ALPHA) * prev + _SVC_ALPHA * svc)
+            # padded rows are sliced away: response i is row i only
+            self._resolve(reqs, bucket, time.perf_counter() - t0,
+                          [logits[i] for i in range(n)])
         except Exception as e:  # noqa: BLE001 - fail the requests, not the thread
             logger.exception("fleet launch failed")
             for req in reqs:
@@ -390,3 +409,69 @@ class Scheduler:
                         req.future.set_exception(e)
                     except Exception:
                         pass
+
+    def _trace_waits(self, reqs: List[_SchedRequest]):
+        """Traced requests record their scheduler wait; returns the first
+        traced request's context, which the launch runs under (disarmed:
+        one global read, None)."""
+        rt = trace.get_tracer()
+        head_ctx = None
+        if rt is not None:
+            now_w, now_m = time.time(), time.monotonic()
+            for req in reqs:
+                if req.ctx is not None:
+                    if head_ctx is None:
+                        head_ctx = req.ctx
+                    waited = now_m - req.t_enqueue
+                    rt.event(req.ctx, "sched_wait", now_w - waited,
+                             waited, priority=req.priority)
+        return head_ctx
+
+    def _resolve(self, reqs: List[_SchedRequest], bucket: int, svc: float,
+                 outs: list) -> None:
+        """Resolve each request with its output (an exception fails that
+        request alone), count the batch, and update the service EWMA."""
+        done = time.monotonic()
+        latencies = []
+        for req, out in zip(reqs, outs):
+            latencies.append(done - req.t_enqueue)
+            try:
+                if isinstance(out, BaseException):
+                    req.future.set_exception(out)
+                else:
+                    req.future.set_result(out)
+            except Exception:
+                pass  # cancelled between claim and resolve
+        if self.stats is not None:
+            self.stats.observe_batch(
+                len(reqs), bucket, latencies,
+                trace_ids=[getattr(r.ctx, "trace_id", None) for r in reqs])
+        with self._lock:
+            prev = self._svc.get(bucket)
+            self._svc[bucket] = (svc if prev is None else
+                                 (1 - _SVC_ALPHA) * prev + _SVC_ALPHA * svc)
+
+    def _launch_stream(self, reqs: List[_SchedRequest]) -> None:
+        """One launch of streaming-session advances: the engine owns slot
+        resolution, bucket padding and the incremental step
+        (`StreamingEngine.advance_batch`); the scheduler keeps the claim,
+        trace and stats discipline of a stateless launch. Each item
+        resolves alone: one malformed session never fails its neighbours."""
+        items = []
+        for req in reqs:
+            s = req.session or {}
+            items.append({
+                "sid": s.get("sid"),
+                "frames": req.clip.get("video"),
+                "window": s.get("window"),
+                "stride": s.get("stride"),
+                "end": bool(s.get("end")),
+            })
+        bucket = self._bucket_for(len(reqs))
+        head_ctx = self._trace_waits(reqs)
+        t0 = time.perf_counter()
+        with trace.attach(head_ctx):
+            with trace.span("stream_dispatch", batch=len(reqs), bucket=bucket):
+                with self._launch_lock:
+                    outs = self.engine.advance_batch(items)
+        self._resolve(reqs, bucket, time.perf_counter() - t0, outs)

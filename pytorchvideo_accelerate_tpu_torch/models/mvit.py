@@ -33,8 +33,11 @@ ring|ulysses` splits the attention's tokens over the same axis instead.
 `set_pipeline(plan)` streams a uniform trunk (no stage starts, no drop
 path, dense or pallas attention: `pipeline_cut_check`, the JAX refusals)
 through the stage pipeline in training (`parallel/pipeline.py`);
-full-width MViT-B is multiscale and refuses. Not ported: block-boundary
-sharding (`shard_mesh`) and the streaming stem seam (`from_stem`).
+full-width MViT-B is multiscale and refuses. `forward(x, from_stem=True)`
+is the streaming stem seam (streaming/engine.py's stem ring): `x` is the
+pre-positional stem token grid (B, T', H', W', embed_dim), the patch embed
+is skipped and `pos_embed` is added in window order. Not ported:
+block-boundary sharding (`shard_mesh`).
 
 Input: (B, T, H, W, 3) NDHWC, normalized frames.
 """
@@ -297,12 +300,17 @@ class MViT(nn.Module):
     def pipelined_blocks(self):
         return [f"block{i}" for i in range(self.depth)] if is_active(self.pipeline) else []
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, from_stem: bool = False) -> torch.Tensor:
+        """`from_stem`: `x` is already the patch embed's output grid (B, T',
+        H', W', embed_dim), before `pos_embed`."""
         d = self.dtype
-        x = F.conv3d(x.to(d).permute(0, 4, 1, 2, 3), self.patch_embed.weight.to(d),
-                     self.patch_embed.bias.to(d), self.patch_embed.stride,
-                     self.patch_embed.padding)
-        x = x.permute(0, 2, 3, 4, 1)
+        if from_stem:
+            x = x.to(d)
+        else:
+            x = F.conv3d(x.to(d).permute(0, 4, 1, 2, 3), self.patch_embed.weight.to(d),
+                         self.patch_embed.bias.to(d), self.patch_embed.stride,
+                         self.patch_embed.padding)
+            x = x.permute(0, 2, 3, 4, 1)
         if x.shape[1:4] != self.pos_embed.shape[1:4]:
             raise ValueError(
                 f"clip grid {tuple(x.shape[1:4])} after the patch embed does not "

@@ -52,6 +52,7 @@ class SlowFast(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.depths = tuple(depths)
+        self.alpha = alpha  # the streaming engine's slow-ring rate
         fast_stem = stem_features // beta_inv  # 8 for r50
         self.slow_stem = ConvBNAct(3, stem_features, (1, 7, 7),
                                    stride=(1, 2, 2), dtype=dtype)

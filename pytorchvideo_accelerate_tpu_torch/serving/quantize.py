@@ -1,6 +1,6 @@
 """int8 weight quantization for the serving tier (`serve.quantization`;
-the port's copy of the JAX package's `serving/quantize.py`, without the
-streaming K/V ring's `quantize_kv`).
+the port's copy of the JAX package's `serving/quantize.py`), and the int8
+storage of the streaming K/V rings (`quantize_kv`, `dequantize_kv`).
 
 Weight-only: int8 weights with a per-OUTPUT-channel absmax scale, activations
 in the compute dtype. A port state_dict key names a flax kernel with the
@@ -102,6 +102,30 @@ def dequantize_tree(state: Mapping[str, Any], dtype: torch.dtype) -> dict:
                                  torch.as_tensor(v[SCALE_KEY]), dtype)
         out[name] = torch.as_tensor(v)
     return out
+
+
+def quantize_kv(kv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-row absmax int8 quantization of streaming K/V-ring
+    activations (streaming/engine.py, `serve.quantization int8`): `kv`
+    (..., dim) -> (int8 codes of the same shape, f32 scales (...,)). One
+    scale per (layer, k/v, slot, spatial) row keeps the round trip bounded
+    by each token's own magnitude. The arithmetic is the JAX package's in
+    f32: `scale = absmax / 127` (a zero scale becomes 1), `q = rint(kv /
+    scale)` clipped to [-127, 127], so the codes and scales are byte-equal
+    to its `quantize_kv` on the same f32 input."""
+    kv32 = f32_island(kv)
+    scale = kv32.abs().amax(dim=-1) / 127.0
+    # an all-zero row must not divide by zero; its codes are zero
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(kv32 / safe[..., None]), -127, 127)
+    return q.to(torch.int8), safe
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of `quantize_kv`: `q * scale` per token row in f32, one
+    downcast to the compute dtype."""
+    return end_island(f32_island(q) * scale[..., None], dtype)
 
 
 def quantized_leaf_count(state: Mapping[str, Any]) -> int:

@@ -31,7 +31,19 @@ Endpoints:
                    published as <checkpoint.output_dir>/profile_<tag>/
                    trace.json: 202 with the tag, 409 while a window is open,
                    503 with the obs layer off.
-/stream answers 404 until its slice of the port lands (ROADMAP.md).
+  POST /stream   — one streaming-session advance (`--serve.streaming`,
+                   streaming/engine.py): body {"session": id, "frames": s
+                   new frames (s,H,W,C), "window": optional resendable
+                   (T,H,W,C), "stride": int, "end": bool, "priority" /
+                   "deadline_ms" as /predict}; responds {"logits", "top1",
+                   "session", "latency_ms"} over the session's rolling
+                   window. A session is established by a body with a
+                   "window" (and "stride", or "frames" whose length is the
+                   stride); an advance for a session this server does not
+                   hold and that carries no window answers 409 (resend the
+                   window); a session past the budget
+                   (`--serve.stream_session_budget_mb`) 503 + Retry-After.
+                   Without `--serve.streaming` it answers 400.
 
 Tracing (`--obs.trace_sample_rate R`, R > 0, obs on; obs/trace.py): a
 /predict with a `traceparent` header continues that trace, one without
@@ -53,7 +65,10 @@ Handler threads only parse JSON and block on a future; all device work is
 serialised behind one flush thread: the continuous-batching
 `fleet/scheduler.Scheduler` by default (deadlines, priority classes, EDF
 launches, shed before a deadline miss), or the MicroBatcher with
-`--serve.scheduler micro`. `--serve.quantization int8` (or an int8
+`--serve.scheduler micro`. `--serve.streaming` wraps the engine in a
+`StreamingEngine` (`--serve.stream_trunk full|causal|windowed`, the
+session budget and TTL, `--serve.stream_strides` warmed at build) and needs
+the EDF scheduler. `--serve.quantization int8` (or an int8
 artifact) serves int8 weights (serving/quantize.py). Error mapping: bad
 request -> 400, shed or queue full -> 503 + Retry-After (a deadline shed
 too), request budget exceeded -> 504 + Retry-After. SIGTERM on the CLI path
@@ -98,6 +113,10 @@ from pytorchvideo_accelerate_tpu_torch.serving.engine import (
 )
 from pytorchvideo_accelerate_tpu_torch.serving.quantize import QUANT_MODES
 from pytorchvideo_accelerate_tpu_torch.serving.stats import ServingStats
+from pytorchvideo_accelerate_tpu_torch.streaming import (
+    SessionUnknownError,
+    StreamingEngine,
+)
 
 logger = logging.getLogger("pva_tpu_torch")
 
@@ -146,7 +165,9 @@ class _Handler(BaseHTTPRequestHandler):
                 "buckets": list(eng.buckets),
                 "platform": srv.platform,
                 "queue_depth": srv.batcher.queue_depth(),
-                "streaming": False,
+                # whether /stream serves sessions here
+                "streaming": bool(getattr(srv.batcher, "supports_sessions",
+                                          False)),
             }
             if srv.expected_spec is not None:  # per-request (T, H, W, C)
                 health["clip_spec"] = {k: list(v[1:])
@@ -197,6 +218,9 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):  # noqa: N802 - stdlib API
         srv: "InferenceServer" = self.server.owner
+        if self.path == "/stream":
+            self._do_stream(srv)
+            return
         if self.path == "/drain":
             # flip admission to DRAINING without tearing the server down;
             # reading the (empty) body keeps the keep-alive stream clean
@@ -249,19 +273,24 @@ class _Handler(BaseHTTPRequestHandler):
         # or start a head-sampled trace; the submit captures the context,
         # so the scheduler's wait and dispatch join it. Sheds above stay
         # untraced: a shed stays the cheapest reply
-        rt = trace.get_tracer()
-        handle = None
-        if rt is not None:
-            tp = self.headers.get("traceparent")
-            handle = rt.continue_trace(tp, "http_predict") if tp else None
-            if handle is None:
-                # absent, malformed or unsampled header: the local
-                # head-sampling decision
-                handle = rt.start("http_predict")
-        tid = handle.ctx.trace_id if handle is not None else None
-        echo = {"x-pva-trace-id": tid} if tid else None
-        with (handle if handle is not None else trace.NOOP):
+        handle, echo = self._trace_root("http_predict")
+        with handle:
             self._predict(srv, clip, kwargs, echo)
+
+    def _trace_root(self, name: str):
+        """(the request's trace root, or the no-op; the trace id echo
+        header, or None): an incoming `traceparent` is continued (the head
+        already sampled it), else the local head-sampling decision."""
+        rt = trace.get_tracer()
+        if rt is None:
+            return trace.NOOP, None
+        tp = self.headers.get("traceparent")
+        handle = rt.continue_trace(tp, name) if tp else None
+        if handle is None:  # absent, malformed or unsampled header
+            handle = rt.start(name)
+        if handle is None:
+            return trace.NOOP, None
+        return handle, {"x-pva-trace-id": handle.ctx.trace_id}
 
     def _predict(self, srv: "InferenceServer", clip: dict, kwargs: dict,
                  echo: Optional[Dict[str, str]]) -> None:
@@ -305,6 +334,100 @@ class _Handler(BaseHTTPRequestHandler):
             "top1": int(np.argmax(logits)),
             "latency_ms": round((time.monotonic() - t0) * 1e3, 3),
         }, headers=echo)
+
+    def _do_stream(self, srv: "InferenceServer") -> None:
+        """POST /stream: one incremental session advance (the module
+        docstring's body). Error map: admission or budget shed -> 503 +
+        Retry-After, malformed -> 400, an unknown session with no window ->
+        409, the request budget missed -> 504."""
+        # the shed-before-body-read admission of /predict: a shed stays the
+        # cheapest response under overload
+        admitted, retry_after = srv.admission.admit(srv.batcher.queue_depth())
+        if not admitted:
+            state = srv.admission.state()
+            srv.stats.observe_shed(state)
+            self.close_connection = True
+            self._reject(503, f"load shed (service {state}); retry later",
+                         retry_after)
+            return
+        if not getattr(srv.batcher, "supports_sessions", False):
+            length = int(self.headers.get("Content-Length", 0))
+            if length:  # keep the keep-alive stream clean
+                self.rfile.read(length)
+            srv.stats.observe_rejected("400")
+            self._reply(400, {"error": "this replica serves no streaming "
+                                       "sessions (serve.streaming off)"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(length) or b"{}")
+            sid = str(body.get("session") or "")
+            if not sid:
+                raise ValueError("body needs a 'session' id")
+            dtype = srv.engine.input_dtype
+            clip = {}
+            if body.get("frames") is not None:
+                clip["video"] = np.asarray(body["frames"], dtype=dtype)
+            session = {"sid": sid, "end": bool(body.get("end"))}
+            if body.get("window") is not None:
+                session["window"] = np.asarray(body["window"], dtype=dtype)
+            if body.get("stride") is not None:
+                session["stride"] = int(body["stride"])
+            kwargs: dict = {"session": session}
+            if "priority" in body:
+                kwargs["priority"] = str(body["priority"])
+            if "deadline_ms" in body:
+                kwargs["deadline_ms"] = float(body["deadline_ms"])
+        except (ValueError, TypeError, KeyError) as e:
+            srv.stats.observe_rejected("400")
+            self._reply(400, {"error": f"bad request: {e}"})
+            return
+        handle, echo = self._trace_root("http_stream")
+        with handle:
+            try:
+                future = srv.batcher.submit(clip, **kwargs)
+            except QueueFullError as e:
+                self._reject(503, str(e), e.retry_after_s, headers=echo)
+                return
+            except ValueError as e:
+                srv.stats.observe_rejected("400")
+                self._reply(400, {"error": f"bad request: {e}"}, headers=echo)
+                return
+            t0 = time.monotonic()
+            try:
+                logits = future.result(timeout=srv.request_timeout_s)
+            except FutureTimeout:
+                if future.cancel():
+                    srv.stats.observe_rejected("504")
+                else:
+                    logger.warning("504 after engine claim (stream advance "
+                                   "completed but the client timed out)")
+                self._reject(504, f"request exceeded {srv.request_timeout_s}s "
+                             "budget", srv.admission.retry_after_s, headers=echo)
+                return
+            except QueueFullError as e:
+                self._reject(503, str(e), e.retry_after_s, headers=echo)
+                return
+            except SessionUnknownError as e:
+                # not a bad request: the client holds the stream and can
+                # re-establish; 409 tells it to resend its window
+                self._reply(409, {"error": str(e)}, headers=echo)
+                return
+            except ValueError as e:
+                srv.stats.observe_rejected("400")
+                self._reply(400, {"error": f"bad request: {e}"}, headers=echo)
+                return
+            except Exception as e:  # noqa: BLE001 - per-request failure
+                srv.stats.observe_error()
+                self._reply(500, {"error": f"inference failed: {e}"},
+                            headers=echo)
+                return
+            self._reply(200, {
+                "logits": np.asarray(logits, np.float32).tolist(),
+                "top1": int(np.argmax(logits)),
+                "session": sid,
+                "latency_ms": round((time.monotonic() - t0) * 1e3, 3),
+            }, headers=echo)
 
     def _do_profile(self, srv: "InferenceServer") -> None:
         """POST /profile?seconds=S: a torch.profiler window on the live
@@ -494,8 +617,11 @@ def build_server(cfg) -> InferenceServer:
     if s.scheduler not in ("edf", "micro"):
         raise SystemExit(
             f"unknown --serve.scheduler {s.scheduler!r} (edf | micro)")
-    if s.streaming:
-        raise SystemExit("--serve.streaming is not ported yet (ROADMAP.md)")
+    if s.streaming and s.scheduler != "edf":
+        raise SystemExit(
+            "--serve.streaming needs the continuous-batching "
+            "scheduler (--serve.scheduler edf); the MicroBatcher has "
+            "no session launch path")
     if s.quantization not in QUANT_MODES:
         raise SystemExit(
             f"unknown --serve.quantization {s.quantization!r} "
@@ -552,11 +678,35 @@ def build_server(cfg) -> InferenceServer:
                             engine.artifact_config.data)
     engine.warmup({k: np.zeros(shape[1:], engine.input_dtype)
                    for k, shape in spec.items()})
+    front_engine = engine
+    if s.streaming:
+        # /stream advances run incrementally against device-resident
+        # session rings; /predict still serves one-shot requests through
+        # the same wrapped engine
+        front_engine = StreamingEngine(
+            engine, session_budget_mb=s.stream_session_budget_mb,
+            session_ttl_s=s.stream_session_ttl_s,
+            retry_after_s=s.retry_after_s, trunk=s.stream_trunk)
+        # run establish and advance at every (stride, bucket) of the served
+        # window (SlowFast's: its fast pathway) before the front takes a
+        # request: a first advance paying first-call costs on the flush
+        # thread would stall the launch and poison the service-time EWMA
+        _, t, h, w, c = spec["video" if "video" in spec else "fast"]
+        for tok in s.stream_strides.split(","):
+            if not tok.strip():
+                continue
+            try:
+                n = front_engine.warmup_stream(t, h, w, c, int(tok))
+                logger.info("stream warmup: stride %s -> %d steps",
+                            tok.strip(), n)
+            except Exception as e:  # noqa: BLE001 - a stride this model refuses
+                logger.warning("stream warmup skipped stride %s: %s",
+                               tok.strip(), e)
     if s.scheduler == "edf":
         # serve.max_wait_ms is the batch class's coalescing dial; the
         # realtime class is work-conserving
         batcher = Scheduler(
-            engine, max_queue=s.max_queue, stats=stats,
+            front_engine, max_queue=s.max_queue, stats=stats,
             realtime_deadline_ms=s.realtime_deadline_ms,
             batch_deadline_ms=s.batch_deadline_ms,
             batch_max_wait_ms=s.max_wait_ms, retry_after_s=s.retry_after_s)

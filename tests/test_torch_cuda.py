@@ -52,6 +52,10 @@ full-width MViT-B 16x4's forward tensor-parallel at (data, model) = (1, 2)
 (the smoke's model_axis_train arm (a)): their logits equal, within 5e-2 *
 (1 + |logit|) of one process's, each rank launching the flash and
 stride-1 depthwise kernels once per block and pool on its local heads.
+Streaming sessions on the card: slowfast_t's dual rings (the fused
+kernels) and videomae_t's token ring (the flash forward) advance through a
+wraparound, each launch within 5e-2 * (1 + |logit|) of `full_recompute` of
+the client's window, the kernels launched on every step.
 """
 
 import numpy as np
@@ -808,3 +812,42 @@ def test_hub_pth_load_equals_npz_load_on_the_card(cuda, tmp_path):
     for k, v in direct.state_dict().items():
         assert v.is_cuda and torch.equal(v, via_npz.state_dict()[k]), k
         assert torch.equal(v.cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("name,stride", [("slowfast_t", 4), ("videomae_t", 2)])
+def test_stream_ring_advances_match_full_recompute_on_the_card(cuda, name, stride):
+    """A streaming engine on the card (bf16, u8 frames): 2 sessions
+    established, then advanced through one ring wraparound; each launch
+    against `full_recompute` of the windows the client holds, and the
+    ring's kernels (rows 1-2 for the dual rings, row 5 for the token ring)
+    launched by every step."""
+    from pytorchvideo_accelerate_tpu_torch.config import DataConfig, ModelConfig
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
+    from pytorchvideo_accelerate_tpu_torch.streaming import StreamingEngine
+
+    frames, crop, n = 8, 32, 2
+    model = create_model(ModelConfig(name=name, num_classes=5, dropout_rate=0.0,
+                                     fused_kernels="auto", attention="pallas"),
+                         "bf16", data_cfg=DataConfig(num_frames=frames, crop_size=crop))
+    eng = InferenceEngine(model, num_classes=5, max_batch_size=n, model_name=name,
+                          device_normalize=((0.45,) * 3, (0.225,) * 3),
+                          input_dtype="uint8")
+    se = StreamingEngine(eng, session_budget_mb=16.0, name=f"card-{name}")
+    assert se.kind == ("dual" if name == "slowfast_t" else "tokens")
+    kernels = (("fused_pw_bn_act", "fused_conv_bn_act") if se.kind == "dual"
+               else ("flash_attention",))
+    rng = np.random.default_rng(20)
+    wins = rng.integers(0, 256, (n, frames, crop, crop, 3), np.uint8)
+    items = [{"sid": f"c{i}", "window": wins[i], "stride": stride} for i in range(n)]
+    for step in range(frames // stride + 1):
+        before = dict(fused.LAUNCHES)
+        got = np.stack(se.advance_batch(items))
+        torch.cuda.synchronize()
+        assert all(fused.LAUNCHES[k] > before[k] for k in kernels), step
+        want = se.full_recompute(wins)
+        assert np.isfinite(got).all()
+        assert (np.abs(got - want) <= 5e-2 * (1 + np.abs(want))).all(), step
+        new = rng.integers(0, 256, (n, stride, crop, crop, 3), np.uint8)
+        wins = np.concatenate([wins[:, stride:], new], axis=1)
+        items = [{"sid": f"c{i}", "frames": new[i]} for i in range(n)]

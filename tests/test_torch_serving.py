@@ -5,8 +5,8 @@
 - `build_server(--cpu ...)` on a slowfast_t artifact answers /predict over
   HTTP with the JAX engine's logits (atol 1e-4).
 - Entry points default to the CUDA card and raise on this CUDA-less host;
-  streaming, unknown schedulers and quantization modes, and the unported
-  routes are refused (the default scheduler, int8, /metrics and /drain:
+  streaming on the MicroBatcher, unknown schedulers and quantization modes,
+  and the unported routes are refused (the default scheduler, int8, /metrics and /drain:
   tests/test_torch_metrics.py, tests/test_torch_quantize.py).
 """
 
@@ -175,9 +175,10 @@ def test_unported_get_routes_are_404(server, path):
 
 @pytest.mark.parametrize("path", ["/stream", "/history"])
 def test_unported_post_routes_are_404(server, path):
-    """POST /profile is ported (tests/test_torch_trace.py); /stream is not,
-    and /history is a GET route."""
-    assert _post(server, path, {})[0] == 404
+    """POST /profile and /stream are ported (tests/test_torch_trace.py,
+    tests/test_torch_streaming.py): /stream on a server built without
+    `--serve.streaming` answers 400; /history is a GET route."""
+    assert _post(server, path, {})[0] == {"/stream": 400, "/history": 404}[path]
 
 
 def test_off_geometry_request_is_400(server):
@@ -201,7 +202,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(jax_side):
 
 
 @pytest.mark.parametrize("extra", [["--serve.scheduler", "fifo"],
-                                   ["--serve.streaming"],
+                                   ["--serve.streaming", "--serve.scheduler", "micro"],
                                    ["--serve.quantization", "int4"]])
 def test_unported_serving_options_refused(jax_side, extra):
     with pytest.raises(SystemExit):
