@@ -6,7 +6,9 @@ from a frame cache of real-format clips, train SlowFast-R50 with
 mixup/cutmix, the guard and tracking and MViT-B 32x3 under remat, serve
 SlowFast-R50 with the server's defaults and SlowFast-R50 and MViT-B with
 int8 weights, stream sessions of SlowFast-R50 (over HTTP), VideoMAE-B and
-MViT-B, preempt and resume a SlowFast-R50 training run, train
+MViT-B, serve SlowFast-R50 from a fleet of replicas (router, hot swap,
+route-around, autoscaler, session affinity), preempt and resume a
+SlowFast-R50 training run, train
 SlowFast-R50 data-parallel across processes, and fine-tune SlowFast-R50,
 MViT-B 32x3, X3D-S and VideoMAE-B from full-width hub-layout checkpoints
 (and VideoMAE-B from its own MAE pretraining), train MViT-B and VideoMAE-B
@@ -318,10 +320,11 @@ Drives the port only (no JAX), one JSON line per phase:
             SlowFast-R50 artifact of phase 3 through `build_server`
             with `--serve.streaming true --serve.scheduler edf
             --serve.stream_strides 8`: 4 sessions established over /stream
-            with 32 x 256^2 u8 windows, then 8 advances each (two
-            wraparounds of the dual rings), each response held against
-            `full_recompute` of the client's window, one window against
-            /predict of the same clip, 41 pointwise and 51 conv launches
+            with 32 x 256^2 u8 windows, then 5 advances each (a
+            wraparound of the dual rings and one more), each response
+            held against `full_recompute` of the client's window, one
+            window against /predict of the same clip, 41 pointwise and
+            51 conv launches
             per forward, 409 for an unknown session sent with no window,
             503 + Retry-After for a 5th session past the 32 MB budget;
             (b) VideoMAE-B's token ring (12 flash launches per step) and a
@@ -339,6 +342,34 @@ Drives the port only (no JAX), one JSON line per phase:
             full_recompute ms at one bucket, H2D bytes per advance against
             a full window, ring bytes per session, `memory_allocated()`
             byte-equal over the last 4 advances (`stream_serve_phase`)
+45. fleet_serve  the serving fleet (`fleet/`): two SlowFast-R50 replicas
+            (streaming EDF fronts, stride 8) restored from the phase-3
+            artifact (blue) behind a `ReplicaPool` (health polled every
+            0.5 s) and a `Router`; green a second export on other seeded
+            weights planted on the same 5 clips. (a) an open-loop `LoadGen`
+            at 50 rps for 5 s: zero failures, `assert_slo` at p99 1500
+            ms, every response blue's, and one /predict through an
+            `InferenceServer` whose batcher is the router; (b) `hot_swap`
+            of both replicas to green under an 8 s load: zero failures,
+            every response within 5e-2 * (1 + |oracle|) of blue's or
+            green's plain path with its top-1, green's once the swap
+            returned, the blackout a replica; (c) a replica's scheduler
+            closed under load: zero failures, the pool lists it down
+            within one poll, a fresh replica added back takes traffic;
+            (e) `Autoscaler.step()` under a 40-request backlog spawns a
+            third replica, one idle step drains one, the last is never
+            drained; `ModelBudget` reads "measured" footprints; the ledger
+            publishes `pva_hbm_drift_frac` for the ring pools; (d) two
+            sessions through the router, every advance on the replica
+            holding its ring, the holder of one closed and its next
+            advance re-established on the other, each response against
+            `full_recompute`. Launches exact in each arm: 41 / 51 per
+            SlowFast-R50 forward it ran (`fleet_serve_phase`)
+The train phase of SlowFast-R50 also holds the Trainer's MFU keys:
+`tflops_per_sec_per_chip` and `mfu` (0 < mfu < 1.05) present, the peak
+from the data sheet on an H100, and `flops_per_step` equal to the count
+the same config gives from CPU tensors of the step's shapes
+(`mfu_facts`).
 The serving phases run with the obs layer on: edf_serve also holds the
 ledger's weight bytes on /metrics, /history's series of the request
 counters, and a 503 on /history from a server built with
@@ -367,7 +398,7 @@ launches of the fine-tuning phases that run it: "hub_finetune" on rows
 "library_mesh_train_a" / "_b" on rows 1-2b / 5-7: one rank's launches;
 "hang_watch" on rows 1-2b: its 2 clean steps' launches; "observe_train"
 on rows 1-2b; "stream_serve" on rows 1, 2, 4 and 5: the launches of the
-four arms together),
+four arms together; "fleet_serve" on rows 1 and 2: its five arms'),
 the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failed check
 raises: the script exits non-zero and prints no result. It exits non-zero
@@ -400,6 +431,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -868,12 +900,13 @@ def plant_head(torch, model, clips, norm, logit: float = PLANTED_LOGIT):
 
 def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
                   bucket: int = BUCKET, attention: str = "dense",
-                  impl: str = "conv"):
+                  impl: str = "conv", clips=None, tag: str = ""):
     """Seeded `name` weights, BN calibrated on 2 noise clips, head classes
-    planted on `requests` request clips, exported with the port's
-    `export_inference` under a config that serves through `attention` and
-    `impl`. Returns (artifact path, its state, the clips, the normalisation,
-    the parameter count)."""
+    planted on `requests` request clips (`clips` when given), exported with
+    the port's `export_inference` under a config that serves through
+    `attention` and `impl`; `tag` names another artifact of `name` (kept
+    out of ARTIFACTS). Returns (artifact path, its state, the clips, the
+    normalisation, the parameter count)."""
     from pytorchvideo_accelerate_tpu_torch.config import parse_cli
     from pytorchvideo_accelerate_tpu_torch.models import create_model
     from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import (
@@ -881,7 +914,7 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
         load_inference,
     )
 
-    art = os.path.join(work, f"{name}_artifact")
+    art = os.path.join(work, f"{name}{tag}_artifact")
     cfg = serve_cfg(parse_cli, "auto", name, impl, bucket, attention)
     norm = (cfg.data.mean, cfg.data.std)
     calib = create_model(serve_cfg(parse_cli, "off", name).model, "bf16",
@@ -891,12 +924,14 @@ def make_artifact(torch, work: str, name: str, rng, requests: int = 5,
     calib.cuda()
     calibrate_bn(torch, calib, u8_clips(rng, name, 2), norm)
     # requests: distinct seeded u8 clips at the serving geometry
-    clips = [{k: v[0] for k, v in u8_clips(rng, name, 1).items()}
-             for _ in range(requests)]
+    if clips is None:
+        clips = [{k: v[0] for k, v in u8_clips(rng, name, 1).items()}
+                 for _ in range(requests)]
     plant_head(torch, calib, clips, norm)
     export_inference(art, calib, cfg, meta={"num_classes": classes(name),
                                             "model": name})
-    ARTIFACTS[name] = (art, clips)
+    if not tag:
+        ARTIFACTS[name] = (art, clips)
     del calib
     state, _ = load_inference(art)
     n_params = int(sum(v.size for k, v in state.items()
@@ -1632,6 +1667,8 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
         step = make_step(model, optimizer, **kw)
 
         def wrapped(state, batch):
+            seen.setdefault("batch", {k: (tuple(v.shape), v.dtype)
+                                      for k, v in batch.items() if torch.is_tensor(v)})
             m = step(state, batch)
             seen["metrics"].append(m)
             if state.step == ckpt_every:
@@ -1673,8 +1710,10 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
     check(not bad, f"restore not bitwise at {bad[:4]}")
     check(extra["data_state"] == {"epoch": 0, "position": ckpt_every},
           f"restored LoaderState {extra['data_state']}")
+    mfu = mfu_facts(torch, result, tr, seen["batch"], pretrain) \
+        if spec is SLOWFAST_TRAIN else {}
     out_fields = {
-        "fit_s": fit_s, "result": result, "losses": losses, "lr": lrs,
+        "fit_s": fit_s, "result": result, "losses": losses, "lr": lrs, "mfu": mfu,
         "launches": launches, "expected_launches": want,
         "launches_per_micro_step": {
             k: (launches[k] - (0 if is_backward(k) else
@@ -1710,6 +1749,36 @@ def train_phase(torch, work: str, spec: dict = SLOWFAST_TRAIN) -> dict:
     free_cuda(torch)
     return {**out_fields, "served_logit_max_abs_err": float(err.max()),
             "served_logit_std": float(plain.std())}
+
+
+def mfu_facts(torch, result: dict, tr, batch_shapes: dict, pretrain: bool) -> dict:
+    """The Trainer's MFU keys on the card: `tflops_per_sec_per_chip` and
+    `mfu` present, 0 < mfu < 1.05, the peak from the data sheet on an H100
+    (`utils/hw.py`); `flops_per_step` equal to the count the same config
+    gives from CPU tensors of the step's batch shapes (counted again, not
+    read from the cache)."""
+    from pytorchvideo_accelerate_tpu_torch.utils import hw
+
+    kind = torch.cuda.get_device_name(0)
+    tflops, mfu = result.get("tflops_per_sec_per_chip"), result.get("mfu")
+    check(tflops is not None and mfu is not None and 0 < mfu < 1.05,
+          f"train: tflops_per_sec_per_chip {tflops}, mfu {mfu}")
+    check(result.get("mfu_source") == "flop_counter"
+          and (result.get("mfu_peak_source") == "datasheet" or "H100" not in kind),
+          f"train: mfu_source {result.get('mfu_source')}, peak "
+          f"{result.get('mfu_peak_source')} on {kind}")
+    hw._STEP_FLOPS.clear()
+    cpu = {k: torch.empty(shape, dtype=dt) for k, (shape, dt) in batch_shapes.items()}
+    again = hw.count_step_flops(tr.cfg, cpu, pretraining=pretrain,
+                                device_normalize=tr._device_normalize, shards=1)
+    check(again == result["flops_per_step"],
+          f"train: flops_per_step {result['flops_per_step']} on the card, {again} "
+          "from the same config on the CPU")
+    return {"flops_per_step": result["flops_per_step"], "flops_per_step_cpu": again,
+            "tflops_per_sec_per_chip": tflops, "mfu": mfu,
+            "peak_tflops": hw.resolve_peak(tr.device)[0],
+            "mfu_peak_source": result["mfu_peak_source"],
+            "steps_per_sec": result.get("steps_per_sec")}
 
 
 def depthwise_impl_train_phase(torch, work: str) -> dict:
@@ -2242,6 +2311,11 @@ def run(torch, work: str, smi: str, kind: str) -> int:
     # 44. the streaming path: sessions on SlowFast-R50 (over HTTP),
     # VideoMAE-B and MViT-B, counters zeroed just before each arm
     emit("stream_serve", nvidia_smi=smi, **stream_serve_phase(torch, work, launches))
+    t_fleet = time.perf_counter()
+    # 45. the serving fleet on SlowFast-R50 replicas, counters zeroed just
+    # before each arm
+    emit("fleet_serve", nvidia_smi=smi,
+         **fleet_serve_phase(torch, work, plain_logits, launches))
     t_slice12 = time.perf_counter()
     # 36. this slice's path: data-parallel training, counters zeroed in
     # each rank just before fit()
@@ -2302,7 +2376,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
         for phase, knames in {**SLICE11_LINE, **DP_LINE, **FINETUNE_LINE,
                               **MODEL_AXIS_LINE, **PIPELINE_LINE,
                               **LIBRARY_LINE, **HANG_LINE,
-                              **OBSERVE_LINE, **STREAM_LINE}.items():
+                              **OBSERVE_LINE, **STREAM_LINE,
+                              **FLEET_LINE}.items():
             if kname in knames:
                 n = launches[phase].get(kname, 0)
                 check(n > 0, f"{kname} was not launched on {phase}")
@@ -2313,7 +2388,8 @@ def run(torch, work: str, smi: str, kind: str) -> int:
          features=t_real - t_features,
          real_video=t_slice11 - t_real,
          serving_defaults_and_preemption=t_stream - t_slice11,
-         streaming=t_slice12 - t_stream,
+         streaming=t_fleet - t_stream,
+         fleet=t_slice12 - t_fleet,
          data_parallel=t_hang - t_slice12,
          hang_watch=t_slice13 - t_hang,
          finetune=t_slice14 - t_slice13,
@@ -4082,8 +4158,10 @@ STREAM_ENGINE_SESSIONS = 2  # arms (b)-(d): sessions a ring kind
 # frames per advance: SlowFast-R50 a multiple of alpha, VideoMAE-B of its
 # tubelet (2), MViT-B aligned to its (3,7,7)/(2,4,4) stem with a halo of 1
 STREAM_STRIDE = {"slowfast_r50": 8, "videomae_b": 2, "mvit_b": 4}
-# ring wraparounds each family advances through (MViT-B: one)
-STREAM_WRAPS = {"slowfast_r50": 2, "videomae_b": 2, "mvit_b": 1}
+# ring wraparounds each family advances through (MViT-B: one; SlowFast-R50
+# over HTTP: one and a quarter, 5 advances, so the last 4 are steady ones;
+# its JSON parse sets the arm's time: cut from 2 wraps to make room)
+STREAM_WRAPS = {"slowfast_r50": 1.25, "videomae_b": 2, "mvit_b": 1}
 # arm (a)'s session budget: a SlowFast-R50 session's rings are 32 + 8
 # frames of 256^2 u8 (7.86 MB), so 4 fit and a 5th is refused (503)
 STREAM_BUDGET_MB = 32
@@ -4211,8 +4289,8 @@ def stream_http_arm(torch, work: str) -> tuple:
     """Arm (a): the SlowFast-R50 artifact of phase 3 through `build_server`
     with `--serve.streaming true --serve.scheduler edf
     --serve.stream_strides 8`: 4 sessions established over /stream with
-    their 32 x 256^2 windows, then 8 advances each (two wraparounds of the
-    fast ring), a round's 4 sent at once; `memory_allocated()` after each
+    their 32 x 256^2 windows, then 5 advances each (a wraparound of the
+    fast ring and one more), a round's 4 sent at once; `memory_allocated()` after each
     round. Then /predict of one window, an advance for an unknown session
     with no window (409), a 5th session past the budget (503 +
     Retry-After). Every response against `full_recompute` of the window the
@@ -4228,7 +4306,7 @@ def stream_http_arm(torch, work: str) -> tuple:
     name = "slowfast_r50"
     art = ARTIFACTS[name][0]
     stride, n = STREAM_STRIDE[name], STREAM_SESSIONS
-    advances = STREAM_WRAPS[name] * GEOMETRY[name][0] // stride
+    advances = int(STREAM_WRAPS[name] * GEOMETRY[name][0] // stride)
     wins, news = stream_clips(np.random.default_rng(SEED + 20), name, n, advances)
     sids = [f"sf{i}" for i in range(n)]
     t0 = time.perf_counter()
@@ -4269,7 +4347,8 @@ def stream_http_arm(torch, work: str) -> tuple:
                 mem.append(torch.cuda.memory_allocated())
         http_s = time.perf_counter() - t1
         predicted = http(base + "/predict", predict_body)
-        unknown = http(base + "/stream", stream_body("sf-unknown", frames=news[0, 0]))
+        unknown = http(base + "/stream", stream_body("sf-unknown", frames=news[0, 0],
+                                                     deadline_ms=60000))
         over = http(base + "/stream", est_bodies[0].replace(b'"sf0"', b'"sf-extra"'))
         stats = json.loads(http(base + "/stats")[2])
         svc_ms = {b: 1e3 * t for b, t in server.batcher._svc.items()}
@@ -4516,6 +4595,415 @@ def stream_serve_phase(torch, work: str, launches: dict) -> dict:
     return dict(slowfast_r50_http=http_fields, **fields,
                 launches=launches["stream_serve"], http_arm_s=t_http,
                 seconds=time.perf_counter() - t0)
+
+
+# --- phase 45: the serving fleet ----------------------------------------------
+
+# the tier's defaults (config.py FleetConfig): 50 rps for 5 s, health polled
+# every 0.5 s, p99 SLO 1500 ms
+FLEET_MODEL = "slowfast_r50"
+FLEET_REPLICAS = 2
+FLEET_SWAP_LOAD_S = 8.0  # arm (b): the load outlasts both replicas' swaps
+FLEET_KILL_LOAD_S = 3.0  # arm (c): the load around a replica's close
+FLEET_DEADLINE_MS = 10000  # the load's deadline: nothing sheds that can be served
+FLEET_ADVANCES = 2  # arm (d): advances a session before its holder closes
+FLEET_BURST = 40  # arm (e): requests in flight when the autoscaler reads
+# arm (e): the autoscaler's SLO; idle below half of it. The pooled windows
+# hold every arm's latencies, so the backlog alone decides here
+FLEET_CONTROL_SLO_MS = 10000.0
+# the kernel rows fleet_serve runs: rows 1-2 in every replica's forward
+FLEET_LINE = {"fleet_serve": ("fused_pw_bn_act", "fused_conv_bn_act")}
+
+
+def count_forwards(torch):
+    """Count SlowFast-R50 forwards on the card from now on (every engine's,
+    the stream steps' and the oracles'): ([count], the hook's handle)."""
+    from pytorchvideo_accelerate_tpu_torch.models.slowfast import SlowFast
+
+    n = [0]
+
+    def hook(module, args):
+        if isinstance(module, SlowFast):
+            n[0] += 1
+
+    return n, torch.nn.modules.module.register_module_forward_pre_hook(hook)
+
+
+def fleet_replica(torch, art: str, name: str, device: str):
+    """One replica as `build_server --serve.streaming true
+    --serve.stream_strides 8` makes its front, in process: the engine from
+    `art` on `device`, every bucket warmed for the served geometry, a
+    `StreamingEngine` (32 MB of rings) with its stride-8 steps warmed, an
+    EDF `Scheduler` over it."""
+    from pytorchvideo_accelerate_tpu_torch.fleet.pool import LocalReplica
+    from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
+    from pytorchvideo_accelerate_tpu_torch.models import model_input_spec
+    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
+    from pytorchvideo_accelerate_tpu_torch.serving.stats import ServingStats
+    from pytorchvideo_accelerate_tpu_torch.streaming import StreamingEngine
+
+    stats = ServingStats(window=4096)
+    engine = InferenceEngine.from_artifact(art, device=device, stats=stats)
+    spec = model_input_spec(engine.artifact_config.model, engine.artifact_config.data)
+    engine.warmup({k: np.zeros(s[1:], engine.input_dtype) for k, s in spec.items()})
+    se = StreamingEngine(engine, session_budget_mb=STREAM_BUDGET_MB,
+                         name=f"fleet-{name}")
+    _, t, h, w, c = spec["fast"]
+    se.warmup_stream(t, h, w, c, STREAM_STRIDE[FLEET_MODEL])
+    sched = Scheduler(se, stats=stats, realtime_deadline_ms=FLEET_DEADLINE_MS,
+                      batch_deadline_ms=FLEET_DEADLINE_MS)
+    return LocalReplica(name, sched), spec
+
+
+def fleet_load(router, clips, seed: int, duration_s: float, rps: float):
+    """An open-loop `LoadGen` at `rps` against `router`: each arrival one of
+    the 5 planted clips through `heavy_tail_clip_factory` (1, 2 or 4 views),
+    realtime with FLEET_DEADLINE_MS. Returns (report, [(clip index, submit
+    time, future)])."""
+    from pytorchvideo_accelerate_tpu_torch.fleet.loadgen import (
+        LoadGen,
+        heavy_tail_clip_factory,
+    )
+
+    factories = [heavy_tail_clip_factory(c) for c in clips]
+    last, sent = [0], []
+
+    def factory(rng):
+        last[0] = int(rng.integers(len(clips)))
+        return factories[last[0]](rng)
+
+    def submit(clip, **kw):
+        f = router.submit(clip, **kw)
+        sent.append((last[0], time.perf_counter(), f))
+        return f
+
+    report = LoadGen(submit, rate_rps=rps, duration_s=duration_s, seed=seed,
+                     clip_factory=factory, deadline_ms=FLEET_DEADLINE_MS,
+                     grace_s=60.0).run()
+    return report, sent
+
+
+def near(got, want) -> bool:
+    return bool(np.isfinite(got).all()
+                and (np.abs(got - want) <= LOGIT_TOL * (1 + np.abs(want))).all())
+
+
+def hold_fleet(sent, oracles: dict, what: str, after=None, must=None) -> dict:
+    """Every completed response of `sent` within LOGIT_TOL * (1 + |oracle|)
+    of one of `oracles` (name -> (5, classes) plain-path logits) for its
+    clip, with that oracle's top-1; those submitted after `after` of
+    oracle `must`. Returns the count per oracle and the largest error."""
+    by, err = {k: 0 for k in oracles}, 0.0
+    for idx, ts, f in sent:
+        if f.exception() is not None:
+            continue
+        got = np.asarray(f.result(), np.float32)
+        kind = next((k for k, o in oracles.items() if near(got, o[idx])), None)
+        check(kind is not None, f"{what}: a response of clip {idx} matches no oracle "
+              f"(max err {[float(np.abs(got - o[idx]).max()) for o in oracles.values()]})")
+        check(int(got.argmax()) == int(oracles[kind][idx].argmax()),
+              f"{what}: top-1 {int(got.argmax())} is not {kind}'s")
+        if after is not None and ts > after:
+            check(kind == must, f"{what}: a response after the swap is {kind}'s")
+        by[kind] += 1
+        err = max(err, float(np.abs(got - oracles[kind][idx]).max()))
+    return {"responses_by_oracle": by, "logit_max_abs_err": err}
+
+
+def routed(router) -> dict:
+    return {labels["replica"]: v for labels, v in router._c_routed.samples()
+            if labels.get("pool") == router.pool.name}
+
+
+def stop_http(srv) -> None:
+    """Stop an InferenceServer's HTTP front only: its batcher (the router)
+    and the replicas behind it stay up."""
+    srv.httpd.shutdown()
+    srv.httpd.server_close()
+    srv._thread.join(timeout=10.0)
+
+
+def fleet_serve_phase(torch, work: str, plain_logits, launches: dict) -> dict:
+    """Phase 45, the serving fleet (`fleet/`): two full-width SlowFast-R50
+    replicas (`fleet_replica`: streaming fronts, EDF) restored from the
+    phase-3 artifact (blue) behind a `ReplicaPool` (health polled every
+    0.5 s) and a `Router`; green is a second export on other seeded weights,
+    its head planted on the same 5 clips. The launch counters and the
+    forward count are zeroed just before each arm; every arm holds 41
+    pointwise and 51 conv launches per forward it ran. (a) load: an
+    open-loop `LoadGen` at 50 rps for 5 s (`fleet_load`): zero failures,
+    `assert_slo` at p99 1500 ms, every response blue's within 5e-2 * (1 +
+    |plain|), the split per replica; one /predict through an
+    `InferenceServer` whose batcher is the router. (b) `hot_swap` of both
+    replicas to green 0.5 s into an 8 s load: zero failures, each response
+    blue's or green's (and green's once the swap returned), the blackout
+    per replica. (c) replica r0's scheduler closed 1 s into a 3 s load: zero
+    failures, the pool lists it down within one poll, a fresh replica (on
+    green) added back takes traffic. (e) `Autoscaler.step()` with 40
+    requests in flight spawns a third replica, one step idle drains one,
+    the last is never drained; `ModelBudget.footprint_source` reads
+    "measured"; the ledger publishes `pva_hbm_drift_frac` for the ring
+    pools. (d) two streaming sessions (stride 8) through the router: every
+    advance on the replica holding its ring, each response against
+    `full_recompute` of the client's window; the holder of one closed, its
+    next advance re-establishes on the other, held the same way. On one
+    card the replicas share `cuda:0`."""
+    from pytorchvideo_accelerate_tpu_torch import obs
+    from pytorchvideo_accelerate_tpu_torch.config import FleetConfig
+    from pytorchvideo_accelerate_tpu_torch.fleet.control import Autoscaler, ModelBudget
+    from pytorchvideo_accelerate_tpu_torch.fleet.hotswap import hot_swap
+    from pytorchvideo_accelerate_tpu_torch.fleet.loadgen import assert_slo
+    from pytorchvideo_accelerate_tpu_torch.fleet.pool import ReplicaPool
+    from pytorchvideo_accelerate_tpu_torch.fleet.router import Router
+    from pytorchvideo_accelerate_tpu_torch.obs import memory as obs_memory
+    from pytorchvideo_accelerate_tpu_torch.obs.registry import Registry
+    from pytorchvideo_accelerate_tpu_torch.ops import fused
+    from pytorchvideo_accelerate_tpu_torch.serving.server import InferenceServer
+    from pytorchvideo_accelerate_tpu_torch.serving.stats import ServingStats
+
+    t_phase = time.perf_counter()
+    fc = FleetConfig()
+    name = FLEET_MODEL
+    art, clips = ARTIFACTS[name]
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{i % n_cards}" for i in range(FLEET_REPLICAS + 2)]
+    free_cuda(torch)
+    # green: other seeded weights, planted on the same clips; its plain path
+    # (fused_kernels xla) is green's oracle, phase 3's plain logits blue's
+    green_art, green_state, _, norm, _ = make_artifact(
+        torch, work, name, np.random.default_rng(SEED + 45), clips=clips,
+        tag="_green")
+    plain = make_engine(torch, name, green_state, norm, "xla")
+    oracles = {"blue": np.asarray(plain_logits, np.float32),
+               "green": plain.predict(bucket_batch(clips, BUCKET))[:len(clips)]}
+    del plain, green_state
+    free_cuda(torch)
+    check(not any(near(oracles["blue"][i], oracles["green"][i]) for i in range(len(clips))),
+          "fleet_serve: blue's and green's oracles are not apart")
+    ledger = obs_memory.configure(registry=Registry(), recorder=obs.get_recorder())
+    out = {"replica_devices": devices[:FLEET_REPLICAS], "cards": n_cards}
+    totals = {k: 0 for k in SOURCES}
+    forwards, hook = count_forwards(torch)
+
+    def arm_start():
+        torch.cuda.synchronize()
+        fused.reset_launch_counts()
+        forwards[0] = 0
+
+    def arm_end(what: str) -> dict:
+        torch.cuda.synchronize()
+        counts = dict(fused.LAUNCHES)
+        check_launches(counts, expected_forward_launches(name), forwards[0],
+                       f"fleet_serve ({what})")
+        for k in SOURCES:
+            totals[k] += counts[k]
+        return {"forwards": forwards[0], "launches": {k: counts[k] for k in FLEET_LINE["fleet_serve"]}}
+
+    t0 = time.perf_counter()
+    reps, spec = [], None
+    for i in range(FLEET_REPLICAS):
+        rep, spec = fleet_replica(torch, art, f"r{i}", devices[i])
+        reps.append(rep)
+    # one registry: the autoscaler reads the pool's gauge off the router's
+    reg = Registry()
+    pool = ReplicaPool(reps, health_interval_s=fc.health_interval_s,
+                       registry=reg, name="smoke")
+    router = Router(pool, registry=reg)
+    out["build_s"] = time.perf_counter() - t0
+    try:
+        # (a) the load, then one /predict through the HTTP front
+        arm_start()
+        rep_a, sent = fleet_load(router, clips, SEED + 451, fc.loadgen_duration_s,
+                                 fc.loadgen_rps)
+        violations = assert_slo(rep_a, slo_p99_ms=fc.slo_p99_ms)
+        check(rep_a["failed"] == 0 and not violations,
+              f"fleet_serve (a): {violations} {rep_a}")
+        held_a = hold_fleet(sent, {"blue": oracles["blue"]}, "fleet_serve (a)")
+        srv = InferenceServer(reps[0].scheduler.current_engine().engine, router,
+                              ServingStats(), expected_spec=spec).start()
+        try:
+            host, port = srv.address
+            resp = http(f"http://{host}:{port}/predict",
+                        with_keys(request_bodies(clips)[0], deadline_ms=60000))
+        finally:
+            stop_http(srv)
+        check(resp[0] == 200, f"fleet_serve (a): /predict through the router {resp[0]}")
+        got = np.asarray(json.loads(resp[2])["logits"], np.float32)
+        check(near(got, oracles["blue"][0]), "fleet_serve (a): /predict is not blue's")
+        out["a_load"] = {**rep_a, **held_a, "slo_violations": violations,
+                         "routed": routed(router), "predict_client_ms": resp[3],
+                         **arm_end("a")}
+
+        # (b) hot swap to green under load
+        arm_start()
+        box = {}
+
+        def swapper():
+            time.sleep(0.5)
+            box["swap"] = hot_swap(reps, green_art)
+            box["t"] = time.perf_counter()
+
+        th = threading.Thread(target=swapper, daemon=True)
+        th.start()
+        rep_b, sent = fleet_load(router, clips, SEED + 452, FLEET_SWAP_LOAD_S,
+                                 fc.loadgen_rps)
+        th.join(timeout=300)
+        check("swap" in box, "fleet_serve (b): hot_swap did not return")
+        post = [(i, time.perf_counter(), router.submit(c, deadline_ms=FLEET_DEADLINE_MS))
+                for i, c in enumerate(clips)]
+        for _, _, f in post:
+            f.result(timeout=60)
+        check(rep_b["failed"] == 0, f"fleet_serve (b): {rep_b}")
+        held_b = hold_fleet(sent + post, oracles, "fleet_serve (b)",
+                            after=box["t"], must="green")
+        check(held_b["responses_by_oracle"]["green"] >= len(post),
+              f"fleet_serve (b): {held_b}")
+        out["b_hot_swap"] = {**rep_b, **held_b, "swap": box["swap"],
+                             "swap_blackout_ms": box["swap"]["per_replica_ms"],
+                             "routed": routed(router), **arm_end("b")}
+
+        # (c) a replica closed under load; a fresh one added back
+        arm_start()
+        kill = {}
+
+        def killer():
+            time.sleep(1.0)
+            kill["t"] = time.perf_counter()
+            reps[0].scheduler.close()
+            while reps[0] in pool.routable() and time.perf_counter() - kill["t"] < 30:
+                time.sleep(0.01)
+            kill["down_after_s"] = time.perf_counter() - kill["t"]
+
+        th = threading.Thread(target=killer, daemon=True)
+        th.start()
+        rep_c, sent = fleet_load(router, clips, SEED + 453, FLEET_KILL_LOAD_S,
+                                 fc.loadgen_rps)
+        th.join(timeout=60)
+        check(rep_c["failed"] == 0, f"fleet_serve (c): {rep_c}")
+        check(kill.get("down_after_s", 1e9) <= fc.health_interval_s + 0.1,
+              f"fleet_serve (c): the pool listed r0 down after {kill}")
+        held_c = hold_fleet(sent, {"green": oracles["green"]}, "fleet_serve (c)")
+        before = routed(router).get("r2", 0.0)
+        fresh, _ = fleet_replica(torch, green_art, "r2", devices[FLEET_REPLICAS])
+        pool.add_replica(fresh)
+        again = [(i % len(clips), 0.0, router.submit(clips[i % len(clips)],
+                                                     deadline_ms=FLEET_DEADLINE_MS))
+                 for i in range(8)]
+        for _, _, f in again:
+            f.result(timeout=60)
+        fresh_n = routed(router).get("r2", 0.0) - before
+        check(fresh_n > 0, "fleet_serve (c): the fresh replica took no traffic")
+        hold_fleet(again, {"green": oracles["green"]}, "fleet_serve (c) fresh")
+        out["c_route_around"] = {**rep_c, **held_c, **kill, "fresh_routed": fresh_n,
+                                 "retried": router._c_retried.value(pool="smoke"),
+                                 "routable": [r.name for r in pool.routable()],
+                                 **arm_end("c")}
+
+        # (e) control: the autoscaler, the budget's source, the drift gauge
+        arm_start()
+        pool.remove_replica(reps[0])  # the corpse of (c)
+        spawned = []
+
+        def spawn():
+            rep, _ = fleet_replica(torch, green_art, f"r{3 + len(spawned)}",
+                                   devices[len(spawned) % len(devices)])
+            spawned.append(rep.name)
+            return rep
+
+        scaler = Autoscaler(router, spawn_fn=spawn, reap_fn=lambda r: None,
+                            min_replicas=1, max_replicas=FLEET_REPLICAS + 1,
+                            slo_p99_ms=FLEET_CONTROL_SLO_MS, cooldown_s=0.0,
+                            ewma_alpha=1.0, drain_grace_s=30.0)
+        burst = [router.submit(clips[i % len(clips)], deadline_ms=FLEET_DEADLINE_MS)
+                 for i in range(FLEET_BURST)]
+        up = scaler.step()
+        members_up = [r.name for r in pool.replicas]
+        for f in burst:
+            f.result(timeout=120)
+        while router.queue_depth():
+            time.sleep(0.01)
+        down = scaler.step()
+        members_down = [r.name for r in pool.routable()]
+        last = scaler._drain_one(pool.routable()[:1])
+        check(up == "up" and len(members_up) == FLEET_REPLICAS + 1,
+              f"fleet_serve (e): under backlog {up}, members {members_up}")
+        check(down == "down" and len(members_down) == FLEET_REPLICAS,
+              f"fleet_serve (e): idle {down}, routable {members_down}")
+        check(last is False, "fleet_serve (e): the last replica was drained")
+        budget = ModelBudget(10_000.0)
+        budget.register(name, 1.0)
+        source = budget.footprint_source(name)
+        check(source == "measured" and ledger.source() == "measured",
+              f"fleet_serve (e): the budget reads {source}, the ledger {ledger.source()}")
+        drift = {k: v for k, v in ledger.drift().items() if k.startswith("stream_rings:")}
+        text = ledger.registry.render()
+        check(drift and all(f'pva_hbm_drift_frac{{component="{k}"}}' in text for k in drift),
+              f"fleet_serve (e): no drift gauge for the ring pools ({drift})")
+        out["e_control"] = {"backlog_step": up, "members_after_up": members_up,
+                            "idle_step": down, "routable_after_down": members_down,
+                            "drained_last": last, "spawned": spawned,
+                            "history": [{k: v for k, v in e.items() if k != "t"}
+                                        for e in scaler.history],
+                            "footprint_source": source,
+                            "footprint_mb": budget.footprint_mb(name),
+                            "drift_frac": drift, **arm_end("e")}
+
+        # (d) session affinity over the two routable replicas
+        arm_start()
+        stride = STREAM_STRIDE[name]
+        frames = GEOMETRY[name][0]
+        wins, news = stream_clips(np.random.default_rng(SEED + 454), name, 2,
+                                  FLEET_ADVANCES + 1)
+        sids = ["fleet-s0", "fleet-s1"]
+        live = {sid: wins[i] for i, sid in enumerate(sids)}
+
+        def holder(sid):
+            return [r for r in pool.routable()
+                    if r.scheduler.current_engine().table.get(sid) is not None]
+
+        def advance(k):
+            futs = []
+            for i, sid in enumerate(sids):
+                if k < 0:
+                    clip, env = {}, {"sid": sid, "window": live[sid], "stride": stride}
+                else:
+                    live[sid] = np.concatenate([live[sid][stride:], news[k, i]])
+                    clip = {"video": news[k, i]}
+                    env = {"sid": sid, "window": live[sid], "stride": stride}
+                futs.append(router.submit(clip, session=env, deadline_ms=FLEET_DEADLINE_MS))
+            res = [np.asarray(f.result(timeout=60), np.float32) for f in futs]
+            errs = []
+            for sid, got in zip(sids, res):
+                hold = holder(sid)
+                check(len(hold) == 1 and router._affinity.get(sid) == hold[0].name,
+                      f"fleet_serve (d): {sid} held by {[r.name for r in hold]}, "
+                      f"pinned to {router._affinity.get(sid)}")
+                want = hold[0].scheduler.current_engine().full_recompute(live[sid][None])[0]
+                errs.append(hold_stream(got[None], want[None], f"fleet_serve (d) {sid}"))
+            return errs
+
+        errs = advance(-1)
+        pins = [dict(router._affinity)]
+        for k in range(FLEET_ADVANCES):
+            errs += advance(k)
+            pins.append(dict(router._affinity))
+        check(all(p == pins[0] for p in pins), f"fleet_serve (d): affinity moved {pins}")
+        gone = next(r for r in pool.routable() if r.name == pins[0][sids[0]])
+        gone.scheduler.close()
+        errs += advance(FLEET_ADVANCES)
+        moved = dict(router._affinity)
+        check(moved[sids[0]] != gone.name, f"fleet_serve (d): {sids[0]} stayed on {gone.name}")
+        out["d_affinity"] = {"pins": pins, "closed": gone.name, "after_close": moved,
+                             "logit_max_abs_err": max(errs), **arm_end("d")}
+    finally:
+        hook.remove()
+        router.close()
+        obs_memory.configure(enabled=False)
+        free_cuda(torch)
+    launches["fleet_serve"] = totals
+    out["launches"] = {k: totals[k] for k in FLEET_LINE["fleet_serve"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def resident_bytes(model) -> int:

@@ -178,7 +178,7 @@ def init_like_jax(model: nn.Module, generator: torch.Generator) -> None:
 
 def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
                  seed: int = 0, data_cfg: DataConfig = None,
-                 model_axis=None, pipeline=None) -> nn.Module:
+                 model_axis=None, pipeline=None, init: bool = True) -> nn.Module:
     """Build the module for `cfg.name`, initialised by `init_like_jax` from
     a generator seeded with `seed`. `mixed_precision` "bf16"/"fp16" computes
     in bf16 with f32 parameters, else f32. `data_cfg` gives the clip
@@ -187,7 +187,9 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
     to that rank's shards after the init. `pipeline` (an active
     `parallel/pipeline.PipelinePlan`): the transformer trunk trains through
     the stage pipeline (the model's `set_pipeline`); a family without that
-    seam (the conv nets) refuses with the JAX package's error."""
+    seam (the conv nets) refuses with the JAX package's error. `init=False`
+    skips `init_like_jax` (the Trainer's FLOP count builds a copy on `meta`
+    tensors, whose values it never reads)."""
     if cfg.name not in _REGISTRY:
         raise ValueError(
             f"unknown model {cfg.name!r}; available: {available_models()}")
@@ -205,7 +207,8 @@ def create_model(cfg: ModelConfig, mixed_precision: str = "bf16",
         check_backend(cfg.attention)
     model = _REGISTRY[cfg.name](cfg, policy_compute_dtype(mixed_precision),
                                 data_cfg or DataConfig())
-    init_like_jax(model, torch.Generator().manual_seed(seed))
+    if init:
+        init_like_jax(model, torch.Generator().manual_seed(seed))
     if is_active(pipeline):
         model.set_pipeline(pipeline)
     if model_axis is not None:

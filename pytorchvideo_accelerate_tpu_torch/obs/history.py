@@ -92,6 +92,23 @@ class MetricsHistory:
                 out.append((ts, sum(vals)))
         return out
 
+    def ewma(self, key: str, halflife_s: float,
+             now: Optional[float] = None) -> Optional[float]:
+        """Irregular-interval EWMA over the whole retained series (the fleet
+        controller's `SignalReader` read): alpha per step from the actual
+        tick gap."""
+        pts = self.series(key)
+        if not pts:
+            return None
+        acc = pts[0][1]
+        prev_ts = pts[0][0]
+        for ts, v in pts[1:]:
+            dt = max(0.0, ts - prev_ts)
+            alpha = 1.0 - 0.5 ** (dt / halflife_s) if halflife_s > 0 else 1.0
+            acc += alpha * (v - acc)
+            prev_ts = ts
+        return acc
+
     def window_mean(self, key: str, window_s: float,
                     now: Optional[float] = None) -> Optional[float]:
         pts = self.series(key, window_s=window_s, now=now)

@@ -20,14 +20,18 @@ Exported surface, the JAX package's names and help strings:
 
 - gauges `pva_hbm_bytes{component=}` (and the explicit ``unattributed``
   component), `pva_hbm_bytes_in_use`, `pva_hbm_peak_bytes`,
-  `pva_hbm_attributed_frac`;
+  `pva_hbm_attributed_frac`, `pva_hbm_drift_frac{component=}`;
 - a watermark warning into the flight ring when `bytes_in_use` crosses
   `WATERMARK_FRAC` of `bytes_limit` (edge-triggered);
-- `source()`, "measured" or "estimate".
+- `source()`, "measured" or "estimate", and `measured_bytes(component)`
+  for admission paths (`ModelBudget`): ledger bytes on the card, None on
+  the CPU, where the caller falls back to its declared figure.
 
-Left out until a port caller needs them: the JAX ledger's declared
-estimates (`register(..., declared=)`, `drift()`, the
-`pva_hbm_drift_frac` gauge), which only its streaming engine passes.
+Declared estimates: an allocation site may pass the figure it would have
+used before the ledger existed (`register(..., declared=)`, as the
+streaming engine does for its ring pools); `drift()` and the gauge
+`pva_hbm_drift_frac{component=}` then publish |measured - declared| /
+declared, so an estimate that lies is a metric.
 
 Arming: the module-level `register()` / `release()` hooks at the
 allocation sites are one module-global read and a `None` check while
@@ -102,7 +106,7 @@ def _walk_leaves(tree):
         yield tree
 
 
-@shared_state("_bytes", "_peak_attributed", "_over_watermark")
+@shared_state("_bytes", "_declared", "_peak_attributed", "_over_watermark")
 class MemoryLedger:
     """Per-component device-byte accounting with a live backend
     cross-check. Thread-safe: allocation sites (the prefetch worker, the
@@ -110,14 +114,17 @@ class MemoryLedger:
     allocator `default_device_stats` reads (None: the current one)."""
 
     def __init__(self, registry=None, recorder=None, *,
+                 drift_tol: float = 0.25,
                  stats_fn: Optional[Callable[[], Optional[Dict[str, int]]]]
                  = None, device=None):
         from pytorchvideo_accelerate_tpu_torch.obs.registry import get_registry
 
         self._lock = make_lock("obs.MemoryLedger._lock")
         self._bytes: Dict[str, int] = {}
+        self._declared: Dict[str, int] = {}
         self._peak_attributed = 0
         self._over_watermark = False  # edge trigger for the watermark warn
+        self.drift_tol = float(drift_tol)
         self.registry = registry if registry is not None else get_registry()
         self.recorder = recorder
         self._stats_fn = stats_fn if stats_fn is not None \
@@ -125,6 +132,10 @@ class MemoryLedger:
         self._g_bytes = self.registry.gauge(
             "pva_hbm_bytes", "attributed device bytes per component "
             "(component=unattributed is the residual vs bytes_in_use)",
+            labelnames=("component",))
+        self._g_drift = self.registry.gauge(
+            "pva_hbm_drift_frac", "relative declared-vs-measured drift "
+            "per component (0 when the estimate is honest)",
             labelnames=("component",))
         self._g_in_use = self.registry.gauge(
             "pva_hbm_bytes_in_use", "backend bytes_in_use (0 = backend "
@@ -146,30 +157,49 @@ class MemoryLedger:
 
     # --- accounting ---------------------------------------------------------
 
-    def register(self, component: str, nbytes: int) -> None:
-        """Add `nbytes` of live device allocation to `component`."""
+    def register(self, component: str, nbytes: int,
+                 declared: Optional[int] = None) -> None:
+        """Add `nbytes` of live device allocation to `component`;
+        `declared` is the estimate the caller would have used without the
+        ledger (it drives the drift gauge)."""
         n = int(nbytes)
         with self._lock:
             self._bytes[component] = self._bytes.get(component, 0) + n
+            if declared is not None:
+                self._declared[component] = (
+                    self._declared.get(component, 0) + int(declared))
             total = sum(self._bytes.values())
             if total > self._peak_attributed:
                 self._peak_attributed = total
             cur = self._bytes[component]
+            dec = self._declared.get(component)
         self._g_bytes.set(cur, component=component)
+        if dec:
+            self._g_drift.set(abs(cur - dec) / dec, component=component)
         self._check_watermark()
 
-    def release(self, component: str, nbytes: Optional[int] = None) -> None:
+    def release(self, component: str, nbytes: Optional[int] = None,
+                declared: Optional[int] = None) -> None:
         """Return bytes to the pool; `nbytes=None` clears the component.
         Clamped at zero — a double release is an accounting bug, not a
         negative gauge."""
         with self._lock:
             if nbytes is None:
                 self._bytes.pop(component, None)
-                cur = 0
+                self._declared.pop(component, None)
+                cur, dec = 0, None
             else:
                 cur = max(0, self._bytes.get(component, 0) - int(nbytes))
                 self._bytes[component] = cur
+                if declared is not None:
+                    dec = max(0, self._declared.get(component, 0)
+                              - int(declared))
+                    self._declared[component] = dec
+                else:
+                    dec = self._declared.get(component)
         self._g_bytes.set(cur, component=component)
+        if dec:
+            self._g_drift.set(abs(cur - dec) / dec, component=component)
 
     def component_bytes(self, component: str) -> int:
         with self._lock:
@@ -191,6 +221,14 @@ class MemoryLedger:
         "estimate": the label every figure of ledger bytes carries (never
         fake device bytes on a CPU host)."""
         return "measured" if self.device_stats() is not None else "estimate"
+
+    def measured_bytes(self, component: str) -> Optional[int]:
+        """Ledger bytes of `component` where this host reads the card;
+        None on the CPU (admission then falls back to the caller's
+        declared figure)."""
+        if self.device_stats() is None:
+            return None
+        return self.component_bytes(component)
 
     def peak_bytes(self) -> int:
         stats = self.device_stats()
@@ -228,12 +266,21 @@ class MemoryLedger:
 
     # --- snapshots ----------------------------------------------------------
 
+    def drift(self) -> Dict[str, float]:
+        """component -> |measured - declared| / declared, for components
+        that declared an estimate."""
+        with self._lock:
+            return {c: abs(self._bytes.get(c, 0) - d) / d
+                    for c, d in self._declared.items() if d}
+
     def snapshot(self) -> Dict:
-        """Per-component bytes, the residual and the provenance label."""
+        """Per-component bytes, the residual, the drift offenders and the
+        provenance label."""
         stats = self.device_stats()
         with self._lock:
             components = dict(self._bytes)
             peak_att = self._peak_attributed
+        drift = self.drift()
         out = {
             "source": "measured" if stats is not None else "estimate",
             "components": components,
@@ -241,6 +288,9 @@ class MemoryLedger:
             "unattributed_bytes": self.unattributed_bytes(),
             "attributed_frac": self.attributed_frac(),
             "peak_bytes": (stats or {}).get("peak_bytes_in_use", peak_att),
+            "drift": drift,
+            "drift_over_tol": sorted(c for c, d in drift.items()
+                                     if d > self.drift_tol),
         }
         if stats is not None:
             out["bytes_in_use"] = stats.get("bytes_in_use", 0)
@@ -264,16 +314,18 @@ def configure(enabled: bool = True, **kwargs) -> Optional[MemoryLedger]:
     return _DEFAULT
 
 
-def register(component: str, nbytes: int) -> None:
+def register(component: str, nbytes: int,
+             declared: Optional[int] = None) -> None:
     """Allocation-site hook; disarmed this is one global read and return."""
     led = _DEFAULT
     if led is None:
         return
-    led.register(component, nbytes)
+    led.register(component, nbytes, declared=declared)
 
 
-def release(component: str, nbytes: Optional[int] = None) -> None:
+def release(component: str, nbytes: Optional[int] = None,
+            declared: Optional[int] = None) -> None:
     led = _DEFAULT
     if led is None:
         return
-    led.release(component, nbytes)
+    led.release(component, nbytes, declared=declared)

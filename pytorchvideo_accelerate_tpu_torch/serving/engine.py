@@ -168,7 +168,9 @@ class InferenceEngine:
         self._device_normalize = device_normalize
         self.shards = 1
         self.buckets = compute_buckets(max_batch_size, self.shards)
-        self._seen: set = set()
+        # the (name, shape) keys of every batch geometry run, in first-run
+        # order (a dict as an ordered set): `compiled_keys`
+        self._seen: Dict[tuple, None] = {}
         self._lock = threading.Lock()
         # the ledger: the weights as resident on the device
         self._mem_component = f"model_weights:{model_name or 'engine'}"
@@ -262,11 +264,20 @@ class InferenceEngine:
             out = f32_island(logits).cpu().numpy()
         with self._lock:
             first = key not in self._seen
-            self._seen.add(key)
+            self._seen[key] = None
         if first and self.stats is not None:
             # a new geometry: its first forward pays cuDNN's algorithm pick
             self.stats.observe_compile()
         return out
+
+    @property
+    def compiled_keys(self) -> tuple:
+        """Every batch geometry `predict` has run, as ((name, (B, ...)),
+        ...) keys in first-run order: the JAX engine's compiled-bucket keys,
+        which `fleet/hotswap.prewarm_like` runs on a green engine before
+        cutover so its first requests pay no first-call cost."""
+        with self._lock:
+            return tuple(self._seen)
 
     def warmup(self, sample_clip: Dict[str, np.ndarray]) -> None:
         """Run every bucket once for one request geometry so first requests

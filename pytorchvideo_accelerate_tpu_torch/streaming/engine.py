@@ -62,8 +62,9 @@ steady stream adds no key (`compiled_stream_keys`), and
 the next: the two facts the JAX package's recompile probe stands for.
 
 Memory ledger (obs/memory.py): each ring pool's bytes register under
-component `stream_rings:<name>`; the budget counts them
-(`session_budget_mb`), measured where the ledger reads the card.
+component `stream_rings:<name>`, with the declared `ring_bytes` sum beside
+them (the drift gauge `pva_hbm_drift_frac{component=}`); the budget counts
+them (`session_budget_mb`), measured where the ledger reads the card.
 """
 
 from __future__ import annotations
@@ -170,6 +171,7 @@ class StreamingEngine:
         # pool key -> {ring name: device tensor, "cap", "bytes", "measured_bytes"}
         self._pools: Dict[tuple, Dict[str, Any]] = {}
         self._committed = 0  # declared ring-pool bytes against the budget
+        self._measured = 0  # the same pools' tensor bytes
         self._mem_component = f"stream_rings:{name}"
         self._fns: Dict[tuple, Any] = {}  # (op, kind, geom, stride, bucket)
         model = engine.model
@@ -289,6 +291,10 @@ class StreamingEngine:
     @property
     def quantization(self):
         return getattr(self.engine, "quantization", "off")
+
+    @property
+    def compiled_keys(self):
+        return self.engine.compiled_keys
 
     def bucket_for(self, n: int) -> int:
         return self.engine.bucket_for(n)
@@ -445,20 +451,27 @@ class StreamingEngine:
             pool[nm].numel() * pool[nm].element_size()
             for nm in self._ring_names if nm in pool)
         self._committed += pool["bytes"]
-        obs_memory.register(self._mem_component, pool["measured_bytes"])
+        self._measured += pool["measured_bytes"]
+        obs_memory.register(self._mem_component, pool["measured_bytes"],
+                            declared=pool["bytes"])
 
     def _release(self, pool: Dict[str, Any]) -> None:
         """Caller holds `_lock`: the inverse of `_register`."""
         self._committed -= pool["bytes"]
-        obs_memory.release(self._mem_component, pool["measured_bytes"])
+        self._measured -= pool["measured_bytes"]
+        obs_memory.release(self._mem_component, pool["measured_bytes"],
+                           declared=pool["bytes"])
 
     def _budget_committed(self) -> tuple:
-        """(bytes, source) the admission diffs against the budget: the
-        ledger's measured ring bytes where it reads the card, the declared
-        `ring_bytes` sums otherwise."""
+        """(bytes, source) the admission diffs against the budget: this
+        engine's pools' tensor bytes where the ledger reads the card, the
+        declared `ring_bytes` sums otherwise. Its own pools' bytes, not its
+        ledger component's: a hot-swap green takes blue's name, so until
+        the carry releases blue the component holds both engines' rings,
+        and blue's would count against green's budget."""
         led = obs_memory.get_ledger()
         if led is not None and led.source() == "measured":
-            return led.component_bytes(self._mem_component), "measured"
+            return self._measured, "measured"
         return self._committed, "declared"
 
     def _alloc_ring(self, name: str, geom: tuple, rows: int) -> torch.Tensor:
@@ -1113,8 +1126,13 @@ class StreamingEngine:
                     self._pools[geom] = mine
                     self._register(mine)
         # the adopted raw rings now belong to this engine's ledger
-        # component; blue retires
-        obs_memory.release(blue._mem_component)
+        # component; blue retires. A green named as blue (the fleet's hot
+        # swap) shares its component: then only blue's own bytes leave it
+        if blue._mem_component != self._mem_component:
+            obs_memory.release(blue._mem_component)
+        else:
+            obs_memory.release(blue._mem_component, blue._measured,
+                               declared=blue._committed)
         logger.info("stream: carried %d session(s), %d pool(s) across "
                     "hot-swap", carried, len(blue_pools))
         return carried

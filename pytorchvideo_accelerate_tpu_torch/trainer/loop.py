@@ -276,6 +276,7 @@ from pytorchvideo_accelerate_tpu_torch.trainer.tracking import (
 )
 from pytorchvideo_accelerate_tpu_torch.trainer.train_state import TrainState
 from pytorchvideo_accelerate_tpu_torch.utils import debug_nans, device_doctor
+from pytorchvideo_accelerate_tpu_torch.utils.hw import count_step_flops, resolve_peak
 
 logger = logging.getLogger(__name__)
 
@@ -308,7 +309,8 @@ def refuse_unported(cfg: TrainConfig) -> None:
          "parallel.pipeline_stages > 1 with mesh.fsdp > 1 (pipeline x "
          "FSDP, ROADMAP.md A)"),
         (d.dataplane_workers > 0,
-         "data.dataplane_workers (the dataplane, ROADMAP.md A.7)"),
+         "data.dataplane_workers (the dataplane, ROADMAP.md A, "
+         "dataplane/)"),
     ]
     for bad, what in refused:
         if bad:
@@ -436,6 +438,9 @@ class Trainer:
         # the first dispatch (kernel builds, cuBLAS and cuDNN handles) runs
         # outside the step_dispatch section: a false wedge otherwise
         self._dispatched = False
+        # one step's FLOPs, counted once after the first step (None: not
+        # yet; 0.0: the count failed, and the MFU keys stay out)
+        self._flops_per_step: Optional[float] = None
         # the tensor-parallel split: the library mesh's tensor axis, or the
         # model axis
         self.model_axis = layout(
@@ -658,6 +663,32 @@ class Trainer:
         self.eval_step = make_eval_step(
             self.model, label_smoothing=cfg.optim.label_smoothing,
             device_normalize=self._device_normalize)
+
+    def _capture_step_flops(self, batch: dict) -> None:
+        """One step's FLOPs, once, after the first step (`count_step_flops`);
+        a failed count leaves the MFU keys out and never stops the job."""
+        self._flops_per_step = 0.0
+        try:
+            self._flops_per_step = count_step_flops(
+                self.cfg, batch, pretraining=self.is_pretraining,
+                device_normalize=self._device_normalize, shards=batch_count())
+        except Exception:
+            logger.exception("step FLOP count failed: no mfu this run")
+
+    def _mfu_perf(self, perf: dict, sps: float) -> Dict[str, str]:
+        """The JAX Trainer's MFU keys into `perf`: `tflops_per_sec_per_chip`
+        (the whole step's FLOPs over the world size, as JAX divides by the
+        mesh size) and `mfu` where a peak resolves; returns the labels
+        `mfu_source` and `mfu_peak_source` ({} without a peak)."""
+        if not self._flops_per_step:
+            return {}
+        tflops = self._flops_per_step * sps / 1e12 / self.world
+        perf["tflops_per_sec_per_chip"] = tflops
+        peak, peak_source = resolve_peak(self.device)
+        if not peak:
+            return {}
+        perf["mfu"] = tflops / peak
+        return {"mfu_source": "flop_counter", "mfu_peak_source": peak_source}
 
     def _pipeline_perf(self, perf: dict) -> None:
         """The JAX trainer's pipeline keys: the plan's stages and
@@ -1016,6 +1047,7 @@ class Trainer:
         last_val_acc = last_val_acc5 = last_val_loss = 0.0
         last_train_loss = float("nan")
         last_perf: Dict[str, float] = {}
+        last_mfu_labels: Dict[str, str] = {}
         epoch_train_times = []
         # step metrics are read one step late: after the next dispatch
         deferred = DeferredStepLogger(self.trackers, on_flush=self._on_flush())
@@ -1134,6 +1166,12 @@ class Trainer:
                                 main_print(f"profile window written to {out}",
                                            flush=True)
                     steps_done += 1
+                    if self._flops_per_step is None:
+                        # host work off the epoch's clock: the rates
+                        # below divide by the steps' time alone
+                        t_count = time.time()
+                        self._capture_step_flops(batch)
+                        t_epoch += time.time() - t_count
                     if not ledgered:
                         self._ledger_train_state()
                         ledgered = True
@@ -1248,6 +1286,7 @@ class Trainer:
                             epoch_spans.get("input_wait", 0.0) / t_train, 1.0)
                         last_perf["obs_h2d_s"] = (
                             epoch_spans.get("h2d", 0.0) / steps_done)
+                    last_mfu_labels = self._mfu_perf(last_perf, sps)
                 if self.trackers is not None:
                     epoch_metrics = {"train_loss_epoch": last_train_loss,
                                      "epoch": epoch}
@@ -1295,8 +1334,9 @@ class Trainer:
             self.close(unwinding)  # fences the checkpoint writes
         result = {"train_loss": last_train_loss, "steps": self.state.step,
                   "epoch_train_times": epoch_train_times,
-                  "flops_per_step": None, "analytic_flops_per_step": None,
-                  "preempted": preempted, **last_perf}
+                  "flops_per_step": self._flops_per_step,
+                  "analytic_flops_per_step": None,
+                  "preempted": preempted, **last_perf, **last_mfu_labels}
         if self.is_pretraining:
             result["val_recon_loss"] = last_val_loss
         else:

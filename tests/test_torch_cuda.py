@@ -55,8 +55,14 @@ stride-1 depthwise kernels once per block and pool on its local heads.
 Streaming sessions on the card: slowfast_t's dual rings (the fused
 kernels) and videomae_t's token ring (the flash forward) advance through a
 wraparound, each launch within 5e-2 * (1 + |logit|) of `full_recompute` of
-the client's window, the kernels launched on every step.
+the client's window, the kernels launched on every step. The fleet: two
+slowfast_t replicas behind a router, hot-swapped blue to green under an
+open-loop load with zero failures, each response within 5e-2 * (1 +
+|oracle|) of blue's or green's plain-path logits, green's after the swap.
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -851,3 +857,92 @@ def test_stream_ring_advances_match_full_recompute_on_the_card(cuda, name, strid
         new = rng.integers(0, 256, (n, stride, crop, crop, 3), np.uint8)
         wins = np.concatenate([wins[:, stride:], new], axis=1)
         items = [{"sid": f"c{i}", "frames": new[i]} for i in range(n)]
+
+
+def test_fleet_hot_swap_under_load_on_the_card(cuda, tmp_path):
+    """The smoke's fleet_serve arm (b) on slowfast_t: two EDF replicas on
+    the card behind a `ReplicaPool` and a `Router`, both hot-swapped from a
+    blue artifact to a green one while an open-loop `LoadGen` runs; zero
+    failed requests, every response within 5e-2 * (1 + |oracle|) of blue's
+    or green's plain-path logits with that oracle's top-1, and every
+    request after the swap green's."""
+    import dataclasses
+
+    from pytorchvideo_accelerate_tpu_torch.config import parse_cli
+    from pytorchvideo_accelerate_tpu_torch.fleet.hotswap import hot_swap
+    from pytorchvideo_accelerate_tpu_torch.fleet.loadgen import (
+        LoadGen,
+        heavy_tail_clip_factory,
+    )
+    from pytorchvideo_accelerate_tpu_torch.fleet.pool import LocalReplica, ReplicaPool
+    from pytorchvideo_accelerate_tpu_torch.fleet.router import Router
+    from pytorchvideo_accelerate_tpu_torch.fleet.scheduler import Scheduler
+    from pytorchvideo_accelerate_tpu_torch.models import create_model
+    from pytorchvideo_accelerate_tpu_torch.obs.registry import Registry
+    from pytorchvideo_accelerate_tpu_torch.serving.engine import InferenceEngine
+    from pytorchvideo_accelerate_tpu_torch.serving.stats import ServingStats
+    from pytorchvideo_accelerate_tpu_torch.trainer.checkpoint import export_inference
+
+    frames, crop = 8, 32
+    cfg = parse_cli(["--model.name", "slowfast_t", "--model.num_classes", "5",
+                     "--num_frames", str(frames), "--data.crop_size", str(crop),
+                     "--model.fused_kernels", "auto", "--serve.max_batch_size", "4"])
+    arts, oracle = {}, {}
+    rng = np.random.default_rng(21)
+    clip = {"slow": rng.standard_normal((frames // 4, crop, crop, 3)).astype(np.float32),
+            "fast": rng.standard_normal((frames, crop, crop, 3)).astype(np.float32)}
+    for color, seed in (("blue", 3), ("green", 4)):
+        model = create_model(cfg.model, "bf16", seed=seed)
+        with torch.no_grad():  # logits O(1): the head's init draw is 0.01
+            model.head.proj.weight.mul_(100.0)
+        arts[color] = export_inference(str(tmp_path / color), model, cfg,
+                                       meta={"num_classes": 5, "model": "slowfast_t"})
+        xla = dataclasses.replace(cfg.model, fused_kernels="xla")
+        plain = InferenceEngine(create_model(xla, "bf16"), model.state_dict(),
+                                num_classes=5, max_batch_size=1)
+        oracle[color] = plain.predict({k: v[None] for k, v in clip.items()})[0]
+        del plain
+    replicas = []
+    for i in range(2):
+        stats = ServingStats()
+        eng = InferenceEngine.from_artifact(arts["blue"], stats=stats)
+        eng.warmup(clip)
+        replicas.append(LocalReplica(f"r{i}", Scheduler(eng, stats=stats,
+                                                        realtime_deadline_ms=30000)))
+    pool = ReplicaPool(replicas, health_interval_s=0.5, registry=Registry())
+    router = Router(pool, registry=Registry())
+    sent = []
+
+    def submit(c, **kw):
+        sent.append((time.perf_counter(), router.submit(c, **kw)))
+        return sent[-1][1]
+
+    box = {}
+
+    def swapper():
+        time.sleep(0.5)
+        box["swap"] = hot_swap(replicas, arts["green"])
+        box["t"] = time.perf_counter()
+
+    try:
+        t = threading.Thread(target=swapper, daemon=True)
+        t.start()
+        rep = LoadGen(submit, rate_rps=30.0, duration_s=3.0, seed=5, grace_s=60.0,
+                      clip_factory=heavy_tail_clip_factory(clip)).run()
+        t.join(timeout=120)
+        got = [(ts, np.asarray(f.result(timeout=60))) for ts, f in sent]
+        post = [np.asarray(router.submit(clip).result(timeout=60)) for _ in range(3)]
+    finally:
+        router.close()
+    assert rep["failed"] == 0 and "swap" in box, rep
+
+    def near(x, ref):
+        return bool((np.abs(x - ref) <= 5e-2 * (1 + np.abs(ref))).all())
+
+    assert not near(oracle["blue"], oracle["green"])
+    for ts, x in got:
+        kind = "blue" if near(x, oracle["blue"]) else "green"
+        assert near(x, oracle[kind]) and x.argmax() == oracle[kind].argmax()
+        if ts > box["t"]:
+            assert kind == "green"
+    assert all(near(x, oracle["green"]) for x in post)

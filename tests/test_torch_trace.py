@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorchvideo_accelerate_tpu import obs as jobs
 from pytorchvideo_accelerate_tpu.obs import profiler as jprofiler
 from pytorchvideo_accelerate_tpu.obs import spans as jspans
 from pytorchvideo_accelerate_tpu.obs import trace as jtrace
@@ -56,10 +57,18 @@ def _disarm():
 @pytest.fixture(autouse=True)
 def disarmed():
     """Every test starts and leaves with both packages' tracer and profiler
-    disarmed (other files' servers arm them in this process)."""
+    disarmed (other files' servers arm them in this process), and runs with
+    both packages' process-default span collectors enabled (another file's
+    `obs.configure(enabled=False)` may have left one off); their prior
+    state comes back on exit."""
     _disarm()
+    prior = [(mod, mod.get_collector().enabled) for mod in (obs, jobs)]
+    for mod, _ in prior:
+        mod.configure(enabled=True)
     yield
     _disarm()
+    for mod, enabled in prior:
+        mod.configure(enabled=enabled)
 
 
 @pytest.fixture

@@ -15,17 +15,29 @@ import numpy as np
 import pytest
 import torch
 
+from pytorchvideo_accelerate_tpu import obs as jobs
 from pytorchvideo_accelerate_tpu.config import parse_cli as jparse_cli
 from pytorchvideo_accelerate_tpu.trainer import tracking as jtracking
 from pytorchvideo_accelerate_tpu.trainer.loop import Trainer as JTrainer
+from pytorchvideo_accelerate_tpu_torch import obs as tobs
 from pytorchvideo_accelerate_tpu_torch import run as trun
 from pytorchvideo_accelerate_tpu_torch.trainer import tracking as ttracking
 
 # epoch-line keys of layers the port does not have: the JAX package's
-# FLOPs counters (tflops_per_sec_per_chip, mfu, mfu_analytic) and its XLA
-# recompile probe (train_recompiles)
-JAX_ONLY_EPOCH_KEYS = {"tflops_per_sec_per_chip", "mfu", "mfu_analytic",
-                       "train_recompiles"}
+# analytic FLOPs counter (mfu_analytic) and its XLA recompile probe
+# (train_recompiles)
+JAX_ONLY_EPOCH_KEYS = {"mfu_analytic", "train_recompiles"}
+
+
+@pytest.fixture(autouse=True)
+def _collectors_restored():
+    """The Trainers below run with `--obs.enabled false`, which turns the
+    process-default span collector of their package off; later files on
+    the same worker expect it as they left it, so both come back."""
+    prior = [(mod, mod.get_collector().enabled) for mod in (tobs, jobs)]
+    yield
+    for mod, enabled in prior:
+        mod.configure(enabled=enabled)
 
 
 def _lines(path):
